@@ -1,0 +1,18 @@
+"""L3 stream elements.
+
+Importing this package registers every element the port has with its
+ELEMENT registry (the reference registers its elements in one gst plugin,
+``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
+other elements (mux/demux, merge/split, aggregator, rate, query, ...) wait
+for later slices of the port (ROADMAP.md, queue A).
+"""
+
+from nnstreamer_tpu_torch.pipeline.pipeline import Queue  # noqa: F401 (registers "queue")
+from nnstreamer_tpu_torch.pipeline.parse import CapsFilter  # noqa: F401 ("capsfilter")
+
+from nnstreamer_tpu_torch.elements import source  # noqa: F401
+from nnstreamer_tpu_torch.elements import sink  # noqa: F401
+from nnstreamer_tpu_torch.elements import converter  # noqa: F401
+from nnstreamer_tpu_torch.elements import transform  # noqa: F401
+from nnstreamer_tpu_torch.elements import filter as filter_element  # noqa: F401
+from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
