@@ -7,15 +7,27 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 
 It builds the port's CUDA kernels from ``nnstreamer_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-flagship classification pipeline (videotestsrc → tensor_converter →
-tensor_transform → tensor_filter MobileNetV2 → tensor_decoder
-image_labeling → queue → tensor_sink) through
-``nnstreamer_tpu_torch.parse_launch`` at the model's full width: 224×224×3
-uint8 frames, MobileNetV2 width 1.0, 1001 classes, bfloat16 weights made
-from a seed. Each phase prints one JSON line; the script exits non-zero at
-the first failed check, and prints the ``{"ok": true, ...}`` line last
-only when every phase passed. Without CUDA, or without the package beside
-it, it exits non-zero and prints no result.
+port's two paths through ``nnstreamer_tpu_torch.parse_launch``:
+
+- LM serving (``appsrc ! tensor_lm_serve ! tensor_sink``): a
+  continuous-batching engine with 8 slots serves 12 greedy prompts of
+  128 new tokens on a decoder-only transformer at full width (vocab
+  32000, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 512,
+  bfloat16, weights made from a seed); prefill runs kernel B2 (flash
+  attention) in every layer. An fp32 run holds the kernel's greedy
+  tokens to the plain attention's, and the bf16 logits to the fp32 ones.
+- The flagship classification pipeline (videotestsrc → tensor_converter
+  → tensor_transform → tensor_filter MobileNetV2 → tensor_decoder
+  image_labeling → queue → tensor_sink) at the model's full width:
+  224×224×3 uint8 frames, MobileNetV2 width 1.0, 1001 classes, bfloat16
+  weights made from a seed; kernel B1 runs once per frame.
+
+Each phase prints one JSON line; the script exits non-zero at the first
+failed check, and prints the ``{"ok": true, ...}`` line last only when
+every phase passed. Every ``torch.profiler`` measurement runs after every
+timed one (once the profiler has traced the card, later launches cost the
+host more). Without CUDA, or without the package beside it, it exits
+non-zero and prints no result.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -33,10 +45,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-#: float32 FLOP/s outside the tensor cores
+#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+#: float32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 FRAMES = 240          # pipeline frames in the measured run
 WARMUP_FRAMES = 16    # pipeline frames before it (cuDNN set-up, allocator)
@@ -47,6 +60,38 @@ LOGIT_FRAMES = 4      # frames whose logits are held to the fp32 CPU model
 REL_L2_MAX = 2e-2     # bf16 on the card vs fp32 on the CPU, 53 layers
 TRANSFORM_CHAIN = [("add", -127.5), ("div", 127.5)]
 NORMALIZE_U8_CHAIN = [("sub", 127.5), ("mul", 1.0 / 127.5)]
+
+# -- kernel B2 and LM serving ------------------------------------------------
+#: (q shape, k shape) [b, s, h, d] held against the plain version: the LM
+#: prefill shapes (the [4, 512] batch, the 16/32/64 prompt buckets), the
+#: long-context shape of the JAX package's attention bench, small and
+#: ragged shapes, and sq != sk (non-causal only)
+FLASH_SHAPES = [((4, 512, 8, 64),) * 2, ((1, 4096, 8, 128),) * 2,
+                ((2, 256, 2, 32),) * 2, ((1, 16, 8, 64),) * 2,
+                ((1, 32, 8, 64),) * 2, ((1, 64, 8, 64),) * 2,
+                ((2, 100, 2, 24),) * 2, ((1, 77, 3, 64),) * 2,
+                ((1, 64, 2, 64), (1, 200, 2, 64))]
+FLASH_F32_ERR_MAX = 2e-3   # max abs error, the bound of tests/test_ops.py
+FLASH_BF16_TOL = 1e-2      # atol = rtol in bf16
+#: share of bf16 elements more than one ulp from the plain version's:
+#: measured at most 8.0e-5 over every case on an H100 (chip_smoke)
+FLASH_BF16_ULP_SHARE_MAX = 1e-3
+#: contiguous views of a buffer, offset by this many elements so that
+#: their base is not 16-byte aligned: the wrapper copies them
+FLASH_OFFSETS = (3, 1, 5)
+#: shapes timed, bf16, causal: the prefill batch and the long-context one
+FLASH_TIMED = [(4, 512, 8, 64), (1, 4096, 8, 128)]
+LM = dict(vocab=32000, d_model=512, n_heads=8, n_layers=8, d_ff=2048,
+          max_seq=512)
+LM_SLOTS = 8
+LM_NEW = 128
+#: prompt lengths of the measured run (the JAX package's serving bench)
+LM_PROMPT_LENS = (8, 17, 33, 12, 25, 9, 40, 14, 21, 30, 11, 19)
+LM_WARM_LENS = (8, 17, 33)
+LM_PREFILL_BATCH = (4, 512)
+LM_PARITY_NEW = 32
+LM_DRIFT_MAX = 2e-2        # bf16 vs fp32 first-token logits, relative L2
+LM_PROFILED_NEW = 32       # new tokens per prompt in the profiled run
 
 
 class SmokeFailure(RuntimeError):
@@ -210,15 +255,424 @@ def phase_normalize():
     return result, timed
 
 
-def phase_device_times(timed) -> None:
-    """Device time alone of the kernel and its plain version, from
-    ``torch.profiler`` traces. Run after the pipeline phase: once the
-    profiler has traced the card, later launches cost the host more."""
+def phase_device_times(name: str, timed) -> None:
+    """Device time alone of each kernel and its yardsticks, from
+    ``torch.profiler`` traces (``timed``: tag → {prefix: fn, launches}).
+    Run after every timed phase: once the profiler has traced the card,
+    later launches cost the host more."""
     out = {}
-    for tag, (kernel, plain) in timed.items():
-        out[f"{tag}device_ms"] = device_time_ms(kernel)
-        out[f"{tag}plain_device_ms"] = device_time_ms(plain)
-    emit({"phase": "normalize_chain_device_time", **out})
+    for tag, fns in timed.items():
+        fns = dict(fns)
+        launches = fns.pop("launches", 200)
+        for prefix, fn in fns.items():
+            out[f"{tag}{prefix}device_ms"] = device_time_ms(fn, launches)
+    emit({"phase": f"{name}_device_time", **out})
+
+
+# -- phase: kernel B2 against its plain version -----------------------------
+def attention_bound(qshape, kshape, causal: bool, elem_bytes: int):
+    """Bytes, operations and the least time of one attention call on this
+    card: q, k, v read once and o written once over the HBM rate; the
+    QK and PV products (4·d operations per (query, key) pair this call
+    needs — the causal pairs only) over the dense bf16 tensor-core rate."""
+    b, sq, h, d = qshape
+    sk = kshape[1]
+    nbytes = elem_bytes * (2 * b * sq * h * d + 2 * b * sk * h * d)
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 4 * b * h * d * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _bf16_ulps_apart(a, b):
+    """Share of elements of two bf16 tensors more than one ulp apart (by
+    their bit patterns)."""
+    import torch
+
+    d = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    return float((d > 1).float().mean())
+
+
+def phase_flash_attention():
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda:0")
+    # the plain version in full fp32 (cuBLAS would round f32 einsums to
+    # TF32 with these on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    cases = []
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_ulp_share = 0.0
+    for qshape, kshape in FLASH_SHAPES:
+        base = [torch.randn(shape, generator=gen).to(dev)
+                for shape in (qshape, kshape, kshape)]
+        for causal in (True, False):
+            if causal and qshape != kshape:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                reset_launches()
+                out = fa.flash_attention(q, k, v, causal=causal)
+                ref = fa.attention_reference(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                what = f"flash_attention {qshape}/{kshape} causal={causal} " \
+                       f"{dtype}"
+                check(LAUNCHES["flash_attention"] == 1,
+                      f"{what}: the kernel did not run ({LAUNCHES})")
+                check(out.shape == ref.shape and out.dtype == ref.dtype,
+                      f"{what}: shape or dtype differs")
+                check(bool(torch.isfinite(out).all()),
+                      f"{what}: not finite")
+                err = (out.float() - ref.float()).abs().max().item()
+                name = str(dtype).split(".")[-1]
+                max_err[name] = max(max_err[name], err)
+                case = {"q": qshape, "k": kshape, "causal": causal,
+                        "dtype": name, "max_abs_err": err}
+                if dtype is torch.float32:
+                    check(err <= FLASH_F32_ERR_MAX,
+                          f"{what}: max abs err {err} > {FLASH_F32_ERR_MAX}")
+                else:
+                    close = torch.allclose(out.float(), ref.float(),
+                                           atol=FLASH_BF16_TOL,
+                                           rtol=FLASH_BF16_TOL)
+                    check(close, f"{what}: not within atol=rtol="
+                                 f"{FLASH_BF16_TOL} (max abs err {err})")
+                    case["share_over_1ulp"] = _bf16_ulps_apart(out, ref)
+                    check(case["share_over_1ulp"] <= FLASH_BF16_ULP_SHARE_MAX,
+                          f"{what}: {case['share_over_1ulp']} of the "
+                          f"elements more than one ulp apart > "
+                          f"{FLASH_BF16_ULP_SHARE_MAX}")
+                    max_ulp_share = max(max_ulp_share,
+                                        case["share_over_1ulp"])
+                cases.append(case)
+
+    # contiguous views whose base is not 16-byte aligned
+    shape = FLASH_SHAPES[-2][0]
+    n = 1
+    for dim in shape:
+        n *= dim
+    for dtype in (torch.float32, torch.bfloat16):
+        views = []
+        for offset in FLASH_OFFSETS:
+            buf = torch.randn(n + offset, generator=gen).to(dev).to(dtype)
+            views.append(buf[offset:].view(shape))
+        check(all(t.is_contiguous() and t.data_ptr() % 16 for t in views),
+              "the offset views are aligned")
+        reset_launches()
+        out = fa.flash_attention(*views, causal=True)
+        ref = fa.attention_reference(*views, causal=True)
+        torch.cuda.synchronize()
+        what = f"flash_attention {shape} {dtype} offsets {FLASH_OFFSETS}"
+        check(LAUNCHES["flash_attention"] == 1,
+              f"{what}: the kernel did not run ({LAUNCHES})")
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FLASH_F32_ERR_MAX if dtype is torch.float32 else FLASH_BF16_TOL
+        check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+              f"{what}: max abs err {err}")
+        name = str(dtype).split(".")[-1]
+        max_err[name] = max(max_err[name], err)
+        cases.append({"q": shape, "k": shape, "causal": True, "dtype": name,
+                      "offsets": FLASH_OFFSETS, "max_abs_err": err})
+
+    # a head dimension outside the kernel's rule raises on the card
+    q = torch.zeros((1, 16, 2, 12), device=dev)
+    try:
+        fa.flash_attention(q, q, q)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "flash_attention took head_dim 12 on the card")
+
+    # causality across k tiles: keys and values from 128 on must not touch
+    # the rows before 128 — bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((1, 256, 1, 16), generator=gen).to(dev)
+                   .to(dtype) for _ in range(3))
+        out = fa.flash_attention(q, k, v, causal=True)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, 128:] = 0
+        v2[:, 128:] = 0
+        out2 = fa.flash_attention(q, k2, v2, causal=True)
+        torch.cuda.synchronize()
+        check(torch.equal(out[:, :128], out2[:, :128]),
+              f"flash_attention {dtype}: rows before 128 moved when later "
+              "keys changed")
+
+    timed_ms = {}
+    timed = {}
+    for shape in FLASH_TIMED:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [b, h, s, d]
+
+        def kernel(q=q, k=k, v=v):
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def plain(q=q, k=k, v=v):
+            return fa.attention_reference(q, k, v, causal=True)
+
+        def library(q=qt, k=kt, v=vt):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        launches = 200 if shape[1] <= 512 else 20
+        tag = "x".join(str(n) for n in shape)
+        timed_ms[tag] = {
+            "ms": cuda_time_ms(kernel, launches),
+            "plain_ms": cuda_time_ms(plain, launches),
+            "library_ms": cuda_time_ms(library, launches),
+            **attention_bound(shape, shape, True, 2),
+        }
+        timed[f"{tag}_"] = {"": kernel, "plain_": plain,
+                            "library_": library, "launches": launches}
+    result = {"cases": len(cases), "max_abs_err": max(max_err.values()),
+              "max_abs_err_by_dtype": max_err,
+              "f32_err_max_allowed": FLASH_F32_ERR_MAX,
+              "bf16_tol": FLASH_BF16_TOL,
+              "bf16_share_over_1ulp_max": max_ulp_share,
+              "bf16_share_over_1ulp_max_allowed": FLASH_BF16_ULP_SHARE_MAX,
+              "causality_bit_identical": True, "timed_bf16_causal": timed_ms,
+              "case_list": cases}
+    emit({"phase": "flash_attention", **result})
+    return result, timed
+
+
+# -- phases: LM serving through tensor_lm_serve ------------------------------
+def _lm_prompts():
+    """The measured run's prompts, then the warm-up prompts, from one seed
+    (the JAX package's serving bench draws them the same way)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, LM["vocab"], n).tolist()
+               for n in LM_PROMPT_LENS]
+    warm = [rng.integers(1, LM["vocab"], n).tolist() for n in LM_WARM_LENS]
+    return prompts, warm
+
+
+def _serve(prompts, new_tokens: int, engine_name: str = "lm"):
+    """One run of ``appsrc ! tensor_lm_serve ! tensor_sink``: push every
+    prompt, end the stream, run the pipeline to EOS. Returns the response
+    buffers (in submission order: one client, FIFO) and the wall time."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as nt
+
+    pipe = nt.parse_launch(
+        f"appsrc name=src ! tensor_lm_serve engine={engine_name} "
+        f"max-new-tokens={new_tokens} ! tensor_sink name=out")
+    got = []
+    pipe.get("out").connect(lambda buf: got.append(buf))
+    src = pipe.get("src")
+    for p in prompts:
+        src.push([np.asarray(p, np.int32)])
+    src.end_of_stream()
+    t0 = time.monotonic()
+    pipe.run(timeout=900)
+    return got, time.monotonic() - t0
+
+
+def phase_lm_serving(power: str):
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.obs.flight import LMTokenStats
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        register_engine,
+        unregister_engine,
+    )
+
+    nt.set_device(None)  # the package default: cuda:0
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    engine = ContinuousBatchingEngine(cfg, init_params(cfg, seed=0),
+                                      max_streams=LM_SLOTS,
+                                      steps_per_dispatch="auto")
+    placed = {str(t.device) for t in engine.params.values()}
+    placed.add(str(engine._cache.device))
+    check(placed == {"cuda:0"}, f"params and cache on {placed}")
+    prompts, warm = _lm_prompts()
+    engine.start()
+    register_engine("lm", engine)
+    try:
+        for p in warm:  # every prompt bucket of the run, off the clock
+            engine.generate(p, max_new_tokens=engine.K, timeout=600)
+        # the measured run's latency quantiles only
+        engine._lm_stats = LMTokenStats(engine.obs_name)
+        prefills0 = engine.stats["prefills"]
+        reset_launches()
+        got, wall = _serve(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        prefills = engine.stats["prefills"] - prefills0
+        q = {f"{name}_{which}_ms": (est.quantile() or 0.0) * 1e3
+             for name, pair in engine._lm_stats._q.items()
+             for which, est in pair.items()}
+
+        # prefill of a [4, 512] batch through the engine's own prefill
+        # program (kernel B2 in every layer), median of 3
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            1, cfg.vocab, LM_PREFILL_BATCH).astype(np.int32)).to("cuda:0")
+        samples = []
+        with torch.inference_mode():
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                engine._prefill_fn(engine.params, toks)
+                torch.cuda.synchronize()
+                if i:  # the first call is the warm-up
+                    samples.append(toks.numel() / (time.monotonic() - t0))
+    finally:
+        engine.stop()
+        unregister_engine("lm")
+
+    check(len(got) == len(prompts),
+          f"{len(got)} of {len(prompts)} responses")
+    total = 0
+    for i, buf in enumerate(got):
+        toks_i = np.asarray(buf.tensors[0])
+        lps = np.asarray(buf.tensors[1])
+        check(toks_i.dtype == np.int32 and toks_i.shape == (LM_NEW,),
+              f"response {i}: tokens {toks_i.dtype} {toks_i.shape}")
+        check(bool(((toks_i >= 0) & (toks_i < cfg.vocab)).all()),
+              f"response {i}: token ids out of range")
+        check(lps.dtype == np.float32 and lps.shape == (LM_NEW,) and
+              bool(np.isfinite(lps).all()) and bool((lps <= 0).all()),
+              f"response {i}: logprobs not finite and <= 0")
+        check(buf.meta.get("lm_finish_reason") == "length",
+              f"response {i}: finish {buf.meta.get('lm_finish_reason')}")
+        total += toks_i.size
+    check(prefills == len(prompts), f"{prefills} prefills for "
+                                    f"{len(prompts)} prompts")
+    check(launches["flash_attention"] == cfg.n_layers * prefills,
+          f"flash kernel launched {launches['flash_attention']} times for "
+          f"{prefills} prefills of {cfg.n_layers} layers")
+    result = {
+        "config": {**LM, "dtype": "bfloat16", "slots": LM_SLOTS,
+                   "new_tokens": LM_NEW, "prompts": len(prompts)},
+        "responses": len(got), "tokens": total, "wall_s": wall,
+        "tokens_per_s": total / wall, "K": engine.K,
+        "prefills": prefills, "launches": launches, **q,
+        "prefill_batch": list(LM_PREFILL_BATCH),
+        "prefill_tokens_per_s": statistics.median(samples),
+        "prefill_tokens_per_s_samples": samples, "gpu": power,
+    }
+    emit({"phase": "lm_serving", **result})
+    return result, engine
+
+
+def phase_lm_parity(bf16_engine):
+    """fp32, TF32 off: kernel B2 and the plain attention give the same
+    greedy tokens; bf16 first-token logits stay near the fp32 ones."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(**LM, dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    prompts, _ = _lm_prompts()
+    tokens, launches, engines = {}, {}, {}
+    for mode in ("auto", "reference"):
+        eng = ContinuousBatchingEngine(cfg, params, max_streams=LM_SLOTS,
+                                       steps_per_dispatch=8,
+                                       attention=mode).start()
+        try:
+            reset_launches()
+            streams = [eng.submit(p, max_new_tokens=LM_PARITY_NEW)
+                       for p in prompts]
+            tokens[mode] = [s.result(timeout=600) for s in streams]
+            torch.cuda.synchronize()
+            launches[mode] = dict(LAUNCHES)
+        finally:
+            eng.stop()
+        engines[mode] = eng
+    differ = [i for i, (a, b) in enumerate(zip(tokens["auto"],
+                                                tokens["reference"]))
+              if a != b]
+    check(not differ, f"fp32 greedy tokens of prompts {differ} differ "
+                      "between kernel B2 and the plain attention")
+    check(all(len(t) == LM_PARITY_NEW for t in tokens["auto"]),
+          "a parity stream came back short")
+    check(launches["auto"]["flash_attention"] == cfg.n_layers * len(prompts)
+          and launches["reference"]["flash_attention"] == 0,
+          f"attention launches {launches}")
+
+    fp32 = engines["auto"]
+    rel, top1 = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            n = len(p)
+            padded = np.zeros((1, fp32._bucket(n)), np.int32)
+            padded[0, :n] = p
+            toks = torch.from_numpy(padded).to("cuda:0")
+            lengths = torch.tensor([n], device="cuda:0")
+            lb = bf16_engine._prefill_fn(bf16_engine.params, toks, lengths)[0]
+            lf = fp32._prefill_fn(fp32.params, toks, lengths)[0]
+            rel.append(float((lb - lf).norm() / lf.norm()))
+            top1.append(int(lb.argmax()) == int(lf.argmax()))
+    check(max(rel) <= LM_DRIFT_MAX,
+          f"bf16 vs fp32 first-token logits: relative L2 {max(rel)} > "
+          f"{LM_DRIFT_MAX}")
+    result = {"prompts": len(prompts), "new_tokens": LM_PARITY_NEW,
+              "tokens_identical": True,
+              "flash_launches": launches["auto"]["flash_attention"],
+              "bf16_logit_rel_l2": rel, "bf16_logit_rel_l2_max": max(rel),
+              "rel_l2_max_allowed": LM_DRIFT_MAX, "top1_agree": top1}
+    emit({"phase": "lm_parity", **result})
+    return result
+
+
+def profile_lm(engine) -> None:
+    """One serving run under ``torch.profiler``: the device's busy time per
+    generated token, its idle share of the run, and the kernels that take
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.serving import register_engine, unregister_engine
+
+    prompts, _ = _lm_prompts()
+    prompts = prompts[:LM_SLOTS]
+    engine.start()
+    register_engine("lm", engine)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            got, _ = _serve(prompts, LM_PROFILED_NEW)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        engine.stop()
+        unregister_engine("lm")
+    tokens = sum(len(buf.tensors[0]) for buf in got)
+    check(tokens == len(prompts) * LM_PROFILED_NEW,
+          f"profiled LM run produced {tokens} tokens")
+    emit({"phase": "lm_profile", "prompts": len(prompts),
+          "new_tokens": LM_PROFILED_NEW,
+          **device_profile(prof, wall_us, tokens, "token")})
 
 
 # -- phase 4: the flagship pipeline -----------------------------------------
@@ -345,20 +799,12 @@ def phase_pipeline(power: str):
     return result
 
 
-def profile_pipeline(pipe) -> dict:
-    """Run ``pipe`` under ``torch.profiler``: the device's busy time per
-    frame, its idle share of the run's wall time, and the kernels that take
-    the most device time. The profiler slows the host, so the run's own
-    rate is not reported as the pipeline's."""
+def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
+    """From a ``torch.profiler`` trace of a run of ``wall_us``: the device's
+    busy time (union of its intervals) per unit of work, its idle share,
+    and the kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        pipe.run(timeout=600)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
     by_name = {}
     spans = []
     for ev in prof.events():
@@ -378,13 +824,30 @@ def profile_pipeline(pipe) -> dict:
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "frames": PROFILED_FRAMES,
-        "device_busy_ms_per_frame": busy_us / PROFILED_FRAMES / 1e3,
+        f"device_busy_ms_per_{unit}": busy_us / units / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
-        "device_kernels_per_frame": len(spans) / PROFILED_FRAMES,
-        "top_device_ms_per_frame": {
-            name[:80]: us / PROFILED_FRAMES / 1e3 for name, us in top},
+        f"device_kernels_per_{unit}": len(spans) / units,
+        f"top_device_ms_per_{unit}": {
+            name[:80]: us / units / 1e3 for name, us in top},
     }
+
+
+def profile_pipeline(pipe) -> dict:
+    """Run ``pipe`` under ``torch.profiler``: the device's busy time per
+    frame, its idle share of the run's wall time, and the kernels that take
+    the most device time. The profiler slows the host, so the run's own
+    rate is not reported as the pipeline's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        pipe.run(timeout=600)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    return {"frames": PROFILED_FRAMES,
+            **device_profile(prof, wall_us, PROFILED_FRAMES, "frame")}
 
 
 def main() -> int:
@@ -412,11 +875,20 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": power,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
-    b1, timed = phase_normalize()
-    pipe = phase_pipeline(power)
-    phase_device_times(timed)
+    b1, timed_b1 = phase_normalize()
+    b2, timed_b2 = phase_flash_attention()
+    lm, lm_engine = phase_lm_serving(power)
+    phase_lm_parity(lm_engine)
+    pipe = phase_pipeline(power)  # profiles the flagship at its end
+    profile_lm(lm_engine)
+    phase_device_times("normalize_chain", {
+        tag: {"": kernel, "plain_": plain}
+        for tag, (kernel, plain) in timed_b1.items()})
+    phase_device_times("flash_attention", timed_b2)
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
+    prefill = b2["timed_bf16_causal"]["x".join(
+        str(n) for n in FLASH_TIMED[0])]
     emit({"kernels": [{
         "name": "normalize_chain",
         "route": "cuda",
@@ -429,6 +901,18 @@ def main() -> int:
         "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "nnstreamer_tpu/ops/flash_attention.py:130",
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": b2["max_abs_err"],
+        "ms": prefill["ms"],
+        "plain_ms": prefill["plain_ms"],
+        "bound_ms": prefill["bound_ms"],
+        "bound_by": prefill["bound_by"],
+        "library_ms": prefill["library_ms"],
     }]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
 other elements (mux/demux, merge/split, aggregator, rate, query, ...) wait
-for later slices of the port (ROADMAP.md, queue A).
+for later slices of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
+imports no model code until its engine is looked up.
 """
 
 from nnstreamer_tpu_torch.pipeline.pipeline import Queue  # noqa: F401 (registers "queue")
@@ -16,3 +17,4 @@ from nnstreamer_tpu_torch.elements import converter  # noqa: F401
 from nnstreamer_tpu_torch.elements import transform  # noqa: F401
 from nnstreamer_tpu_torch.elements import filter as filter_element  # noqa: F401
 from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
+from nnstreamer_tpu_torch.elements import lm_serve  # noqa: F401

@@ -19,21 +19,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
+
+from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401 (re-exported)
+    LAUNCHES,
+    count_launch,
+    reset_launches,
+)
 
 CHAIN_MAX = 8
 #: opcodes and dtype codes shared with csrc/normalize.cu
 OPCODES = {"add": 0, "sub": 1, "mul": 2, "div": 3}
 IN_CODES = {torch.uint8: 0, torch.float32: 1}
 OUT_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
-
-#: launches per kernel wrapper: the wrapper adds one where it launches its
-#: kernel and nowhere else (the plain CPU path does not count)
-LAUNCHES: Dict[str, int] = {"normalize_chain": 0}
-_launch_lock = threading.Lock()
 
 _TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
               "div": torch.div}
@@ -43,12 +43,6 @@ class _Chain(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int),
                 ("op", ctypes.c_int * CHAIN_MAX),
                 ("val", ctypes.c_float * CHAIN_MAX)]
-
-
-def reset_launches() -> None:
-    with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
 
 
 def _check_ops(ops: Sequence[Tuple[str, float]]) -> None:
@@ -123,8 +117,7 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
     if rc != 0:
         raise RuntimeError(f"normalize_chain: kernel launch failed with "
                            f"CUDA error {rc}")
-    with _launch_lock:
-        LAUNCHES["normalize_chain"] += 1
+    count_launch("normalize_chain")
     return y
 
 

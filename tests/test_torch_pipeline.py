@@ -168,6 +168,10 @@ def test_import_leaves_jax_out():
         "import nnstreamer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('serving.engine', 'elements.lm_serve', "
+        "'models.transformer', 'ops.flash_attention'):\n"
+        "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
+        "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'nnstreamer_tpu'))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
