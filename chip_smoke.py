@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 
 It builds the port's CUDA kernels from ``nnstreamer_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's two paths through ``nnstreamer_tpu_torch.parse_launch``:
+port's paths through ``nnstreamer_tpu_torch.parse_launch``:
 
 - LM serving (``appsrc ! tensor_lm_serve ! tensor_sink``): a
   continuous-batching engine with 8 slots serves 12 greedy prompts of
@@ -16,11 +16,25 @@ port's two paths through ``nnstreamer_tpu_torch.parse_launch``:
   bfloat16, weights made from a seed); prefill runs kernel B2 (flash
   attention) in every layer. An fp32 run holds the kernel's greedy
   tokens to the plain attention's, and the bf16 logits to the fp32 ones.
+- The same engine behind the query pair (``tensor_query_serversrc !
+  tensor_lm_serve ! tensor_query_serversink``), fed by four ``appsrc !
+  tensor_query_client ! tensor_sink`` clients over 127.0.0.1; in fp32 each
+  client's tokens equal the in-process run's.
+- The flagship offloaded over the query pair with int8 transport: the
+  client runs videotestsrc → tensor_converter → tensor_transform (B1) →
+  tensor_quant_enc (kernel B3, on the card) → tensor_query_client; the
+  server tensor_quant_dec → tensor_filter MobileNetV2 → tensor_decoder
+  image_labeling. Its labels equal an in-process run through the same
+  codec, and the client ships about a quarter of the f32 frame's bytes.
 - The flagship classification pipeline (videotestsrc → tensor_converter
   → tensor_transform → tensor_filter MobileNetV2 → tensor_decoder
   image_labeling → queue → tensor_sink) at the model's full width:
   224×224×3 uint8 frames, MobileNetV2 width 1.0, 1001 classes, bfloat16
   weights made from a seed; kernel B1 runs once per frame.
+
+Kernel B3 (int8 quantize, nearest and dithered) is held bit for bit
+against its plain versions, for every input type, on misaligned views and
+for byte-identical codec blobs, and its dither is checked unbiased.
 
 Each phase prints one JSON line; the script exits non-zero at the first
 failed check, and prints the ``{"ok": true, ...}`` line last only when
@@ -92,6 +106,26 @@ LM_PREFILL_BATCH = (4, 512)
 LM_PARITY_NEW = 32
 LM_DRIFT_MAX = 2e-2        # bf16 vs fp32 first-token logits, relative L2
 LM_PROFILED_NEW = 32       # new tokens per prompt in the profiled run
+LM_QUERY_CLIENTS = 4       # client pipelines of the lm_query phase, each
+#                            pushing LM_PROMPT_LENS[3k:3k+3] in order
+
+# -- kernel B3 and the query offload path -------------------------------------
+#: lengths held against the plain versions beside the 224x224x3 frame
+QUANT_LENGTHS = (1, 3, 1001, 4099, 2 ** 20 + 3)
+QUANT_SEEDS = (0, 1, 12345, 2 ** 40 + 7)
+#: contiguous views of a buffer offset by this many elements (base not
+#: 16-byte aligned): the kernel's scalar path
+QUANT_OFFSETS = (1, 3, 5)
+QUANT_TIMED = [(1, IMAGE, IMAGE, 3), (4096, 4096)]   # f32
+DITHER_ERR_MAX = 1.01      # |dequant - x| <= this x scale (tests/test_ops.py:89)
+BIAS_ELEMENTS = 2 ** 20    # elements at 0.3 scale in the unbiasedness check
+BIAS_TOL = 0.01            # |mean(q) - 0.3| over them, dithered
+ENCODE_FRAMES = 8          # device quant_encode blobs held to the host one's
+#: non-finite f32 inputs of 4099 elements, {index: value}: NaN in the
+#: vectorized body, inf in the scalar tail, both, -inf
+QUANT_NON_FINITE = ({2000: "nan"}, {4098: "inf"}, {7: "-inf"},
+                    {5: "inf", 4097: "nan"})
+QUERY_BYTES_MAX = 0.26     # client bytes sent per frame / the f32 frame's
 
 
 class SmokeFailure(RuntimeError):
@@ -445,6 +479,195 @@ def phase_flash_attention():
     return result, timed
 
 
+# -- phase: kernel B3 against its plain versions -----------------------------
+def _quant_input(shape, dtype, gen):
+    """Seeded input of ``dtype`` on the card: floats spread over ±200,
+    integers over their range (int32 and int64 wide enough that the
+    conversion to f32 rounds)."""
+    import torch
+
+    n = 1
+    for d in shape:
+        n *= d
+    if dtype.is_floating_point:
+        return (torch.randn(n, generator=gen) * 200.0).to(dtype).view(
+            shape).to("cuda:0")
+    lo, hi = {torch.uint8: (0, 256), torch.int8: (-128, 128),
+              torch.int16: (-32768, 32768),
+              torch.int32: (-2 ** 31, 2 ** 31 - 1),
+              torch.int64: (-2 ** 62, 2 ** 62)}[dtype]
+    return torch.randint(lo, hi, (n,), generator=gen,
+                         dtype=torch.int64).to(dtype).view(shape).to("cuda:0")
+
+
+def quantize_bound(n: int, elem_bytes: int) -> dict:
+    """Bytes and the least time of one quantize call on this card: x read
+    once, q and the scale written once, over the HBM rate (the n compares
+    and multiplies are far below the f32 rate). ``two_pass_bytes`` is what
+    the kernel's two passes move, x read twice."""
+    nbytes = n * elem_bytes + n + 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n / FP32_FLOPS * 1e3
+    two_pass = 2 * n * elem_bytes + n + 4
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "two_pass_bytes": two_pass,
+            "two_pass_bound_ms": two_pass / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_quantize():
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.elements.quant import quant_encode
+    from nnstreamer_tpu_torch.ops import quantize as qz
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+
+    gen = torch.Generator().manual_seed(3)
+    dtypes = list(qz.IN_CODES)
+    shapes = [(1, IMAGE, IMAGE, 3)] + [(n,) for n in QUANT_LENGTHS]
+    cases = 0
+    max_abs_err = 0
+    max_dither_err = 0.0
+
+    def held(x, what):
+        nonlocal cases, max_abs_err, max_dither_err
+        reset_launches()
+        q, s = qz.quantize_int8(x, force="reference")
+        rq, rs = qz.quantize_nearest_reference(x)
+        torch.cuda.synchronize()
+        check(LAUNCHES["quantize_int8"] == 1,
+              f"quantize_int8 {what}: the kernel did not run ({LAUNCHES})")
+        check(q.shape == x.shape and q.dtype == torch.int8 and
+              s.shape == (1,) and s.dtype == torch.float32,
+              f"quantize_int8 {what}: shape or dtype")
+        err = int((q.int() - rq.int()).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        check(torch.equal(q, rq) and torch.equal(s.view(torch.int32),
+                                                 rs.view(torch.int32)),
+              f"quantize_int8 {what} nearest: not bit-identical to the "
+              f"plain version (max abs err {err})")
+        cases += 1
+        xf = x.float()
+        for seed in QUANT_SEEDS:
+            q, s = qz.quantize_int8(x, seed=seed, force="dither")
+            rq, _ = qz.quantize_dither_reference(x, seed)
+            torch.cuda.synchronize()
+            err = int((q.int() - rq.int()).abs().max())
+            max_abs_err = max(max_abs_err, err)
+            check(torch.equal(q, rq), f"quantize_int8 {what} dither seed "
+                                      f"{seed}: not bit-identical to the "
+                                      f"plain Philox version ({err})")
+            derr = float(((qz.dequantize_int8(q, s) - xf).abs().max()
+                          / s[0]).item())
+            max_dither_err = max(max_dither_err, derr)
+            check(derr <= DITHER_ERR_MAX, f"quantize_int8 {what} dither "
+                                          f"seed {seed}: error {derr} scale")
+            cases += 1
+
+    for shape in shapes:
+        for dtype in dtypes:
+            held(_quant_input(shape, dtype, gen), f"{shape} {dtype}")
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        n = IMAGE * IMAGE * 3
+        for offset in QUANT_OFFSETS:
+            base = _quant_input((n + offset,), dtype, gen)
+            view = base[offset:].view(1, IMAGE, IMAGE, 3)
+            check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+                  "the offset view is aligned")
+            held(view, f"{dtype} view at offset {offset}")
+
+    # a type the kernel does not take raises on the card; empty launches none
+    for bad in (torch.bool, torch.complex64):
+        try:
+            qz.quantize_int8(torch.zeros(4, dtype=bad, device="cuda:0"))
+            raised = False
+        except TypeError:
+            raised = True
+        check(raised, f"quantize_int8 took {bad} on the card")
+    reset_launches()
+    q, s = qz.quantize_int8(torch.empty(0, device="cuda:0"))
+    check(q.numel() == 0 and float(s[0]) == np.float32(1e-30) and
+          LAUNCHES["quantize_int8"] == 0, "empty input")
+
+    # non-finite input: q and the scale's bits as the plain version on the
+    # host gives them (a NaN quotient to 0, a NaN scale as 0x7fc00000), and
+    # the device codec blob as the host codec's
+    for spots in QUANT_NON_FINITE:
+        x = _quant_input((4099,), torch.float32, gen)
+        for i, v in spots.items():
+            x[i] = float(v)
+        rq, rs = qz.quantize_nearest_reference(x.cpu())
+        for force in ("reference", "dither"):
+            q, s = qz.quantize_int8(x, seed=5, force=force)
+            check(torch.equal(q.cpu(), rq) and
+                  s.cpu().numpy().tobytes() == rs.numpy().tobytes(),
+                  f"quantize_int8 {force} with {spots}: q or scale differs "
+                  f"from the plain version (scale {s.item()} vs "
+                  f"{rs.item()})")
+            cases += 1
+        with np.errstate(invalid="ignore"):
+            check(quant_encode(x) == quant_encode(x.cpu().numpy()),
+                  f"{spots}: device quant_encode blob differs from the host's")
+
+    # device encode vs host encode of the same values: byte-identical blobs
+    for i in range(ENCODE_FRAMES):
+        frame = _quant_input((1, IMAGE, IMAGE, 3), torch.float32, gen) / 200
+        check(quant_encode(frame) == quant_encode(frame.cpu().numpy()),
+              f"frame {i}: device quant_encode blob differs from the host's")
+
+    # unbiased dither: 0.3 scale rounds to 0 by nearest, to 0.3 on average
+    step = 0.01
+    x = torch.full((BIAS_ELEMENTS + 1,), 0.3 * step, device="cuda:0")
+    x[0] = 127 * step
+    bias = {}
+    for seed in QUANT_SEEDS:
+        q, _ = qz.quantize_int8(x, seed=seed, force="dither")
+        bias[seed] = float(q[1:].double().mean())
+        check(abs(bias[seed] - 0.3) <= BIAS_TOL,
+              f"dither seed {seed}: mean {bias[seed]} not within {BIAS_TOL} "
+              "of 0.3")
+    q, _ = qz.quantize_int8(x, force="reference")
+    nearest_mean = float(q[1:].double().mean())
+    check(nearest_mean == 0.0, f"nearest mean {nearest_mean}")
+
+    times, timed = {}, {}
+    for shape in QUANT_TIMED:
+        x = _quant_input(shape, torch.float32, gen)
+
+        def kernel(x=x):
+            return qz.quantize_int8(x, force="reference")
+
+        def dither(x=x):
+            return qz.quantize_int8(x, seed=7, force="dither")
+
+        def plain(x=x):
+            return qz.quantize_nearest_reference(x)
+
+        def plain_dither(x=x):  # Philox in int64 ops: fewer calls
+            return qz.quantize_dither_reference(x, 7)
+
+        tag = "x".join(str(d) for d in shape)
+        times[tag] = {"ms": cuda_time_ms(kernel),
+                      "dither_ms": cuda_time_ms(dither),
+                      "plain_ms": cuda_time_ms(plain),
+                      "dither_plain_ms": cuda_time_ms(plain_dither,
+                                                      launches=20, repeats=5),
+                      **quantize_bound(x.numel(), 4)}
+        timed[f"{tag}_"] = {"": kernel, "dither_": dither, "plain_": plain}
+        timed[f"{tag}_dither_"] = {"plain_": plain_dither, "launches": 20}
+    result = {"cases": cases, "bit_identical": True,
+              "max_abs_err": max_abs_err,
+              "dither_err_over_scale_max": max_dither_err,
+              "dither_err_max_allowed": DITHER_ERR_MAX,
+              "dither_mean_at_0.3": bias, "nearest_mean_at_0.3": nearest_mean,
+              "encode_frames_byte_identical": ENCODE_FRAMES,
+              "non_finite_cases": len(QUANT_NON_FINITE),
+              "timed_f32": times}
+    emit({"phase": "quantize", **result})
+    return result, timed
+
+
 # -- phases: LM serving through tensor_lm_serve ------------------------------
 def _lm_prompts():
     """The measured run's prompts, then the warm-up prompts, from one seed
@@ -572,7 +795,7 @@ def phase_lm_serving(power: str):
         "prefill_tokens_per_s_samples": samples, "gpu": power,
     }
     emit({"phase": "lm_serving", **result})
-    return result, engine
+    return result, engine, [np.asarray(b.tensors[0]).tolist() for b in got]
 
 
 def phase_lm_parity(bf16_engine):
@@ -641,7 +864,7 @@ def phase_lm_parity(bf16_engine):
               "bf16_logit_rel_l2": rel, "bf16_logit_rel_l2_max": max(rel),
               "rel_l2_max_allowed": LM_DRIFT_MAX, "top1_agree": top1}
     emit({"phase": "lm_parity", **result})
-    return result
+    return result, fp32
 
 
 def profile_lm(engine) -> None:
@@ -673,6 +896,252 @@ def profile_lm(engine) -> None:
     emit({"phase": "lm_profile", "prompts": len(prompts),
           "new_tokens": LM_PROFILED_NEW,
           **device_profile(prof, wall_us, tokens, "token")})
+
+
+# -- phases: tensor_lm_serve behind the query pair ----------------------------
+def _serve_over_query(engine_name: str, prompts, new_tokens: int):
+    """``tensor_query_serversrc ! tensor_lm_serve ! tensor_query_serversink``
+    with LM_QUERY_CLIENTS ``appsrc ! tensor_query_client ! tensor_sink``
+    pipelines over 127.0.0.1, client k pushing prompts[3k:3k+3] with all
+    three in flight. Returns each client's response buffers (in arrival
+    order) and the wall time from the first push to the last response."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as nt
+
+    server = nt.parse_launch(
+        "tensor_query_serversrc name=ss port=0 id=32 ! "
+        f"tensor_lm_serve engine={engine_name} max-new-tokens={new_tokens} "
+        "! tensor_query_serversink id=32")
+    server.start()
+    per = len(prompts) // LM_QUERY_CLIENTS
+    clients, got = [], []
+    try:
+        port = server.get("ss").port
+        for k in range(LM_QUERY_CLIENTS):
+            pipe = nt.parse_launch(
+                f"appsrc name=src ! tensor_query_client dest-host=127.0.0.1 "
+                f"dest-port={port} max-in-flight={per} timeout=600 ! "
+                "tensor_sink name=out")
+            got.append([])
+            pipe.get("out").connect(lambda buf, k=k: got[k].append(buf))
+            clients.append(pipe)
+        t0 = time.monotonic()
+        for pipe in clients:
+            pipe.start()
+        for k, pipe in enumerate(clients):
+            src = pipe.get("src")
+            for j, p in enumerate(prompts[k * per:(k + 1) * per]):
+                src.push([np.asarray(p, np.int32)], pts=j)
+            src.end_of_stream()
+        for pipe in clients:
+            msg = pipe.wait(timeout=900)
+            check(msg is not None and msg.kind == "eos",
+                  f"an LM query client ended with {msg}")
+        wall = time.monotonic() - t0
+    finally:
+        for pipe in clients:
+            pipe.stop()
+        server.stop()
+    return got, wall
+
+
+def _common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_lm_query(power: str, bf16_engine, fp32_engine, local_bf16):
+    """The bf16 engine of the lm_serving phase behind the query pair (12
+    prompts × 128 tokens from 4 clients), then the fp32 engine of the
+    lm_parity phase (TF32 off, 32 tokens) over the query pair and in
+    process: every client's tokens must equal the in-process run's.
+
+    The bf16 responses are held to their prompts by content: each shares
+    at least as long a prefix with the lm_serving phase's in-process
+    response to its own prompt as with the response to any other prompt
+    (the two runs batch differently, so bf16 tokens may part late)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.obs.flight import LMTokenStats
+    from nnstreamer_tpu_torch.serving import register_engine, unregister_engine
+
+    prompts, _ = _lm_prompts()
+    per = len(prompts) // LM_QUERY_CLIENTS
+    bf16_engine.start()
+    register_engine("lmq", bf16_engine)
+    try:
+        bf16_engine._lm_stats = LMTokenStats(bf16_engine.obs_name)
+        got, wall = _serve_over_query("lmq", prompts, LM_NEW)
+        torch.cuda.synchronize()
+        q = {f"{name}_{which}_ms": (est.quantile() or 0.0) * 1e3
+             for name, pair in bf16_engine._lm_stats._q.items()
+             for which, est in pair.items()}
+    finally:
+        bf16_engine.stop()
+        unregister_engine("lmq")
+    total = 0
+    own_prefix = []
+    for k, bufs in enumerate(got):
+        check(len(bufs) == per, f"client {k}: {len(bufs)} of {per} responses")
+        for j, buf in enumerate(bufs):
+            toks = np.asarray(buf.tensors[0])
+            prefix = [_common_prefix(toks.tolist(), ref) for ref in local_bf16]
+            own = prefix[k * per + j]
+            check(own >= max(prefix), f"client {k} response {j}: shares "
+                                      f"{own} tokens with its own prompt's "
+                                      f"in-process response, {max(prefix)} "
+                                      "with another's")
+            own_prefix.append(own)
+            lps = np.asarray(buf.tensors[1])
+            check(toks.dtype == np.int32 and toks.shape == (LM_NEW,) and
+                  bool(((toks >= 0) & (toks < LM["vocab"])).all()),
+                  f"client {k}: tokens {toks.dtype} {toks.shape}")
+            check(lps.dtype == np.float32 and lps.shape == (LM_NEW,) and
+                  bool(np.isfinite(lps).all()) and bool((lps <= 0).all()),
+                  f"client {k}: logprobs not finite and <= 0")
+            total += toks.size
+
+    # fp32, TF32 off: over the query pair and in process, the same tokens
+    fp32_engine.start()
+    register_engine("lmp", fp32_engine)
+    try:
+        remote, _ = _serve_over_query("lmp", prompts, LM_PARITY_NEW)
+        local, _ = _serve(prompts, LM_PARITY_NEW, engine_name="lmp")
+    finally:
+        fp32_engine.stop()
+        unregister_engine("lmp")
+    local_toks = [np.asarray(b.tensors[0]).tolist() for b in local]
+    check(len(local_toks) == len(prompts), "in-process fp32 run came back "
+                                           "short")
+    differ = []
+    for k, bufs in enumerate(remote):
+        toks = [np.asarray(b.tensors[0]).tolist() for b in bufs]
+        if toks != local_toks[k * per:(k + 1) * per]:
+            differ.append(k)
+    check(not differ, f"fp32 tokens of clients {differ} differ from the "
+                      "in-process tensor_lm_serve run")
+    result = {"clients": LM_QUERY_CLIENTS, "prompts_per_client": per,
+              "responses": sum(len(b) for b in got), "tokens": total,
+              "wall_s": wall, "tokens_per_s": total / wall, **q,
+              "bf16_own_prefix_vs_in_process": own_prefix,
+              "fp32_new_tokens": LM_PARITY_NEW,
+              "fp32_tokens_equal_in_process": True, "gpu": power}
+    emit({"phase": "lm_query", **result})
+    return result
+
+
+# -- phase: the flagship offloaded over the query pair with int8 transport ----
+def phase_query_offload(power: str):
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+
+    nt.set_device(None)  # the package default: cuda:0
+    module, in_info, out_info = mobilenet_v2(
+        num_classes=CLASSES, image_size=IMAGE, dtype=torch.bfloat16, seed=0)
+    register_torch_model("mnv2q", module, in_info, out_info)
+    seen = {"calls": 0, "param_devices": set()}
+
+    def forward_hook(mod, args, out):
+        seen["calls"] += 1
+        seen["param_devices"].add(str(next(mod.parameters()).device))
+
+    hook = module.register_forward_hook(forward_hook)
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_")
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    frames = (f"videotestsrc num-buffers={{n}} width={IMAGE} height={IMAGE} "
+              "pattern=ball ! tensor_converter ! "
+              "tensor_transform mode=arithmetic "
+              "option=typecast:float32,add:-127.5,div:127.5 ! "
+              "tensor_quant_enc ! ")
+    server = nt.parse_launch(
+        "tensor_query_serversrc name=ss port=0 id=31 ! tensor_quant_dec ! "
+        "tensor_filter framework=jax model=mnv2q ! "
+        f"tensor_decoder mode=image_labeling option1={labels} ! "
+        "tensor_query_serversink id=31")
+    try:
+        server.start()
+        port = server.get("ss").port
+
+        def client(n: int):
+            return nt.parse_launch(
+                frames.format(n=n) +
+                f"tensor_query_client name=qc dest-host=127.0.0.1 "
+                f"dest-port={port} timeout=60 ! tensor_sink name=out")
+
+        client(WARMUP_FRAMES).run(timeout=600)
+        seen.update(calls=0, param_devices=set())
+        pipe = client(FRAMES)
+        got = []
+        pipe.get("out").connect(lambda buf: got.append(
+            np.asarray(buf.tensors[0]).tobytes().decode()))
+
+        def sent_bytes():  # the counter's labels are shared with the warm-up
+            return pipe.metrics_snapshot()["elements"]["qc"]["sent_bytes"]
+
+        sent0 = sent_bytes()
+        reset_launches()
+        t0 = time.monotonic()
+        pipe.run(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(LAUNCHES)
+        measured = dict(seen)
+        p50, p99 = pipe.get("out").latency_percentiles(50.0, 99.0)
+        sent = sent_bytes() - sent0
+
+        # the same module in process, through the same codec
+        ref = nt.parse_launch(
+            frames.format(n=FRAMES) + "tensor_quant_dec ! "
+            "tensor_filter framework=jax model=mnv2q ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! "
+            "tensor_sink name=out")
+        want = []
+        ref.get("out").connect(lambda buf: want.append(buf.meta["label"]))
+        ref.run(timeout=900)
+    finally:
+        server.stop()
+        hook.remove()
+        unregister_torch_model("mnv2q")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    frame_bytes = IMAGE * IMAGE * 3 * 4
+    check(len(got) == FRAMES, f"{len(got)} of {FRAMES} labels came back")
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    check(len(want) == FRAMES and not differ,
+          f"labels of frames {differ[:10]} differ from the in-process run")
+    check(launches["normalize_chain"] == FRAMES and
+          launches["quantize_int8"] == FRAMES,
+          f"client launches {launches} for {FRAMES} frames")
+    check(measured["calls"] == FRAMES, f"model ran {measured['calls']} times")
+    check(measured["param_devices"] == {"cuda:0"},
+          f"filter parameters on {measured['param_devices']}")
+    check(sent / FRAMES <= QUERY_BYTES_MAX * frame_bytes,
+          f"{sent / FRAMES} bytes sent per frame")
+    result = {"frames": FRAMES, "labels_equal_in_process": FRAMES,
+              "launches": launches, "fps": FRAMES / wall, "wall_s": wall,
+              "latency_p50_ms": p50, "latency_p99_ms": p99,
+              "sent_bytes_per_frame": sent / FRAMES,
+              "f32_frame_bytes": frame_bytes,
+              "sent_share_of_f32_frame": sent / FRAMES / frame_bytes,
+              "gpu": power}
+    emit({"phase": "query_offload", **result})
+    return result
 
 
 # -- phase 4: the flagship pipeline -----------------------------------------
@@ -877,18 +1346,23 @@ def main() -> int:
     phase_build()
     b1, timed_b1 = phase_normalize()
     b2, timed_b2 = phase_flash_attention()
-    lm, lm_engine = phase_lm_serving(power)
-    phase_lm_parity(lm_engine)
+    b3, timed_b3 = phase_quantize()
+    lm, lm_engine, lm_tokens = phase_lm_serving(power)
+    _, fp32_engine = phase_lm_parity(lm_engine)
+    phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
+    offload = phase_query_offload(power)
     pipe = phase_pipeline(power)  # profiles the flagship at its end
     profile_lm(lm_engine)
     phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
         for tag, (kernel, plain) in timed_b1.items()})
     phase_device_times("flash_attention", timed_b2)
+    phase_device_times("quantize_int8", timed_b3)
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     prefill = b2["timed_bf16_causal"]["x".join(
         str(n) for n in FLASH_TIMED[0])]
+    frame_q = b3["timed_f32"]["x".join(str(n) for n in QUANT_TIMED[0])]
     emit({"kernels": [{
         "name": "normalize_chain",
         "route": "cuda",
@@ -913,6 +1387,24 @@ def main() -> int:
         "bound_ms": prefill["bound_ms"],
         "bound_by": prefill["bound_by"],
         "library_ms": prefill["library_ms"],
+    }, {
+        "name": "quantize_int8",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/quantize.cu",
+        "replaces": "nnstreamer_tpu/ops/quantize.py:84",
+        # the offload path runs the kernel's nearest mode (the JAX
+        # reference arithmetic, the codec's); dither_ms and dither_plain_ms
+        # time dither mode, the counterpart of the TPU kernel bodies
+        "mode": "nearest",
+        "launches": offload["launches"]["quantize_int8"],
+        "max_abs_err": b3["max_abs_err"],
+        "ms": frame_q["ms"],
+        "dither_ms": frame_q["dither_ms"],
+        "dither_plain_ms": frame_q["dither_plain_ms"],
+        "plain_ms": frame_q["plain_ms"],
+        "bound_ms": frame_q["bound_ms"],
+        "bound_by": frame_q["bound_by"],
+        "library_ms": None,
     }]})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-other elements (mux/demux, merge/split, aggregator, rate, query, ...) wait
+other elements (mux/demux, merge/split, aggregator, rate, ...) wait
 for later slices of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
 imports no model code until its engine is looked up.
 """
@@ -18,3 +18,5 @@ from nnstreamer_tpu_torch.elements import transform  # noqa: F401
 from nnstreamer_tpu_torch.elements import filter as filter_element  # noqa: F401
 from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
 from nnstreamer_tpu_torch.elements import lm_serve  # noqa: F401
+from nnstreamer_tpu_torch.elements import quant  # noqa: F401
+from nnstreamer_tpu_torch.elements import query  # noqa: F401

@@ -28,10 +28,14 @@ that fails (bad prompt, engine error, result timeout) returns a single
 ``idle_timeout`` seconds without traffic; a completion that races the
 idle window is handed to a fresh drainer rather than dropped.
 
-A copy of the JAX package's element. Not ported yet: the query transport
-in front of it (``tensor_query_serversrc ! tensor_lm_serve ! ...``,
-ROADMAP A.13.7) and ``speculate`` (A.13.4), which raises when set to
-anything but 0.
+A copy of the JAX package's element. It serves remote clients behind the
+query pair as it serves an in-process ``appsrc``::
+
+    tensor_query_serversrc port=P id=I ! tensor_lm_serve engine=E !
+    tensor_query_serversink id=I
+
+Not ported yet: ``speculate`` (A.13.4), which raises when set to anything
+but 0.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ queue B). Sources live in ``nnstreamer_tpu_torch/csrc`` and are built by
 ``nvcc`` at first use (``ops/_build.py``). A wrapper runs the plain version
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 Kernel B2 lives in ``ops.flash_attention`` (the module, not re-exported
-here under its function's name).
+here under its function's name), kernel B3 in ``ops.quantize``.
 """
 
 from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401

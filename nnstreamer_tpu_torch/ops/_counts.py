@@ -14,6 +14,7 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "normalize_chain": 0,
     "flash_attention": 0,
+    "quantize_int8": 0,
 }
 _lock = threading.Lock()
 

@@ -169,7 +169,9 @@ def test_import_leaves_jax_out():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('serving.engine', 'elements.lm_serve', "
-        "'models.transformer', 'ops.flash_attention'):\n"
+        "'models.transformer', 'ops.flash_attention', 'ops.quantize', "
+        "'elements.quant', 'elements.query', 'query.protocol', "
+        "'query.server', 'tensors.meta'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
