@@ -79,22 +79,36 @@ NORMALIZE_U8_CHAIN = [("sub", 127.5), ("mul", 1.0 / 127.5)]
 #: (q shape, k shape) [b, s, h, d] held against the plain version: the LM
 #: prefill shapes (the [4, 512] batch, the 16/32/64 prompt buckets), the
 #: long-context shape of the JAX package's attention bench, small and
-#: ragged shapes, and sq != sk (non-causal only)
+#: ragged shapes, last q tiles of at most 64 rows behind more k tiles than
+#: the bf16/f16 body's ring holds (320, 300), and sq != sk (non-causal only)
 FLASH_SHAPES = [((4, 512, 8, 64),) * 2, ((1, 4096, 8, 128),) * 2,
                 ((2, 256, 2, 32),) * 2, ((1, 16, 8, 64),) * 2,
                 ((1, 32, 8, 64),) * 2, ((1, 64, 8, 64),) * 2,
                 ((2, 100, 2, 24),) * 2, ((1, 77, 3, 64),) * 2,
-                ((1, 64, 2, 64), (1, 200, 2, 64))]
+                ((1, 320, 2, 64),) * 2, ((2, 300, 2, 128),) * 2,
+                ((1, 64, 2, 64), (1, 200, 2, 64)),
+                ((1, 64, 2, 64), (1, 512, 2, 64))]
+#: the shape of the misaligned views
+FLASH_OFFSET_SHAPE = (1, 77, 3, 64)
 FLASH_F32_ERR_MAX = 2e-3   # max abs error, the bound of tests/test_ops.py
 FLASH_BF16_TOL = 1e-2      # atol = rtol in bf16
-#: share of bf16 elements more than one ulp from the plain version's:
-#: measured at most 8.0e-5 over every case on an H100 (chip_smoke)
+#: share of bf16 (and f16) elements more than one ulp from the plain
+#: version's: measured at most 8.0e-5 over every bf16 case on an H100
+#: (chip_smoke, CUDA-core body)
 FLASH_BF16_ULP_SHARE_MAX = 1e-3
 #: contiguous views of a buffer, offset by this many elements so that
 #: their base is not 16-byte aligned: the wrapper copies them
 FLASH_OFFSETS = (3, 1, 5)
-#: shapes timed, bf16, causal: the prefill batch and the long-context one
-FLASH_TIMED = [(4, 512, 8, 64), (1, 4096, 8, 128)]
+#: shapes timed, bf16, causal: the prefill batch (the kernels line's
+#: shape), the long-context one, the largest prompt bucket the LM's main
+#: path prefills, and the long-context one at d = 64 (half the GEMMs, the
+#: same number of scores: what the time does not lose with d is per-score
+#: work on the CUDA cores)
+FLASH_TIMED = [(4, 512, 8, 64), (1, 4096, 8, 128), (1, 64, 8, 64),
+               (1, 4096, 8, 64)]
+FLASH_DTYPES = ("float32", "bfloat16", "float16")
+#: SASS opcodes counted in the flash library: wgmma and TMA loads
+FLASH_SASS_OPS = ("HGMMA", "UTMALDG")
 LM = dict(vocab=32000, d_model=512, n_heads=8, n_layers=8, d_ff=2048,
           max_seq=512)
 LM_SLOTS = 8
@@ -192,17 +206,37 @@ def cuda_time_ms(fn, launches: int = 200, repeats: int = 7) -> float:
 
 
 # -- phase 2: build ---------------------------------------------------------
+def sass_op_counts(path, ops) -> dict:
+    """Instructions of each opcode in ``ops`` in a built library's SASS
+    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    import re
+
+    from nnstreamer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+
+
 def phase_build():
     from nnstreamer_tpu_torch.ops import _build
 
     t0 = time.monotonic()
     paths = _build.build_all()
     seconds = time.monotonic() - t0
+    sass = sass_op_counts(paths["flash_attention"], FLASH_SASS_OPS)
     emit({"phase": "build", "seconds": seconds,
+          "build_seconds": {n: r["seconds"]
+                            for n, r in _build.build_log.items()},
           "libraries": {n: str(p.relative_to(HERE)) for n, p in paths.items()},
           "ptxas": {n: [ln for ln in str(r["output"]).splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, r in _build.build_log.items()}})
+                        if any(w in ln for w in ("registers", "spill",
+                                                 "wgmma", "setmaxnreg"))]
+                    for n, r in _build.build_log.items()},
+          "flash_attention_sass": sass})
+    check(sass["HGMMA"] > 0, "no wgmma (HGMMA) in the flash library")
+    check(sass["UTMALDG"] > 0, "no TMA load (UTMALDG) in the flash library")
 
 
 # -- phase 3: kernel B1 against its plain version ---------------------------
@@ -321,9 +355,20 @@ def attention_bound(qshape, kshape, causal: bool, elem_bytes: int):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def b2_tensor_core_ms(shape):
+    """Time at the dense bf16 peak of the GEMMs that B2's bf16/f16 body
+    issues for a causal self-attention call on ``shape`` [b, s, h, d]:
+    whole 64 x 64 tiles of every 64 q rows up to their last live k tile,
+    d padded to 64, 128 or 256, QK once and P.V twice (the split P)."""
+    b, s, h, d = shape
+    dpad = 64 if d <= 64 else 128 if d <= 128 else 256
+    tiles = sum(min(s - 1, q0 + 63) // 64 + 1 for q0 in range(0, s, 64))
+    return b * h * tiles * 3 * 2 * 64 * 64 * dpad / BF16_FLOPS * 1e3
+
+
 def _bf16_ulps_apart(a, b):
-    """Share of elements of two bf16 tensors more than one ulp apart (by
-    their bit patterns)."""
+    """Share of elements of two bf16 (or f16) tensors more than one ulp
+    apart (by their bit patterns)."""
     import torch
 
     d = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
@@ -344,7 +389,7 @@ def phase_flash_attention():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     cases = []
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_err = dict.fromkeys(FLASH_DTYPES, 0.0)
     max_ulp_share = 0.0
     for qshape, kshape in FLASH_SHAPES:
         base = [torch.randn(shape, generator=gen).to(dev)
@@ -352,7 +397,7 @@ def phase_flash_attention():
         for causal in (True, False):
             if causal and qshape != kshape:
                 continue
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (getattr(torch, dt) for dt in FLASH_DTYPES):
                 q, k, v = (t.to(dtype) for t in base)
                 reset_launches()
                 out = fa.flash_attention(q, k, v, causal=causal)
@@ -390,11 +435,11 @@ def phase_flash_attention():
                 cases.append(case)
 
     # contiguous views whose base is not 16-byte aligned
-    shape = FLASH_SHAPES[-2][0]
+    shape = FLASH_OFFSET_SHAPE
     n = 1
     for dim in shape:
         n *= dim
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, dt) for dt in FLASH_DTYPES):
         views = []
         for offset in FLASH_OFFSETS:
             buf = torch.randn(n + offset, generator=gen).to(dev).to(dtype)
@@ -428,7 +473,7 @@ def phase_flash_attention():
 
     # causality across k tiles: keys and values from 128 on must not touch
     # the rows before 128 — bit for bit
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, dt) for dt in FLASH_DTYPES):
         q, k, v = (torch.randn((1, 256, 1, 16), generator=gen).to(dev)
                    .to(dtype) for _ in range(3))
         out = fa.flash_attention(q, k, v, causal=True)
@@ -463,6 +508,7 @@ def phase_flash_attention():
             "ms": cuda_time_ms(kernel, launches),
             "plain_ms": cuda_time_ms(plain, launches),
             "library_ms": cuda_time_ms(library, launches),
+            "tensor_core_ms": b2_tensor_core_ms(shape),
             **attention_bound(shape, shape, True, 2),
         }
         timed[f"{tag}_"] = {"": kernel, "plain_": plain,

@@ -6,11 +6,16 @@ computes causal or non-causal attention on ``[batch, seq, heads, dim]``
 tensors with fp32 running max, sum and accumulator, so the ``[sq, sk]``
 score matrix never exists. It reads q, k and v through their strides (the
 LM's q/k/v are views of one projection), masks ragged tiles itself (any
-``sq`` and ``sk``) and writes the output in the input dtype.
+``sq`` and ``sk``) and writes the output in the input dtype. bfloat16 and
+float16 take its Hopper body (TMA loads into a shared-memory ring, wgmma
+for QK and for P.V with P split into two 16-bit halves); float32 takes its
+CUDA-core body.
 
 Beside it, :func:`attention_reference` is the plain version: fp32 einsum,
 the scale applied after QK, ``-1e30`` for masked scores, softmax, fp32 PV
-and one rounding to ``q.dtype``. :func:`flash_attention` takes the plain
+and one rounding to ``q.dtype``. :func:`attention_tiled_reference` models
+the kernel's bf16/f16 tile loop in torch ops (tests use it to pin why the
+kernel splits P into two bf16 halves). :func:`flash_attention` takes the plain
 version only for a tensor on the CPU (or the meta device, where it infers
 shapes); for a CUDA tensor it launches the kernel or raises. The kernel's
 shape rule is ``d % 8 == 0 and d <= 256``; a CUDA call outside it raises,
@@ -67,6 +72,55 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def attention_tiled_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              block_q: int = 128, block_k: int = 64,
+                              split_p: bool = True) -> torch.Tensor:
+    """The bf16/f16 body's arithmetic in torch ops, for tests: q tiles of
+    ``block_q`` rows walk k tiles of ``block_k`` keys (causally dead ones
+    skipped); fp32 scores of the input-type q and k, times ``d**-0.5``;
+    ``-1e30`` for masked scores; fp32 running max ``m`` and sum ``l`` (from
+    the unsplit P); the accumulator rescaled, then ``P_hi . v + P_lo . v``
+    with ``P_hi = P`` rounded to the input type and ``P_lo = P - P_hi``
+    rounded too (``split_p=False``: ``P_hi . v`` alone, P rounded once);
+    ``acc / max(l, 1e-30)`` rounded once to ``q.dtype``. For float16 P is
+    split as ``2**15 P`` and ``acc`` divided back, as the kernel does, so
+    that small P stays out of f16's subnormals."""
+    dtype = q.dtype
+    p_scale = 2.0 ** 15 if dtype is torch.float16 else 1.0
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # b,h,s,d
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        qt = qf[:, :, q0:q0 + block_q]
+        rows = torch.arange(q0, q0 + qt.shape[2], device=q.device)[:, None]
+        m = torch.full(qt.shape[:3] + (1,), NEG_BIG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qt.shape[:3] + (d,), device=q.device)
+        k_end = min(sk, q0 + qt.shape[2]) if causal else sk
+        for k0 in range(0, k_end, block_k):
+            kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+            s = (qt @ kt.transpose(-1, -2)) * scale
+            if causal:
+                keys = torch.arange(k0, k0 + kt.shape[2],
+                                    device=q.device)[None, :]
+                s = torch.where(rows >= keys, s, NEG_BIG)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            m = m_new
+            p = p * p_scale
+            p_hi = p.to(dtype).float()
+            acc = acc * corr + p_hi @ vt
+            if split_p:
+                acc = acc + (p - p_hi).to(dtype).float() @ vt
+        out[:, :, q0:q0 + block_q] = acc / p_scale / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(dtype)
+
+
 def kernel_takes(head_dim: int) -> bool:
     """The kernel's shape rule: the head dimension is a multiple of 8 and at
     most 256 (any ``sq`` and ``sk``: ragged tiles are masked)."""
@@ -86,8 +140,9 @@ def _kernel_entry():
 
 
 def _vector_ready(t: torch.Tensor) -> bool:
-    """True when the kernel's 16-byte loads may read ``t`` in place: unit
-    stride along d, and the base and the b/s/h strides 16-byte aligned."""
+    """True when the kernel may read ``t`` in place (16-byte loads for f32,
+    TMA for bf16/f16): unit stride along d, and the base and the b/s/h
+    strides 16-byte aligned."""
     per16 = 16 // t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0 and
             all(t.stride(i) % per16 == 0 for i in range(3)))

@@ -20,6 +20,7 @@ from nnstreamer_tpu.ops.flash_attention import (
 from nnstreamer_tpu_torch.ops import LAUNCHES, reset_launches
 from nnstreamer_tpu_torch.ops.flash_attention import (
     attention_reference,
+    attention_tiled_reference,
     flash_attention,
     kernel_takes,
 )
@@ -36,6 +37,20 @@ TILEABLE = [((2, 256, 2, 32), (2, 256, 2, 32)),
 RAGGED = [((2, 100, 2, 24), (2, 100, 2, 24)),
           ((1, 77, 3, 64), (1, 77, 3, 64))]
 CROSS = ((1, 64, 2, 64), (1, 200, 2, 64))  # sq != sk, non-causal
+#: bf16/f16 bounds of chip_smoke.py: atol = rtol, and the share of
+#: elements more than one ulp from the plain version's
+LOW_TOL = 1e-2
+ULP_SHARE_MAX = 1e-3
+#: (q shape, k shape, causal) of the tiled model's checks: ragged tiles,
+#: d = 24 and 32, several q and k tiles, sq != sk
+TILED_CASES = [((2, 100, 2, 24), (2, 100, 2, 24), True),
+               ((2, 100, 2, 24), (2, 100, 2, 24), False),
+               ((1, 77, 3, 64), (1, 77, 3, 64), True),
+               ((2, 256, 2, 32), (2, 256, 2, 32), True),
+               ((1, 64, 8, 64), (1, 64, 8, 64), True),
+               (CROSS[0], CROSS[1], False)]
+LOW_DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
+              "float16": (torch.float16, jnp.float16)}
 
 
 def _qkv(qshape, kshape, seed=0):
@@ -160,6 +175,68 @@ def test_bad_arguments_raise():
         flash_attention(q, k, v, True, 64)
 
 
+def _share_over_one_ulp(a: np.ndarray, b: np.ndarray) -> float:
+    """Share of elements of two 16-bit float arrays more than one ulp
+    apart, by their bit patterns."""
+    ia = a.view(np.int16).astype(np.int32)
+    ib = b.view(np.int16).astype(np.int32)
+    return float(np.mean(np.abs(ia - ib) > 1))
+
+
+def _low_precision_case(qshape, kshape, causal, dtype_name, **kw):
+    """The tiled model and the JAX package's plain attention on the same
+    16-bit inputs: (model bits, JAX bits, model as f32, JAX as f32)."""
+    tdt, jdt = LOW_DTYPES[dtype_name]
+    q, k, v = _qkv(qshape, kshape, seed=6)
+    ref = np.asarray(jax_reference(*(a.astype(jdt) for a in _jnp(q, k, v)),
+                                   causal=causal))
+    got = attention_tiled_reference(*(t.to(tdt) for t in _torch(q, k, v)),
+                                    causal=causal, **kw)
+    assert got.dtype == tdt and tuple(got.shape) == qshape
+    got_bits = got.view(torch.int16).numpy()
+    ref_bits = ref.view(np.int16)
+    return (got_bits, ref_bits, got.float().numpy(),
+            ref.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype_name", sorted(LOW_DTYPES))
+@pytest.mark.parametrize("qshape,kshape,causal", TILED_CASES)
+def test_tiled_model_with_split_p_matches_jax(qshape, kshape, causal,
+                                              dtype_name):
+    """The bf16/f16 kernel's arithmetic (64-key tiles, scale after QK,
+    fp32 m and l, P split into two 16-bit halves) stays within chip_smoke's
+    bounds of the JAX package's plain attention."""
+    got_bits, ref_bits, got, ref = _low_precision_case(
+        qshape, kshape, causal, dtype_name)
+    np.testing.assert_allclose(got, ref, rtol=LOW_TOL, atol=LOW_TOL)
+    assert _share_over_one_ulp(got_bits, ref_bits) <= ULP_SHARE_MAX
+
+
+@pytest.mark.parametrize("dtype_name", sorted(LOW_DTYPES))
+@pytest.mark.parametrize("qshape,kshape,causal", TILED_CASES[1:4])
+def test_single_rounded_p_exceeds_the_ulp_share(qshape, kshape, causal,
+                                                dtype_name):
+    """Why the kernel splits P: P rounded once to the input type stays
+    within atol = rtol = 1e-2 but leaves far more than 1e-3 of the outputs
+    more than one ulp from plain attention."""
+    got_bits, ref_bits, got, ref = _low_precision_case(
+        qshape, kshape, causal, dtype_name, split_p=False)
+    np.testing.assert_allclose(got, ref, rtol=LOW_TOL, atol=LOW_TOL)
+    assert _share_over_one_ulp(got_bits, ref_bits) > 10 * ULP_SHARE_MAX
+
+
+def test_tiled_model_in_f32_is_the_plain_version():
+    """In f32 the split adds nothing (P - P_hi is 0) and the tile loop
+    agrees with the plain version to fp32 rounding."""
+    q, k, v = _torch(*_qkv((1, 150, 2, 40), (1, 150, 2, 40), seed=7))
+    for causal in (True, False):
+        got = attention_tiled_reference(q, k, v, causal=causal,
+                                        block_q=64, block_k=32)
+        ref = attention_reference(q, k, v, causal=causal)
+        torch.testing.assert_close(got, ref, rtol=REFERENCE_TOL,
+                                   atol=REFERENCE_TOL)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_the_plain_version_on_the_card():
     if not torch.cuda.is_available():
@@ -177,6 +254,29 @@ def test_kernel_matches_the_plain_version_on_the_card():
             assert LAUNCHES["flash_attention"] == 1
             torch.testing.assert_close(got, ref, rtol=KERNEL_TOL,
                                        atol=KERNEL_TOL)
+    # the bf16/f16 body (wgmma, split P) at every padded head dimension,
+    # then last q tiles of at most 64 rows behind more k tiles than its
+    # ring holds (one consumer warpgroup has no rows there)
+    low_cases = [((2, 200, 2, d),) * 2 + (causal,)
+                 for d in (24, 64, 128, 256) for causal in (True, False)]
+    low_cases += [((1, 320, 2, 64),) * 2 + (True,),
+                  ((2, 300, 2, 128),) * 2 + (True,),
+                  ((1, 64, 2, 64), (1, 512, 2, 64), False)]
+    for qshape, kshape, causal in low_cases:
+        for dtype_name in sorted(LOW_DTYPES):
+            dtype = LOW_DTYPES[dtype_name][0]
+            q, k, v = (t.cuda().to(dtype) for t in _torch(
+                *_qkv(qshape, kshape, seed=qshape[-1])))
+            reset_launches()
+            got = flash_attention(q, k, v, causal=causal)
+            ref = attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert LAUNCHES["flash_attention"] == 1
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       rtol=LOW_TOL, atol=LOW_TOL)
+            assert _share_over_one_ulp(
+                got.view(torch.int16).cpu().numpy(),
+                ref.view(torch.int16).cpu().numpy()) <= ULP_SHARE_MAX
 
 
 def _needs_card():
