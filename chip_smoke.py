@@ -32,9 +32,13 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   224×224×3 uint8 frames, MobileNetV2 width 1.0, 1001 classes, bfloat16
   weights made from a seed; kernel B1 runs once per frame.
 
-Kernel B3 (int8 quantize, nearest and dithered) is held bit for bit
-against its plain versions, for every input type, on misaligned views and
-for byte-identical codec blobs, and its dither is checked unbiased.
+Kernel B1 is held bit for bit against its plain version on both sides
+of its launch plan's switch from 4 to 16 elements a thread. Kernel B3
+(int8 quantize, nearest and dithered) is held bit for bit against its
+plain versions, for every input type, on misaligned views, on both sides
+of 64 KB and of what its cooperative grid keeps on chip, and for
+byte-identical codec blobs, and its dither is checked unbiased. A trace
+shows that one call of either at the frame runs one device operation.
 
 Each phase prints one JSON line; the script exits non-zero at the first
 failed check, and prints the ``{"ok": true, ...}`` line last only when
@@ -130,7 +134,10 @@ QUANT_SEEDS = (0, 1, 12345, 2 ** 40 + 7)
 #: contiguous views of a buffer offset by this many elements (base not
 #: 16-byte aligned): the kernel's scalar path
 QUANT_OFFSETS = (1, 3, 5)
-QUANT_TIMED = [(1, IMAGE, IMAGE, 3), (4096, 4096)]   # f32
+#: f32 shapes timed: the frame and 2**20 + 3 (all of x kept on chip),
+#: 4096 x 4096 (x past the shared memory: read twice) and 4099 (a small
+#: tensor, where the grid barrier sets the time)
+QUANT_TIMED = [(1, IMAGE, IMAGE, 3), (2 ** 20 + 3,), (4096, 4096), (4099,)]
 DITHER_ERR_MAX = 1.01      # |dequant - x| <= this x scale (tests/test_ops.py:89)
 BIAS_ELEMENTS = 2 ** 20    # elements at 0.3 scale in the unbiasedness check
 BIAS_TOL = 0.01            # |mean(q) - 0.3| over them, dithered
@@ -249,14 +256,28 @@ def _bits(t):
 def phase_normalize():
     import torch
 
+    from nnstreamer_tpu_torch.ops import _build
     from nnstreamer_tpu_torch.ops import preprocess as pp
 
     dev = torch.device("cuda:0")
+    sms = _build.sm_count(0)
     gen = torch.Generator(device="cpu").manual_seed(0)
+    # the launch plan's switch from 4 to 16 elements a thread, and past it
+    # with a ragged tail
+    switch = int(4 * pp.THREADS * pp.WAVE_BLOCKS_PER_SM * sms *
+                 pp.PASSES_OF_4_MAX)
     shapes = [(224, 224, 3), (8, 224, 224, 3), (1,), (15,), (17,),
-              (10 ** 6 + 3,)]
+              (10 ** 6 + 3,), (switch,), (switch + 17,)]
     outs = [torch.float32, torch.bfloat16, torch.float16]
     chains = {"transform": TRANSFORM_CHAIN, "normalize_u8": NORMALIZE_U8_CHAIN}
+    frame_plan = pp.normalize_plan(IMAGE * IMAGE * 3, True, sms)
+    check(frame_plan.blocks >= sms,
+          f"normalize plan at the frame: {frame_plan} has fewer blocks than "
+          f"the card's {sms} SMs")
+    check([pp.normalize_plan(n, True, sms).ept
+           for n in (switch, switch + 17)] == [4, 16],
+          "the plan does not switch to 16 elements a thread at "
+          f"{switch} elements")
     cases = 0
     max_abs_err = 0.0
     for shape in shapes:
@@ -288,14 +309,29 @@ def phase_normalize():
                                     f"plain version (max abs err {err})")
                         cases += 1
 
-    # times at the main path's shape: one 224x224x3 uint8 frame -> float32
-    x = torch.randint(0, 256, (1, IMAGE, IMAGE, 3), generator=gen,
+    # signed zeros: 0.0 and -0.0 are equal keys to Python, but x / -0.0 is
+    # -inf where x / 0.0 is +inf (x > 0 here, so no NaN)
+    x = torch.randint(1, 256, (IMAGE, IMAGE, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
-    x8 = torch.randint(0, 256, (8, IMAGE, IMAGE, 3), generator=gen,
-                       dtype=torch.uint8).to(dev)
+    for ops in ([("div", 0.0)], [("div", -0.0)], [("mul", -0.0)],
+                [("add", -0.0), ("mul", -1.0)]):
+        y = pp.normalize_chain(x, ops, torch.float32)
+        ref = pp.normalize_chain_reference(x, ops, torch.float32)
+        check(torch.equal(_bits(y), _bits(ref)),
+              f"normalize_chain {ops}: not bit-identical to the plain "
+              "version")
+        cases += 1
+
+    # times at the main path's shape (one 224x224x3 uint8 frame -> float32),
+    # at 8 frames and at 10**6 + 3 elements
+    timed_shapes = {"": (1, IMAGE, IMAGE, 3), "batch8_": (8, IMAGE, IMAGE, 3),
+                    "big_": (10 ** 6 + 3,)}
     times = {}
     timed = {}
-    for tag, xin in (("", x), ("batch8_", x8)):
+    for tag, shape in timed_shapes.items():
+        xin = torch.randint(0, 256, shape, generator=gen,
+                            dtype=torch.uint8).to(dev)
+
         def kernel(xin=xin):
             return pp.normalize_chain(xin, TRANSFORM_CHAIN, torch.float32)
 
@@ -307,17 +343,20 @@ def phase_normalize():
         # gets, host overhead included
         times[f"{tag}ms"] = cuda_time_ms(kernel)
         times[f"{tag}plain_ms"] = cuda_time_ms(plain)
+        n = xin.numel()
+        bytes_ms = n * (1 + 4) / HBM_BYTES_PER_S * 1e3  # u8 in, f32 out
+        ops_ms = n * len(TRANSFORM_CHAIN) / FP32_FLOPS * 1e3
+        times[f"{tag}bound_ms"] = max(bytes_ms, ops_ms)
+        times[f"{tag}bound_by"] = "bytes" if bytes_ms >= ops_ms \
+            else "operations"
+        times[f"{tag}plan"] = pp.normalize_plan(
+            n, xin.data_ptr() % 16 == 0, sms)._asdict()
         timed[tag] = (kernel, plain)
-    bytes_moved = x.numel() * (1 + 4)      # uint8 in once, float32 out once
-    flops = x.numel() * len(TRANSFORM_CHAIN)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
+    n = IMAGE * IMAGE * 3
     result = {
         "cases": cases, "bit_identical": True, "max_abs_err": max_abs_err,
-        "bytes": bytes_moved, "flops": flops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "batch8_bound_ms": 8 * max(bytes_ms, ops_ms), **times,
+        "bytes": n * (1 + 4), "flops": n * len(TRANSFORM_CHAIN),
+        "sms": sms, "plan_switch_elements": switch, **times,
     }
     emit({"phase": "normalize_chain", **result})
     return result, timed
@@ -335,6 +374,46 @@ def phase_device_times(name: str, timed) -> None:
         for prefix, fn in fns.items():
             out[f"{tag}{prefix}device_ms"] = device_time_ms(fn, launches)
     emit({"phase": f"{name}_device_time", **out})
+    return out
+
+
+def device_ops_per_call(fn, calls: int = 20) -> dict:
+    """Device operations (kernels, memsets, copies) that one call of ``fn``
+    runs, by name, from a ``torch.profiler`` trace of ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ops[ev.name] = ops.get(ev.name, 0) + 1
+    return {name: count / calls for name, count in ops.items()}
+
+
+def phase_one_launch(b1_frame, b3_frame) -> None:
+    """One B1 call and one B3 call at the frame each run exactly one
+    device operation: the trace of 20 calls holds one kernel's name and
+    nothing else (no memset, no copy), at most once a call. The profiler
+    may drop an event at the start of its window, so the count is held
+    to between 0.9 and 1 a call."""
+    out = {}
+    for name, fn in (("normalize_chain", b1_frame),
+                     ("quantize_int8", b3_frame)):
+        ops = device_ops_per_call(fn)
+        out[name] = ops
+        kernels = [op for op, per_call in ops.items()
+                   if "mem" not in op.lower() and 0.9 <= per_call <= 1.0]
+        check(len(ops) == 1 and len(kernels) == 1,
+              f"one {name} call at the frame ran device operations {ops}, "
+              "not one kernel")
+    emit({"phase": "one_launch", "device_ops_per_call": out})
 
 
 # -- phase: kernel B2 against its plain version -----------------------------
@@ -550,7 +629,7 @@ def quantize_bound(n: int, elem_bytes: int) -> dict:
     """Bytes and the least time of one quantize call on this card: x read
     once, q and the scale written once, over the HBM rate (the n compares
     and multiplies are far below the f32 rate). ``two_pass_bytes`` is what
-    the kernel's two passes move, x read twice."""
+    a kernel that cannot keep x on chip moves: x read twice."""
     nbytes = n * elem_bytes + n + 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * n / FP32_FLOPS * 1e3
@@ -566,6 +645,7 @@ def phase_quantize():
     import torch
 
     from nnstreamer_tpu_torch.elements.quant import quant_encode
+    from nnstreamer_tpu_torch.ops import _build
     from nnstreamer_tpu_torch.ops import quantize as qz
     from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
 
@@ -614,6 +694,32 @@ def phase_quantize():
     for shape in shapes:
         for dtype in dtypes:
             held(_quant_input(shape, dtype, gen), f"{shape} {dtype}")
+
+    # small tensors at 64 KB of x minus and plus one 16-element vector (f32,
+    # f64 and uint8, also at a misaligned view), and just past what the
+    # kernel keeps on chip (f32; also at a misaligned view)
+    sms = _build.sm_count(0)
+    plans = {}
+    for dtype in (torch.float32, torch.float64, torch.uint8):
+        size = torch.empty((), dtype=dtype).element_size()
+        small = 64 * 1024 // size
+        for n in (small - 16, small, small + 16):
+            held(_quant_input((n,), dtype, gen), f"({n},) {dtype}")
+        base = _quant_input((small + 1,), dtype, gen)
+        held(base[1:], f"({small},) {dtype} view at offset 1")
+    over = sms * qz.kept_per_block(4) + 16
+    plan = qz.quantize_plan(over, 4, sms)
+    check(plan.kept == 0,
+          f"quantize plan for {over} f32 keeps x on chip: {plan}")
+    held(_quant_input((over,), torch.float32, gen), f"({over},) f32")
+    base = _quant_input((over + 3,), torch.float32, gen)
+    held(base[3:], f"({over},) f32 view at offset 3")
+    plans[f"{over}xtorch.float32"] = plan._asdict()
+    # the f32 frame: all SMs, x staged once from HBM
+    frame_plan = qz.quantize_plan(IMAGE * IMAGE * 3, 4, sms)
+    check(frame_plan.blocks >= sms - 4 and frame_plan.kept == frame_plan.chunk,
+          f"the f32 frame's plan: {frame_plan}")
+
     for dtype in (torch.float32, torch.bfloat16, torch.uint8):
         n = IMAGE * IMAGE * 3
         for offset in QUANT_OFFSETS:
@@ -694,7 +800,9 @@ def phase_quantize():
             return qz.quantize_dither_reference(x, 7)
 
         tag = "x".join(str(d) for d in shape)
-        times[tag] = {"ms": cuda_time_ms(kernel),
+        times[tag] = {"plan": qz.quantize_plan(x.numel(), 4,
+                                               sms)._asdict(),
+                      "ms": cuda_time_ms(kernel),
                       "dither_ms": cuda_time_ms(dither),
                       "plain_ms": cuda_time_ms(plain),
                       "dither_plain_ms": cuda_time_ms(plain_dither,
@@ -709,7 +817,7 @@ def phase_quantize():
               "dither_mean_at_0.3": bias, "nearest_mean_at_0.3": nearest_mean,
               "encode_frames_byte_identical": ENCODE_FRAMES,
               "non_finite_cases": len(QUANT_NON_FINITE),
-              "timed_f32": times}
+              "plans": plans, "timed_f32": times}
     emit({"phase": "quantize", **result})
     return result, timed
 
@@ -1399,16 +1507,18 @@ def main() -> int:
     offload = phase_query_offload(power)
     pipe = phase_pipeline(power)  # profiles the flagship at its end
     profile_lm(lm_engine)
-    phase_device_times("normalize_chain", {
+    dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
         for tag, (kernel, plain) in timed_b1.items()})
-    phase_device_times("flash_attention", timed_b2)
-    phase_device_times("quantize_int8", timed_b3)
+    dev_b2 = phase_device_times("flash_attention", timed_b2)
+    dev_b3 = phase_device_times("quantize_int8", timed_b3)
+    frame_tag = "x".join(str(n) for n in QUANT_TIMED[0])
+    phase_one_launch(timed_b1[""][0], timed_b3[f"{frame_tag}_"][""])
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
-    prefill = b2["timed_bf16_causal"]["x".join(
-        str(n) for n in FLASH_TIMED[0])]
-    frame_q = b3["timed_f32"]["x".join(str(n) for n in QUANT_TIMED[0])]
+    prefill_tag = "x".join(str(n) for n in FLASH_TIMED[0])
+    prefill = b2["timed_bf16_causal"][prefill_tag]
+    frame_q = b3["timed_f32"][frame_tag]
     emit({"kernels": [{
         "name": "normalize_chain",
         "route": "cuda",
@@ -1417,6 +1527,7 @@ def main() -> int:
         "launches": pipe["launches"]["normalize_chain"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"],
+        "device_ms": dev_b1["device_ms"],
         "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"],
@@ -1429,6 +1540,7 @@ def main() -> int:
         "launches": lm["launches"]["flash_attention"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
+        "device_ms": dev_b2[f"{prefill_tag}_device_ms"],
         "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"],
         "bound_by": prefill["bound_by"],
@@ -1445,6 +1557,7 @@ def main() -> int:
         "launches": offload["launches"]["quantize_int8"],
         "max_abs_err": b3["max_abs_err"],
         "ms": frame_q["ms"],
+        "device_ms": dev_b3[f"{frame_tag}_device_ms"],
         "dither_ms": frame_q["dither_ms"],
         "dither_plain_ms": frame_q["dither_plain_ms"],
         "plain_ms": frame_q["plain_ms"],

@@ -12,12 +12,29 @@
 // so the result matches the per-op PyTorch version bit for bit; do not
 // build this file with --use_fast_math.
 //
-// Bound: memory. At 224x224x3 one frame is 150,528 B in and 602,112 B out
-// (f32), well under a microsecond of HBM time, so launch latency sets the
-// time. Design: each thread loads 16 input elements as 16-byte vectors and
-// writes 16 outputs with 16-byte stores, over a grid-stride loop of 256
-// threads per block; a scalar loop handles the ragged tail, and the whole
-// array when either pointer is not 16-byte aligned. No padding is needed.
+// Bound: memory. Each byte is read or written once and there is no
+// product, so neither TMA nor the tensor cores have anything to do here.
+// At 224x224x3 one frame is 150,528 B in and 602,112 B out (f32): 0.000225
+// ms at 3.35 TB/s. That much fits in flight at once, so the frame's real
+// floor is one launch plus one HBM round trip, a few microseconds.
+//
+// Design: the wrapper (ops/preprocess.py::normalize_plan) picks the elements
+// per thread (EPT) and the grid from n, so that the card is full at every
+// size:
+//   - EPT = 4 while the n / 4 vectors take at most 1.5 passes of one wave
+//     (8 blocks of 256 per SM; PASSES_OF_4_MAX in the wrapper), that is up
+//     to 1,622,016 elements on 132 SMs: at the frame 37,632 threads, 147
+//     blocks (one 4-byte uint8 load and one 16-byte f32 store, or 8 bytes
+//     for bf16/f16); at 8 frames one wave of 1,056 blocks over 1.14 passes;
+//   - EPT = 16 above that, in a grid-stride loop over one such wave: each
+//     thread keeps a 16-byte load (64 bytes for f32 in) in flight, some
+//     4 MB across the card, more than the ~2.3 MB that cover HBM latency
+//     (3.35 TB/s x ~0.7 us);
+//   - EPT = 1 when x is not 16-byte aligned (a view into a larger buffer):
+//     scalar loads and stores over the same grid-stride loop.
+// The elements past the last whole vector take the EPT = 1 loop. The op
+// switch runs once per op for a thread's EPT elements, outside the element
+// loop; each element still sees the same ops in the same order.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -25,6 +42,7 @@
 #include <stdint.h>
 
 #define NNS_CHAIN_MAX 8
+#define NNS_THREADS 256
 
 // opcodes shared with nnstreamer_tpu_torch/ops/preprocess.py
 enum { OP_ADD = 0, OP_SUB = 1, OP_MUL = 2, OP_DIV = 3 };
@@ -37,148 +55,149 @@ struct NnsChain {
   float val[NNS_CHAIN_MAX];
 };
 
-__device__ __forceinline__ float apply_chain(const NnsChain& c, float v) {
-#pragma unroll
-  for (int k = 0; k < NNS_CHAIN_MAX; ++k) {
-    if (k >= c.n) break;
+template <int EPT>
+__device__ __forceinline__ void apply_chain(const NnsChain& c,
+                                            float (&f)[EPT]) {
+  for (int k = 0; k < c.n; ++k) {
     const float a = c.val[k];
     switch (c.op[k]) {
-      case OP_ADD: v = __fadd_rn(v, a); break;
-      case OP_SUB: v = __fsub_rn(v, a); break;
-      case OP_MUL: v = __fmul_rn(v, a); break;
-      default: v = __fdiv_rn(v, a); break;
+      case OP_ADD:
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) f[i] = __fadd_rn(f[i], a);
+        break;
+      case OP_SUB:
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) f[i] = __fsub_rn(f[i], a);
+        break;
+      case OP_MUL:
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) f[i] = __fmul_rn(f[i], a);
+        break;
+      default:
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) f[i] = __fdiv_rn(f[i], a);
+        break;
     }
   }
-  return v;
 }
 
-// -- 16-element vector loads --------------------------------------------
-__device__ __forceinline__ void load16(const uint8_t* p, float (&f)[16]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    f[i] = static_cast<float>((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
-  }
-}
+// -- EPT elements as whole words: B bytes as `count` words of `type` --------
+template <int B> struct Word { using type = uint4; static constexpr int count = B / 16; };
+template <> struct Word<8> { using type = uint2; static constexpr int count = 1; };
+template <> struct Word<4> { using type = unsigned; static constexpr int count = 1; };
+template <> struct Word<2> { using type = unsigned short; static constexpr int count = 1; };
+template <> struct Word<1> { using type = unsigned char; static constexpr int count = 1; };
 
-__device__ __forceinline__ void load16(const float* p, float (&f)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 q = reinterpret_cast<const float4*>(p)[j];
-    f[4 * j] = q.x;
-    f[4 * j + 1] = q.y;
-    f[4 * j + 2] = q.z;
-    f[4 * j + 3] = q.w;
-  }
-}
-
-// -- 16-element vector stores -------------------------------------------
-__device__ __forceinline__ void store16(float* p, const float (&f)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    reinterpret_cast<float4*>(p)[j] =
-        make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16, float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack2(__half, float a, float b) {
-  const __half2 h = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-template <typename H>
-__device__ __forceinline__ void store16(H* p, const float (&f)[16]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    uint4 o;
-    o.x = pack2(H(), f[8 * j], f[8 * j + 1]);
-    o.y = pack2(H(), f[8 * j + 2], f[8 * j + 3]);
-    o.z = pack2(H(), f[8 * j + 4], f[8 * j + 5]);
-    o.w = pack2(H(), f[8 * j + 6], f[8 * j + 7]);
-    reinterpret_cast<uint4*>(p)[j] = o;
-  }
-}
-
-// -- scalar conversions ---------------------------------------------------
-__device__ __forceinline__ float to_f32(uint8_t v) {
-  return static_cast<float>(v);
-}
+__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+__device__ __forceinline__ void from_f32(float v, float* o) { *o = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* o) {
+  *o = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ void put(__half* p, float v) {
-  *p = __float2half_rn(v);
+__device__ __forceinline__ void from_f32(float v, __half* o) {
+  *o = __float2half_rn(v);
 }
 
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(256)
+template <int EPT, typename T>
+__device__ __forceinline__ void load(const T* p, float (&f)[EPT]) {
+  using W = Word<EPT * sizeof(T)>;
+  alignas(16) T e[EPT];
+  auto* w = reinterpret_cast<typename W::type*>(e);
+#pragma unroll
+  for (int j = 0; j < W::count; ++j) {
+    w[j] = reinterpret_cast<const typename W::type*>(p)[j];
+  }
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) f[i] = to_f32(e[i]);
+}
+
+template <int EPT, typename T>
+__device__ __forceinline__ void store(T* p, const float (&f)[EPT]) {
+  using W = Word<EPT * sizeof(T)>;
+  alignas(16) T e[EPT];
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) from_f32(f[i], &e[i]);
+  const auto* w = reinterpret_cast<const typename W::type*>(e);
+#pragma unroll
+  for (int j = 0; j < W::count; ++j) {
+    reinterpret_cast<typename W::type*>(p)[j] = w[j];
+  }
+}
+
+template <typename TIn, typename TOut, int EPT>
+__global__ void __launch_bounds__(NNS_THREADS)
 normalize_chain_kernel(const TIn* __restrict__ x, TOut* __restrict__ y,
-                       long long n, long long nvec, NnsChain chain) {
+                       long long n, NnsChain chain) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nvec = n / EPT;
   for (long long v = tid; v < nvec; v += stride) {
-    float f[16];
-    load16(x + 16 * v, f);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = apply_chain(chain, f[i]);
-    store16(y + 16 * v, f);
+    float f[EPT];
+    load<EPT>(x + EPT * v, f);
+    apply_chain<EPT>(chain, f);
+    store<EPT>(y + EPT * v, f);
   }
-  for (long long i = 16 * nvec + tid; i < n; i += stride) {
-    put(y + i, apply_chain(chain, to_f32(x[i])));
+  if (EPT > 1) {
+    for (long long i = EPT * nvec + tid; i < n; i += stride) {
+      float f[1];
+      load<1>(x + i, f);
+      apply_chain<1>(chain, f);
+      store<1>(y + i, f);
+    }
   }
 }
 
 template <typename TIn, typename TOut>
-static void launch(const void* x, void* y, long long n, bool vectorized,
-                   const NnsChain& chain, cudaStream_t stream) {
-  const int threads = 256;
-  const long long nvec = vectorized ? n / 16 : 0;
-  const long long tail = n - 16 * nvec;
-  const long long work = nvec > tail ? nvec : tail;
-  long long blocks = (work + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;  // grid-stride covers the rest
-  if (blocks < 1) blocks = 1;
-  normalize_chain_kernel<TIn, TOut>
-      <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          static_cast<const TIn*>(x), static_cast<TOut*>(y), n, nvec, chain);
-}
-
-// Plain C entry point (loaded with ctypes). Returns a cudaError_t code:
-// 0 on a launch that was accepted, cudaErrorInvalidValue for codes this
-// file does not know.
-extern "C" int nns_normalize_chain(const void* x, int in_code, void* y,
-                                   int out_code, long long n,
-                                   const NnsChain* chain, int vectorized,
-                                   void* stream) {
-  if (n <= 0) return 0;
-  if (chain == nullptr || chain->n < 0 || chain->n > NNS_CHAIN_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const NnsChain c = *chain;
-  const bool vec = vectorized != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_code == DT_U8) {
-    if (out_code == DT_F32) launch<uint8_t, float>(x, y, n, vec, c, s);
-    else if (out_code == DT_BF16) launch<uint8_t, __nv_bfloat16>(x, y, n, vec, c, s);
-    else if (out_code == DT_F16) launch<uint8_t, __half>(x, y, n, vec, c, s);
-    else return static_cast<int>(cudaErrorInvalidValue);
-  } else if (in_code == DT_F32) {
-    if (out_code == DT_F32) launch<float, float>(x, y, n, vec, c, s);
-    else if (out_code == DT_BF16) launch<float, __nv_bfloat16>(x, y, n, vec, c, s);
-    else if (out_code == DT_F16) launch<float, __half>(x, y, n, vec, c, s);
-    else return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+static int launch(const void* x, void* y, long long n, int ept, int blocks,
+                  const NnsChain& chain, cudaStream_t stream) {
+  const TIn* xt = static_cast<const TIn*>(x);
+  TOut* yt = static_cast<TOut*>(y);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  switch (ept) {
+    case 1:
+      normalize_chain_kernel<TIn, TOut, 1><<<grid, NNS_THREADS, 0, stream>>>(
+          xt, yt, n, chain);
+      break;
+    case 4:
+      normalize_chain_kernel<TIn, TOut, 4><<<grid, NNS_THREADS, 0, stream>>>(
+          xt, yt, n, chain);
+      break;
+    case 16:
+      normalize_chain_kernel<TIn, TOut, 16><<<grid, NNS_THREADS, 0, stream>>>(
+          xt, yt, n, chain);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point (loaded with ctypes). ept and blocks are the launch
+// plan (elements per thread: 1, or 4 or 16 with x and y 16-byte aligned;
+// blocks of 256 threads). Returns a cudaError_t code: 0 on a launch that was
+// accepted, cudaErrorInvalidValue for codes or a plan this file does not
+// take.
+extern "C" int nns_normalize_chain(const void* x, int in_code, void* y,
+                                   int out_code, long long n,
+                                   const NnsChain* chain, int ept, int blocks,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  if (chain == nullptr || chain->n < 0 || chain->n > NNS_CHAIN_MAX ||
+      blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const NnsChain& c = *chain;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_code == DT_U8) {
+    if (out_code == DT_F32) return launch<uint8_t, float>(x, y, n, ept, blocks, c, s);
+    if (out_code == DT_BF16) return launch<uint8_t, __nv_bfloat16>(x, y, n, ept, blocks, c, s);
+    if (out_code == DT_F16) return launch<uint8_t, __half>(x, y, n, ept, blocks, c, s);
+  } else if (in_code == DT_F32) {
+    if (out_code == DT_F32) return launch<float, float>(x, y, n, ept, blocks, c, s);
+    if (out_code == DT_BF16) return launch<float, __nv_bfloat16>(x, y, n, ept, blocks, c, s);
+    if (out_code == DT_F16) return launch<float, __half>(x, y, n, ept, blocks, c, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

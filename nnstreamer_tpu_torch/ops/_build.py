@@ -10,12 +10,15 @@ downloaded: only the sources in the package are compiled.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds (if needed) and loads one library.
+``call_on_stream`` calls a loaded entry point on a device's current stream,
+and ``sm_count`` gives the card's SM count for the wrappers' launch plans.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -24,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -130,3 +135,22 @@ def load(name: str) -> ctypes.CDLL:
             path = build_all([name])[name]
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def call_on_stream(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with the current stream of ``device``, which
+    is made the current device only when it is not already (the kernels
+    launch on the calling thread's current device). The raw stream handle
+    comes from the call Triton's launcher uses, without building a
+    ``torch.cuda.Stream`` on every launch."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -19,10 +19,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+import struct
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401 (re-exported)
     LAUNCHES,
     count_launch,
@@ -68,16 +70,79 @@ def normalize_chain_reference(x: torch.Tensor,
     return y.to(out_dtype)
 
 
+def build_chain(ops: Sequence[Tuple[str, float]]) -> _Chain:
+    """The kernel's chain struct for ``ops`` (checked here)."""
+    _check_ops(ops)
+    chain = _Chain()
+    chain.n = len(ops)
+    for k, (op, val) in enumerate(ops):
+        chain.op[k] = OPCODES[op]
+        chain.val[k] = float(val)
+    return chain
+
+
+def _cached_chain(ops: Sequence[Tuple[str, float]]) -> Tuple[_Chain, int]:
+    """The chain struct of ``ops``, built and checked once, and its
+    address (the struct stays alive in the cache). The cache is keyed by
+    each value's bits: -0.0 equals 0.0 and has its hash, but a chain that
+    divides by it gives -inf where the other gives +inf."""
+    return _chain_by_bits(tuple((op, struct.pack("<d", val))
+                                for op, val in ops))
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_by_bits(key: Tuple[Tuple[str, bytes], ...]
+                   ) -> Tuple[_Chain, int]:
+    chain = build_chain([(op, struct.unpack("<d", bits)[0])
+                         for op, bits in key])
+    return chain, ctypes.addressof(chain)
+
+
+class NormalizePlan(NamedTuple):
+    """How the kernel covers n elements: vectors of ``ept`` elements (1, 4
+    or 16) over ``blocks`` blocks of ``threads``, in a grid-stride loop."""
+    ept: int
+    blocks: int
+    threads: int
+
+
+#: threads a block, and blocks an SM in one full wave (2048 threads an SM)
+THREADS = 256
+WAVE_BLOCKS_PER_SM = 8
+#: passes of one wave the grid-stride loop may take over 4-element vectors
+#: before the plan switches to 16-element ones (tools/plan_sweep.py on an
+#: H100: 4 a thread is faster at 8 frames, 1.14 passes; 16 from 2 passes
+#: on, where 4 a thread leaves the loads of a pass's threads too few)
+PASSES_OF_4_MAX = 1.5
+
+
+@functools.lru_cache(maxsize=1024)
+def normalize_plan(n: int, aligned: bool, sms: int = 132) -> NormalizePlan:
+    """Launch plan for ``n`` elements on a card of ``sms`` SMs: 4 elements
+    a thread while that takes at most ``PASSES_OF_4_MAX`` passes of one
+    wave (the 224x224x3 frame: 147 blocks), 16 above it, single elements
+    when x is not 16-byte aligned; at most one wave of blocks, the rest by
+    the grid-stride loop (see csrc/normalize.cu)."""
+    wave = sms * WAVE_BLOCKS_PER_SM
+    if not aligned:
+        ept = 1
+    elif n // 4 <= PASSES_OF_4_MAX * wave * THREADS:
+        ept = 4
+    else:
+        ept = 16
+    vectors = n // ept
+    return NormalizePlan(ept, max(1, min(wave, -(-vectors // THREADS))),
+                         THREADS)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_entry():
     """``nns_normalize_chain`` from the built library, with its C types
     declared (built at first use)."""
-    from nnstreamer_tpu_torch.ops import _build
-
     fn = _build.load("normalize").nns_normalize_chain
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,33 +152,31 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
     """Apply an ``(op, value)`` chain elementwise: ``x`` uint8 or float32
     (contiguous), result ``out_dtype`` (float32, bfloat16 or float16) of
     the same shape. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
-    _check_ops(ops)
-    if x.device.type == "cpu":
+    kernel. The chain struct is built once per ``ops`` and cached."""
+    device = x.device
+    if device.type == "cpu":
         return normalize_chain_reference(x, ops, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"normalize_chain: no kernel for device {x.device}")
-    if x.dtype not in IN_CODES:
+    if device.type != "cuda":
+        _check_ops(ops)
+        raise ValueError(f"normalize_chain: no kernel for device {device}")
+    _, chain_ptr = _cached_chain(ops)
+    in_code = IN_CODES.get(x.dtype)
+    if in_code is None:
         raise TypeError(f"normalize_chain: input must be uint8 or float32, "
                         f"got {x.dtype}")
-    if out_dtype not in OUT_CODES:
+    out_code = OUT_CODES.get(out_dtype)
+    if out_code is None:
         raise TypeError(f"normalize_chain: output must be float32, bfloat16 "
                         f"or float16, got {out_dtype}")
     if not x.is_contiguous():
         raise ValueError("normalize_chain: input must be contiguous")
-    fn = _kernel_entry()
-    chain = _Chain()
-    chain.n = len(ops)
-    for k, (op, val) in enumerate(ops):
-        chain.op[k] = OPCODES[op]
-        chain.val[k] = float(val)
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    vectorized = int(x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), IN_CODES[x.dtype], y.data_ptr(),
-                OUT_CODES[out_dtype], x.numel(), ctypes.addressof(chain),
-                vectorized, stream)
+    y = torch.empty(x.shape, dtype=out_dtype, device=device)
+    n = x.numel()
+    xp = x.data_ptr()
+    plan = normalize_plan(n, xp % 16 == 0, _build.sm_count(device.index))
+    rc = _build.call_on_stream(
+        _kernel_entry(), device, xp, in_code, y.data_ptr(), out_code, n,
+        chain_ptr, plan.ept, plan.blocks)
     if rc != 0:
         raise RuntimeError(f"normalize_chain: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -12,8 +12,11 @@ reduction the JAX wrapper runs outside them. Per-tensor absmax int8:
   + d), ±127)`` with a uniform dither ``d = int32(bits) * 2**-32`` in
   [-0.5, 0.5], so repeated quantization of a stream is unbiased.
 
-The CUDA kernel (``csrc/quantize.cu``) runs both passes, absmax and
-quantize, on the caller's stream with no host round trip. Its dither bits
+The CUDA kernel (``csrc/quantize.cu``) computes absmax, scale and q in one
+cooperative launch on the caller's stream: each block stages its slice of
+x in shared memory and the blocks meet at a grid barrier;
+:func:`quantize_plan` picks the slices. q and the scale are views of one
+allocation. Its dither bits
 come from Philox4x32-10 with key ``(seed lo, seed hi)`` and counter
 ``(i // 4 lo, i // 4 hi, 0, 0)`` — word ``i % 4`` for element ``i`` — so
 they depend on the element's index alone. The TPU seeds its core PRNG
@@ -38,10 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops._counts import count_launch
 
 #: dtype codes shared with csrc/quantize.cu
@@ -168,19 +172,115 @@ def quantize_dither_reference(x: torch.Tensor, seed: int = 0
     return _round_dithered(scaled, dither), scale.reshape(1)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_entry():
-    """``nns_quantize_int8`` from the built library, with its C types
-    declared (built at first use)."""
-    from nnstreamer_tpu_torch.ops import _build
+#: kernel geometry shared with csrc/quantize.cu: threads a block (512
+#: where each block keeps its slice on chip, 1024 where x is read twice and
+#: more loads in flight pay: tools/plan_sweep.py) and dynamic shared
+#: memory a block may take
+THREADS = 512
+THREADS_READ_TWICE = 1024
+SMEM_MAX = 224 * 1024
+#: q's byte offset in the output buffer (the scale sits at 0)
+Q_OFFSET = 16
 
-    fn = _build.load("quantize").nns_quantize_int8
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
-                   ctypes.c_void_p]
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+class QuantPlan(NamedTuple):
+    """How the kernel covers n elements: ``blocks`` blocks of ``threads``,
+    block b owning elements ``[b * chunk, min(n, (b + 1) * chunk))``
+    (``chunk`` a multiple of 16) and keeping the first ``kept`` of them in
+    ``smem`` bytes of shared memory; ``buffer`` bytes hold the scale, q
+    and one max word a block."""
+    blocks: int
+    threads: int
+    chunk: int
+    kept: int
+    smem: int
+    buffer: int
+
+
+def kept_per_block(elem_size: int, smem_max: int = SMEM_MAX) -> int:
+    """Elements of ``elem_size`` bytes a block can keep: 16 bytes of the
+    shared memory go to the shift that aligns the slice's bulk copy."""
+    return (smem_max - 16) // elem_size // 16 * 16
+
+
+def quantize_plan(n: int, elem_size: int, sms: int = 132,
+                  smem_max: int = SMEM_MAX) -> QuantPlan:
+    """Launch plan for ``n`` elements of ``elem_size`` bytes on a card of
+    ``sms`` SMs: one block an SM, each keeping its whole slice while
+    ``smem_max`` bytes hold it and none of it past that (see
+    csrc/quantize.cu)."""
+    chunk = _round16(-(-n // sms))
+    blocks = -(-n // chunk)
+    kept = chunk if chunk <= kept_per_block(elem_size, smem_max) else 0
+    return QuantPlan(blocks, THREADS if kept else THREADS_READ_TWICE,
+                     chunk, kept, kept * elem_size + 16,
+                     Q_OFFSET + _round16(n) + 4 * blocks)
+
+
+def block_slices(plan: QuantPlan, n: int) -> List[Tuple[int, int, int]]:
+    """``(start, kept_end, end)`` of each block's slice, as the kernel
+    computes them: ``[start, kept_end)`` in shared memory, the rest read
+    from device memory."""
+    out = []
+    for b in range(plan.blocks):
+        start = b * plan.chunk
+        end = min(n, start + plan.chunk)
+        out.append((start, start + min(end - start, plan.kept), end))
+    return out
+
+
+def _entry(name: str, argtypes):
+    """A C entry point of the built library with its C types declared
+    (built at first use)."""
+    fn = getattr(_build.load("quantize"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare_entry():
+    return _entry("nns_quantize_prepare", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)])
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_entry():
+    return _entry("nns_quantize_int8", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=1024)
+def device_plan(n: int, dtype: torch.dtype, dither: bool,
+                index: int) -> QuantPlan:
+    """The plan for ``n`` elements of ``dtype`` on CUDA device ``index``,
+    made once: the kernel is given its shared memory, and a plan with more
+    blocks than the card can hold at once (by the occupancy calculator)
+    raises."""
+    elem_size = torch.empty((), dtype=dtype).element_size()
+    sms = _build.sm_count(index)
+    plan = quantize_plan(n, elem_size, sms)
+    fit = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _prepare_entry()(IN_CODES[dtype], int(dither), plan.threads,
+                              plan.smem, ctypes.byref(fit))
+    if rc != 0:
+        raise RuntimeError(f"quantize_int8: preparing the kernel failed "
+                           f"with CUDA error {rc}")
+    if fit.value * sms < plan.blocks:
+        raise RuntimeError(
+            f"quantize_int8: the card cannot hold {plan.blocks} blocks with "
+            f"{plan.smem} B of shared memory each at once (occupancy "
+            f"{fit.value} an SM)")
+    return plan
 
 
 def quantize_int8(x: torch.Tensor, seed: int = 0,
@@ -192,32 +292,33 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
         raise ValueError(f"quantize_int8: force must be one of {FORCES}, "
                          f"got {force!r}")
     dither = force == "dither" or (force is None and x.device.type == "cuda")
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         if dither:
             return quantize_dither_reference(x, seed)
         return quantize_nearest_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_int8: no kernel for device {x.device}")
-    if x.dtype not in IN_CODES:
+    if device.type != "cuda":
+        raise ValueError(f"quantize_int8: no kernel for device {device}")
+    code = IN_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"quantize_int8: no kernel for {x.dtype} (takes "
                         f"{', '.join(str(d) for d in IN_CODES)})")
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return _empty_result(x)
     x = x.contiguous()
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty(1, dtype=torch.float32, device=x.device)
-    word = torch.empty(1, dtype=torch.int32, device=x.device)
-    # a contiguous view of a larger buffer may start off a 16-byte line:
-    # the kernel then takes its scalar path
-    vectorized = int(x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
-    fn = _kernel_entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), IN_CODES[x.dtype], x.numel(), q.data_ptr(),
-                scale.data_ptr(), word.data_ptr(), int(dither),
-                int(seed) & 0xFFFFFFFFFFFFFFFF, vectorized, stream)
+    plan = device_plan(n, x.dtype, dither, device.index)
+    buf = torch.empty(plan.buffer, dtype=torch.int8, device=device)
+    base = buf.data_ptr()
+    rc = _build.call_on_stream(
+        _kernel_entry(), device, x.data_ptr(), code, n, base + Q_OFFSET,
+        base, base + Q_OFFSET + _round16(n), int(dither),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, plan.blocks, plan.threads,
+        plan.chunk, plan.kept, plan.smem)
     if rc != 0:
         raise RuntimeError(f"quantize_int8: kernel launch failed with CUDA "
                            f"error {rc}")
     count_launch("quantize_int8")
-    return q, scale
+    # x is contiguous, so its strides are q's
+    return (buf.as_strided(x.shape, x.stride(), Q_OFFSET),
+            buf[:4].view(torch.float32))

@@ -7,6 +7,11 @@ kernel itself is held to the plain version on the card by
 ``chip_smoke.py`` and by the ``gpu``-marked test at the end of this file.
 """
 
+import ctypes
+import math
+import re
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ from nnstreamer_tpu.elements.transform import _TransformSpec as JaxSpec
 from nnstreamer_tpu.ops import normalize_u8 as jax_normalize_u8
 from nnstreamer_tpu_torch.elements import transform as port_transform
 from nnstreamer_tpu_torch.elements.transform import _TransformSpec, kernel_chain
+from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops import preprocess as pp
 
 FLAGSHIP = "typecast:float32,add:-127.5,div:127.5"
@@ -154,12 +160,140 @@ def test_plain_chain_divides_exactly():
     assert y.float().item() == 1.0 + 2.0 ** -6
 
 
+FRAME = 224 * 224 * 3
+#: the most elements the plan gives 4 at a time on an H100's 132 SMs
+SWITCH = int(4 * 256 * 8 * 132 * pp.PASSES_OF_4_MAX)
+
+
+def test_plan_fills_the_card_at_the_frame():
+    plan = pp.normalize_plan(FRAME, True, 132)
+    assert plan.ept == 4 and plan.threads == 256
+    assert plan.blocks >= 132
+
+
+@pytest.mark.parametrize("n,aligned,per_thread", [
+    (FRAME, True, 4), (8 * FRAME, True, 4), (10 ** 6 + 3, True, 4),
+    (SWITCH + 3, True, 4), (SWITCH + 4, True, 16), (17, True, 4),
+    (4096 * 4096, True, 16),
+    (FRAME, False, 1), (17, False, 1),
+])
+def test_plan_picks_elements_per_thread(n, aligned, per_thread):
+    plan = pp.normalize_plan(n, aligned, 132)
+    assert plan.ept == per_thread
+    assert 1 <= plan.blocks <= 132 * pp.WAVE_BLOCKS_PER_SM
+
+
+def _coverage(plan, n):
+    """How often each element is written by the kernel's loops for this
+    plan: vectors of ept elements over a grid-stride loop, then the rest
+    one by one over the same loop (csrc/normalize.cu)."""
+    counts = np.zeros(n, np.uint8)
+    stride = plan.blocks * plan.threads
+    tids = np.arange(stride, dtype=np.int64)
+    nvec = n // plan.ept
+    for k in range(-(-nvec // stride)):
+        v = tids + k * stride
+        v = v[v < nvec]
+        for j in range(plan.ept):
+            counts[plan.ept * v + j] += 1
+    if plan.ept > 1:
+        for k in range(-(-(n - plan.ept * nvec) // stride)):
+            i = plan.ept * nvec + tids + k * stride
+            counts[i[i < n]] += 1
+    return counts
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,aligned", [
+    (n, True) for n in (1, 3, 15, 17, 4099, FRAME, 2 ** 20 + 3, SWITCH,
+                        SWITCH + 17, 4096 * 4096)
+] + [(n, False) for n in (1, 3, 17, 4099, FRAME)])
+def test_plan_covers_every_element_once(n, aligned, sms):
+    counts = _coverage(pp.normalize_plan(n, aligned, sms), n)
+    assert counts.min() == 1 and counts.max() == 1
+
+
+@pytest.mark.parametrize("ops", [
+    [("add", -127.5), ("div", 127.5)], [("sub", 127.5), ("mul", 1 / 127.5)],
+    [("mul", 2.0)], [], [("add", 1.0)] * 8,
+])
+def test_cached_chain_equals_a_fresh_one(ops):
+    cached, addr = pp._cached_chain(tuple(ops))
+    fresh = pp.build_chain(ops)
+    assert cached.n == fresh.n == len(ops)
+    assert list(cached.op) == list(fresh.op)
+    assert list(cached.val) == list(fresh.val)
+    assert addr == ctypes.addressof(cached)
+    # a second call takes the cached struct: the chain is not rebuilt
+    again, addr2 = pp._cached_chain(tuple(ops))
+    assert again is cached and addr2 == addr
+
+
+def test_cached_chain_keeps_signed_zeros_apart():
+    """0.0 and -0.0 are equal and hash alike, but dividing by them gives
+    +inf and -inf: each gets a struct of its own, with its sign."""
+    pos, _ = pp._cached_chain([("div", 0.0)])
+    neg, _ = pp._cached_chain([("div", -0.0)])
+    assert pos is not neg
+    assert math.copysign(1.0, pos.val[0]) == 1.0
+    assert math.copysign(1.0, neg.val[0]) == -1.0
+    # the plain version the kernel is held to tells them apart
+    y = pp.normalize_chain_reference(torch.ones(2), [("div", -0.0)],
+                                     torch.float32)
+    assert torch.equal(y, torch.full((2,), -math.inf))
+
+
+def test_cached_chain_takes_lists_and_numpy_values():
+    chain, addr = pp._cached_chain([["add", np.float32(-127.5)],
+                                    ["div", 127.5]])
+    again, addr2 = pp._cached_chain((("add", -127.5), ("div", 127.5)))
+    assert again is chain and addr2 == addr
+    assert list(chain.val)[:2] == [-127.5, 127.5]
+
+
+def test_cached_chain_checks_once_and_refuses_bad_ops():
+    with pytest.raises(ValueError, match="unknown op"):
+        pp._cached_chain((("pow", 2.0),))
+    with pytest.raises(ValueError, match="at most 8"):
+        pp._cached_chain((("add", 1.0),) * 9)
+
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "unsigned long long": ctypes.c_ulonglong}
+
+
+def _declared_like_c(fn, source, name):
+    """Whether ``fn.argtypes`` match the parameters of the C entry point
+    ``name`` in ``csrc/<source>``, one by one (a pointer as any pointer
+    type)."""
+    text = (_build.SRC_DIR / source).read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+    want = []
+    for param in params.split(","):
+        ctype = " ".join(param.replace("const", "").split()[:-1])
+        want.append("ptr" if "*" in param else _C_TYPES[ctype])
+    got = ["ptr" if t is ctypes.c_void_p or hasattr(t, "contents") else t
+           for t in fn.argtypes]
+    return got == want
+
+
+def test_entry_point_declares_the_c_parameters(monkeypatch):
+    """The ctypes declaration follows csrc/normalize.cu: a missing or
+    extra argument would shift every later one at the launch."""
+    monkeypatch.setattr(_build, "load", lambda _: types.SimpleNamespace(
+        nns_normalize_chain=types.SimpleNamespace()))
+    assert _declared_like_c(pp._kernel_entry.__wrapped__(), "normalize.cu",
+                            "nns_normalize_chain")
+
+
 @pytest.mark.gpu
 def test_kernel_bit_identical_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     gen = torch.Generator().manual_seed(0)
-    for n in (1, 17, 224 * 224 * 3, 10 ** 6 + 3):
+    switch = int(4 * 256 * 8 * pp.PASSES_OF_4_MAX *
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    for n in (1, 17, 224 * 224 * 3, 10 ** 6 + 3, switch, switch + 17):
         for offset in (0, 1):
             base = torch.randint(0, 256, (n + offset,), generator=gen,
                                  dtype=torch.uint8).cuda()
@@ -170,3 +304,12 @@ def test_kernel_bit_identical_on_the_card():
                     y = pp.normalize_chain(x, ops, out_dtype)
                     ref = pp.normalize_chain_reference(x, ops, out_dtype)
                     assert torch.equal(y, ref)
+    # signed zeros: each chain takes its own struct from the cache, and
+    # x / -0.0 gives -inf where x / 0.0 gives +inf (x > 0: no NaN)
+    x = torch.randint(1, 256, (4099,), generator=gen,
+                      dtype=torch.uint8).cuda()
+    for ops in ([("div", 0.0)], [("div", -0.0)], [("mul", -0.0)],
+                [("add", -0.0), ("mul", -1.0)]):
+        y = pp.normalize_chain(x, ops, torch.float32)
+        ref = pp.normalize_chain_reference(x, ops, torch.float32)
+        assert torch.equal(y.view(torch.int32), ref.view(torch.int32)), ops

@@ -10,6 +10,10 @@ kernel is held to the plain versions on the card by ``chip_smoke.py`` and
 by the ``gpu``-marked test at the end of this file.
 """
 
+import ctypes
+import re
+import types
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from nnstreamer_tpu.ops import quantize as jq
-from nnstreamer_tpu_torch.ops import LAUNCHES, reset_launches
+from nnstreamer_tpu_torch.ops import LAUNCHES, _build, reset_launches
 from nnstreamer_tpu_torch.ops import quantize as qz
 
 #: numpy dtype of the JAX input → torch dtype of the port's input
@@ -179,6 +183,116 @@ def test_empty_input_and_bad_force():
         qz.quantize_int8(torch.ones(3), force="pallas")
 
 
+FRAME = 224 * 224 * 3
+#: what the kernel keeps on chip on an H100's 132 SMs, in f32
+ON_CHIP_F32 = 132 * qz.kept_per_block(4)
+
+
+def test_plan_frame_fills_the_card_with_x_on_chip():
+    plan = qz.quantize_plan(FRAME, 4)
+    assert 128 <= plan.blocks <= 132
+    assert plan.kept == plan.chunk  # x staged whole: read from HBM once
+    assert plan.smem <= qz.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,size,kept_all", [
+    (FRAME, 4, True), (FRAME, 8, True), (FRAME, 1, True),
+    (ON_CHIP_F32, 4, True), (ON_CHIP_F32 + 16, 4, False),
+    # by bytes, not elements: f32's capacity is past f64's and inside u8's
+    (ON_CHIP_F32, 8, False), (ON_CHIP_F32, 1, True), (ON_CHIP_F32, 2, True),
+    (132 * qz.kept_per_block(8), 8, True),
+    (132 * qz.kept_per_block(1) + 16, 1, False),
+    (2 ** 20 + 3, 4, True), (4096 * 4096, 4, False), (1, 4, True),
+])
+def test_plan_keeps_x_on_chip_by_bytes(n, size, kept_all):
+    plan = qz.quantize_plan(n, size)
+    assert plan.kept == (plan.chunk if kept_all else 0)
+
+
+def test_plan_follows_the_dtype_size():
+    """The device plan takes the dtype's element size: int64 and float64
+    take twice the room of float32."""
+    sizes = {d: torch.empty((), dtype=d).element_size() for d in qz.IN_CODES}
+    assert sizes[torch.float64] == sizes[torch.int64] == 8
+    kept = {d: qz.quantize_plan(ON_CHIP_F32, sizes[d]).kept > 0
+            for d in qz.IN_CODES}
+    assert kept[torch.float32] and kept[torch.int32]
+    assert not kept[torch.float64] and not kept[torch.int64]
+    assert kept[torch.uint8] and kept[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n,kept_all", [
+    (2 ** 20 + 3, True), (ON_CHIP_F32, True), (ON_CHIP_F32 + 16, False),
+    (4096 * 4096, False),
+])
+def test_plan_keeps_whole_slices_or_none(n, kept_all):
+    """While every slice fits in shared memory x is kept on chip and read
+    from HBM once; past that none of it is kept, x is read twice, and a
+    block runs more threads to keep more loads in flight."""
+    plan = qz.quantize_plan(n, 4)
+    assert plan.kept == (plan.chunk if kept_all else 0)
+    assert plan.kept <= qz.kept_per_block(4)
+    assert plan.threads == (qz.THREADS if kept_all
+                            else qz.THREADS_READ_TWICE)
+
+
+@pytest.mark.parametrize("sms,smem_max", [(132, qz.SMEM_MAX),
+                                          (114, 100 * 1024)])
+@pytest.mark.parametrize("size", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 3, 15, 17, 4099, 16368, 16400, FRAME,
+                               2 ** 20 + 3, "on-chip-16", "on-chip+16",
+                               4096 * 4096])
+def test_plan_slices_cover_every_element_once(n, size, sms, smem_max):
+    on_chip = sms * qz.kept_per_block(size, smem_max)
+    n = {"on-chip-16": on_chip - 16, "on-chip+16": on_chip + 16}.get(n, n)
+    plan = qz.quantize_plan(n, size, sms, smem_max)
+    slices = qz.block_slices(plan, n)
+    assert len(slices) == plan.blocks <= sms
+    end = 0
+    for start, kept_end, stop in slices:
+        assert start == end and start % 16 == 0  # 16-byte aligned slices
+        assert start < stop and start <= kept_end <= stop
+        assert kept_end == stop or (kept_end - start) % 16 == 0
+        end = stop
+    assert end == n
+    # a block's shared memory holds what it keeps, shifted by at most 15
+    # bytes to align the bulk copy of a misaligned view
+    assert plan.kept * size + 15 < plan.smem <= smem_max
+    assert plan.buffer >= qz.Q_OFFSET + n + 4 * plan.blocks
+    assert plan.threads in (qz.THREADS, qz.THREADS_READ_TWICE)
+
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "unsigned long long": ctypes.c_ulonglong}
+
+
+def _declared_like_c(fn, source, name):
+    """Whether ``fn.argtypes`` match the parameters of the C entry point
+    ``name`` in ``csrc/<source>``, one by one (a pointer as any pointer
+    type)."""
+    text = (_build.SRC_DIR / source).read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+    want = []
+    for param in params.split(","):
+        ctype = " ".join(param.replace("const", "").split()[:-1])
+        want.append("ptr" if "*" in param else _C_TYPES[ctype])
+    got = ["ptr" if t is ctypes.c_void_p or hasattr(t, "contents") else t
+           for t in fn.argtypes]
+    return got == want
+
+
+@pytest.mark.parametrize("name", ["nns_quantize_prepare",
+                                  "nns_quantize_int8"])
+def test_entry_points_declare_the_c_parameters(monkeypatch, name):
+    """The ctypes declarations follow csrc/quantize.cu: a missing or
+    extra argument would shift every later one at the launch."""
+    monkeypatch.setattr(_build, "load", lambda _: types.SimpleNamespace(
+        **{name: types.SimpleNamespace()}))
+    entry = {"nns_quantize_prepare": qz._prepare_entry,
+             "nns_quantize_int8": qz._kernel_entry}[name]
+    assert _declared_like_c(entry.__wrapped__(), "quantize.cu", name)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_versions_on_the_card():
     if not torch.cuda.is_available():
@@ -194,6 +308,23 @@ def test_kernel_matches_plain_versions_on_the_card():
         q, _ = qz.quantize_int8(t, seed=9, force="dither")
         rq, _ = qz.quantize_dither_reference(t, 9)
         assert torch.equal(q, rq), dtype
+    # either side of the on-chip capacity, and a misaligned view past it
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        cap = sms * qz.kept_per_block(
+            torch.empty((), dtype=dtype).element_size())
+        for n in (cap - 16, cap, cap + 16):
+            t = torch.randn(n, dtype=dtype, device="cuda:0") * 50
+            q, s = qz.quantize_int8(t, force="reference")
+            rq, rs = qz.quantize_nearest_reference(t)
+            assert torch.equal(q, rq) and torch.equal(s, rs), (dtype, n)
+            q, _ = qz.quantize_int8(t, seed=9, force="dither")
+            assert torch.equal(q, qz.quantize_dither_reference(t, 9)[0])
+    over = sms * qz.kept_per_block(4) + 16
+    t = (torch.randn(over + 3, device="cuda:0") * 50)[3:]
+    q, s = qz.quantize_int8(t, force="reference")
+    rq, rs = qz.quantize_nearest_reference(t)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
     for values in NON_FINITE.values():
         t = torch.tensor(values, dtype=torch.float32, device="cuda:0")
         for force in ("reference", "dither"):
