@@ -30,10 +30,17 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   → tensor_transform → tensor_filter MobileNetV2 → tensor_decoder
   image_labeling → queue → tensor_sink) at the model's full width:
   224×224×3 uint8 frames, MobileNetV2 width 1.0, 1001 classes, bfloat16
-  weights made from a seed; kernel B1 runs once per frame.
+  weights made from a seed; kernel B1 runs once per frame. It runs twice:
+  unfused (``Pipeline(fuse=False)``), and with the default, where
+  tensor_transform ! tensor_filter ! tensor_decoder is one fused region
+  replayed as a CUDA graph with B1 inside (``pipeline_fused``: one capture,
+  B1 counted once a frame through the replays, labels and scores bit for
+  bit the unfused run's). The offload server fuses tensor_filter !
+  tensor_decoder the same way.
 
 Kernel B1 is held bit for bit against its plain version on both sides
-of its launch plan's switch from 4 to 16 elements a thread. Kernel B3
+of its launch plan's switch from 4 to 16 elements a thread, for every
+numeric input type. Kernel B3
 (int8 quantize, nearest and dithered) is held bit for bit against its
 plain versions, for every input type, on misaligned views, on both sides
 of 64 KB and of what its cooperative grid keeps on chip, and for
@@ -147,6 +154,12 @@ ENCODE_FRAMES = 8          # device quant_encode blobs held to the host one's
 QUANT_NON_FINITE = ({2000: "nan"}, {4098: "inf"}, {7: "-inf"},
                     {5: "inf", 4097: "nan"})
 QUERY_BYTES_MAX = 0.26     # client bytes sent per frame / the f32 frame's
+#: CUDA API calls (runtime ``cuda*`` and low-level ``cu*``) that launch
+#: device work, counted on the host side of a profiled run
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 
 
 class SmokeFailure(RuntimeError):
@@ -307,6 +320,44 @@ def phase_normalize():
                                     f"{in_dtype}->{out_dtype} offset "
                                     f"{offset}: not bit-identical to the "
                                     f"plain version (max abs err {err})")
+                        cases += 1
+
+    # every other input type (ROADMAP.md C.8), converted to float32 as
+    # .to(torch.float32) converts it: held to the plain version on the
+    # CPU, where torch converts every type (unsigned types made as the
+    # signed ones of their width, viewed)
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}
+    for in_dtype in pp.IN_CODES:
+        if in_dtype in (torch.uint8, torch.float32):
+            continue
+        for n in (IMAGE * IMAGE * 3, switch + 17):
+            for offset in (0, 1):
+                m = n + offset
+                if in_dtype.is_floating_point:
+                    base = (torch.randn(m, generator=gen,
+                                        dtype=torch.float64) * 1e4
+                            ).to(in_dtype)
+                elif in_dtype is torch.bool:
+                    base = torch.randint(0, 2, (m,), generator=gen) > 0
+                else:
+                    base = torch.randint(-2 ** 40, 2 ** 40, (m,),
+                                         generator=gen).to(
+                        signed.get(in_dtype, in_dtype))
+                    base = base.view(in_dtype)
+                x = base.to(dev)[offset:]
+                for cname, ops in chains.items():
+                    for out_dtype in outs:
+                        y = pp.normalize_chain(x, ops, out_dtype).cpu()
+                        ref = pp.normalize_chain_reference(x.cpu(), ops,
+                                                           out_dtype)
+                        err = (y.float() - ref.float()).abs().max().item()
+                        max_abs_err = max(max_abs_err, err)
+                        check(torch.equal(_bits(y), _bits(ref)),
+                              f"normalize_chain {cname} {n} {in_dtype}->"
+                              f"{out_dtype} offset {offset}: not "
+                              f"bit-identical to the plain version (max abs "
+                              f"err {err})")
                         cases += 1
 
     # signed zeros: 0.0 and -0.0 are equal keys to Python, but x / -0.0 is
@@ -1210,6 +1261,8 @@ def phase_query_offload(power: str):
     seen = {"calls": 0, "param_devices": set()}
 
     def forward_hook(mod, args, out):
+        if torch.cuda.is_current_stream_capturing():
+            return  # a capture records the kernels; it runs none
         seen["calls"] += 1
         seen["param_devices"].add(str(next(mod.parameters()).device))
 
@@ -1248,14 +1301,21 @@ def phase_query_offload(power: str):
         def sent_bytes():  # the counter's labels are shared with the warm-up
             return pipe.metrics_snapshot()["elements"]["qc"]["sent_bytes"]
 
+        def server_replays():  # the server fuses filter ! decoder
+            return sum(r["replays"] for r in server.metrics_snapshot().get(
+                "regions", {}).values())
+
         sent0 = sent_bytes()
+        replays0 = server_replays()
         reset_launches()
         t0 = time.monotonic()
         pipe.run(timeout=900)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = dict(LAUNCHES)
-        measured = dict(seen)
+        # model runs: eager forwards, and replays of a graph holding one
+        measured = dict(seen, calls=seen["calls"] + server_replays()
+                        - replays0)
         p50, p99 = pipe.get("out").latency_percentiles(50.0, 99.0)
         sent = sent_bytes() - sent0
 
@@ -1298,8 +1358,14 @@ def phase_query_offload(power: str):
     return result
 
 
-# -- phase 4: the flagship pipeline -----------------------------------------
+# -- phase 4: the flagship pipeline, unfused and fused ------------------------
 def phase_pipeline(power: str):
+    """The flagship through ``parse_launch``: first explicitly unfused
+    (``Pipeline(fuse=False)``), probed at the filter's chain, then with the
+    default, where tensor_transform ! tensor_filter ! tensor_decoder is one
+    fused region replayed as a CUDA graph. Both timed runs come before both
+    profiled runs. Emits the ``pipeline`` and ``pipeline_fused`` lines."""
+    import numpy as np
     import torch
 
     import nnstreamer_tpu_torch as nt
@@ -1309,6 +1375,7 @@ def phase_pipeline(power: str):
     )
     from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
     from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
 
     nt.set_device(None)  # the package default: cuda:0
     module, in_info, out_info = mobilenet_v2(
@@ -1319,6 +1386,8 @@ def phase_pipeline(power: str):
             "samples": []}
 
     def forward_hook(mod, args, out):
+        if torch.cuda.is_current_stream_capturing():
+            return  # a capture records the kernels; it runs none
         seen["calls"] += 1
         seen["param_devices"].add(str(next(mod.parameters()).device))
         if len(seen["samples"]) < LOGIT_FRAMES:
@@ -1331,7 +1400,7 @@ def phase_pipeline(power: str):
     with open(labels, "w") as f:
         f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
 
-    def launch(n: int):
+    def launch(n: int, fuse: bool):
         pipe = nt.parse_launch(
             f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} "
             "pattern=ball ! tensor_converter ! "
@@ -1340,7 +1409,10 @@ def phase_pipeline(power: str):
             "tensor_filter framework=jax model=mnv2 name=filter ! "
             f"tensor_decoder mode=image_labeling option1={labels} ! "
             "queue max-size-buffers=32 prefetch-host=true ! "
-            "tensor_sink name=out to-host=true")
+            "tensor_sink name=out to-host=true",
+            pipeline=Pipeline(fuse=fuse))
+        if fuse:
+            return pipe
         filt = pipe.get("filter")
         chain = filt.chain
 
@@ -1352,15 +1424,8 @@ def phase_pipeline(power: str):
         filt.chain = probe
         return pipe
 
-    try:
-        # the warm-up run also keeps the inputs and logits of its first
-        # frames for the fp32 check below, so that the measured run does
-        # not wait for those copies
-        warm = launch(WARMUP_FRAMES)
-        warm.run(timeout=600)
-        seen.update(calls=0, param_devices=set(), transform_out=set())
-
-        pipe = launch(FRAMES)
+    def timed_run(fuse: bool):
+        pipe = launch(FRAMES, fuse)
         got = []
         pipe.get("out").connect(lambda buf: got.append(buf.meta))
         pp.reset_launches()
@@ -1370,8 +1435,27 @@ def phase_pipeline(power: str):
         wall = time.monotonic() - t0
         launches = dict(pp.LAUNCHES)
         p50, p99 = pipe.get("out").latency_percentiles(50.0, 99.0)
+        return pipe, got, launches, wall, p50, p99
+
+    try:
+        # the warm-up run also keeps the inputs and logits of its first
+        # frames for the fp32 check below, so that the measured run does
+        # not wait for those copies
+        launch(WARMUP_FRAMES, False).run(timeout=600)
+        seen.update(calls=0, param_devices=set(), transform_out=set())
+        _, got, launches, wall, p50, p99 = timed_run(False)
         measured = {k: v for k, v in seen.items() if k != "samples"}
-        trace = profile_pipeline(launch(PROFILED_FRAMES))
+
+        launch(WARMUP_FRAMES, True).run(timeout=600)
+        seen.update(calls=0, param_devices=set(), transform_out=set())
+        fpipe, fgot, flaunches, fwall, fp50, fp99 = timed_run(True)
+        fmeasured = {k: v for k, v in seen.items() if k != "samples"}
+        regions = fpipe.metrics_snapshot().get("regions", {})
+        member_types = [[m.ELEMENT_NAME for m in r.members]
+                        for r in fpipe._regions or ()]
+
+        trace = profile_pipeline(launch(PROFILED_FRAMES, False))
+        ftrace = profile_pipeline(launch(PROFILED_FRAMES, True))
     finally:
         hook.remove()
         unregister_torch_model("mnv2")
@@ -1412,14 +1496,70 @@ def phase_pipeline(power: str):
           f"bf16 logits on the card vs fp32 on the CPU: relative L2 "
           f"{max(rel)} > {REL_L2_MAX}")
     result = {
-        "frames": FRAMES, "labelled": len(got), "launches": launches,
+        "frames": FRAMES, "labelled": len(got), "fused": False,
+        "launches": launches,
         "fps": FRAMES / wall, "wall_s": wall,
         "latency_p50_ms": p50, "latency_p99_ms": p99,
         "logit_rel_l2": rel, "logit_rel_l2_max_allowed": REL_L2_MAX,
         "top1_agree": top1, "profiled_run": trace, "gpu": power,
     }
     emit({"phase": "pipeline", **result})
-    return result
+
+    # the fused run: every frame labelled as the unfused run labelled it,
+    # B1 counted once a frame through the graph's replays, one capture,
+    # and no frame but the first outside the graph
+    check(len(fgot) == FRAMES and all(
+        isinstance(m.get("label"), str) and m["label"].startswith("class_")
+        for m in fgot), f"fused: {len(fgot)} of {FRAMES} frames labelled")
+    differ = [i for i, (a, b) in enumerate(zip(fgot, got))
+              if (a["label"], a["label_index"],
+                  np.float32(a["score"]).tobytes()) !=
+              (b["label"], b["label_index"], np.float32(b["score"]).tobytes())]
+    check(not differ, f"fused: labels or scores of frames {differ[:10]} "
+                      "differ from the unfused run")
+    check(flaunches["normalize_chain"] == FRAMES,
+          f"fused: normalize kernel counted {flaunches['normalize_chain']} "
+          f"times for {FRAMES} frames")
+    check(len(regions) == 1 and member_types == [[
+        "tensor_transform", "tensor_filter", "tensor_decoder"]],
+          f"fused: regions {member_types}")
+    (region,) = regions.values()
+    check(not region["unspliced"], "fused: the region fell back to the "
+                                   "member chain")
+    check(region["captures"] == 1 and region["eager_frames"] == 1 and
+          region["replays"] == FRAMES - 1,
+          f"fused: {region['captures']} captures, {region['eager_frames']} "
+          f"frames outside the graph, {region['replays']} replays")
+    check(fmeasured["calls"] + region["replays"] == FRAMES,
+          f"fused: model ran {fmeasured['calls']} times outside the graph "
+          f"and {region['replays']} in it")
+    check(fmeasured["param_devices"] == {"cuda:0"},
+          f"fused: filter parameters on {fmeasured['param_devices']}")
+    # the idle share at each timed run's rate: the profiled busy time a
+    # frame over the timed run's time a frame
+    busy = {"fused": ftrace["device_busy_ms_per_frame"] * FRAMES / fwall,
+            "unfused": trace["device_busy_ms_per_frame"] * FRAMES / wall}
+    fused = {
+        "frames": FRAMES, "labelled": len(fgot),
+        "labels_scores_bit_identical_to_unfused": FRAMES - len(differ),
+        "launches": flaunches, "region": region,
+        "fps": FRAMES / fwall, "wall_s": fwall,
+        "latency_p50_ms": fp50, "latency_p99_ms": fp99,
+        "profiled_run": ftrace,
+        "device_idle_share_at_timed_rate": 1.0 - busy["fused"] / 1e3,
+        "unfused": {"fps": FRAMES / wall, "latency_p50_ms": p50,
+                    "latency_p99_ms": p99,
+                    "device_kernels_per_frame":
+                        trace["device_kernels_per_frame"],
+                    "host_launches_per_frame":
+                        trace["host_launches_per_frame"],
+                    "device_idle_share": trace["device_idle_share"],
+                    "device_idle_share_at_timed_rate":
+                        1.0 - busy["unfused"] / 1e3},
+        "gpu": power,
+    }
+    emit({"phase": "pipeline_fused", **fused})
+    return result, fused
 
 
 def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
@@ -1436,6 +1576,13 @@ def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
         us = ev.time_range.elapsed_us()
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us
         spans.append((ev.time_range.start, ev.time_range.end))
+    # launches from the host: the runtime calls that put work on the card
+    # (a kernel, a copy, a graph), by name
+    host = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA and \
+                ev.name in HOST_LAUNCH_CALLS:
+            host[ev.name] = host.get(ev.name, 0) + 1
     spans.sort()
     busy_us, end = 0.0, None  # union of device intervals
     for a, b in spans:
@@ -1450,6 +1597,9 @@ def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
         f"device_busy_ms_per_{unit}": busy_us / units / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         f"device_kernels_per_{unit}": len(spans) / units,
+        f"host_launches_per_{unit}": sum(host.values()) / units,
+        f"host_launches_per_{unit}_by_call": {
+            name: n / units for name, n in sorted(host.items())},
         f"top_device_ms_per_{unit}": {
             name[:80]: us / units / 1e3 for name, us in top},
     }
@@ -1469,8 +1619,18 @@ def profile_pipeline(pipe) -> dict:
         pipe.run(timeout=600)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    return {"frames": PROFILED_FRAMES,
-            **device_profile(prof, wall_us, PROFILED_FRAMES, "frame")}
+    out = {"frames": PROFILED_FRAMES,
+           **device_profile(prof, wall_us, PROFILED_FRAMES, "frame")}
+    # a fused run: the host's launch calls from its first graph replay on,
+    # per replay (one a frame) — the first frame and the capture left out
+    calls = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                   if ev.device_type != torch.autograd.DeviceType.CUDA
+                   and ev.name in HOST_LAUNCH_CALLS)
+    graphs = [t for t, name in calls if name == "cudaGraphLaunch"]
+    if graphs:
+        out["host_launches_per_replayed_frame"] = sum(
+            1 for t, _ in calls if t >= graphs[0]) / len(graphs)
+    return out
 
 
 def main() -> int:
@@ -1505,7 +1665,7 @@ def main() -> int:
     _, fp32_engine = phase_lm_parity(lm_engine)
     phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
     offload = phase_query_offload(power)
-    pipe = phase_pipeline(power)  # profiles the flagship at its end
+    pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_lm(lm_engine)
     dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}

@@ -1,11 +1,15 @@
-// Kernel B1: elementwise normalize chain, uint8 or float32 in, float32,
+// Kernel B1: elementwise normalize chain, any numeric type in (bool,
+// uint8-64, int8-64, float16, bfloat16, float32, float64), float32,
 // bfloat16 or float16 out.
 //
 // Replaces the TPU kernel nnstreamer_tpu/ops/preprocess.py::_kernel
 // ((f32(x) - mean) * scale -> out dtype, over (256, 128) VMEM tiles).
 // Here each element goes through a chain of up to 8 (op, f32 value) pairs,
 // applied in order in fp32 with round-to-nearest intrinsics, then rounded
-// once to the output type. normalize_u8 is the chain (sub mean, mul scale);
+// once to the output type. An input is first converted to fp32 as numpy's
+// astype(float32) and torch's .to(float32) convert it: exactly where the
+// value fits, else rounded to nearest (integers past 2**24, float64).
+// normalize_u8 is the chain (sub mean, mul scale);
 // tensor_transform's arithmetic option typecast:float32,add:-127.5,div:127.5
 // is the chain (add -127.5, div 127.5). The intrinsics keep the compiler
 // from contracting a mul and an add into an FMA and keep div IEEE-correct,
@@ -46,8 +50,13 @@
 
 // opcodes shared with nnstreamer_tpu_torch/ops/preprocess.py
 enum { OP_ADD = 0, OP_SUB = 1, OP_MUL = 2, OP_DIV = 3 };
-// dtype codes shared with nnstreamer_tpu_torch/ops/preprocess.py
-enum { DT_U8 = 0, DT_F32 = 1, DT_BF16 = 2, DT_F16 = 3 };
+// dtype codes shared with nnstreamer_tpu_torch/ops/preprocess.py: the
+// first four in and out, the rest in only
+enum {
+  DT_U8 = 0, DT_F32 = 1, DT_BF16 = 2, DT_F16 = 3, DT_I8 = 4, DT_I16 = 5,
+  DT_I32 = 6, DT_I64 = 7, DT_U16 = 8, DT_U32 = 9, DT_U64 = 10, DT_F64 = 11,
+  DT_BOOL = 12
+};
 
 struct NnsChain {
   int n;
@@ -88,8 +97,19 @@ template <> struct Word<4> { using type = unsigned; static constexpr int count =
 template <> struct Word<2> { using type = unsigned short; static constexpr int count = 1; };
 template <> struct Word<1> { using type = unsigned char; static constexpr int count = 1; };
 
+// round-to-nearest conversions (a bool is its byte, 0 or 1)
 __device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(uint16_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float to_f32(unsigned v) { return __uint2float_rn(v); }
+__device__ __forceinline__ float to_f32(long long v) { return __ll2float_rn(v); }
+__device__ __forceinline__ float to_f32(unsigned long long v) { return __ull2float_rn(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ void from_f32(float v, float* o) { *o = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* o) {
@@ -174,6 +194,18 @@ static int launch(const void* x, void* y, long long n, int ept, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TIn>
+static int launch_in(const void* x, void* y, int out_code, long long n,
+                     int ept, int blocks, const NnsChain& chain,
+                     cudaStream_t stream) {
+  switch (out_code) {
+    case DT_F32: return launch<TIn, float>(x, y, n, ept, blocks, chain, stream);
+    case DT_BF16: return launch<TIn, __nv_bfloat16>(x, y, n, ept, blocks, chain, stream);
+    case DT_F16: return launch<TIn, __half>(x, y, n, ept, blocks, chain, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Plain C entry point (loaded with ctypes). ept and blocks are the launch
 // plan (elements per thread: 1, or 4 or 16 with x and y 16-byte aligned;
 // blocks of 256 threads). Returns a cudaError_t code: 0 on a launch that was
@@ -190,14 +222,20 @@ extern "C" int nns_normalize_chain(const void* x, int in_code, void* y,
   }
   const NnsChain& c = *chain;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_code == DT_U8) {
-    if (out_code == DT_F32) return launch<uint8_t, float>(x, y, n, ept, blocks, c, s);
-    if (out_code == DT_BF16) return launch<uint8_t, __nv_bfloat16>(x, y, n, ept, blocks, c, s);
-    if (out_code == DT_F16) return launch<uint8_t, __half>(x, y, n, ept, blocks, c, s);
-  } else if (in_code == DT_F32) {
-    if (out_code == DT_F32) return launch<float, float>(x, y, n, ept, blocks, c, s);
-    if (out_code == DT_BF16) return launch<float, __nv_bfloat16>(x, y, n, ept, blocks, c, s);
-    if (out_code == DT_F16) return launch<float, __half>(x, y, n, ept, blocks, c, s);
+  switch (in_code) {
+    case DT_U8:
+    case DT_BOOL: return launch_in<uint8_t>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_F32: return launch_in<float>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_BF16: return launch_in<__nv_bfloat16>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_F16: return launch_in<__half>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_I8: return launch_in<int8_t>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_I16: return launch_in<int16_t>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_I32: return launch_in<int>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_I64: return launch_in<long long>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_U16: return launch_in<uint16_t>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_U32: return launch_in<unsigned>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_U64: return launch_in<unsigned long long>(x, y, out_code, n, ept, blocks, c, s);
+    case DT_F64: return launch_in<double>(x, y, out_code, n, ept, blocks, c, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,7 +12,9 @@ the device and ``host_finalize(buf, config, options)`` completes on the
 host. The port runs the device half where a tensor payload lies (the
 card, or the CPU when asked for) as soon as it arrives, and attaches the host half as the buffer's deferred
 ``finalize``: only the device half's small results cross to the host, at
-the sink's (or a ``materialize-host`` queue's) fetch point.
+the sink's (or a ``materialize-host`` queue's) fetch point. The same two
+halves make the decoder a fused-region stage (``pipeline/fuse.py``) that
+ends its region.
 """
 
 from __future__ import annotations
@@ -67,6 +69,30 @@ class TensorDecoder(Element):
         self._config = TensorsConfig.from_caps(caps)
         dec = self._get_decoder()
         return dec.out_caps(self._config, self._options())
+
+    # -- region fusion (pipeline/fuse.py) ------------------------------------
+    def device_stage(self):
+        """The device half as a region stage, the host half as its
+        ``finalize``; a subplugin without both halves stays unfused. The
+        stage runs where its inputs lie, so it names no device."""
+        dec = self._get_decoder()
+        kernel = getattr(dec, "device_kernel", None)
+        host_finalize = getattr(dec, "host_finalize", None)
+        if kernel is None or host_finalize is None:
+            return None
+        from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
+
+        options = self._options()
+        consts, fn = kernel(options)
+
+        def finalize(host_buf):
+            return host_finalize(host_buf, self._config, options)
+
+        return DeviceStage(
+            consts=consts, fn=fn,
+            key=("decoder", self.get_property("mode"),
+                 tuple(sorted(options.items()))),
+            finalize=finalize)
 
     def chain(self, pad, buf):
         dec = self._get_decoder()

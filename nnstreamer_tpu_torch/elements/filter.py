@@ -14,6 +14,8 @@ Backends with ``KEEP_ON_DEVICE`` (the torch backend) receive whatever
 arrived, host array or device tensor, and return device tensors, so a
 converter→transform→filter→decoder chain keeps payloads on the card;
 CUDA launches are asynchronous, so pipeline stages overlap naturally.
+A backend that offers a ``device_stage()`` makes the filter fusible into a
+region (``pipeline/fuse.py``), with its input and output combinations.
 Model sharing, hot reload, throttling, mesh sharding and the bounded
 dispatch window of the JAX package are not ported yet.
 """
@@ -250,3 +252,36 @@ class TensorFilter(Element):
             # device-capable downstream: keep the result resident
             out_buf = as_device_buffer(out_buf)
         return self.srcpad.push(out_buf)
+
+    # -- region fusion (pipeline/fuse.py) ------------------------------------
+    def device_stage(self):
+        """Fusible when the backend hands over a stage; the combinations
+        route tensors around it as :meth:`chain` does."""
+        fw = self.fw
+        stage_getter = getattr(fw, "device_stage", None)
+        if fw is None or stage_getter is None:
+            return None
+        backend_stage = stage_getter()
+        if backend_stage is None:
+            return None
+        from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
+
+        in_comb = self._combination("input_combination")
+        out_comb = self._combination("output_combination")
+        inner = backend_stage.fn
+
+        def fn(consts, tensors):
+            model_in = [tensors[i] for _, i in in_comb] if in_comb \
+                else tensors
+            outs = inner(consts, model_in)
+            if out_comb:
+                return [outs[i] if k == "o" else tensors[i]
+                        for k, i in out_comb]
+            return list(outs)
+
+        key = None if backend_stage.key is None else (
+            "tensor_filter", backend_stage.key,
+            tuple(in_comb or ()), tuple(out_comb or ()),
+        )
+        return DeviceStage(consts=backend_stage.consts, fn=fn, key=key,
+                           device=backend_stage.device)

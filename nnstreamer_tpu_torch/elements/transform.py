@@ -8,13 +8,17 @@ that XLA fuses into the model; the port runs it on the package device:
 - with ``acceleration=true`` (the default) the input moves to the package
   device first. There an ``arithmetic`` chain of the form
   ``typecast:float32``, up to 8 ``add/sub/mul/div`` scalars, and an
-  optional trailing ``typecast:bfloat16|float16``, on a uint8 or float32
-  input, goes through the normalize kernel (``ops/preprocess.py``, kernel
-  B1) and nothing else — the flagship's
+  optional trailing ``typecast:bfloat16|float16``, on an input of any
+  numeric type, goes through the normalize kernel (``ops/preprocess.py``,
+  kernel B1) and nothing else — the flagship's
   ``typecast:float32,add:-127.5,div:127.5`` is one launch per frame;
 - every other mode and chain is a different function and runs as torch
   ops, as the JAX transform runs them as jnp ops;
 - with ``acceleration=false`` the same torch ops run on the host.
+
+With ``acceleration=true`` the transform offers a fused-region stage
+(``pipeline/fuse.py``): the same per-tensor function, so inside a region
+on the card kernel B1 runs in the captured graph.
 
 Option grammars follow the reference:
   mode=typecast   option=float32
@@ -242,3 +246,24 @@ class TensorTransform(Element):
         out = [self._one(spec, t) if i in idx else t
                for i, t in enumerate(buf.tensors)]
         return self.srcpad.push(buf.with_tensors(out))
+
+    # -- region fusion (pipeline/fuse.py) ------------------------------------
+    def device_stage(self):
+        """Every mode is elementwise or layout math on the device: fusible
+        whenever acceleration is on."""
+        if not self.get_property("acceleration"):
+            return None
+        from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
+
+        if self._device is None:
+            self._device = resolve_device()
+        spec = self._get_spec()
+
+        def fn(consts, tensors):
+            sel = set(self._apply_indices(len(tensors)))
+            return [self._one(spec, t) if i in sel else t
+                    for i, t in enumerate(tensors)]
+
+        key = ("tensor_transform", spec.mode, spec.option,
+               str(self.get_property("apply") or ""))
+        return DeviceStage(consts=None, fn=fn, key=key, device=self._device)

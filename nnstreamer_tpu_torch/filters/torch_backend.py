@@ -14,6 +14,9 @@ unchanged.
   ``invoke()`` returns before the card finishes.
 - **Shapes are probed on the meta device**: no data, no kernels.
 - ``accelerator=true:cpu`` (or ``false``) runs the same code on the CPU.
+- **Fusible.** :meth:`TorchFilter.device_stage` hands the module to a
+  fused region (``pipeline/fuse.py``), which on the card replays it inside
+  one CUDA graph with the elements around it.
 
 Model forms accepted (``model`` property): a name registered with
 :func:`register_torch_model`, or a ``.pt``/``.pth`` file holding TorchScript
@@ -134,6 +137,26 @@ class TorchFilter(FilterFramework):
             for o in outs
         ])
         return self._out_info
+
+    # -- region fusion (pipeline/fuse.py) ------------------------------------
+    def device_stage(self):
+        """The module as a fused-region stage: its consts are the module
+        (the weights live in it), its key names the module object, and it
+        computes on the backend's device."""
+        if self._module is None:
+            return None
+        from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
+
+        device = self._device
+
+        def fn(module, tensors):
+            xs = [as_torch(x, device, non_blocking=True) for x in tensors]
+            with torch.inference_mode():
+                out = module(*xs)
+            return [out] if isinstance(out, torch.Tensor) else list(out)
+
+        return DeviceStage(consts=self._module, fn=fn,
+                           key=("torch", self._module), device=device)
 
     # -- hot path ------------------------------------------------------------
     def invoke(self, inputs: Sequence[Any]) -> List[torch.Tensor]:

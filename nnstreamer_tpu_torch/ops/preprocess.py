@@ -4,10 +4,11 @@ Port of the TPU kernel ``nnstreamer_tpu/ops/preprocess.py::_kernel``
 (kernel B1 in ROADMAP.md). The CUDA kernel (``csrc/normalize.cu``)
 evaluates a chain of up to 8 ``(op, value)`` pairs (``add``, ``sub``,
 ``mul``, ``div``) per element in fp32, in order, and rounds once to the
-output type. :func:`normalize_u8` is the chain ``sub mean, mul scale``;
-``tensor_transform``'s arithmetic chain ``typecast:float32,add:A,div:D``
-is the chain ``add A, div D`` — the transform's per-frame kernel on the
-main path.
+output type; an input of any numeric type is converted to fp32 first, as
+the JAX function's ``astype(jnp.float32)`` converts it. :func:`normalize_u8`
+is the chain ``sub mean, mul scale``; ``tensor_transform``'s arithmetic
+chain ``typecast:float32,add:A,div:D`` is the chain ``add A, div D`` — the
+transform's per-frame kernel on the main path.
 
 Beside it, :func:`normalize_chain_reference` does the same fp32 per-op
 math in plain PyTorch. The wrapper :func:`normalize_chain` takes the plain
@@ -20,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,10 +33,19 @@ from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401 (re-exported)
 )
 
 CHAIN_MAX = 8
-#: opcodes and dtype codes shared with csrc/normalize.cu
+#: opcodes and dtype codes shared with csrc/normalize.cu: every numeric
+#: input type (a bool as 0 or 1), and three output types
 OPCODES = {"add": 0, "sub": 1, "mul": 2, "div": 3}
-IN_CODES = {torch.uint8: 0, torch.float32: 1}
+IN_CODES = {
+    torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
+    torch.int8: 4, torch.int16: 5, torch.int32: 6, torch.int64: 7,
+    torch.uint16: 8, torch.uint32: 9, torch.uint64: 10, torch.float64: 11,
+    torch.bool: 12,
+}
 OUT_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+#: ``normalize_u8``'s ``force`` values; JAX's ``"pallas"`` has no
+#: counterpart (the kernel is what a CUDA tensor takes) and raises
+FORCES = (None, "reference")
 
 _TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
               "div": torch.div}
@@ -149,9 +159,10 @@ def _kernel_entry():
 
 def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Apply an ``(op, value)`` chain elementwise: ``x`` uint8 or float32
-    (contiguous), result ``out_dtype`` (float32, bfloat16 or float16) of
-    the same shape. CPU tensors take the plain version; CUDA tensors the
+    """Apply an ``(op, value)`` chain elementwise: ``x`` of any numeric
+    type (contiguous), first converted to float32 as ``.to(torch.float32)``
+    converts it, result ``out_dtype`` (float32, bfloat16 or float16) of the
+    same shape. CPU tensors take the plain version; CUDA tensors the
     kernel. The chain struct is built once per ``ops`` and cached."""
     device = x.device
     if device.type == "cpu":
@@ -162,8 +173,8 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
     _, chain_ptr = _cached_chain(ops)
     in_code = IN_CODES.get(x.dtype)
     if in_code is None:
-        raise TypeError(f"normalize_chain: input must be uint8 or float32, "
-                        f"got {x.dtype}")
+        raise TypeError(f"normalize_chain: no kernel for input type "
+                        f"{x.dtype}")
     out_code = OUT_CODES.get(out_dtype)
     if out_code is None:
         raise TypeError(f"normalize_chain: output must be float32, bfloat16 "
@@ -186,7 +197,19 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
 
 def normalize_u8(x: torch.Tensor, mean: float = 127.5,
                  scale: float = 1.0 / 127.5,
-                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """``(x - mean) * scale`` → ``out_dtype``, for any-shape input (the
-    API of ``nnstreamer_tpu.ops.normalize_u8``)."""
-    return normalize_chain(x, [("sub", mean), ("mul", scale)], out_dtype)
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 force: Optional[str] = None) -> torch.Tensor:
+    """``(x - mean) * scale`` → ``out_dtype``, for an input of any shape
+    and numeric type (the API of ``nnstreamer_tpu.ops.normalize_u8``).
+    ``force=None`` takes the kernel on a CUDA tensor and the plain version
+    on a CPU tensor; ``"reference"`` the plain version on any device. The
+    JAX function's ``"pallas"`` raises, as ``quantize_int8``'s does
+    (ROADMAP.md C.6, C.8)."""
+    if force not in FORCES:
+        raise ValueError(f"normalize_u8: force must be one of {FORCES}, "
+                         f"got {force!r}: a CUDA tensor takes the kernel "
+                         f"with force=None (ROADMAP.md C.6, C.8)")
+    ops = [("sub", mean), ("mul", scale)]
+    if force == "reference":
+        return normalize_chain_reference(x, ops, out_dtype)
+    return normalize_chain(x, ops, out_dtype)

@@ -223,6 +223,8 @@ class Element:
         self.pipeline = None  # set by Pipeline.add
         self._obs_hist = None  # per-element chain histogram, lazy
         self._started = False
+        #: the fused region this element is a member of (pipeline/fuse.py)
+        self._fused_region = None
         for k, v in props.items():
             self.set_property(k, v)
 
@@ -240,13 +242,28 @@ class Element:
             )
         self._props[key] = self._coerce_property(key, value)
         self.property_changed(key)
+        region = self._fused_region
+        if region is not None:
+            # a live edit may change the member's computation or its
+            # fusibility: the region re-plans at its next frame
+            region.invalidate()
 
     def get_property(self, key: str) -> Any:
         key = key.replace("-", "_")
         if key in ("latency", "throughput"):
-            return self.stats.latency_us if key == "latency" else \
-                self.stats.throughput_milli
+            stats = self._metrics_stats()
+            return stats.latency_us if key == "latency" else \
+                stats.throughput_milli
         return self._props[key]
+
+    def _metrics_stats(self) -> InvokeStats:
+        """The stats behind ``latency``/``throughput``: this element's
+        chain window, or, for a fused member whose chain does not run, its
+        region's (a member's latency is then the region's)."""
+        region = self._fused_region
+        if region is not None and self.stats.total_invokes == 0:
+            return region.stats
+        return self.stats
 
     def _coerce_property(self, key: str, value: Any) -> Any:
         """Coerce string property values (from parse_launch) to the default's

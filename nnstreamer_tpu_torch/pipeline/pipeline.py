@@ -13,9 +13,13 @@ messages to the application. The port keeps that capability:
   FIFO + worker thread. Stages separated by queues overlap host work with
   the card's asynchronous execution.
 
-The JAX package's region fusion, ingest lanes, SLO scheduler, watchdog,
-fault injection and serving continuity are not ported yet: asking for one
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+As in the JAX package, a pipeline fuses by default: ``start()`` splices
+a :class:`~nnstreamer_tpu_torch.pipeline.fuse.FusedRegion` over each run
+of device-capable elements (``pipeline/fuse.py``; ``fuse=False`` or
+``NNSTPU_FUSE=0`` turn it off). The JAX package's ingest lanes, SLO
+scheduler, watchdog, fault injection and serving continuity are not
+ported yet: asking for one raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from nnstreamer_tpu_torch.pipeline.element import (
     FlowReturn,
     not_ported,
 )
+from nnstreamer_tpu_torch.pipeline.fuse import fuse_pipeline, fusion_enabled
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 
@@ -262,15 +267,15 @@ class Queue(Element):
 class Pipeline:
     """Element container + source threads + bus.
 
-    The keyword arguments are the JAX package's; every value other than
+    The keyword arguments are the JAX package's. ``fuse`` (default True)
+    splices fused regions at ``start()``; for the others every value but
     the default names a feature the port does not have yet and raises."""
 
-    def __init__(self, name: str = "pipeline", fuse: bool = False,
+    def __init__(self, name: str = "pipeline", fuse: bool = True,
                  lanes: int = 1, slo_budget_ms: float = 0.0,
                  error_policy: Optional[str] = None,
                  watchdog_s: float = 0.0):
-        check_unported_options(fuse=fuse, lanes=lanes,
-                               slo_budget_ms=slo_budget_ms,
+        check_unported_options(lanes=lanes, slo_budget_ms=slo_budget_ms,
                                error_policy=error_policy,
                                watchdog_s=watchdog_s)
         self.name = name
@@ -280,6 +285,10 @@ class Pipeline:
         self._bus: _queue.Queue = _queue.Queue()
         self._threads: List[threading.Thread] = []
         self._eos_pending = 0
+        self._fuse = fuse
+        #: fused regions (pipeline/fuse.py), spliced at the first start()
+        #: and kept across restarts
+        self._regions: Optional[list] = None
 
     # -- construction ---------------------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":
@@ -306,29 +315,54 @@ class Pipeline:
         the reference-style windowed stats plus element-specific extras."""
         elements: Dict[str, Any] = {}
         for el in self.elements:
+            # a fused member whose chain does not run reads its region's
+            stats = el._metrics_stats()
             entry: Dict[str, Any] = {
                 "type": el.ELEMENT_NAME,
-                "latency_us": el.stats.latency_us,
-                "throughput_milli": el.stats.throughput_milli,
-                "invokes": el.stats.total_invokes,
+                "latency_us": stats.latency_us,
+                "throughput_milli": stats.throughput_milli,
+                "invokes": stats.total_invokes,
             }
             entry.update(el.obs_snapshot())
             elements[el.name] = entry
-        return {"pipeline": self.name, "state": self.state.value,
-                "elements": elements}
+        out = {"pipeline": self.name, "state": self.state.value,
+               "elements": elements}
+        if self._regions:
+            # regions are spliced, not in self.elements: their dispatch
+            # counts (eager frames, replays, captures, retraces)
+            out["regions"] = {r.name: {"members": [m.name for m in r.members],
+                                       "unspliced": r._dead,
+                                       **r.obs_snapshot()}
+                              for r in self._regions}
+        return out
 
     # -- state ----------------------------------------------------------------
     def start(self) -> "Pipeline":
         """NULL→PLAYING: start all elements (non-sources first so queues and
-        filters are ready), then spawn one streaming thread per source."""
+        filters are ready), splice fused regions over them (once; they
+        persist across restarts), then spawn one streaming thread per
+        source."""
         if self.state is State.PLAYING:
             return self
         sources = [e for e in self.elements if isinstance(e, SourceElement)]
         others = [e for e in self.elements
                   if not isinstance(e, SourceElement)]
+        # a restart streams anew: the last run's EOS no longer holds
+        for el in self.elements + (self._regions or []):
+            for pad in el.sinkpads + el.srcpads:
+                pad.eos = False
         started: List[Element] = []
         try:
-            for el in others + sources:
+            for el in others:
+                el.start()
+                started.append(el)
+            # region fusion after backends opened, before any buffer flows
+            if self._fuse and fusion_enabled() and self._regions is None:
+                self._regions = fuse_pipeline(self)
+            for r in self._regions or ():
+                r.start()
+                started.append(r)
+            for el in sources:
                 el.start()
                 started.append(el)
         except Exception:
@@ -358,6 +392,8 @@ class Pipeline:
         for el in self.elements:
             if not isinstance(el, SourceElement):
                 el.stop()
+        for r in self._regions or ():
+            r.stop()
         self.state = State.NULL
         return self
 
@@ -415,12 +451,9 @@ class Pipeline:
             self.stop()
 
 
-def check_unported_options(fuse=False, lanes=1, slo_budget_ms=0.0,
-                           error_policy=None, watchdog_s=0.0) -> None:
+def check_unported_options(lanes=1, slo_budget_ms=0.0, error_policy=None,
+                           watchdog_s=0.0) -> None:
     """Raise for a pipeline-level option whose feature is not ported."""
-    if fuse:
-        raise not_ported("region fusion (Pipeline(fuse=True))",
-                         "A.8 region fusion")
     if lanes not in (None, 1):
         raise not_ported("ingest lanes (lanes=)", _TRACING)
     if slo_budget_ms:

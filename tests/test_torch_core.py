@@ -141,7 +141,7 @@ def test_unported_properties_raise_naming_the_roadmap(desc, item):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(fuse=True), dict(lanes=2), dict(slo_budget_ms=10.0),
+    dict(lanes=2), dict(slo_budget_ms=10.0),
     dict(error_policy="retry"), dict(watchdog_s=1.0),
 ])
 def test_unported_pipeline_options_raise(kwargs):

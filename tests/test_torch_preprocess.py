@@ -107,8 +107,8 @@ def test_kernel_chain_selector_other_modes(mode, option):
 
 
 @pytest.mark.parametrize("np_dtype,kernel", [
-    (np.uint8, True), (np.float32, True), (np.int16, False),
-    (np.float64, False),
+    (np.uint8, True), (np.float32, True), (np.int16, True),
+    (np.float64, True), (np.int64, True), (np.float16, True),
 ])
 def test_transform_routes_only_kernel_inputs(monkeypatch, np_dtype, kernel):
     calls = []
@@ -126,6 +126,67 @@ def test_transform_routes_only_kernel_inputs(monkeypatch, np_dtype, kernel):
     np.testing.assert_allclose(out.numpy(),
                                (np.arange(12.0).reshape(3, 4) - 127.5)
                                / 127.5, rtol=1e-6)
+
+
+#: every input type but uint8 and float32, as numpy holds them (bfloat16
+#: as its float32 values): values each type holds exactly, int64 within
+#: int32 (JAX without x64 takes int64 as int32)
+_ANY_TYPES = {
+    "int8": (np.int8, -128, 128), "int16": (np.int16, -2 ** 15, 2 ** 15),
+    "int32": (np.int32, -2 ** 31, 2 ** 31 - 1),
+    "int64": (np.int64, -2 ** 31, 2 ** 31 - 1),
+    "uint16": (np.uint16, 0, 2 ** 16), "float16": (np.float16, -300, 300),
+    "bfloat16": (np.float32, -300, 300), "float64": (np.float64, -1e6, 1e6),
+}
+
+
+def _any_input(name, shape, seed):
+    np_dtype, lo, hi = _ANY_TYPES[name]
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(np_dtype, np.integer):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np_dtype)
+    x = rng.uniform(lo, hi, shape)
+    if name == "bfloat16":  # integers: exact in bfloat16 below 256
+        return np.round(x / 4).astype(np.float32)
+    return x.astype(np_dtype)
+
+
+@pytest.mark.parametrize("name", sorted(_ANY_TYPES))
+def test_normalize_u8_takes_any_input_type_as_jax(name):
+    """ROADMAP.md C.8: every numeric input type is cast to float32 first,
+    as the JAX function casts it (here on the CPU, the plain version)."""
+    x = _any_input(name, (3, 50, 7), seed=5)
+    jx = jnp.asarray(x, jnp.bfloat16) if name == "bfloat16" \
+        else jnp.asarray(x)
+    tx = torch.from_numpy(x)
+    if name == "bfloat16":
+        tx = tx.to(torch.bfloat16)
+    assert tx.dtype in pp.IN_CODES
+    for out_dtype, jdt in ((torch.float32, jnp.float32),
+                           (torch.bfloat16, jnp.bfloat16)):
+        ref = np.asarray(jax_normalize_u8(jx, 127.5, 1 / 127.5, jdt)
+                         .astype(jnp.float32))
+        out = pp.normalize_u8(tx, 127.5, 1 / 127.5, out_dtype)
+        assert out.dtype == out_dtype and tuple(out.shape) == x.shape
+        got = out.float().numpy()
+        if out_dtype == torch.float32:
+            np.testing.assert_allclose(got, ref, rtol=1e-6)
+        else:
+            diff = np.abs(got.astype(np.float64) - ref)
+            assert np.all(diff <= _bf16_ulp(ref)), diff.max()
+
+
+def test_normalize_u8_force():
+    x = torch.from_numpy(_inputs(np.uint8, (4, 9), seed=6))
+    assert torch.equal(pp.normalize_u8(x, force="reference"),
+                       pp.normalize_u8(x))
+    assert torch.equal(pp.normalize_u8(x, force="reference"),
+                       pp.normalize_chain_reference(
+                           x, [("sub", 127.5), ("mul", 1 / 127.5)],
+                           torch.bfloat16))
+    for bad in ("pallas", "kernel"):
+        with pytest.raises(ValueError, match="C.6, C.8"):
+            pp.normalize_u8(x, force=bad)
 
 
 def test_out_info_follows_the_trailing_typecast():
@@ -313,3 +374,33 @@ def test_kernel_bit_identical_on_the_card():
         y = pp.normalize_chain(x, ops, torch.float32)
         ref = pp.normalize_chain_reference(x, ops, torch.float32)
         assert torch.equal(y.view(torch.int32), ref.view(torch.int32)), ops
+
+
+@pytest.mark.gpu
+def test_kernel_takes_every_input_type_on_the_card():
+    """C.8 on the card: each input type through the kernel equals the
+    plain version's conversion and chain, on both sides of the plan's
+    switch and on a misaligned view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(1)
+    switch = int(4 * 256 * 8 * pp.PASSES_OF_4_MAX *
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    ops = [("sub", 127.5), ("mul", 1 / 127.5)]
+    for dtype in pp.IN_CODES:
+        for n in (17, 224 * 224 * 3, switch + 17):
+            for offset in (0, 1):
+                if dtype.is_floating_point:
+                    base = torch.randn(n + offset, generator=gen,
+                                       dtype=torch.float64) * 1e4
+                else:
+                    base = torch.randint(-2 ** 40, 2 ** 40, (n + offset,),
+                                         generator=gen, dtype=torch.int64)
+                base = base.to(dtype) if dtype is not torch.bool \
+                    else base > 0
+                x = base.cuda()[offset:]
+                for out_dtype in pp.OUT_CODES:
+                    y = pp.normalize_chain(x, ops, out_dtype)
+                    ref = pp.normalize_chain_reference(x.cpu(), ops,
+                                                       out_dtype)
+                    assert torch.equal(y.cpu(), ref), (dtype, n, offset)
