@@ -37,6 +37,16 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   B1 counted once a frame through the replays, labels and scores bit for
   bit the unfused run's). The offload server fuses tensor_filter !
   tensor_decoder the same way.
+- The flagship at bench.py's default batch (``pipeline_batched``): 800
+  frames through ``tensor_aggregator`` (batch 8), a ``prefetch-device``
+  staging queue (page-locked pool slabs, one copy a drained run), the
+  fused region with ``inflight=2`` (B1 once a window: 1 eager window + 99
+  replays, one capture), the batched decoder and a ``materialize-host``
+  drain (one synchronisation a drained run). Its labels and scores are
+  bit-identical unfused, with ``inflight=1`` and with ``NNSTPU_POOL=0``; a
+  live source paced for partial windows (``latency-budget-ms``,
+  ``pad-device``) keeps one capture and labels every frame as the unpaced
+  run; the batch-1 fused flagship on the same frames is its comparison.
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -81,6 +91,15 @@ WARMUP_FRAMES = 16    # pipeline frames before it (cuDNN set-up, allocator)
 IMAGE = 224
 CLASSES = 1001
 PROFILED_FRAMES = 48  # pipeline frames in a run under torch.profiler
+#: the flagship at bench.py's default batch: frames a run, the batch (the
+#: aggregator's frames-out), frames of the profiled run, and the budget
+#: run (a live source at a rate that leaves windows partial)
+BATCHED_FRAMES = 800
+BATCH = 8
+BATCHED_PROFILED_FRAMES = 96
+BUDGET_FRAMES = 160
+BUDGET_RATE = "200/1"
+BUDGET_MS = 10
 LOGIT_FRAMES = 4      # frames whose logits are held to the fp32 CPU model
 REL_L2_MAX = 2e-2     # bf16 on the card vs fp32 on the CPU, 53 layers
 TRANSFORM_CHAIN = [("add", -127.5), ("div", 127.5)]
@@ -1562,6 +1581,320 @@ def phase_pipeline(power: str):
     return result, fused
 
 
+def phase_pipeline_batched(power: str):
+    """The flagship as bench.py launches it by default: batch 8 through
+    ``tensor_aggregator``, a ``prefetch-device`` staging queue, the
+    filter's dispatch window (``inflight=2``), the batched decoder and a
+    ``materialize-host`` drain, fused (transform ! filter ! decoder is one
+    CUDA graph with B1 inside, once a window). Its cuts against bench.py:
+    lanes 1 and no ``stamp-admission`` on the ingress queue (A.11).
+
+    The timed runs: the string as given (``pattern=gradient``, 800 frames);
+    the same unfused, with ``inflight=1`` and with ``NNSTPU_POOL=0``, each
+    bit-identical to it in labels, indices and f32 scores; with
+    ``pattern=ball`` (frames that differ, so a staging slab recycled under
+    a copy in flight would show) pool on against pool off; a live source
+    paced so that the latency budget flushes partial windows (padded on
+    the device), labelled as the unpaced ball run; and the batch-1 fused
+    flagship on the same frames, as the comparison. Returns what the
+    profiled runs after every timed phase need."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors.buffer import transfer_snapshot
+    from nnstreamer_tpu_torch.tensors.pool import get_pool, pinned_view
+
+    nt.set_device(None)  # the package default: cuda:0
+    slab = get_pool().acquire((BATCH, IMAGE, IMAGE, 3), np.uint8)
+    check(pinned_view(slab) is not None and pinned_view(slab).is_pinned(),
+          "batched: a staging slab on the card is not page-locked")
+    del slab
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    register_torch_model("mnv2_b8", module)
+    samples = []
+
+    def forward_hook(mod, args, out):
+        # not while capturing (no kernel runs), not the shape probe on
+        # the meta device
+        if not torch.cuda.is_current_stream_capturing() and not samples \
+                and out.device.type != "meta":
+            samples.append((args[0][:LOGIT_FRAMES].detach().float().cpu(),
+                            out[:LOGIT_FRAMES].detach().float().cpu()))
+
+    hook = module.register_forward_hook(forward_hook)
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_b8_")
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    runs = {"n": 0}
+
+    def launch(n, fuse=True, inflight=2, pattern="gradient", budget="",
+               live="", batch=BATCH):
+        runs["n"] += 1
+        src = (f"videotestsrc num-buffers={n} width={IMAGE} "
+               f"height={IMAGE} pattern={pattern} {live}! "
+               "tensor_converter ! ")
+        transform = ("tensor_transform mode=arithmetic "
+                     "option=typecast:float32,add:-127.5,div:127.5 ! "
+                     "tensor_filter framework=jax model=mnv2_b8 name=filter "
+                     f"inflight={inflight} ! ")
+        if batch == 1:  # the fused flagship of the pipeline phase
+            desc = (src + transform + "tensor_decoder mode=image_labeling "
+                    f"option1={labels} ! queue max-size-buffers=32 "
+                    "prefetch-host=true ! tensor_sink name=out to-host=true")
+        else:
+            desc = (src + "queue max-size-buffers=16 ! "
+                    "tensor_aggregator frames-in=1 frames-out=8 "
+                    f"frames-flush=8 frames-dim=3 concat=true {budget}! "
+                    "queue max-size-buffers=8 prefetch-device=true ! "
+                    + transform +
+                    "tensor_decoder mode=image_labeling "
+                    f"option1={labels} option2=batched ! "
+                    "queue max-size-buffers=64 materialize-host=true ! "
+                    "tensor_sink name=out to-host=true")
+        return nt.parse_launch(desc, pipeline=Pipeline(
+            name=f"b{batch}_{runs['n']}", fuse=fuse))
+
+    def frames_of(metas):
+        """(label, index, f32 score bits) per real frame, in order."""
+        out = []
+        for m in metas:
+            labs, idx, sc = m["label"], m["label_index"], m["score"]
+            if isinstance(labs, str):
+                labs, idx, sc = [labs], [idx], [sc]
+            k = m.get("valid_frames", len(labs))
+            out += [(a, int(b), np.float32(c).tobytes())
+                    for a, b, c in zip(labs[:k], idx[:k], sc[:k])]
+        return out
+
+    def timed(pipe, n, env_pool=None):
+        got, pts = [], []
+        sink = pipe.get("out")
+        sink.connect(lambda buf: (got.append(buf.meta), pts.append(buf.pts)))
+        old = os.environ.get("NNSTPU_POOL")
+        if env_pool is not None:
+            os.environ["NNSTPU_POOL"] = env_pool
+        pool0, xfer0 = get_pool().snapshot(), transfer_snapshot()
+        pp.reset_launches()
+        try:
+            t0 = time.monotonic()
+            pipe.run(timeout=900)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            if env_pool is not None:
+                if old is None:
+                    os.environ.pop("NNSTPU_POOL")
+                else:
+                    os.environ["NNSTPU_POOL"] = old
+        launches = dict(pp.LAUNCHES)
+        pool1, xfer1 = get_pool().snapshot(), transfer_snapshot()
+        snap = pipe.metrics_snapshot()
+        regions = list(snap.get("regions", {}).values())
+        frames = frames_of(got)
+        check(len(frames) == n, f"batched: {len(frames)} of {n} frames "
+                                "labelled")
+        check(all(isinstance(f[0], str) and f[0].startswith("class_")
+                  for f in frames), "batched: a frame without a label")
+        check(pts == sorted(pts), "batched: windows out of order")
+        check(all(not r["unspliced"] for r in regions),
+              "batched: a region fell back to the member chain")
+        hits = pool1["hits"] - pool0["hits"]
+        misses = pool1["misses"] - pool0["misses"]
+        xfer = {k: xfer1[k] - xfer0[k] for k in xfer1}
+        p50, p99 = sink.latency_percentiles(50.0, 99.0)
+        # without the first quarter of the frames: the free-running source
+        # fills the queues while the region runs its eager first window
+        # and captures, and those frames wait for both
+        s50, s99 = sink.latency_percentiles(50.0, 99.0, skip=n // 4)
+        windows = len(got)
+        dispatch = regions[0] if regions else snap["elements"]["filter"]
+        return {
+            "frames": frames, "metas": got, "windows": windows,
+            "launches": launches, "regions": regions, "sink": sink,
+            "fps": n / wall, "wall_s": wall,
+            "latency_p50_ms": p50, "latency_p99_ms": p99,
+            "latency_p50_ms_after_first_quarter": s50,
+            "latency_p99_ms_after_first_quarter": s99,
+            "latency_samples": len(sink.latencies),
+            "pool_hits": hits, "pool_misses": misses,
+            "pool_hit_rate": hits / (hits + misses) if hits + misses
+            else None,
+            "pool_copy_waits": pool1["copy_waits"] - pool0["copy_waits"],
+            "h2d_batched_events": xfer["h2d_batched_events"],
+            "h2d_batched_frames": xfer["h2d_batched_frames"],
+            "h2d_events": xfer["h2d_events"],
+            "d2h_batched_events": xfer["d2h_batched_events"],
+            "d2h_syncs": xfer["d2h_syncs"],
+            "d2h_syncs_per_window": xfer["d2h_syncs"] / max(windows, 1),
+            "h2d_copies_per_window": (xfer["h2d_batched_events"] +
+                                      xfer["h2d_events"]) / max(windows, 1),
+            "fence_wait_s": dispatch.get("fence_wait_s", 0.0),
+            "fence_wait_p50_ms": dispatch.get("fence_wait_p50_ms"),
+            "fence_wait_p99_ms": dispatch.get("fence_wait_p99_ms"),
+            "inflight_limit": dispatch.get("inflight_limit"),
+        }
+
+    def summary(r):
+        return {k: v for k, v in r.items()
+                if k not in ("frames", "metas", "regions", "sink")}
+
+    def same(a, b, what):
+        differ = [i for i, (x, y) in enumerate(zip(a["frames"],
+                                                     b["frames"])) if x != y]
+        check(len(a["frames"]) == len(b["frames"]) and not differ,
+              f"batched: {what}: frames {differ[:10]} differ")
+        return len(a["frames"]) - len(differ)
+
+    n = BATCHED_FRAMES
+    try:
+        # warm-ups: cuDNN and allocator set-up at batch 8, both paths; the
+        # first (eager) window's frames differ, for the logit check
+        launch(10 * BATCH, pattern="ball").run(timeout=600)
+        launch(4 * BATCH, fuse=False).run(timeout=600)
+        main = timed(launch(n), n)
+        unfused = timed(launch(n, fuse=False), n)
+        inflight1 = timed(launch(n, inflight=1), n)
+        pool_off = timed(launch(n), n, env_pool="0")
+        ball = timed(launch(n, pattern="ball"), n)
+        ball_off = timed(launch(n, pattern="ball"), n, env_pool="0")
+        budget = timed(launch(BUDGET_FRAMES, pattern="ball", budget=(
+            f"latency-budget-ms={BUDGET_MS} pad-device=true "), live=(
+            f"is-live=true framerate={BUDGET_RATE} ")), BUDGET_FRAMES)
+        launch(WARMUP_FRAMES, batch=1).run(timeout=600)
+        single = timed(launch(n, batch=1), n)
+    finally:
+        hook.remove()
+
+    # one window: B1 once in it, the region captured once at [8,224,224,3]
+    windows = n // BATCH
+    (region,) = main["regions"]
+    check(region["captures"] == 1 and region["eager_frames"] == 1 and
+          region["replays"] == windows - 1,
+          f"batched: {region['captures']} captures, "
+          f"{region['eager_frames']} windows outside the graph, "
+          f"{region['replays']} replays")
+    for name, r in (("fused", main), ("unfused", unfused),
+                    ("inflight=1", inflight1), ("pool off", pool_off)):
+        check(r["launches"]["normalize_chain"] == windows,
+              f"batched, {name}: normalize kernel counted "
+              f"{r['launches']['normalize_chain']} times for {windows} "
+              "windows")
+        check(r["d2h_syncs"] == r["d2h_batched_events"] and
+              r["d2h_syncs_per_window"] <= 1.0,
+              f"batched, {name}: {r['d2h_syncs']} device-to-host waits "
+              f"for {r['d2h_batched_events']} grouped fetches")
+        check(r["h2d_copies_per_window"] <= 1.0,
+              f"batched, {name}: {r['h2d_copies_per_window']} uploads a "
+              "window")
+    check(not unfused["regions"], "batched: the unfused run fused")
+    check(main["inflight_limit"] == 2 and inflight1["inflight_limit"] == 1,
+          "batched: the region did not adopt the filter's inflight")
+    identical = {
+        "unfused": same(main, unfused, "fused vs unfused"),
+        "inflight_1": same(main, inflight1, "inflight 2 vs 1"),
+        "pool_off": same(main, pool_off, "pool on vs NNSTPU_POOL=0"),
+        "ball_pool_off": same(ball, ball_off,
+                              "ball, pool on vs NNSTPU_POOL=0"),
+    }
+    check(main["pool_hits"] > 0, "batched: the pool never recycled a slab")
+
+    # the budget run: partial windows, trimmed, labelled as unpaced
+    valid = [m.get("valid_frames", BATCH) for m in budget["metas"]]
+    partial = [v for v in valid if v < BATCH]
+    check(partial, "budget: no partial window")
+    trimmed = [len(b.tensors[0]) == b.meta["valid_frames"]
+               for b in budget["sink"].buffers if "valid_frames" in b.meta]
+    check(all(trimmed), "budget: a partial window was not trimmed")
+    check(budget["latency_samples"] == BUDGET_FRAMES,
+          f"budget: {budget['latency_samples']} latency samples for "
+          f"{BUDGET_FRAMES} frames")
+    (bregion,) = budget["regions"]
+    check(bregion["captures"] == 1 and not bregion["unspliced"],
+          f"budget: {bregion['captures']} captures")
+    paced = [f[:2] for f in budget["frames"]]
+    unpaced = [f[:2] for f in ball["frames"][:BUDGET_FRAMES]]
+    check(paced == unpaced, "budget: labels differ from the unpaced run")
+    budget_scores_same = sum(a == b for a, b in zip(
+        budget["frames"], ball["frames"][:BUDGET_FRAMES]))
+
+    # bf16 logits of the first window's first frames against fp32 on the
+    # CPU (TF32 off), the bound of the pipeline phase
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                    dtype=torch.float32, seed=0)
+    (x, logits), = samples
+    check(tuple(logits.shape) == (LOGIT_FRAMES, CLASSES) and
+          bool(torch.isfinite(logits).all()),
+          f"batched: logits of shape {tuple(logits.shape)} or not finite")
+    with torch.inference_mode():
+        ref = ref_module(x)
+    rel = [float((lg - rf).norm() / rf.norm()) for lg, rf in zip(logits,
+                                                                   ref)]
+    check(max(rel) <= REL_L2_MAX,
+          f"batched: bf16 logits vs fp32 on the CPU: relative L2 "
+          f"{max(rel)} > {REL_L2_MAX}")
+    result = {
+        "frames": n, "batch": BATCH, "labelled": len(main["frames"]),
+        "cuts": ["lanes 1 (bench.py runs 4: ROADMAP A.11)",
+                 "no stamp-admission on the ingress queue (A.11)"],
+        "bit_identical_frames": identical,
+        "region": region,
+        **{k: v for k, v in summary(main).items()},
+        "logit_rel_l2": rel, "logit_rel_l2_max_allowed": REL_L2_MAX,
+        "unfused": summary(unfused), "inflight_1": summary(inflight1),
+        "pool_off": summary(pool_off), "ball": summary(ball),
+        "ball_pool_off": summary(ball_off),
+        "budget": {**summary(budget), "windows_valid_frames": valid,
+                   "partial_windows": len(partial),
+                   "captures": bregion["captures"],
+                   "labels_equal_unpaced": len(paced),
+                   "scores_bit_identical_to_unpaced": budget_scores_same},
+        "batch1_fused": summary(single),
+        "gpu": power,
+    }
+    return result, launch
+
+
+def profile_pipeline_batched(result, launch) -> None:
+    """The profiled runs of the batched and the batch-1 fused flagship,
+    after every timed phase; emits the ``pipeline_batched`` line."""
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+
+    try:
+        trace = profile_pipeline(launch(BATCHED_PROFILED_FRAMES),
+                                 BATCHED_PROFILED_FRAMES)
+        trace1 = profile_pipeline(launch(PROFILED_FRAMES, batch=1),
+                                  PROFILED_FRAMES)
+    finally:
+        unregister_torch_model("mnv2_b8")
+    result["profiled_run"] = trace
+    result["host_launches_per_window"] = \
+        trace.get("host_launches_per_replayed_frame")
+    result["device_busy_ms_per_frame"] = trace["device_busy_ms_per_frame"]
+    result["device_idle_share_at_timed_rate"] = \
+        1.0 - trace["device_busy_ms_per_frame"] * result["fps"] / 1e3
+    single = result["batch1_fused"]
+    single["profiled_run"] = trace1
+    single["host_launches_per_frame_replayed"] = \
+        trace1.get("host_launches_per_replayed_frame")
+    single["device_busy_ms_per_frame"] = trace1["device_busy_ms_per_frame"]
+    single["device_idle_share_at_timed_rate"] = \
+        1.0 - trace1["device_busy_ms_per_frame"] * single["fps"] / 1e3
+    emit({"phase": "pipeline_batched", **result})
+
+
 def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
     """From a ``torch.profiler`` trace of a run of ``wall_us``: the device's
     busy time (union of its intervals) per unit of work, its idle share,
@@ -1605,7 +1938,7 @@ def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
     }
 
 
-def profile_pipeline(pipe) -> dict:
+def profile_pipeline(pipe, frames: int = PROFILED_FRAMES) -> dict:
     """Run ``pipe`` under ``torch.profiler``: the device's busy time per
     frame, its idle share of the run's wall time, and the kernels that take
     the most device time. The profiler slows the host, so the run's own
@@ -1619,8 +1952,8 @@ def profile_pipeline(pipe) -> dict:
         pipe.run(timeout=600)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    out = {"frames": PROFILED_FRAMES,
-           **device_profile(prof, wall_us, PROFILED_FRAMES, "frame")}
+    out = {"frames": frames,
+           **device_profile(prof, wall_us, frames, "frame")}
     # a fused run: the host's launch calls from its first graph replay on,
     # per replay (one a frame) — the first frame and the capture left out
     calls = sorted((ev.time_range.start, ev.name) for ev in prof.events()
@@ -1665,7 +1998,9 @@ def main() -> int:
     _, fp32_engine = phase_lm_parity(lm_engine)
     phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
     offload = phase_query_offload(power)
+    batched, batched_launch = phase_pipeline_batched(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
+    profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine)
     dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
@@ -1685,6 +2020,8 @@ def main() -> int:
         "source": "nnstreamer_tpu_torch/csrc/normalize.cu",
         "replaces": "nnstreamer_tpu/ops/preprocess.py:52",
         "launches": pipe["launches"]["normalize_chain"],
+        # the batched flagship: once a window of 8 frames
+        "launches_batched": batched["launches"]["normalize_chain"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"],
         "device_ms": dev_b1["device_ms"],

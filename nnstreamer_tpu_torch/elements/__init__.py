@@ -3,8 +3,8 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-other elements (mux/demux, merge/split, aggregator, rate, ...) wait
-for later slices of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
+other elements (mux/demux, merge/split, rate, ...) wait for later slices
+of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
 imports no model code until its engine is looked up.
 """
 
@@ -14,6 +14,7 @@ from nnstreamer_tpu_torch.pipeline.parse import CapsFilter  # noqa: F401 ("capsf
 from nnstreamer_tpu_torch.elements import source  # noqa: F401
 from nnstreamer_tpu_torch.elements import sink  # noqa: F401
 from nnstreamer_tpu_torch.elements import converter  # noqa: F401
+from nnstreamer_tpu_torch.elements import aggregator  # noqa: F401
 from nnstreamer_tpu_torch.elements import transform  # noqa: F401
 from nnstreamer_tpu_torch.elements import filter as filter_element  # noqa: F401
 from nnstreamer_tpu_torch.elements import decoder  # noqa: F401

@@ -3,7 +3,8 @@
 Reference: ``gst/nnstreamer/elements/gsttensorconverter.c``. The port
 converts ``video/x-raw`` frames (``(H, W, C)`` → tensor shape
 ``(N, H, W, C)``, dim ``(C, W, H, N)``, with ``frames-per-tensor``
-batching) and passes static tensor streams through. Audio, octet/text
+batching, stacked into a staging slab of ``tensors/pool.py``) and passes
+static tensor streams through. Audio, octet/text
 re-chunking and custom converter subplugins are not ported yet.
 """
 
@@ -17,6 +18,7 @@ from nnstreamer_tpu_torch.pipeline.caps import Caps
 from nnstreamer_tpu_torch.pipeline.element import Element, not_ported
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensors.pool import get_pool
 from nnstreamer_tpu_torch.tensors.types import (
     Fraction,
     TensorFormat,
@@ -100,7 +102,16 @@ class TensorConverter(Element):
         self._frame_acc.append((frame, buf))
         if len(self._frame_acc) < fpt:
             return None
-        frames = np.stack([f for f, _ in self._frame_acc], axis=0)
+        acc = [f for f, _ in self._frame_acc]
+        if all(f.shape == acc[0].shape and f.dtype == acc[0].dtype
+               for f in acc):
+            # the converter's one per-output host allocation on the
+            # batched ingest path: a recycled staging slab
+            frames = get_pool().acquire((len(acc),) + acc[0].shape,
+                                        acc[0].dtype)
+            np.stack(acc, axis=0, out=frames)
+        else:
+            frames = np.stack(acc, axis=0)
         first = self._frame_acc[0][1]
         self._frame_acc.clear()
         return self._emit(first.with_tensors([frames]))

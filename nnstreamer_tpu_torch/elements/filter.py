@@ -16,8 +16,13 @@ converter→transform→filter→decoder chain keeps payloads on the card;
 CUDA launches are asynchronous, so pipeline stages overlap naturally.
 A backend that offers a ``device_stage()`` makes the filter fusible into a
 region (``pipeline/fuse.py``), with its input and output combinations.
-Model sharing, hot reload, throttling, mesh sharding and the bounded
-dispatch window of the JAX package are not ported yet.
+
+``inflight`` (default 2) bounds the batches dispatched past this filter
+and not yet complete (``pipeline/dispatch.py``): the streaming thread
+fences the oldest when more are outstanding, and the pooled staging
+arrays of a batch go back to the pool at its fence; 0 fences every batch.
+The window drains at EOS and at stop. Model sharing, hot reload,
+throttling and mesh sharding of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ from typing import List, Optional
 from nnstreamer_tpu_torch.config import get_conf
 from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.pipeline.dispatch import (
+    POOL_STASH_META,
+    DispatchWindow,
+)
 from nnstreamer_tpu_torch.pipeline.element import (
     Element,
     peer_device_capable,
@@ -40,7 +49,6 @@ from nnstreamer_tpu_torch.tensors.buffer import (
 )
 from nnstreamer_tpu_torch.tensors.types import TensorsConfig, TensorsInfo
 
-_STAGING = "A.10 staging pool, dispatch window and aggregator"
 _MULTI = "A.24 multi-GPU serving"
 _CONTINUITY = "A.20 serving continuity"
 
@@ -88,9 +96,11 @@ class TensorFilter(Element):
         "outputtype": None,
         "input_combination": None,
         "output_combination": None,
+        # max device batches outstanding past this filter before the
+        # streaming thread fences the oldest; 0 fences every batch
+        "inflight": 2,
     }
     UNPORTED_PROPERTIES = {
-        "inflight": _STAGING,
         "mesh": _MULTI,
         "shard": _MULTI,
         "throttle": "A.11 supervision hooks, tracing and scheduling",
@@ -108,6 +118,7 @@ class TensorFilter(Element):
         self._out_model_info: Optional[TensorsInfo] = None
         self._comb_cache: dict = {}
         self._m_invoke = None  # created lazily: labels need pipeline name
+        self._window = DispatchWindow(self)
 
     def _obs_invoke(self):
         """``nns_tensor_filter_invoke_seconds`` times only the backend
@@ -127,6 +138,7 @@ class TensorFilter(Element):
         if h is not None and h.count:
             out["invoke_p50_ms"] = round(h.percentile(50) * 1e3, 3)
             out["invoke_p99_ms"] = round(h.percentile(99) * 1e3, 3)
+        out.update(self._window.snapshot())
         return out
 
     def _combination(self, key: str):
@@ -181,10 +193,15 @@ class TensorFilter(Element):
         self._open_fw()
 
     def stop(self):
+        self._window.drain(on_error="log")
         if self.fw is not None:
             self.fw.close()
             self.fw = None
         super().stop()
+
+    def handle_eos(self):
+        # every outstanding dispatch fences before EOS crosses downstream
+        self._window.drain()
 
     # -- negotiation ---------------------------------------------------------
     def transform_caps(self, pad, caps):
@@ -237,6 +254,7 @@ class TensorFilter(Element):
         if not fw.KEEP_ON_DEVICE:
             model_inputs = [host_array(x) for x in model_inputs]
 
+        stash = buf.meta.pop(POOL_STASH_META, None)
         t0 = _time.monotonic()
         outputs = fw.invoke(model_inputs)
         self._obs_invoke().observe(_time.monotonic() - t0)
@@ -247,6 +265,10 @@ class TensorFilter(Element):
                      for k, i in out_comb]
         else:
             final = list(outputs)
+        # bounded asynchronous dispatch: the oldest outstanding batch
+        # fences only when more than `inflight` are in flight, and the
+        # staging arrays this dispatch read recycle at that fence
+        self._window.admit(final, stash)
         out_buf = buf.with_tensors(final)
         if peer_device_capable(self.srcpad):
             # device-capable downstream: keep the result resident

@@ -7,7 +7,11 @@ for pull-style access, and :meth:`TensorSink.wait` blocks until N buffers
 or EOS. With ``to-host=true`` (the default) the sink is the frame's fetch
 point: device tensors come to the host here, and a decoder's deferred
 finalize runs here. The end-to-end latency of each frame (source
-``create()`` → host payload at the sink) is recorded.
+``create()`` → host payload at the sink) is recorded, one sample per real
+frame of an aggregated window (``meta["create_ts"]``). A padded partial
+window (``meta["valid_frames"]``) is trimmed to its valid leading rows,
+and staging arrays that reach the sink unclaimed (``meta["pool_stash"]``)
+go back to the pool once the payload is on the host.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ from typing import Callable, List
 import numpy as np
 
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.pipeline.dispatch import POOL_STASH_META
 from nnstreamer_tpu_torch.pipeline.element import Element, EosEvent, FlowReturn
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensors.pool import get_pool
 
 
 @subplugin(ELEMENT, "tensor_sink")
@@ -71,14 +77,27 @@ class TensorSink(Element):
         self._callbacks.append(callback)
 
     def chain(self, pad, buf):
+        # pooled staging arrays no dispatch window claimed: released once
+        # materialization proves the device work that read them is done
+        stash = buf.meta.pop(POOL_STASH_META, None)
         # a pending finalize is ALWAYS applied — even with to-host=false —
         # so the app sees the decoder's output (the fetch then covers only
         # the device half's small results, never full frames)
         if self.get_property("to_host") or buf.finalize is not None:
             buf = buf.to_host()
+            # a latency-budget partial window (aggregator
+            # latency-budget-ms) was padded to the full-window shape: trim
+            # each tensor back to its k valid leading rows
+            k = buf.meta.get("valid_frames")
+            if k:
+                buf = buf.with_tensors([
+                    t[:k] if getattr(t, "ndim", 0) and t.shape[0] > k
+                    else t for t in buf.tensors])
         # only a host payload counts as delivered: recording a device
         # handle's arrival would measure the enqueue, not the completion
         if not buf.on_device():
+            if stash:
+                get_pool().release_many(stash)
             now = time.monotonic()
             hist = self._obs_e2e()
             for t in buf.create_stamps():

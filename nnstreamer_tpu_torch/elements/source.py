@@ -2,8 +2,9 @@
 
 Reference equivalents: gst core ``videotestsrc`` and ``appsrc`` (used
 throughout the reference's SSAT pipelines). Frames are host numpy arrays,
-byte-identical to the JAX package's ``videotestsrc`` for every pattern;
-the elements downstream move them to the device.
+byte-identical to the JAX package's ``videotestsrc`` for every pattern
+(``ball`` frames come from the staging pool, ``tensors/pool.py``); the
+elements downstream move them to the device.
 """
 
 from __future__ import annotations
@@ -100,7 +101,13 @@ class VideoTestSrc(SourceElement):
             row = np.linspace(0, 255, w, dtype=np.uint8)
             img = np.broadcast_to(row[None, :, None], (h, w, ch)).copy()
         elif pattern == "ball":
-            img = np.zeros((h, w, ch), np.uint8)
+            # the one frame-dependent pattern synthesizes per frame: into
+            # a recycled staging slab (tensors/pool.py), which returns to
+            # the pool when the last downstream reference dies
+            from nnstreamer_tpu_torch.tensors.pool import get_pool
+
+            img = get_pool().acquire((h, w, ch), np.uint8)
+            img[:] = 0
             cx = (i * 7) % w
             cy = (i * 5) % h
             y, x = np.ogrid[:h, :w]

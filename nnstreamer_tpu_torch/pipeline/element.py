@@ -134,6 +134,23 @@ class Pad:
             return FlowReturn.OK
         return self.peer.element._chain_entry(self.peer, buf)
 
+    def push_list(self, bufs: List[TensorBuffer]) -> FlowReturn:
+        """Push a backlog of buffers downstream in one hand-off. Peers that
+        opt in (``Element.HANDLES_LIST``) receive the whole list through
+        one ``chain_list`` call; everyone else gets the per-buffer push
+        sequence, so opting out never changes behaviour."""
+        if self.peer is None:
+            return FlowReturn.OK
+        el = self.peer.element
+        if getattr(el, "HANDLES_LIST", False) and len(bufs) > 1:
+            return el._chain_list_entry(self.peer, bufs)
+        ret = FlowReturn.OK
+        for b in bufs:
+            ret = el._chain_entry(self.peer, b)
+            if ret is FlowReturn.EOS:
+                return ret
+        return ret
+
     def push_event(self, event: Event) -> None:
         if isinstance(event, CapsEvent):
             self.caps = event.caps
@@ -190,6 +207,12 @@ class Element:
     #: True to keep a pending ``TensorBuffer.finalize`` lazy. Everything else
     #: materializes a finalize-pending buffer on entry.
     HANDLES_DEFERRED = False
+
+    #: Elements that accept a whole buffer backlog per entry (aggregator,
+    #: fused regions) set this True; a batch-draining queue then hands its
+    #: backlog through ONE ``chain_list`` call instead of a per-buffer push
+    #: sequence. The list keeps queue order and is consumed in order.
+    HANDLES_LIST = False
 
     #: Elements that route/hold/compute without reading tensor bytes on the
     #: host set this True: a :class:`DeviceBuffer` then crosses their pads
@@ -343,23 +366,51 @@ class Element:
         return {"chain_p50_ms": round(h.percentile(50) * 1e3, 3),
                 "chain_p99_ms": round(h.percentile(99) * 1e3, 3)}
 
+    def _entered(self, buf: TensorBuffer) -> TensorBuffer:
+        """A buffer as this element sees it at pad entry: a resident buffer
+        stays resident across elements that declared passthrough or keep
+        deferred work lazy; otherwise this entry is the (cached)
+        materialization."""
+        if isinstance(buf, DeviceBuffer):
+            if not (self.HANDLES_DEFERRED or (
+                    self.DEVICE_PASSTHROUGH and buf.finalize is None)):
+                return buf.to_host()
+        elif buf.finalize is not None and not self.HANDLES_DEFERRED:
+            return buf.to_host()
+        return buf
+
+    def _chain_list_entry(self, pad: Pad,
+                          bufs: List[TensorBuffer]) -> FlowReturn:
+        """Batch twin of :meth:`_chain_entry` (``Pad.push_list`` → here):
+        the same entry contract per buffer; stats spread the batch's
+        duration evenly over its buffers, so invoke counts and throughput
+        read as on the per-buffer path."""
+        if pad.eos:
+            return FlowReturn.EOS
+        t0 = _time.monotonic()
+        try:
+            try:
+                ret = self.chain_list(pad, [self._entered(b) for b in bufs])
+            except FlowError:
+                raise
+            except Exception as e:
+                raise FlowError(f"{self.name}: {e}") from e
+        finally:
+            now = _time.monotonic()
+            per = (now - t0) / max(len(bufs), 1)
+            hist = self._obs_chain_hist()
+            for _ in range(max(len(bufs), 1)):
+                self.stats.record(per, now)
+                hist.observe(per)
+        return FlowReturn.OK if ret is None else ret
+
     def _chain_entry(self, pad: Pad, buf: TensorBuffer) -> FlowReturn:
         if pad.eos:
             return FlowReturn.EOS
         t0 = _time.monotonic()
         try:
             try:
-                if isinstance(buf, DeviceBuffer):
-                    # a resident buffer stays resident across elements that
-                    # declared passthrough or keep deferred work lazy;
-                    # otherwise this entry is the (cached) materialization
-                    if not (self.HANDLES_DEFERRED or (
-                            self.DEVICE_PASSTHROUGH
-                            and buf.finalize is None)):
-                        buf = buf.to_host()
-                elif buf.finalize is not None and not self.HANDLES_DEFERRED:
-                    buf = buf.to_host()
-                ret = self.chain(pad, buf)
+                ret = self.chain(pad, self._entered(buf))
             except FlowError:
                 raise
             except Exception as e:
@@ -383,6 +434,18 @@ class Element:
         if self.srcpads:
             return self.srcpad.push(buf)
         return FlowReturn.OK
+
+    def chain_list(self, pad: Pad, bufs: List[TensorBuffer]
+                   ) -> Optional[FlowReturn]:
+        """Process a queue-drained backlog in order. Default: loop
+        :meth:`chain`; HANDLES_LIST elements may override to hoist
+        per-buffer overhead (one lock acquisition per backlog)."""
+        ret = None
+        for b in bufs:
+            ret = self.chain(pad, b)
+            if ret is FlowReturn.EOS:
+                break
+        return ret
 
     def sink_event(self, pad: Pad, event: Event) -> None:
         """Handle a downstream-flowing event. Default: CAPS → negotiate via

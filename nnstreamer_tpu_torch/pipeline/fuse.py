@@ -20,12 +20,19 @@ None``. Elements whose per-frame behaviour is host control flow do not,
 and stay unfused; so do neighbours whose stages compute on different
 devices.
 
+Each frame's copy into the static inputs, its replay and its output
+copies run in that order on the dispatching thread's current stream (the
+device's default stream): the next frame's copy overwrites the static
+inputs, which is safe only because it is enqueued behind this frame's
+replay on the same stream. A region has a dispatch window
+(``pipeline/dispatch.py``) of the largest ``inflight`` among its members;
+its fence is an event recorded after the output copies.
+
 What the JAX module has and this one does not: donation of the input slab
 (``NNSTPU_DONATE``) has no counterpart, since the graph reads static input
 buffers into which each frame is copied; QoS events (its ``src_event``)
-and the bounded dispatch window (``inflight``) wait for the port's QoS
-and ``pipeline/dispatch.py`` (ROADMAP A.11, A.10); a mesh-sharded stage
-raises (A.24).
+wait for the port's QoS (ROADMAP A.11); a mesh-sharded stage raises
+(A.24).
 
 Disable globally with ``NNSTPU_FUSE=0`` or per pipeline with
 ``Pipeline(fuse=False)``.
@@ -55,7 +62,15 @@ from nnstreamer_tpu_torch.pipeline.element import (
     not_ported,
     peer_device_capable,
 )
-from nnstreamer_tpu_torch.tensors.buffer import as_device_buffer, as_torch
+from nnstreamer_tpu_torch.pipeline.dispatch import (
+    POOL_STASH_META,
+    DispatchWindow,
+)
+from nnstreamer_tpu_torch.tensors.buffer import (
+    as_device_buffer,
+    as_torch,
+    copy_host_to,
+)
 
 log = get_logger("fuse")
 
@@ -151,7 +166,7 @@ class _Graph:
         downstream may still hold this frame's), all on the current
         stream."""
         for s, t in zip(self.inputs, tensors):
-            s.copy_(as_torch(t), non_blocking=True)
+            copy_host_to(s, t)
         self.graph.replay()
         _counts.add_replay(self.tally)
         return [o.clone() for o in self.outputs]
@@ -175,6 +190,10 @@ class FusedRegion(Element):
     #: device tensors enter as they are: they are copied into the graph's
     #: static inputs (or handed to the composed stages on the CPU)
     DEVICE_PASSTHROUGH = True
+    #: a queue feeding a region may hand its backlog as one list: each
+    #: buffer dispatches at once and the dispatch window paces them
+    HANDLES_LIST = True
+    PROPERTIES = {**Element.PROPERTIES, "inflight": 2}
 
     def __init__(self, members: Sequence[Element], name=None, **props):
         super().__init__(name, **props)
@@ -184,6 +203,12 @@ class FusedRegion(Element):
         #: buffers no longer flow through members)
         self.internal_pad = self.add_sink_pad("fused-internal")
         self.members: List[Element] = list(members)
+        # `tensor_filter inflight=K` keeps its meaning after fusion
+        member_inflight = [int(m.get_property("inflight"))
+                           for m in self.members if "inflight" in m._props]
+        if member_inflight:
+            self._props["inflight"] = max(member_inflight)
+        self._window = DispatchWindow(self)
         #: (consts_list, composed fn, finalize, device) — swapped
         #: atomically; readers take one local reference
         self._compiled = None
@@ -266,6 +291,7 @@ class FusedRegion(Element):
         out = super().obs_snapshot()
         out.update(eager_frames=self.eager_frames, replays=self.replays,
                    captures=self.captures)
+        out.update(self._window.snapshot())
         if self._m_retrace is not None:
             out["retraces"] = int(self._m_retrace.value)
         return out
@@ -274,6 +300,8 @@ class FusedRegion(Element):
         """Drop the built stages and the captured graphs; the next frame
         re-pulls member stages (and captures anew on the card)."""
         self._compiled = None
+        # outstanding dispatches belong to the old stages
+        self._window.drain()
         if self._graphs:
             # a replay may still run on the card: the graphs' memory pool
             # must outlive it
@@ -316,6 +344,7 @@ class FusedRegion(Element):
                 # pipeline's behavior resumes seamlessly
                 return self._fallback(buf)
         consts, fn, finalize, device = compiled
+        stash = buf.meta.pop(POOL_STASH_META, None)
         tensors = list(buf.tensors)
         sig = _signature(tensors)
         on_card = device is not None and device.type == "cuda"
@@ -339,7 +368,14 @@ class FusedRegion(Element):
                 # other
                 log.warning("%s: fused stages failed (%s); falling back to "
                             "member chain", self.name, e)
+                if stash:
+                    buf.meta[POOL_STASH_META] = stash
                 return self._fallback(buf)
+        # bounded asynchronous dispatch: the event follows the output
+        # copies on this stream; the oldest batch fences only when more
+        # than `inflight` are outstanding, and this frame's staging
+        # arrays recycle at its fence
+        self._window.admit(out, stash)
         out_buf = buf.with_tensors(out)
         if finalize is not None:
             out_buf = out_buf.replace(finalize=finalize)
@@ -409,6 +445,14 @@ class FusedRegion(Element):
         first = self.members[0]
         return first._chain_entry(first.sinkpads[0], buf)
 
+    def handle_eos(self):
+        # every outstanding dispatch fences before EOS crosses downstream
+        self._window.drain()
+
+    def stop(self):
+        self._window.drain(on_error="log")
+        super().stop()
+
     # -- events --------------------------------------------------------------
     def sink_event(self, pad: Pad, event: Event) -> None:
         if pad is self.internal_pad:
@@ -455,6 +499,9 @@ class FusedRegion(Element):
 
     def unsplice(self) -> None:
         """Restore the original element links (region becomes inert)."""
+        # outstanding dispatches belong to the dying region: fence them so
+        # the member chain can never overtake their results
+        self._window.drain()
         first, last = self.members[0], self.members[-1]
         last.srcpads[0].unlink()  # internal pad
         up_src = self.sinkpad.peer

@@ -11,7 +11,9 @@ messages to the application. The port keeps that capability:
   create-loop).
 - :class:`Queue` is the explicit thread boundary (gst ``queue``): a bounded
   FIFO + worker thread. Stages separated by queues overlap host work with
-  the card's asynchronous execution.
+  the card's asynchronous execution; with ``prefetch-device`` it is the
+  staging point where host frames cross to the card in batches, and with
+  ``materialize-host`` the point where results come back in groups.
 
 As in the JAX package, a pipeline fuses by default: ``start()`` splices
 a :class:`~nnstreamer_tpu_torch.pipeline.fuse.FusedRegion` over each run
@@ -30,8 +32,16 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+import torch
+
+from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.pipeline.dispatch import (
+    POOL_STASH_META,
+    release_shed_payload,
+)
 from nnstreamer_tpu_torch.pipeline.element import (
     Element,
     EosEvent,
@@ -42,12 +52,22 @@ from nnstreamer_tpu_torch.pipeline.element import (
 )
 from nnstreamer_tpu_torch.pipeline.fuse import fuse_pipeline, fusion_enabled
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
-from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensors.buffer import (
+    H2D_EXCLUSIVE_META,
+    TensorBuffer,
+    as_device_buffer,
+    materialize_many,
+    upload_many,
+)
+from nnstreamer_tpu_torch.tensors.pool import (
+    get_pool,
+    pool_enabled,
+    release_all_pools,
+)
 
 log = get_logger("pipeline")
 
 _TRACING = "A.11 supervision hooks, tracing and scheduling"
-_STAGING = "A.10 staging pool, dispatch window and aggregator"
 
 
 class State(enum.Enum):
@@ -130,24 +150,39 @@ class Queue(Element):
 
     - ``max-size-buffers`` bounds occupancy;
     - ``leaky`` (``no`` | ``downstream``) selects blocking vs drop-oldest
-      backpressure (gst queue's leaky property);
+      backpressure (gst queue's leaky property); a dropped frame releases
+      its pool stash at once;
+    - ``drain-batch`` is the most buffers the worker gathers per wake,
+      from what is already queued (it never waits); a run of data buffers
+      goes to a ``HANDLES_LIST`` peer as one list, and 1 turns gathering
+      off;
+    - ``prefetch-device`` uploads each buffer to the package device: with
+      ``batch-h2d`` (the default) on the worker side, where each gathered
+      run of same-shaped host buffers crosses as ONE copy from one pinned
+      window slab (``tensors/buffer.py`` ``upload_many``), else per buffer
+      on the producer side. The pooled host arrays ride on as the
+      buffer's ``pool_stash`` until the dispatch that reads them fences
+      (``pipeline/dispatch.py``), and a partial window's deferred padding
+      (aggregator ``pad-device``) is added on the device;
     - ``prefetch-host`` starts each buffer's device→host copies on the
       producer side, into pinned memory, so the consumer of the queue
       finds them in flight;
-    - ``materialize-host`` hands HOST buffers downstream: the worker
-      fetches each buffer (and applies its deferred finalize) before the
-      push.
+    - ``materialize-host`` hands HOST buffers downstream: each gathered
+      run is fetched with one synchronisation (``materialize_many``) and
+      its deferred finalizes applied, in order, before the pushes.
+
+    Uploads and fetches run on the worker's current stream, the device's
+    default stream (``tensors/buffer.py``).
     """
 
     ELEMENT_NAME = "queue"
     HANDLES_DEFERRED = True  # pure hand-off: finalize stays lazy across it
     DEVICE_PASSTHROUGH = True  # never reads tensor bytes on the host
     PROPERTIES = {**Element.PROPERTIES, "max_size_buffers": 16, "leaky": "no",
-                  "prefetch_host": False, "materialize_host": False}
+                  "prefetch_host": False, "prefetch_device": False,
+                  "materialize_host": False, "drain_batch": 64,
+                  "batch_h2d": True}
     UNPORTED_PROPERTIES = {
-        "prefetch_device": _STAGING,
-        "batch_h2d": _STAGING,
-        "drain_batch": _STAGING,
         "stamp_admission": _TRACING,
         "slo_budget_ms": _TRACING,
     }
@@ -163,6 +198,12 @@ class Queue(Element):
         self._stop_evt = threading.Event()
         self._eos_done = threading.Event()
         self._m_drops = None
+        self._m_drain = None
+        #: data buffers the worker popped but has not handed downstream
+        #: yet (single writer: the worker)
+        self._undelivered = 0
+        #: where prefetch-device uploads to, resolved at start()
+        self._device: Optional[torch.device] = None
 
     def property_changed(self, key):
         if key == "leaky" and self._props["leaky"] not in ("no", "downstream"):
@@ -171,23 +212,34 @@ class Queue(Element):
 
     def obs_snapshot(self):
         out = super().obs_snapshot()
-        out["depth"] = self._q.qsize()
+        out["depth"] = self._q.qsize() + self._undelivered
         if self._m_drops is not None:
             out["drops"] = int(self._m_drops.value)
+        if self._m_drain is not None and self._m_drain.count:
+            out["drain_size_p50"] = self._m_drain.percentile(50)
         return out
 
     def start(self):
         super().start()
         self._stop_evt.clear()
         self._eos_done.clear()
+        self._undelivered = 0
+        if self.get_property("prefetch_device"):
+            self._device = resolve_device()
         self._q = _queue.Queue(
             maxsize=int(self.get_property("max_size_buffers")))
         if self._m_drops is None:
-            self._m_drops = get_registry().counter(
+            reg = get_registry()
+            labels = dict(pipeline=getattr(self.pipeline, "name", "") or "",
+                          element=self.name)
+            self._m_drops = reg.counter(
                 "nns_queue_drops_total",
                 "Buffers discarded by leaky=downstream backpressure",
-                pipeline=getattr(self.pipeline, "name", "") or "",
-                element=self.name)
+                **labels)
+            self._m_drain = reg.histogram(
+                "nns_queue_drain_size",
+                "Data buffers the worker drained per wake (backlog "
+                "batching)", buckets=(1, 2, 4, 8, 16, 32, 64), **labels)
         self._worker = threading.Thread(
             target=self._drain, name=f"{self.name}-worker", daemon=True)
         self._worker.start()
@@ -203,9 +255,27 @@ class Queue(Element):
             self._worker = None
         super().stop()
 
+    def accepts_now(self) -> bool:
+        """True when a push would be absorbed without blocking or dropping.
+        A latency-budget aggregator upstream polls this before flushing a
+        partial window early."""
+        if self._worker is None:
+            return True
+        maxsize = self._q.maxsize
+        return maxsize <= 0 or self._q.qsize() < maxsize
+
     def chain(self, pad, buf):
-        if self.get_property("prefetch_host"):
+        if self.get_property("prefetch_host") and \
+                not self.get_property("materialize_host"):
+            # (materialize-host fetches on the worker side, grouped)
             buf = buf.prefetch_host()
+        if self.get_property("prefetch_device"):
+            # batch-h2d defers the upload to the worker, which coalesces
+            # each gathered run into one staged window upload
+            defer = (self.get_property("batch_h2d")
+                     and self._worker is not None and not buf.on_device())
+            if not defer:
+                buf = self._upload_one(buf)
         if self._worker is None:  # not started: degenerate passthrough
             return self.srcpad.push(buf)
         if self.get_property("leaky") == "downstream":
@@ -215,8 +285,13 @@ class Queue(Element):
                     return FlowReturn.OK
                 except _queue.Full:
                     try:
-                        self._q.get_nowait()  # drop the oldest
+                        dropped = self._q.get_nowait()  # drop the oldest
                         self._m_drops.inc()
+                        if not (dropped is self._EOS
+                                or isinstance(dropped, Event)):
+                            # it never reaches a fence: release its
+                            # staged slabs now, not at GC
+                            release_shed_payload(dropped)
                     except _queue.Empty:
                         pass
         while not self._stop_evt.is_set():
@@ -240,22 +315,145 @@ class Queue(Element):
         else:
             self._q.put(event)
 
+    # -- uploads (tensors/buffer.py upload_many) -----------------------------
+    def _device_or_resolve(self) -> torch.device:
+        if self._device is None:
+            self._device = resolve_device()
+        return self._device
+
+    def _upload_one(self, buf):
+        """Per-buffer upload (producer-side prefetch, run singletons,
+        deferred-pad partial windows): the payload to the device, the
+        pre-upload host arrays as the DeviceBuffer's host view, the pooled
+        ones as its stash; then the deferred padding, on the device."""
+        if not buf.on_device():
+            pool = get_pool()
+            stash = [t for t in buf.tensors if pool.owns(t)]
+            host_src = list(buf.tensors)
+            buf = as_device_buffer(buf.to_device(self._device_or_resolve()),
+                                   host_view=host_src)
+            buf.meta[H2D_EXCLUSIVE_META] = True
+            if stash:
+                # the copy reads the slabs after this returns, and so does
+                # the dispatch: the window downstream releases them at its
+                # fence
+                buf.meta[POOL_STASH_META] = stash
+        if buf.meta.get("pad_rows"):
+            buf = buf.pad_rows_device()
+        return buf
+
+    def _upload_group(self, group: list) -> list:
+        """One staged slab upload for ≥2 same-signature host buffers. The
+        window slabs ride the LAST buffer's stash: the window fences in
+        order, so by the time that fence releases them every dispatch
+        that read the upload has completed."""
+        pool = get_pool()
+        stashes = [[t for t in b.tensors if pool.owns(t)] for b in group]
+        devs, slabs = upload_many(group, self._device_or_resolve())
+        for b, st in zip(devs, stashes):
+            if st:
+                b.meta[POOL_STASH_META] = st
+        if slabs:
+            last = devs[-1]
+            last.meta[POOL_STASH_META] = list(
+                last.meta.get(POOL_STASH_META) or []) + slabs
+        return devs
+
+    def _upload_run(self, run: list) -> list:
+        """Split a drained run into maximal groups of consecutive host,
+        same-shaped buffers and upload each group as one window slab;
+        singletons, device buffers and deferred-pad partials go one by
+        one."""
+        def single(b) -> bool:
+            return (b.on_device() or not b.tensors
+                    or bool(b.meta.get("pad_rows"))
+                    or not all(isinstance(t, np.ndarray) for t in b.tensors))
+
+        out: list = []
+        i = 0
+        while i < len(run):
+            b = run[i]
+            if single(b):
+                out.append(self._upload_one(b))
+                i += 1
+                continue
+            sig = [(t.shape, t.dtype) for t in b.tensors]
+            j = i + 1
+            while j < len(run) and not single(run[j]) and \
+                    [(t.shape, t.dtype) for t in run[j].tensors] == sig:
+                j += 1
+            if j - i >= 2:
+                out.extend(self._upload_group(run[i:j]))
+            else:
+                out.append(self._upload_one(b))
+            i = j
+        return out
+
+    def _flush_run(self, run: list) -> None:
+        """Deliver a gathered run of data buffers: uploaded first with
+        prefetch-device and batch-h2d; materialized as one group
+        (materialize-host); as ONE list hand-off when the peer opts in;
+        else one by one."""
+        if not run:
+            return
+        if self.get_property("prefetch_device") and \
+                self.get_property("batch_h2d"):
+            run = self._upload_run(run)
+        if self.get_property("materialize_host"):
+            for host in materialize_many(run):
+                self._undelivered -= 1
+                self.srcpad.push(host)
+            return
+        peer = self.srcpad.peer
+        if len(run) > 1 and peer is not None and \
+                getattr(peer.element, "HANDLES_LIST", False):
+            self._undelivered -= len(run)
+            self.srcpad.push_list(run)
+            return
+        for it in run:
+            self._undelivered -= 1
+            self.srcpad.push(it)
+
     def _drain(self):
-        materialize = bool(self.get_property("materialize_host"))
+        drain_max = max(1, int(self.get_property("drain_batch")))
         while not self._stop_evt.is_set():
             try:
                 item = self._q.get(timeout=0.1)
             except _queue.Empty:
                 continue
+            batch = [item]
+            if drain_max > 1 and not isinstance(item, Event) and \
+                    item is not self._EOS:
+                # gather whatever is ALREADY queued (never wait); events
+                # end a gathering and stay serialized with the data
+                while len(batch) < drain_max:
+                    try:
+                        nxt = self._q.get_nowait()
+                    except _queue.Empty:
+                        break
+                    batch.append(nxt)
+                    if nxt is self._EOS or isinstance(nxt, Event):
+                        break
+            ndata = sum(1 for it in batch
+                        if it is not self._EOS and not isinstance(it, Event))
+            self._undelivered += ndata
+            if ndata:
+                self._m_drain.observe(ndata)
+            run: list = []
             try:
-                if item is self._EOS:
-                    self.srcpad.push_event(EosEvent())
-                    self._eos_done.set()
-                    return
-                if isinstance(item, Event):
-                    self.srcpad.push_event(item)
-                    continue
-                self.srcpad.push(item.to_host() if materialize else item)
+                for it in batch:
+                    if it is self._EOS or isinstance(it, Event):
+                        # events delimit runs: the data ahead goes first
+                        self._flush_run(run)
+                        run = []
+                        if it is self._EOS:
+                            self.srcpad.push_event(EosEvent())
+                            self._eos_done.set()
+                            return
+                        self.srcpad.push_event(it)
+                    else:
+                        run.append(it)
+                self._flush_run(run)
             except Exception as e:  # noqa: BLE001 — downstream failures
                 # must reach the bus, not silently kill this worker thread
                 self.post_error(e if isinstance(e, FlowError)
@@ -327,6 +525,10 @@ class Pipeline:
             elements[el.name] = entry
         out = {"pipeline": self.name, "state": self.state.value,
                "elements": elements}
+        if pool_enabled():
+            # the process-wide staging pool (sources, converters and
+            # aggregators share it): is the hot path recycling?
+            out["pool"] = get_pool().snapshot()
         if self._regions:
             # regions are spliced, not in self.elements: their dispatch
             # counts (eager frames, replays, captures, retraces)
@@ -394,6 +596,8 @@ class Pipeline:
                 el.stop()
         for r in self._regions or ():
             r.stop()
+        # a stopped pipeline holds no free staging slabs
+        release_all_pools()
         self.state = State.NULL
         return self
 

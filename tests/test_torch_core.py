@@ -128,7 +128,7 @@ def test_queue_properties_run(queue_props):
 
 
 @pytest.mark.parametrize("desc,item", [
-    ("videotestsrc ! queue prefetch-device=true ! tensor_sink", "A.10"),
+    ("videotestsrc ! queue slo-budget-ms=5 ! tensor_sink", "A.11"),
     ("videotestsrc ! queue stamp-admission=true ! tensor_sink", "A.11"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),

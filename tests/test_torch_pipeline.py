@@ -171,7 +171,8 @@ def test_import_leaves_jax_out():
         "for m in ('serving.engine', 'elements.lm_serve', "
         "'models.transformer', 'ops.flash_attention', 'ops.quantize', "
         "'elements.quant', 'elements.query', 'query.protocol', "
-        "'query.server', 'tensors.meta'):\n"
+        "'query.server', 'tensors.meta', 'tensors.pool', "
+        "'tensors.buffer', 'pipeline.dispatch', 'elements.aggregator'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -182,6 +183,34 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("desc", [
+    "appsrc ! tensor_aggregator frames-in=1 frames-out=8 frames-flush=8 "
+    "frames-dim=3 concat=true latency-budget-ms=5 pad-device=true ! "
+    "tensor_sink",
+    "appsrc ! queue prefetch-device=true batch-h2d=false drain-batch=4 ! "
+    "tensor_sink",
+    "appsrc ! tensor_filter framework=jax model=m inflight=3 ! tensor_sink",
+])
+def test_staging_properties_are_ported(desc):
+    tnt.parse_launch(desc)
+
+
+@pytest.mark.parametrize("desc,item", [
+    ("appsrc ! queue stamp-admission=true ! tensor_sink", "A.11"),
+    ("appsrc ! queue slo-budget-ms=20 ! tensor_sink", "A.11"),
+])
+def test_admission_properties_still_raise(desc, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tnt.parse_launch(desc)
+
+
+def test_mesh_quantum_still_raises():
+    from nnstreamer_tpu_torch.elements.aggregator import TensorAggregator
+
+    with pytest.raises(NotImplementedError, match="A.24"):
+        TensorAggregator(frames_out=8).note_mesh_quantum(2)
 
 
 def test_sources_name_no_jax():
