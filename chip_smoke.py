@@ -100,6 +100,24 @@ BATCHED_PROFILED_FRAMES = 96
 BUDGET_FRAMES = 160
 BUDGET_RATE = "200/1"
 BUDGET_MS = 10
+#: bench.py's string with no cuts (``pipeline_uncut``): its lane count
+#: (bench.py:136), the supervision phase's fault period and the watchdog's
+#: deadline and the bound on its detection (the run, teardown included)
+UNCUT_LANES = 4
+#: frames of the longer runs of the uncut string that measure it past the
+#: region's start-up (eager first window and capture, 0.2-1.1 s), which a
+#: new pipeline pays and during which the leaky ingress drops what the
+#: free-running source makes (3,000-6,500 gradient frames a second): at
+#: 800 frames the source is done before the first window is, and the
+#: first quarter of these runs covers the start-up
+STEADY_FRAMES = 40000
+FAULT_EVERY = 13
+WATCHDOG_S = 1.0
+WATCHDOG_MAX_S = 3.0
+#: the frame ledger's stages the uncut string emits: the tiling ones and
+#: the transfer and lane spans beside them
+LEDGER_STAGES = ("ingest", "lane_reorder", "queue_wait", "fence_wait",
+                 "device", "d2h", "decode", "sink", "h2d", "lane_exec")
 LOGIT_FRAMES = 4      # frames whose logits are held to the fp32 CPU model
 REL_L2_MAX = 2e-2     # bf16 on the card vs fp32 on the CPU, 53 layers
 TRANSFORM_CHAIN = [("add", -127.5), ("div", 127.5)]
@@ -1581,13 +1599,31 @@ def phase_pipeline(power: str):
     return result, fused
 
 
+def labelled_frames(metas):
+    """(label, index, f32 score bits) per real frame of the sink's buffers'
+    metas, in order."""
+    import numpy as np
+
+    out = []
+    for m in metas:
+        labs, idx, sc = m["label"], m["label_index"], m["score"]
+        if isinstance(labs, str):
+            labs, idx, sc = [labs], [idx], [sc]
+        k = m.get("valid_frames", len(labs))
+        out += [(a, int(b), np.float32(c).tobytes())
+                for a, b, c in zip(labs[:k], idx[:k], sc[:k])]
+    return out
+
+
 def phase_pipeline_batched(power: str):
     """The flagship as bench.py launches it by default: batch 8 through
     ``tensor_aggregator``, a ``prefetch-device`` staging queue, the
     filter's dispatch window (``inflight=2``), the batched decoder and a
     ``materialize-host`` drain, fused (transform ! filter ! decoder is one
-    CUDA graph with B1 inside, once a window). Its cuts against bench.py:
-    lanes 1 and no ``stamp-admission`` on the ingress queue (A.11).
+    CUDA graph with B1 inside, once a window). It runs lanes 1 and a plain
+    ingress queue; ``pipeline_uncut`` runs bench.py's lanes 4 and leaky,
+    stamp-admission ingress, so this phase's string has no cuts of its
+    own to record.
 
     The timed runs: the string as given (``pattern=gradient``, 800 frames);
     the same unfused, with ``inflight=1`` and with ``NNSTPU_POOL=0``, each
@@ -1663,18 +1699,6 @@ def phase_pipeline_batched(power: str):
         return nt.parse_launch(desc, pipeline=Pipeline(
             name=f"b{batch}_{runs['n']}", fuse=fuse))
 
-    def frames_of(metas):
-        """(label, index, f32 score bits) per real frame, in order."""
-        out = []
-        for m in metas:
-            labs, idx, sc = m["label"], m["label_index"], m["score"]
-            if isinstance(labs, str):
-                labs, idx, sc = [labs], [idx], [sc]
-            k = m.get("valid_frames", len(labs))
-            out += [(a, int(b), np.float32(c).tobytes())
-                    for a, b, c in zip(labs[:k], idx[:k], sc[:k])]
-        return out
-
     def timed(pipe, n, env_pool=None):
         got, pts = [], []
         sink = pipe.get("out")
@@ -1699,7 +1723,7 @@ def phase_pipeline_batched(power: str):
         pool1, xfer1 = get_pool().snapshot(), transfer_snapshot()
         snap = pipe.metrics_snapshot()
         regions = list(snap.get("regions", {}).values())
-        frames = frames_of(got)
+        frames = labelled_frames(got)
         check(len(frames) == n, f"batched: {len(frames)} of {n} frames "
                                 "labelled")
         check(all(isinstance(f[0], str) and f[0].startswith("class_")
@@ -1714,7 +1738,9 @@ def phase_pipeline_batched(power: str):
         # without the first quarter of the frames: the free-running source
         # fills the queues while the region runs its eager first window
         # and captures, and those frames wait for both
-        s50, s99 = sink.latency_percentiles(50.0, 99.0, skip=n // 4)
+        # a leaky ingress may deliver fewer frames than a quarter skips
+        s50, s99 = sink.latency_percentiles(50.0, 99.0, skip=n // 4) \
+            or (None, None)
         windows = len(got)
         dispatch = regions[0] if regions else snap["elements"]["filter"]
         return {
@@ -1845,8 +1871,7 @@ def phase_pipeline_batched(power: str):
           f"{max(rel)} > {REL_L2_MAX}")
     result = {
         "frames": n, "batch": BATCH, "labelled": len(main["frames"]),
-        "cuts": ["lanes 1 (bench.py runs 4: ROADMAP A.11)",
-                 "no stamp-admission on the ingress queue (A.11)"],
+        "cuts": [],
         "bit_identical_frames": identical,
         "region": region,
         **{k: v for k, v in summary(main).items()},
@@ -1893,6 +1918,398 @@ def profile_pipeline_batched(result, launch) -> None:
     single["device_idle_share_at_timed_rate"] = \
         1.0 - trace1["device_busy_ms_per_frame"] * single["fps"] / 1e3
     emit({"phase": "pipeline_batched", **result})
+
+
+def phase_pipeline_uncut(power: str) -> dict:
+    """bench.py's flagship string with no cuts (``bench.py:286-341`` at its
+    defaults): 800 gradient frames, lanes 4 (``pipe.lanes`` set after
+    ``parse_launch``, as bench.py does), a leaky ``stamp-admission``
+    ingress queue, batch 8 through ``tensor_aggregator``, a
+    ``prefetch-device`` staging queue, ``inflight=2``, ``option2=batched``
+    and a ``materialize-host`` drain, fused (B1 once a window inside the
+    region's one captured graph). Then, in the same call:
+
+    - lanes parity: a blocking ingress and ball frames at lanes 4 and 1
+      fused, lanes 4 unfused and ``NNSTPU_LANES=1``: labels, indices and
+      f32 scores bit-identical in order, 800 of 800;
+    - the frame ledger: the uncut string under ``timeline.tracing()``
+      (its per-stage split, the stages reconciling with the sink's mean
+      e2e within max(10 %, 0.5 ms)) and again under
+      ``profiler_correlation`` (B1's kernels in the profiler's trace);
+    - supervision: ``filter.invoke`` faults every 13th window under
+      ``retry`` (all frames, bit-identical, one capture) and
+      ``skip-frame`` (exactly the fired windows lost), and a 5 s stall at
+      the 5th fence that the watchdog (1 s) fails within 3 s.
+
+    No timed run takes the ``degrade`` policy's CPU rung."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import get_registry
+    from nnstreamer_tpu_torch.obs import timeline
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline import faults
+    from nnstreamer_tpu_torch.pipeline.element import FlowError
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    register_torch_model("mnv2_uncut", module)
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_uncut_")
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    out_dir = os.path.join(HERE, "smoke_out", "uncut")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {"n": 0}
+
+    def launch(n, pattern="gradient", leaky=True, lanes=UNCUT_LANES,
+               fuse=True, **options):
+        """bench.py's string: with ``leaky`` exactly as bench.py builds it
+        for a saturation run, else its ingress blocking."""
+        runs["n"] += 1
+        ingress = ("queue name=q_ingress max-size-buffers=16 "
+                   + ("leaky=downstream " if leaky else "")
+                   + "stamp-admission=true ! ")
+        desc = (f"videotestsrc num-buffers={n} width={IMAGE} "
+                f"height={IMAGE} pattern={pattern} ! tensor_converter ! "
+                + ingress +
+                "tensor_aggregator frames-in=1 frames-out=8 "
+                "frames-flush=8 frames-dim=3 concat=true ! "
+                "queue max-size-buffers=8 prefetch-device=true ! "
+                "tensor_transform mode=arithmetic "
+                "option=typecast:float32,add:-127.5,div:127.5 ! "
+                "tensor_filter framework=jax model=mnv2_uncut name=filter "
+                "inflight=2 ! "
+                f"tensor_decoder mode=image_labeling option1={labels} "
+                "option2=batched ! "
+                "queue max-size-buffers=64 materialize-host=true ! "
+                "tensor_sink name=sink to-host=true")
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(
+            name=f"uncut_{runs['n']}", fuse=fuse), **options)
+        pipe.lanes = lanes  # as bench.py sets it (bench.py:342)
+        return pipe
+
+    def degraded():
+        return sum(m["value"] for m in get_registry().snapshot()["metrics"]
+                   if m["name"] == "nns_fault_degraded_total")
+
+    def bus_errors(pipe):
+        """Errors posted on the bus after the message ``run()`` returned
+        on (a leaky run's EOS can come first)."""
+        errors = []
+        while True:
+            msg = pipe.pop_message(timeout=0)
+            if msg is None:
+                return errors
+            if msg.kind == "error":
+                errors.append(str(msg.error))
+
+    def timed(pipe, n, every_frame=True):
+        metas, arrivals = [], []
+        sink = pipe.get("sink")
+        sink.connect(lambda buf: (metas.append(buf.meta),
+                                  arrivals.append(time.monotonic())))
+        deg0 = degraded()
+        pp.reset_launches()
+        t0 = time.monotonic()
+        pipe.run(timeout=900)
+        torch.cuda.synchronize()
+        eos = time.monotonic()
+        wall = eos - t0
+        launches = dict(pp.LAUNCHES)
+        errors = bus_errors(pipe)
+        check(not errors, f"uncut: errors on the bus: {errors}")
+        snap = pipe.metrics_snapshot()
+        frames = labelled_frames(metas)
+        check(all(isinstance(f[0], str) and f[0].startswith("class_")
+                  for f in frames), "uncut: a frame without a label")
+        check(len(frames) == 8 * len(metas),
+              "uncut: a window of fewer than 8 frames")
+        if every_frame:
+            check(len(frames) == n, f"uncut: {len(frames)} of {n} frames "
+                                    "labelled")
+        check(degraded() == deg0, "uncut: a run took the degrade rung")
+        regions = list(snap.get("regions", {}).values())
+        q = snap["elements"]["q_ingress"]
+        c50, c99 = sink.latency_percentiles(50.0, 99.0)
+        a50, a99 = sink.latency_percentiles(50.0, 99.0, base="admitted")
+        # a leaky ingress may deliver fewer frames than a quarter skips
+        s50, s99 = sink.latency_percentiles(50.0, 99.0, skip=n // 4) \
+            or (None, None)
+        return {
+            "frames": frames, "regions": regions, "pipe": pipe,
+            "launches": launches.get("normalize_chain", 0),
+            "windows": len(metas), "labelled": len(frames),
+            "fps_created": n / wall, "fps_delivered": len(frames) / wall,
+            # bench.py's rate (_steady_fps): the frames after the first
+            # window's arrival over the span from it to EOS
+            "fps_steady": ((len(arrivals) - 1) * BATCH
+                           / (eos - arrivals[0]))
+            if len(arrivals) > 1 else None,
+            "first_window_s": arrivals[0] - t0 if arrivals else None,
+            "wall_s": wall,
+            "latency_p50_ms": c50, "latency_p99_ms": c99,
+            "admitted_p50_ms": a50, "admitted_p99_ms": a99,
+            "latency_p50_ms_after_first_quarter": s50,
+            "latency_p99_ms_after_first_quarter": s99,
+            "admitted_samples": len(sink.admitted_latencies),
+            "drops": q.get("drops", 0), "admitted": q.get("admitted"),
+            "admitted_revoked": q.get("admitted_revoked"),
+            "lanes": snap.get("lanes"),
+        }
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("frames",
+                                                         "regions", "pipe")}
+
+    def queue_wait_by_place(tl, pipe, skip):
+        """The ledger's mean ``queue_wait`` a delivered frame, split by
+        where it waited: which queue (or the aggregator, or the region's
+        list) backs up says which stage after it sets the pace."""
+        ledger = tl.frame_ledger(skip)
+        done = {seq for seq, d in ledger.items() if "e2e" in d}
+        places = {}
+        for el in pipe.elements:
+            if el.ELEMENT_NAME == "queue":
+                places[el.name] = (
+                    "ingress queue" if el.get_property("stamp_admission")
+                    else "staging queue (prefetch-device)"
+                    if el.get_property("prefetch_device")
+                    else "drain queue (materialize-host)")
+            elif el.ELEMENT_NAME == "tensor_aggregator":
+                places[el.name] = "aggregator (window forming)"
+        for r in pipe._regions or ():
+            places[r.name] = "fused region (its turn in a list)"
+        total = {}
+        for _thread, kind, seq, t0, t1, track, _args in tl._snapshot():
+            if kind == "queue_wait" and seq in done and t1 is not None:
+                place = places.get(track, track)
+                total[place] = total.get(place, 0.0) + (t1 - t0)
+        return {k: v / len(done) * 1e3 for k, v in total.items()} \
+            if done else {}
+
+    def one_capture(r, what):
+        (region,) = r["regions"]
+        check(region["captures"] == 1 and not region["unspliced"],
+              f"uncut, {what}: {region['captures']} captures")
+        # B1 once a window the region dispatched, eager or replayed
+        check(r["launches"] == r["windows"] ==
+              region["eager_frames"] + region["replays"],
+              f"uncut, {what}: normalize kernel counted {r['launches']} "
+              f"times for {r['windows']} windows")
+        return region
+
+    n = BATCHED_FRAMES
+    result = {"frames": n, "batch": BATCH, "lanes": UNCUT_LANES,
+              "gpu": power}
+    try:
+        warm = launch(10 * BATCH, pattern="ball")
+        warm.run(timeout=600)
+        check(not bus_errors(warm), "uncut: the warm-up run failed")
+        # 1. the uncut string
+        main = timed(launch(n), n, every_frame=False)
+        region = one_capture(main, "bench string")
+        check(main["admitted"] == n and
+              main["admitted_revoked"] == main["drops"],
+              f"uncut: {main['admitted']} admitted, "
+              f"{main['admitted_revoked']} revoked, {main['drops']} drops")
+        check(main["lanes"] and all(
+            s["lanes"] == UNCUT_LANES and s["forwarded"] == n
+            for s in main["lanes"].values()),
+            f"uncut: lanes snapshot {main['lanes']}")
+        # the same string at lanes 1, in turn, for lanes 4's gain; then
+        # both past the region's start-up, over STEADY_FRAMES
+        serial = timed(launch(n, lanes=1), n, every_frame=False)
+        one_capture(serial, "bench string, lanes 1")
+        long4 = timed(launch(STEADY_FRAMES), STEADY_FRAMES,
+                      every_frame=False)
+        long1 = timed(launch(STEADY_FRAMES, lanes=1), STEADY_FRAMES,
+                      every_frame=False)
+        for key, r in (("lanes 4", long4), ("lanes 1", long1)):
+            one_capture(r, f"bench string, {STEADY_FRAMES} frames, {key}")
+        result.update({
+            "bench_string": summary(main), "region": region,
+            "bench_string_lanes_1": summary(serial),
+            "steady": {"frames": STEADY_FRAMES, "lanes_4": summary(long4),
+                       "lanes_1": summary(long1)},
+            "lanes_4_over_1": {
+                "fps_created": main["fps_created"] / serial["fps_created"],
+                "fps_steady": long4["fps_steady"] / long1["fps_steady"],
+            }})
+
+        # 2. lanes parity on ball frames through a blocking ingress
+        parity = {
+            "lanes_4": timed(launch(n, "ball", leaky=False), n),
+            "lanes_1": timed(launch(n, "ball", leaky=False, lanes=1), n),
+            "lanes_4_unfused": timed(launch(n, "ball", leaky=False,
+                                            fuse=False), n),
+        }
+        os.environ["NNSTPU_LANES"] = "1"
+        try:
+            parity["nnstpu_lanes_1"] = timed(launch(n, "ball",
+                                                    leaky=False), n)
+        finally:
+            os.environ.pop("NNSTPU_LANES")
+        clean = parity["lanes_4"]
+        identical = {}
+        for key, r in parity.items():
+            differ = [i for i, (a, b) in enumerate(zip(r["frames"],
+                                                       clean["frames"]))
+                      if a != b]
+            check(len(r["frames"]) == n and not differ,
+                  f"uncut, lanes parity {key}: frames {differ[:10]} differ")
+            identical[key] = n - len(differ)
+        for key in ("lanes_4", "lanes_1", "nnstpu_lanes_1"):
+            one_capture(parity[key], key)
+        check(parity["lanes_1"]["lanes"] is None and
+              parity["nnstpu_lanes_1"]["lanes"] is None,
+              "uncut: the serial path spliced lanes")
+        check(parity["lanes_4"]["lanes"] is not None,
+              "uncut: lanes 4 spliced no lanes")
+        result["lanes_parity"] = {
+            "bit_identical_frames": identical,
+            **{k: summary(v) for k, v in parity.items()}}
+
+        # 3. the frame ledger: the timeline alone, then with the profiler
+        with timeline.tracing() as tl:
+            traced = timed(launch(n), n, every_frame=False)
+        ledger_path = os.path.join(out_dir, "ledger.json")
+        tl.export_chrome(ledger_path)
+        with open(ledger_path) as f:
+            doc = json.load(f)
+        kinds = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+        check(set(LEDGER_STAGES) <= kinds,
+              f"uncut ledger: no slices of "
+              f"{sorted(set(LEDGER_STAGES) - kinds)}")
+        skip = n // 4
+        bd = tl.stage_breakdown(skip_frames=skip)
+        gap = abs(bd["e2e_mean_ms"] - bd["covered_ms"])
+        check(bd["frames"] > 0 and
+              gap <= max(0.10 * bd["e2e_mean_ms"], 0.5),
+              f"uncut ledger: stages cover {bd['covered_ms']} ms of a "
+              f"{bd['e2e_mean_ms']} ms mean e2e")
+        check(set(traced["frames"]) <= set(main["frames"]),
+              "uncut ledger: traced labels differ from the untraced run")
+        one_capture(traced, "traced")
+        # the split with every frame delivered: the same string with its
+        # ingress blocking, lanes 4 and 1, the first quarter skipped
+        steady_split = {}
+        for lanes in (UNCUT_LANES, 1):
+            with timeline.tracing() as tl_b:
+                traced_b = timed(launch(n, leaky=False, lanes=lanes), n)
+            bd_b = tl_b.stage_breakdown(skip_frames=skip)
+            gap_b = abs(bd_b["e2e_mean_ms"] - bd_b["covered_ms"])
+            check(bd_b["frames"] > 0 and
+                  gap_b <= max(0.10 * bd_b["e2e_mean_ms"], 0.5),
+                  f"uncut blocking ledger, lanes {lanes}: stages cover "
+                  f"{bd_b['covered_ms']} ms of a {bd_b['e2e_mean_ms']} ms "
+                  "mean e2e")
+            check(set(traced_b["frames"]) <= set(main["frames"]),
+                  "uncut blocking ledger: labels differ from the untraced "
+                  "run")
+            steady_split[f"lanes_{lanes}"] = {
+                "breakdown": bd_b,
+                "queue_wait_ms_by_place": queue_wait_by_place(
+                    tl_b, traced_b["pipe"], skip),
+                "variance": tl_b.variance_report(skip_frames=skip),
+                "run": summary(traced_b)}
+        with timeline.tracing() as tl2, \
+                timeline.profiler_correlation(out_dir) as prof:
+            profiled = timed(launch(n), n, every_frame=False)
+        tl2.export_chrome(os.path.join(out_dir, "ledger_profiled.json"))
+        with open(prof.trace_path) as f:
+            ptrace = json.load(f)
+        b1_events = [e for e in ptrace["traceEvents"]
+                     if e.get("cat") == "kernel" and
+                     "normalize_chain_kernel" in e.get("name", "")]
+        check(len(b1_events) == profiled["launches"],
+              f"uncut profiler: {len(b1_events)} normalize kernels for "
+              f"{profiled['launches']} launches")
+        bd2 = tl2.stage_breakdown(skip_frames=skip)
+        gap2 = abs(bd2["e2e_mean_ms"] - bd2["covered_ms"])
+        check(bd2["frames"] > 0 and
+              gap2 <= max(0.10 * bd2["e2e_mean_ms"], 0.5),
+              f"uncut profiled ledger: stages cover {bd2['covered_ms']} "
+              f"ms of a {bd2['e2e_mean_ms']} ms mean e2e")
+        result["ledger"] = {
+            "skip_frames": skip, "breakdown": bd,
+            "queue_wait_ms_by_place": queue_wait_by_place(
+                tl, traced["pipe"], skip),
+            "variance": tl.variance_report(skip_frames=skip),
+            "blocking_ingress": steady_split,
+            "slices": sorted(kinds), "run": summary(traced),
+            "profiled": {"breakdown": bd2, "run": summary(profiled),
+                         "normalize_kernel_events": len(b1_events)},
+            "files": [os.path.relpath(p, HERE) for p in (
+                ledger_path, prof.trace_path)],
+        }
+
+        # 4. supervision, blocking ingress, ball frames
+        spec = f"filter.invoke:every={FAULT_EVERY},kind=raise"
+        inj = faults.activate(spec)
+        try:
+            retry = timed(launch(n, "ball", leaky=False,
+                                 error_policy="retry"), n)
+        finally:
+            faults.deactivate()
+        check(retry["frames"] == clean["frames"],
+              "uncut retry: frames differ from the clean run")
+        retry_region = one_capture(retry, "retry")
+        fired_retry = inj.fired_set("filter.invoke")
+        inj = faults.activate(spec)
+        try:
+            skipped = timed(launch(n, "ball", leaky=False,
+                                   error_policy="skip-frame"), n,
+                            every_frame=False)
+        finally:
+            faults.deactivate()
+        fired = inj.fired_set("filter.invoke")
+        # the region's n-th dispatch is window n: a fired one is dropped
+        want = [f for i, f in enumerate(clean["frames"])
+                if i // BATCH + 1 not in fired]
+        check(fired and skipped["frames"] == want,
+              f"uncut skip-frame: {len(skipped['frames'])} frames, "
+              f"{len(want)} expected (windows {fired} dropped)")
+        faults.activate("dispatch.fence:nth=5,kind=stall,ms=5000")
+        pipe = launch(n, "ball", leaky=False, watchdog_s=WATCHDOG_S)
+        t0 = time.monotonic()
+        err = None
+        try:
+            pipe.run(timeout=60)
+        except FlowError as e:
+            err = str(e)
+        finally:
+            faults.deactivate()
+        wd_wall = time.monotonic() - t0
+        check(err is not None and "watchdog" in err,
+              f"uncut watchdog: the run ended with {err!r}")
+        check(wd_wall <= WATCHDOG_MAX_S,
+              f"uncut watchdog: the FlowError came after {wd_wall} s")
+        result["supervision"] = {
+            "spec": spec,
+            "retry": {**summary(retry), "fired": fired_retry,
+                      "captures": retry_region["captures"],
+                      "bit_identical_frames": n},
+            "skip_frame": {**summary(skipped), "fired": fired,
+                           "frames_lost": n - len(skipped["frames"])},
+            "watchdog": {"spec": "dispatch.fence:nth=5,kind=stall,ms=5000",
+                         "watchdog_s": WATCHDOG_S, "error": err,
+                         "run_s": wd_wall},
+            "degraded_total": degraded(),
+        }
+    finally:
+        faults.deactivate()
+        unregister_torch_model("mnv2_uncut")
+    emit({"phase": "pipeline_uncut", **result})
+    return result
 
 
 def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
@@ -1999,6 +2416,7 @@ def main() -> int:
     phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
+    uncut = phase_pipeline_uncut(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine)
@@ -2022,6 +2440,8 @@ def main() -> int:
         "launches": pipe["launches"]["normalize_chain"],
         # the batched flagship: once a window of 8 frames
         "launches_batched": batched["launches"]["normalize_chain"],
+        # bench.py's string with no cuts: once a window the region took
+        "launches_uncut": uncut["bench_string"]["launches"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"],
         "device_ms": dev_b1["device_ms"],

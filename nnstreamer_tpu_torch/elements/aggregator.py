@@ -22,6 +22,12 @@ link.
 Host windows concatenate into a pool slab (``tensors/pool.py``: page-
 locked on the card, so the upload that reads it is asynchronous); device
 windows concatenate with ``torch.cat`` on their device.
+
+With a timeline active (``obs/timeline.py``) a window carries the trace
+seq of its first traced frame and that frame's create stamp
+(``meta["tl_create_t"]``, the sink's ledger e2e base), and the frame's
+hold here — from its hand-off by the queue upstream to the window's
+push — is its ``queue_wait``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline.element import Element, not_ported
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
@@ -81,6 +88,9 @@ class TensorAggregator(Element):
         #: budget clock per queued unit frame: its create stamp when one
         #: flowed, else its arrival time here
         self._held_since: List[float] = []
+        #: frame-ledger identity per queued unit frame (tracing only):
+        #: (trace seq, arrival here, create stamp) or None
+        self._tl_frames: List[Optional[tuple]] = []
         #: serializes chain() with the budget flusher thread
         self._lock = threading.RLock()
         self._flusher: Optional[threading.Thread] = None
@@ -168,6 +178,14 @@ class TensorAggregator(Element):
             deficit = max(0, len(self._windows[0]) - len(self._admit_ts))
             self._admit_ts.extend([None] * deficit)
             self._admit_ts.extend([adm] * n)
+        if _timeline.ACTIVE is not None or self._tl_frames:
+            deficit = max(0, len(self._windows[0]) - len(self._tl_frames))
+            self._tl_frames.extend([None] * deficit)
+            seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+            t_in = buf.meta.pop("tl_handoff_t", None) or time.monotonic()
+            self._tl_frames.extend(
+                (seq, t_in, stamps[i] if stamps else None)
+                for i in range(n))
         budget = float(self.get_property("latency_budget_ms"))
         if budget > 0:
             now = time.monotonic()
@@ -193,11 +211,13 @@ class TensorAggregator(Element):
             out_adm = [s for s in self._admit_ts[:fout] if s is not None]
             if out_adm:
                 meta["admitted_ts"] = out_adm
+            self._tl_carry(meta, fout)
             ret = self.srcpad.push(TensorBuffer(outs, pts=self._pts,
                                                 meta=meta))
             self._windows = [w[flush:] for w in self._windows]
             self._create_ts = self._create_ts[flush:]
             self._admit_ts = self._admit_ts[flush:]
+            self._tl_frames = self._tl_frames[flush:]
             self._held_since = self._held_since[flush:]
             self._pts = buf.pts
         if budget > 0 and self._held_since and \
@@ -253,6 +273,23 @@ class TensorAggregator(Element):
                 outs.append(np.concatenate(chunk, axis=axis))
         return outs
 
+    def _tl_carry(self, meta: dict, count: int) -> None:
+        """The window's frame-ledger identity: the first traced frame of
+        its ``count`` unit frames gives its seq and create stamp, and that
+        frame's hold here ends now as its ``queue_wait``."""
+        first = next((e for e in self._tl_frames[:count]
+                      if e is not None and e[0] is not None), None)
+        if first is None:
+            return
+        seq, t_in, create = first
+        meta[_timeline.TRACE_SEQ_META] = seq
+        if create is not None:
+            meta["tl_create_t"] = create
+        tl = _timeline.ACTIVE
+        if tl is not None:
+            tl.span("queue_wait", seq, t_in, time.monotonic(),
+                    track=self.name)
+
     def _announce_caps(self, outs):
         if self.srcpad.caps is None:
             from nnstreamer_tpu_torch.tensors.types import TensorsConfig
@@ -292,10 +329,12 @@ class TensorAggregator(Element):
         out_adm = [s for s in self._admit_ts[:k] if s is not None]
         if out_adm:
             meta["admitted_ts"] = out_adm
+        self._tl_carry(meta, k)
         ret = self.srcpad.push(TensorBuffer(outs, pts=self._pts, meta=meta))
         self._windows = [[] for _ in self._windows]
         self._create_ts = []
         self._admit_ts = []
+        self._tl_frames = []
         self._held_since = []
         self._pts = None
         return ret
@@ -309,5 +348,6 @@ class TensorAggregator(Element):
             self._windows.clear()
             self._create_ts.clear()
             self._admit_ts.clear()
+            self._tl_frames.clear()
             self._held_since.clear()
             self._pts = None

@@ -56,6 +56,13 @@ class TensorConverter(Element):
         self._frame_acc: list = []   # adapter for frames-per-tensor batching
         self._frame_idx = 0
 
+    def reorder_safe(self):
+        # frames_per_tensor=1 maps each input buffer to exactly one output
+        # with no cross-frame state (_frame_acc stays empty, _frame_idx is
+        # unused when the source stamps pts) — replicable across lanes;
+        # batching folds several frames and must see the stream in order
+        return int(self.get_property("frames_per_tensor") or 1) <= 1
+
     # -- negotiation ---------------------------------------------------------
     def transform_caps(self, pad, caps):
         self._in_caps = caps

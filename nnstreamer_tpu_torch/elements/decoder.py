@@ -14,18 +14,36 @@ card, or the CPU when asked for) as soon as it arrives, and attaches the host ha
 ``finalize``: only the device half's small results cross to the host, at
 the sink's (or a ``materialize-host`` queue's) fetch point. The same two
 halves make the decoder a fused-region stage (``pipeline/fuse.py``) that
-ends its region.
+ends its region. With a timeline active the host part — the chain's
+decode, or the deferred finalize wherever it runs — is the frame's
+``decode`` span.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import torch
 
+from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline.element import Element
 from nnstreamer_tpu_torch.registry import DECODER, ELEMENT, get_subplugin, subplugin
 from nnstreamer_tpu_torch.tensors.types import TensorsConfig
+
+
+def _decode_span(fn, buf, *args):
+    """``fn(buf, *args)``, recorded as ``buf``'s ``decode`` span when a
+    timeline is active."""
+    tl = _timeline.ACTIVE
+    if tl is None:
+        return fn(buf, *args)
+    t0 = time.monotonic()
+    out = fn(buf, *args)
+    seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+    if seq is not None:
+        tl.span("decode", seq, t0, time.monotonic(), track="decode")
+    return out
 
 
 @subplugin(ELEMENT, "tensor_decoder")
@@ -86,7 +104,8 @@ class TensorDecoder(Element):
         consts, fn = kernel(options)
 
         def finalize(host_buf):
-            return host_finalize(host_buf, self._config, options)
+            return _decode_span(host_finalize, host_buf, self._config,
+                                options)
 
         return DeviceStage(
             consts=consts, fn=fn,
@@ -105,10 +124,13 @@ class TensorDecoder(Element):
             config = self._config
 
             def complete(host_buf):
-                return finalize(host_buf, config, options)
+                return _decode_span(finalize, host_buf, config, options)
 
             out = buf.replace(tensors=fn(consts, list(buf.tensors)),
                               finalize=complete)
             return self.srcpad.push(out)
-        return self.srcpad.push(dec.decode(buf.to_host(), self._config,
-                                           options))
+        # materialize FIRST so the d2h span (recorded inside to_host) is
+        # not counted again under the decode span
+        host = buf.to_host()
+        return self.srcpad.push(_decode_span(dec.decode, host, self._config,
+                                             options))

@@ -21,8 +21,14 @@ region (``pipeline/fuse.py``), with its input and output combinations.
 and not yet complete (``pipeline/dispatch.py``): the streaming thread
 fences the oldest when more are outstanding, and the pooled staging
 arrays of a batch go back to the pool at its fence; 0 fences every batch.
-The window drains at EOS and at stop. Model sharing, hot reload,
-throttling and mesh sharding of the JAX package are not ported yet.
+The window drains at EOS and at stop. Under ``error-policy=degrade``
+(``pipeline/supervise.py``) a failing backend is reloaded, then reopened
+with ``accelerator=true:cpu``. With a timeline active each invoke is the
+frame's ``device`` span: on the card that is the host's enqueue of the
+model's kernels, not their run time. The ``filter.open`` and
+``filter.invoke`` fault hooks fire before the backend's open and invoke.
+Model sharing, hot reload, throttling and mesh sharding of the JAX
+package are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from typing import List, Optional
 from nnstreamer_tpu_torch.config import get_conf
 from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs import timeline as _timeline
+from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.pipeline.dispatch import (
     POOL_STASH_META,
     DispatchWindow,
@@ -103,7 +111,7 @@ class TensorFilter(Element):
     UNPORTED_PROPERTIES = {
         "mesh": _MULTI,
         "shard": _MULTI,
-        "throttle": "A.11 supervision hooks, tracing and scheduling",
+        "throttle": "A.11b the filter's throttle (QoS)",
         "is_updatable": _CONTINUITY,
         "shared_tensor_filter_key": _CONTINUITY,
     }
@@ -170,6 +178,10 @@ class TensorFilter(Element):
         if factory is None:
             raise ValueError(f"{self.name}: no filter backend {fw_name!r}")
         fw = factory()
+        fi = _faults.ACTIVE
+        if fi is not None:
+            # chaos hook: an injected open / weight-load failure
+            fi.check("filter.open")
         fw.open(FilterProperties(
             model=model,
             custom=self.get_property("custom"),
@@ -254,10 +266,27 @@ class TensorFilter(Element):
         if not fw.KEEP_ON_DEVICE:
             model_inputs = [host_array(x) for x in model_inputs]
 
+        seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+        fi = _faults.ACTIVE
+        if fi is not None:
+            # chaos hook, BEFORE the stash pop: a retrying error policy
+            # re-enters chain with the buffer's meta intact
+            fi.check("filter.invoke", seq=seq)
         stash = buf.meta.pop(POOL_STASH_META, None)
         t0 = _time.monotonic()
-        outputs = fw.invoke(model_inputs)
-        self._obs_invoke().observe(_time.monotonic() - t0)
+        try:
+            outputs = fw.invoke(model_inputs)
+        except Exception:
+            if stash:
+                # a retrying error policy (or the next consumer) must
+                # still release the staging arrays at a fence
+                buf.meta[POOL_STASH_META] = stash
+            raise
+        dt = _time.monotonic() - t0
+        self._obs_invoke().observe(dt)
+        tl = _timeline.ACTIVE
+        if tl is not None and seq is not None:
+            tl.span("device", seq, t0, t0 + dt, track=self.name)
 
         out_comb = self._combination("output_combination")
         if out_comb is not None:
@@ -268,7 +297,7 @@ class TensorFilter(Element):
         # bounded asynchronous dispatch: the oldest outstanding batch
         # fences only when more than `inflight` are in flight, and the
         # staging arrays this dispatch read recycle at that fence
-        self._window.admit(final, stash)
+        self._window.admit(final, stash, frame=seq)
         out_buf = buf.with_tensors(final)
         if peer_device_capable(self.srcpad):
             # device-capable downstream: keep the result resident

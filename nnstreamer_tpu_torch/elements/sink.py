@@ -11,7 +11,13 @@ finalize runs here. The end-to-end latency of each frame (source
 frame of an aggregated window (``meta["create_ts"]``). A padded partial
 window (``meta["valid_frames"]``) is trimmed to its valid leading rows,
 and staging arrays that reach the sink unclaimed (``meta["pool_stash"]``)
-go back to the pool once the payload is on the host.
+go back to the pool once the payload is on the host. Frames stamped by a
+``stamp-admission`` queue (``meta["admitted_t"]``, or one stamp a frame of
+a window in ``meta["admitted_ts"]``) also feed ``admitted_latencies``,
+the served-traffic population behind ``latency_percentiles(
+base="admitted")``. With a timeline active the sink records each frame's
+``sink`` span, carrying its end-to-end time for the ledger's
+reconciliation.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, List
 import numpy as np
 
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline.dispatch import POOL_STASH_META
 from nnstreamer_tpu_torch.pipeline.element import Element, EosEvent, FlowReturn
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
@@ -54,6 +61,9 @@ class TensorSink(Element):
         #: end-to-end per-frame latencies in seconds (create_t → chain),
         #: ring-bounded so long-lived pipelines don't grow forever
         self.latencies: deque = deque(maxlen=100_000)
+        #: admission-stamp → chain latencies of frames a stamp-admission
+        #: queue accepted (the served population), same bound
+        self.admitted_latencies: deque = deque(maxlen=100_000)
         self._m_e2e = None  # lazy: labels need the owning pipeline's name
 
     def _obs_e2e(self):
@@ -93,6 +103,11 @@ class TensorSink(Element):
                 buf = buf.with_tensors([
                     t[:k] if getattr(t, "ndim", 0) and t.shape[0] > k
                     else t for t in buf.tensors])
+        # the sink span starts after materialization: the fetch is the
+        # frame's d2h stage
+        tl = _timeline.ACTIVE
+        t_sink0 = time.monotonic() if tl is not None else 0.0
+        e2e_s = e2e_adm_s = None
         # only a host payload counts as delivered: recording a device
         # handle's arrival would measure the enqueue, not the completion
         if not buf.on_device():
@@ -100,21 +115,60 @@ class TensorSink(Element):
                 get_pool().release_many(stash)
             now = time.monotonic()
             hist = self._obs_e2e()
-            for t in buf.create_stamps():
+            stamps = buf.create_stamps()
+            for t in stamps:
                 self.latencies.append(now - t)
                 hist.observe(now - t)
+            if tl is not None and stamps:
+                # the ledger's frame: a window's first frame (its
+                # aggregator stamps which), else the buffer's own
+                base = buf.meta.get("tl_create_t")
+                e2e_s = now - (base if base is not None
+                               else sum(stamps) / len(stamps))
+            # a window carries one admission stamp per frame; an
+            # unaggregated buffer the one its queue wrote, counted once
+            # per frame like `latencies`
+            adm_list = buf.meta.get("admitted_ts")
+            if adm_list is None:
+                adm = buf.meta.get("admitted_t")
+                if adm is not None:
+                    adm_list = [adm] * max(len(stamps), 1)
+            if adm_list:
+                for t in adm_list:
+                    self.admitted_latencies.append(now - t)
+                if tl is not None:
+                    e2e_adm_s = now - adm_list[0]
         with self._cv:
             if len(self.buffers) < int(self.get_property("max_stored")):
                 self.buffers.append(buf)
             self._cv.notify_all()
         for cb in self._callbacks:
             cb(buf)
+        if tl is not None:
+            seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+            if seq is not None:
+                extra = {}
+                if e2e_s is not None:
+                    extra["e2e_s"] = e2e_s
+                    if e2e_adm_s is not None:
+                        extra["e2e_adm_s"] = e2e_adm_s
+                tl.span("sink", seq, t_sink0, time.monotonic(),
+                        track=self.name, **extra)
         return FlowReturn.OK
 
-    def latency_percentiles(self, *qs: float, skip: int = 0):
-        """End-to-end frame latency percentiles in ms (default p50, p99);
+    def latency_percentiles(self, *qs: float, skip: int = 0,
+                            base: str = "create"):
+        """End-to-end frame latency percentiles in ms (default p50, p99).
+        ``base="create"`` measures from the source's capture stamp;
+        ``base="admitted"`` from the upstream stamp-admission queue's
+        accept point (served-traffic latency; None when no queue stamps).
         ``skip`` drops the first N frames (warm-up exclusion)."""
-        vals = list(self.latencies)[skip:]
+        if base not in ("create", "admitted"):
+            raise ValueError(f"{self.name}: latency base must be 'create' "
+                             f"or 'admitted', not {base!r}")
+        pop = self.admitted_latencies if base == "admitted" \
+            else self.latencies
+        vals = list(pop)[skip:]
         if not vals:
             return None
         qs = qs or (50.0, 99.0)

@@ -4,7 +4,10 @@ Reference equivalents: gst core ``videotestsrc`` and ``appsrc`` (used
 throughout the reference's SSAT pipelines). Frames are host numpy arrays,
 byte-identical to the JAX package's ``videotestsrc`` for every pattern
 (``ball`` frames come from the staging pool, ``tensors/pool.py``); the
-elements downstream move them to the device.
+elements downstream move them to the device. ``videotestsrc`` is
+``REORDER_SAFE`` (ingest lanes, ``pipeline/lanes.py``, may run its
+frames out of order); the pipeline stamps each created frame's trace seq
+when a timeline is active.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ class VideoTestSrc(SourceElement):
     """
 
     ELEMENT_NAME = "videotestsrc"
+    # frames are pure functions of (pattern, frame index) and pts is
+    # stamped at create() — lane workers may process them out of order
+    REORDER_SAFE = True
     PROPERTIES = {
         **SourceElement.PROPERTIES,
         "num_buffers": -1,

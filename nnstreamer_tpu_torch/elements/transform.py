@@ -180,6 +180,9 @@ class _TransformSpec:
 class TensorTransform(Element):
     ELEMENT_NAME = "tensor_transform"
     DEVICE_PASSTHROUGH = True  # device inputs stay on the device
+    # every output is a pure function of (input buffer, properties); the
+    # spec cache is property-keyed, not frame-keyed: lanes may replicate it
+    REORDER_SAFE = True
     PROPERTIES = {
         **Element.PROPERTIES,
         "mode": None,

@@ -26,8 +26,10 @@ onto the chosen device.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -67,6 +69,28 @@ def _load_file(path: str, device: torch.device) -> torch.nn.Module:
         raise ValueError(
             f"torch: {path!r} is neither TorchScript nor an nn.Module")
     return loaded
+
+
+#: output shapes probed on a meta twin, per module: {(input shapes and
+#: types, the module's weight shapes and types): output info}. The probe
+#: is a pure function of those, and a meta forward of a whole model costs
+#: every pipeline that names the module its start-up time.
+_probed: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_probed_lock = threading.Lock()
+
+
+def _meta_twin(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` whose parameters and buffers are meta tensors of
+    the same shapes and dtypes: shapes probe on it without data, and
+    without touching ``module``, which other threads may be running (a
+    registered module serves every pipeline that names it)."""
+    memo = {}
+    for p in module.parameters():
+        memo[id(p)] = torch.nn.Parameter(torch.empty_like(p, device="meta"),
+                                         requires_grad=p.requires_grad)
+    for b in module.buffers():
+        memo[id(b)] = torch.empty_like(b, device="meta")
+    return copy.deepcopy(module, memo)
 
 
 @subplugin(FILTER, "torch")
@@ -121,13 +145,19 @@ class TorchFilter(FilterFramework):
             dev = torch.device("meta")
         ins = [torch.zeros(i.shape, dtype=i.type.torch_dtype, device=dev)
                for i in in_info]
+        key = None
+        if dev.type == "meta":
+            key = (tuple((tuple(i.shape), i.dtype) for i in ins),
+                   tuple((k, tuple(v.shape), v.dtype) for k, v in
+                         self._module.state_dict(keep_vars=True).items()))
+            with _probed_lock:
+                known = _probed.get(self._module, {}).get(key)
+            if known is not None:
+                self._out_info = known
+                return known
         with torch.inference_mode():
             if dev.type == "meta":
-                state = {k: torch.empty_like(v, device="meta")
-                         for k, v in self._module.state_dict(
-                             keep_vars=True).items()}
-                out = torch.func.functional_call(self._module, state,
-                                                 tuple(ins))
+                out = _meta_twin(self._module)(*ins)
             else:
                 out = self._module(*ins)
         outs = [out] if isinstance(out, torch.Tensor) else list(out)
@@ -136,6 +166,9 @@ class TorchFilter(FilterFramework):
                        type=TensorType.from_any(o.dtype))
             for o in outs
         ])
+        if key is not None:
+            with _probed_lock:
+                _probed.setdefault(self._module, {})[key] = self._out_info
         return self._out_info
 
     # -- region fusion (pipeline/fuse.py) ------------------------------------

@@ -4,8 +4,10 @@ The counters, gauges and histograms of the JAX package's ``obs`` package
 (``nns_<element>_<metric>{pipeline=..., element=...}``), carried over as
 they are. ``quantiles.P2Quantile``, ``flight.LMTokenStats`` and
 ``collectors.register_engine_collector`` carry the serving engine's
-metrics. The timeline, the per-frame flight recorder and the export
-server are not ported yet (ROADMAP.md, A.11).
+metrics. ``timeline`` is the frame ledger (per-frame spans across lanes,
+queues, the dispatch window and transfers; ``NNSTPU_TRACE``). The
+per-frame flight recorder (ROADMAP.md, A.11b) and the export server
+(A.12) are not ported yet.
 """
 
 from nnstreamer_tpu_torch.obs.registry import (  # noqa: F401
@@ -15,4 +17,11 @@ from nnstreamer_tpu_torch.obs.registry import (  # noqa: F401
     LATENCY_BUCKETS_S,
     MetricsRegistry,
     get_registry,
+)
+from nnstreamer_tpu_torch.obs.timeline import (  # noqa: F401
+    TRACE_SEQ_META,
+    Timeline,
+    profiler_correlation,
+    trace_enabled,
+    tracing,
 )

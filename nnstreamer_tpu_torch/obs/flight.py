@@ -1,7 +1,7 @@
 """LM serving latency quantiles.
 
 A copy of the JAX package's ``obs/flight.py`` (:class:`LMTokenStats`
-only; the per-frame flight recorder waits for ROADMAP A.11): the serving
+only; the per-frame flight recorder waits for ROADMAP A.11b): the serving
 engine's split of time-to-first-token from the inter-token interval, each
 as streaming P² quantiles exported as registry gauges.
 """

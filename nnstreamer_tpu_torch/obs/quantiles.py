@@ -2,7 +2,7 @@
 
 A copy of the JAX package's ``obs/quantiles.py`` (:class:`P2Quantile`
 only; its SLO burn-rate window waits for the flight recorder, ROADMAP
-A.11). :class:`P2Quantile` is the P² (piecewise-parabolic) algorithm of
+A.11b). :class:`P2Quantile` is the P² (piecewise-parabolic) algorithm of
 Jain & Chlamtac (1985): one quantile tracked with FIVE stored markers,
 O(1) per observation, no sample storage. Accuracy is within a few percent
 of the exact order statistic on smooth distributions. It is internally

@@ -26,8 +26,10 @@ that read any slot of it.
 Instrumented as ``nns_filter_inflight`` (current occupancy) and
 ``nns_filter_fence_wait_seconds`` (time blocked in each fence: near zero
 means the card finishes before the window fills; large means the pipeline
-is device-bound at this element). The JAX window's fault-injection and
-timeline hooks wait for ROADMAP A.11.
+is device-bound at this element). With a timeline active each batch is a
+``b``/``e`` async ``inflight`` span from admission to fence, and each
+fence a ``fence_wait`` span of its frame; the ``dispatch.fence`` fault
+hook fires before the wait (``pipeline/faults.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ import weakref
 from typing import Any, Deque, List, Optional, Tuple
 
 from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.obs import timeline as _timeline
+from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.tensors.buffer import (
     H2D_EXCLUSIVE_META,
     is_device_array,
@@ -96,7 +100,8 @@ class DispatchWindow:
         #: weakly bound: the window must not keep a dead element alive
         #: through the metrics registry
         self._owner = weakref.ref(owner)
-        self._entries: Deque[Tuple[Any, Optional[list]]] = \
+        #: (event or None, stash, frame trace seq) per outstanding batch
+        self._entries: Deque[Tuple[Any, Optional[list], Optional[int]]] = \
             collections.deque()
         self._m_fence = None
 
@@ -136,20 +141,24 @@ class DispatchWindow:
 
     # -- hot path -----------------------------------------------------------
     def admit(self, tensors: List[Any], stash: Optional[list] = None,
-              event=None) -> None:
+              event=None, frame: Optional[int] = None) -> None:
         """Register a just-dispatched batch; fence the oldest entries until
         at most ``inflight`` remain outstanding. ``tensors`` is the batch's
         output list (or a whole buffer); ``event`` defaults to one
         recorded now on the current stream of their card (anything with
-        ``synchronize()`` will do). Without one the batch is complete: its
-        stash is released at once."""
+        ``synchronize()`` will do). Without one the batch is complete and
+        is fenced at once. ``frame`` is the frame's trace seq, for the
+        timeline."""
         tensors = getattr(tensors, "tensors", tensors)
         if event is None:
             event = batch_event(tensors)
+        tl = _timeline.ACTIVE
+        if tl is not None and frame is not None:
+            tl.async_begin("inflight", frame, time.monotonic())
         if event is None:
-            self._release(stash)
+            self._fence((None, stash, frame))
             return
-        self._entries.append((event, stash))
+        self._entries.append((event, stash, frame))
         limit = self._inflight()
         while len(self._entries) > limit:
             self._fence_oldest()
@@ -167,17 +176,32 @@ class DispatchWindow:
 
     def _fence_oldest(self) -> None:
         """Fence the oldest outstanding batch. A failing fence (a device
-        error surfacing at the wait) poisons only that batch: its entry is
-        already popped and its stash still released; the error reaches
-        the dispatching element's chain."""
-        event, stash = self._entries.popleft()
+        error surfacing at the wait, or an injected ``dispatch.fence``
+        fault) poisons only that batch: its entry is already popped and
+        its stash still released; the error reaches the dispatching
+        element's chain."""
+        self._fence(self._entries.popleft())
+
+    def _fence(self, entry) -> None:
+        event, stash, frame = entry
         hist = self._obs()
         t0 = time.monotonic()
         try:
-            event.synchronize()
+            fi = _faults.ACTIVE
+            if fi is not None:
+                # chaos hook: kind=stall parks this fence (watchdog bait);
+                # kind=raise poisons the batch
+                fi.check("dispatch.fence", seq=frame)
+            if event is not None:
+                event.synchronize()
         finally:
+            t1 = time.monotonic()
             if hist is not None:
-                hist.observe(time.monotonic() - t0)
+                hist.observe(t1 - t0)
+            tl = _timeline.ACTIVE
+            if tl is not None and frame is not None:
+                tl.span("fence_wait", frame, t0, t1, track="dispatch")
+                tl.async_end("inflight", frame, t1)
             self._release(stash)
 
     def drain(self, on_error: str = "raise") -> None:

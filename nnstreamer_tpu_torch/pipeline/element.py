@@ -18,8 +18,9 @@ port:
 
 Flow control mirrors GstFlowReturn: ``FlowReturn.OK/EOS``, errors raise
 :class:`FlowError` (carried to the pipeline bus by the driving thread).
-The JAX package's supervision hooks (error policies, retries) are not
-ported yet: a ``chain`` that raises halts the pipeline.
+A ``chain`` that raises goes through the element's error policy
+(``error-policy``, ``retry-max``, ``retry-backoff-ms``;
+``pipeline/supervise.py``): ``halt``, the default, wraps and raises.
 """
 
 from __future__ import annotations
@@ -194,14 +195,15 @@ class Element:
     """
 
     ELEMENT_NAME = "element"
-    PROPERTIES: Dict[str, Any] = {"silent": True, "name": None}
+    #: ``error_policy`` None = inherit ``Pipeline(error_policy=...)``,
+    #: else ``halt`` — see pipeline/supervise.py for the policy set and
+    #: ``retry_max``/``retry_backoff_ms`` semantics
+    PROPERTIES: Dict[str, Any] = {"silent": True, "name": None,
+                                  "error_policy": None, "retry_max": 3,
+                                  "retry_backoff_ms": 5.0}
     #: properties the JAX package has and the port does not yet:
     #: name → the ROADMAP.md item that brings them. Setting one raises.
-    UNPORTED_PROPERTIES: Dict[str, str] = {
-        "error_policy": "A.11 supervision hooks",
-        "retry_max": "A.11 supervision hooks",
-        "retry_backoff_ms": "A.11 supervision hooks",
-    }
+    UNPORTED_PROPERTIES: Dict[str, str] = {}
 
     #: Elements that merely hold or hand off buffers (queue, sinks) set this
     #: True to keep a pending ``TensorBuffer.finalize`` lazy. Everything else
@@ -219,6 +221,16 @@ class Element:
     #: without materializing. Everything else gets the buffer
     #: host-materialized at pad entry.
     DEVICE_PASSTHROUGH = False
+
+    #: Elements whose per-buffer output is a pure function of the input
+    #: buffer and their (fixed) properties — no per-frame mutable state —
+    #: set this True: the ingest lane planner (``pipeline/lanes.py``) may
+    #: replicate them across parallel worker lanes, process frames out of
+    #: order, and reassemble by sequence number without changing a byte.
+    #: On a SourceElement the flag means each ``create()`` output is
+    #: self-contained (pts stamped at the source), so stamped sequence
+    #: numbers fully determine stream order.
+    REORDER_SAFE = False
 
     _instance_counter: Dict[str, int] = {}
     _instance_counter_lock = threading.Lock()
@@ -303,6 +315,18 @@ class Element:
 
     def property_changed(self, key: str) -> None:
         """Hook: subclass reacts to a property update."""
+
+    def reorder_safe(self) -> bool:
+        """Instance-level lane-replicability check; defaults to the class
+        flag. Elements that are only conditionally stateless
+        (tensor_converter: per-buffer regimes yes, frame batching no)
+        override this with a property-aware answer."""
+        return bool(self.REORDER_SAFE)
+
+    def _obs_labels(self) -> Dict[str, str]:
+        """Stable metric labels: ``{pipeline=..., element=...}``."""
+        return {"pipeline": getattr(self.pipeline, "name", "") or "",
+                "element": self.name}
 
     # -- pad management ------------------------------------------------------
     def add_sink_pad(self, name: str = "sink", caps: Optional[CapsList] = None
@@ -390,11 +414,12 @@ class Element:
         t0 = _time.monotonic()
         try:
             try:
-                ret = self.chain_list(pad, [self._entered(b) for b in bufs])
+                bufs = [self._entered(b) for b in bufs]
+                ret = self.chain_list(pad, bufs)
             except FlowError:
                 raise
             except Exception as e:
-                raise FlowError(f"{self.name}: {e}") from e
+                ret = self._recover_chain_list(pad, bufs, e)
         finally:
             now = _time.monotonic()
             per = (now - t0) / max(len(bufs), 1)
@@ -410,16 +435,44 @@ class Element:
         t0 = _time.monotonic()
         try:
             try:
-                ret = self.chain(pad, self._entered(buf))
+                buf = self._entered(buf)
+                ret = self.chain(pad, buf)
             except FlowError:
                 raise
             except Exception as e:
-                raise FlowError(f"{self.name}: {e}") from e
+                ret = self._recover_chain(pad, buf, e)
         finally:
             now = _time.monotonic()
             self.stats.record(now - t0, now)
             self._obs_chain_hist().observe(now - t0)
         return FlowReturn.OK if ret is None else ret
+
+    def _halt_policy(self) -> bool:
+        """True when this element's effective error policy is ``halt``
+        (the default). Decided from the two property reads alone so the
+        common no-supervision case never imports the recovery module."""
+        pol = self._props.get("error_policy") or \
+            getattr(self.pipeline, "error_policy", None)
+        return not pol or str(pol).replace("_", "-") == "halt"
+
+    def _recover_chain(self, pad: Pad, buf: TensorBuffer,
+                       exc: BaseException) -> FlowReturn:
+        """A ``chain`` call raised a non-FlowError: apply the element's
+        error policy (``pipeline/supervise.py``). ``halt`` is the plain
+        wrap-and-raise."""
+        if self._halt_policy():
+            raise FlowError(f"{self.name}: {exc}") from exc
+        from nnstreamer_tpu_torch.pipeline import supervise
+
+        return supervise.recover_chain(self, pad, buf, exc)
+
+    def _recover_chain_list(self, pad: Pad, bufs: List[TensorBuffer],
+                            exc: BaseException) -> FlowReturn:
+        if self._halt_policy():
+            raise FlowError(f"{self.name}: {exc}") from exc
+        from nnstreamer_tpu_torch.pipeline import supervise
+
+        return supervise.recover_chain_list(self, pad, bufs, exc)
 
     def _event_entry(self, pad: Pad, event: Event) -> None:
         if isinstance(event, CapsEvent):
@@ -441,8 +494,19 @@ class Element:
         :meth:`chain`; HANDLES_LIST elements may override to hoist
         per-buffer overhead (one lock acquisition per backlog)."""
         ret = None
-        for b in bufs:
-            ret = self.chain(pad, b)
+        for i, b in enumerate(bufs):
+            try:
+                ret = self.chain(pad, b)
+            except Exception as e:
+                # buffers before index i were fully chained (and pushed
+                # downstream): a non-halt error policy replays only the
+                # unconsumed suffix instead of re-pushing delivered frames
+                if getattr(e, "_nns_list_done", None) is None:
+                    try:
+                        e._nns_list_done = i
+                    except AttributeError:
+                        pass  # __slots__ exceptions lose the replay hint
+                raise
             if ret is FlowReturn.EOS:
                 break
         return ret

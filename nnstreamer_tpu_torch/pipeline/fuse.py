@@ -28,11 +28,19 @@ replay on the same stream. A region has a dispatch window
 (``pipeline/dispatch.py``) of the largest ``inflight`` among its members;
 its fence is an event recorded after the output copies.
 
+The region is the fused members' ``filter.invoke`` fault site
+(``pipeline/faults.py``): the hook fires before the stash pop and before
+any copy or replay, so an error policy that retries the frame replays
+the same graph. With a timeline active each dispatch is the frame's
+``device`` span — on the card the host's enqueue of the copy in, the
+replay and the copies out, not kernel time — and a frame handed in a
+list records its wait for its turn as ``queue_wait``.
+
 What the JAX module has and this one does not: donation of the input slab
 (``NNSTPU_DONATE``) has no counterpart, since the graph reads static input
 buffers into which each frame is copied; QoS events (its ``src_event``)
-wait for the port's QoS (ROADMAP A.11); a mesh-sharded stage raises
-(A.24).
+wait for the filter's throttle (ROADMAP A.11b); a mesh-sharded stage
+raises (A.24).
 
 Disable globally with ``NNSTPU_FUSE=0`` or per pipeline with
 ``Pipeline(fuse=False)``.
@@ -43,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -51,7 +60,9 @@ import torch
 
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.ops import _counts
+from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.pipeline.element import (
     CustomEvent,
     Element,
@@ -335,6 +346,22 @@ class FusedRegion(Element):
     def chain(self, pad, buf):
         if pad is self.internal_pad:
             raise FlowError(f"{self.name}: buffer on internal event pad")
+        seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+        # the device span starts before the chaos hook: an injected
+        # filter.invoke stall models a slow dispatch
+        t_dev0 = time.monotonic()
+        tl = _timeline.ACTIVE
+        if tl is not None and seq is not None:
+            t_in = buf.meta.pop("tl_handoff_t", None)
+            if t_in is not None:
+                # handed in a list: its wait behind the frames before it
+                tl.span("queue_wait", seq, t_in, t_dev0, track=self.name)
+        fi = _faults.ACTIVE
+        if fi is not None:
+            # the fused members' filter.invoke site (the filter's chain
+            # does not run while fused), before the stash pop and any
+            # copy or replay: a retry re-enters with the buffer intact
+            fi.check("filter.invoke", seq=seq)
         compiled = self._compiled
         if compiled is None:
             try:
@@ -375,7 +402,10 @@ class FusedRegion(Element):
         # copies on this stream; the oldest batch fences only when more
         # than `inflight` are outstanding, and this frame's staging
         # arrays recycle at its fence
-        self._window.admit(out, stash)
+        if tl is not None and seq is not None:
+            tl.span("device", seq, t_dev0, time.monotonic(),
+                    track=self.name)
+        self._window.admit(out, stash, frame=seq)
         out_buf = buf.with_tensors(out)
         if finalize is not None:
             out_buf = out_buf.replace(finalize=finalize)

@@ -343,13 +343,21 @@ def parse_launch(description: str, pipeline: Optional[Pipeline] = None,
     link structure (so ``... ! mux.`` may reference an element defined later
     in the description), then resolve links.
 
-    The keyword arguments are the JAX package's; the ingest lanes, SLO
-    scheduler, error policies and watchdog they configure are not ported
-    yet, so any value but the default raises ``NotImplementedError``.
+    The keyword arguments are the JAX package's: ``lanes`` sets the
+    pipeline's ingest lane count (``pipeline/lanes.py``), ``error_policy``
+    its default error policy (``pipeline/supervise.py``) and
+    ``watchdog_s`` arms the stall watchdog; None leaves the pipeline's own
+    value. ``slo_budget_ms`` names the SLO scheduler (ROADMAP A.11b), not
+    ported yet: any value but None or 0 raises ``NotImplementedError``.
     """
-    check_unported_options(lanes=lanes, slo_budget_ms=slo_budget_ms,
-                           error_policy=error_policy, watchdog_s=watchdog_s)
+    check_unported_options(slo_budget_ms=slo_budget_ms)
     pipe = pipeline or Pipeline()
+    if lanes is not None:
+        pipe.lanes = max(1, int(lanes))
+    if error_policy is not None:
+        pipe.error_policy = error_policy
+    if watchdog_s is not None:
+        pipe.watchdog_s = max(0.0, float(watchdog_s))
 
     # -- pass 1: nodes & chains (syntax via parse_description) ---------------
     # node: ("el", Element) | ("ref", name) | ("refpad", name, pad)

@@ -18,15 +18,22 @@ messages to the application. The port keeps that capability:
 As in the JAX package, a pipeline fuses by default: ``start()`` splices
 a :class:`~nnstreamer_tpu_torch.pipeline.fuse.FusedRegion` over each run
 of device-capable elements (``pipeline/fuse.py``; ``fuse=False`` or
-``NNSTPU_FUSE=0`` turn it off). The JAX package's ingest lanes, SLO
-scheduler, watchdog, fault injection and serving continuity are not
-ported yet: asking for one raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``NNSTPU_FUSE=0`` turn it off), then ingest lanes behind each source
+(``Pipeline(lanes=N)`` or ``pipe.lanes = N`` before ``start()``;
+``pipeline/lanes.py``, ``NNSTPU_LANES``). ``error_policy`` sets the
+default error policy of every element (``pipeline/supervise.py``) and
+``watchdog_s`` (or ``NNSTPU_WATCHDOG_S``) arms the liveness watchdog.
+``start()`` honours ``NNSTPU_TRACE`` (the frame ledger,
+``obs/timeline.py``) and ``NNSTPU_FAULTS`` (``pipeline/faults.py``). The
+JAX package's SLO scheduler (``slo_budget_ms``, ROADMAP A.11b) and
+serving continuity (A.20) are not ported yet: asking for one raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 import queue as _queue
 import threading
 import time
@@ -38,6 +45,8 @@ import torch
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs import timeline as _timeline
+from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.pipeline.dispatch import (
     POOL_STASH_META,
     release_shed_payload,
@@ -67,7 +76,7 @@ from nnstreamer_tpu_torch.tensors.pool import (
 
 log = get_logger("pipeline")
 
-_TRACING = "A.11 supervision hooks, tracing and scheduling"
+_SCHEDULER = "A.11b the SLO scheduler (serving/scheduler.py)"
 
 
 class State(enum.Enum):
@@ -127,6 +136,13 @@ class SourceElement(Element):
                 # measure now - create_t once the payload is on the host
                 if "create_t" not in buf.meta:
                     buf.meta["create_t"] = time.monotonic()
+                # frame-ledger trace context (obs/timeline.py): one
+                # monotone id per frame, stamped by the single source
+                # thread — the lane executor's single-writer discipline
+                tl = _timeline.ACTIVE
+                if tl is not None and \
+                        _timeline.TRACE_SEQ_META not in buf.meta:
+                    buf.meta[_timeline.TRACE_SEQ_META] = tl.next_seq()
                 if self.srcpad.push(buf) is FlowReturn.EOS:
                     break
             for sp in self.srcpads:
@@ -170,6 +186,15 @@ class Queue(Element):
     - ``materialize-host`` hands HOST buffers downstream: each gathered
       run is fetched with one synchronisation (``materialize_many``) and
       its deferred finalizes applied, in order, before the pushes.
+    - ``stamp-admission`` marks the admission point of a saturated
+      pipeline: each buffer the queue accepts gets ``meta["admitted_t"]``
+      (``nns_queue_admitted_total``), and a leaky drop of an admitted
+      buffer revokes the stamp (``nns_queue_admitted_revoked_total``), so
+      a sink's ``base="admitted"`` latency covers the served frames only.
+
+    The ``queue.push`` fault hook fires on entry; with a timeline active
+    the queue records each frame's ``queue_wait`` (and the first queue a
+    frame meets closes its ``ingest`` span).
 
     Uploads and fetches run on the worker's current stream, the device's
     default stream (``tensors/buffer.py``).
@@ -181,10 +206,9 @@ class Queue(Element):
     PROPERTIES = {**Element.PROPERTIES, "max_size_buffers": 16, "leaky": "no",
                   "prefetch_host": False, "prefetch_device": False,
                   "materialize_host": False, "drain_batch": 64,
-                  "batch_h2d": True}
+                  "batch_h2d": True, "stamp_admission": False}
     UNPORTED_PROPERTIES = {
-        "stamp_admission": _TRACING,
-        "slo_budget_ms": _TRACING,
+        "slo_budget_ms": _SCHEDULER,
     }
 
     _EOS = object()
@@ -199,6 +223,8 @@ class Queue(Element):
         self._eos_done = threading.Event()
         self._m_drops = None
         self._m_drain = None
+        self._m_admitted = None       # stamp-admission accept counter
+        self._m_adm_revoked = None    # admitted-then-dropped counter
         #: data buffers the worker popped but has not handed downstream
         #: yet (single writer: the worker)
         self._undelivered = 0
@@ -210,11 +236,18 @@ class Queue(Element):
             raise ValueError(f"{self.name}: leaky must be 'no' or "
                              f"'downstream', not {self._props['leaky']!r}")
 
+    def _depth(self) -> int:
+        """Occupancy: queued plus popped but not yet handed on."""
+        return self._q.qsize() + self._undelivered
+
     def obs_snapshot(self):
         out = super().obs_snapshot()
-        out["depth"] = self._q.qsize() + self._undelivered
+        out["depth"] = self._depth()
         if self._m_drops is not None:
             out["drops"] = int(self._m_drops.value)
+            if self.get_property("stamp_admission"):
+                out["admitted"] = int(self._m_admitted.value)
+                out["admitted_revoked"] = int(self._m_adm_revoked.value)
         if self._m_drain is not None and self._m_drain.count:
             out["drain_size_p50"] = self._m_drain.percentile(50)
         return out
@@ -240,6 +273,13 @@ class Queue(Element):
                 "nns_queue_drain_size",
                 "Data buffers the worker drained per wake (backlog "
                 "batching)", buckets=(1, 2, 4, 8, 16, 32, 64), **labels)
+            self._m_admitted = reg.counter(
+                "nns_queue_admitted_total",
+                "Buffers accepted at a stamp_admission point", **labels)
+            self._m_adm_revoked = reg.counter(
+                "nns_queue_admitted_revoked_total",
+                "Admitted buffers later dropped before delivery (the "
+                "admitted population nets these out)", **labels)
         self._worker = threading.Thread(
             target=self._drain, name=f"{self.name}-worker", daemon=True)
         self._worker.start()
@@ -264,7 +304,70 @@ class Queue(Element):
         maxsize = self._q.maxsize
         return maxsize <= 0 or self._q.qsize() < maxsize
 
+    # -- frame-ledger hooks (obs/timeline.py) --------------------------------
+    def _tl_arrive(self, buf) -> None:
+        """The FIRST queue a frame reaches closes its ingest span (source
+        ``create()`` → here, minus any lane reorder wait, so ingest +
+        lane_reorder tile exactly); every queue stamps the entry time its
+        drain side turns into a queue_wait span. One attribute read with
+        tracing off."""
+        tl = _timeline.ACTIVE
+        if tl is None:
+            return
+        seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+        if seq is None:
+            return
+        now = time.monotonic()
+        if "tl_ingest_done" not in buf.meta:
+            buf.meta["tl_ingest_done"] = True
+            create = buf.meta.get("create_t")
+            if create is not None:
+                reorder = buf.meta.pop("tl_reorder_s", 0.0)
+                tl.span("ingest", seq, create, max(now - reorder, create),
+                        track="ingest")
+        buf.meta["tl_q_t"] = now
+
+    def _tl_depart(self, buf, handoff: bool = False) -> None:
+        """Drain-side twin of :meth:`_tl_arrive`: queue residency ends at
+        the frame's hand-off downstream. A frame handed on in a list
+        (``handoff``) carries the time as ``meta["tl_handoff_t"]``, from
+        which the receiver records its wait for its own turn."""
+        tl = _timeline.ACTIVE
+        if tl is None:
+            return
+        t0 = buf.meta.pop("tl_q_t", None)
+        seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+        if t0 is None or seq is None:
+            return
+        now = time.monotonic()
+        tl.span("queue_wait", seq, t0, now, track=self.name)
+        if handoff:
+            buf.meta["tl_handoff_t"] = now
+
+    def _drop_oldest(self) -> None:
+        """leaky=downstream: drop the oldest queued buffer to make room."""
+        try:
+            dropped = self._q.get_nowait()
+        except _queue.Empty:
+            return
+        self._m_drops.inc()
+        if dropped is self._EOS or isinstance(dropped, Event):
+            return
+        # a frame dropped AFTER stamp-admission leaves the admitted
+        # population: revoke the stamp (a shared-meta consumer must not
+        # report it as a served-latency outlier) and count the revocation
+        if dropped.meta.pop("admitted_t", None) is not None:
+            self._m_adm_revoked.inc()
+        # it never reaches a fence: release its staged slabs now, not at GC
+        release_shed_payload(dropped)
+
     def chain(self, pad, buf):
+        fi = _faults.ACTIVE
+        if fi is not None:
+            # chaos hook (pipeline/faults.py): a raise here surfaces
+            # through _chain_entry under THIS queue's error policy
+            fi.check("queue.push",
+                     seq=buf.meta.get(_timeline.TRACE_SEQ_META))
         if self.get_property("prefetch_host") and \
                 not self.get_property("materialize_host"):
             # (materialize-host fetches on the worker side, grouped)
@@ -276,6 +379,12 @@ class Queue(Element):
                      and self._worker is not None and not buf.on_device())
             if not defer:
                 buf = self._upload_one(buf)
+        self._tl_arrive(buf)
+        if self.get_property("stamp_admission") and \
+                "admitted_t" not in buf.meta:
+            buf.meta["admitted_t"] = time.monotonic()
+            if self._m_admitted is not None:
+                self._m_admitted.inc()
         if self._worker is None:  # not started: degenerate passthrough
             return self.srcpad.push(buf)
         if self.get_property("leaky") == "downstream":
@@ -284,16 +393,7 @@ class Queue(Element):
                     self._q.put_nowait(buf)
                     return FlowReturn.OK
                 except _queue.Full:
-                    try:
-                        dropped = self._q.get_nowait()  # drop the oldest
-                        self._m_drops.inc()
-                        if not (dropped is self._EOS
-                                or isinstance(dropped, Event)):
-                            # it never reaches a fence: release its
-                            # staged slabs now, not at GC
-                            release_shed_payload(dropped)
-                    except _queue.Empty:
-                        pass
+                    self._drop_oldest()
         while not self._stop_evt.is_set():
             try:
                 self._q.put(buf, timeout=0.1)
@@ -399,19 +499,37 @@ class Queue(Element):
         if self.get_property("prefetch_device") and \
                 self.get_property("batch_h2d"):
             run = self._upload_run(run)
+        # queue residency ends at each frame's own hand-off (with tracing
+        # on; one attribute read off), so a frame behind others in a
+        # drained run is not left unattributed
+        tl_on = _timeline.ACTIVE is not None
         if self.get_property("materialize_host"):
+            # the residency pauses where the run's fetch starts: the fetch
+            # is each frame's d2h stage, its finalize its decode stage
+            # (tensors/buffer.py), and the wait behind the run's earlier
+            # frames resumes it until the frame's own hand-off
+            if tl_on:
+                for it in run:
+                    self._tl_depart(it)
             for host in materialize_many(run):
                 self._undelivered -= 1
+                if tl_on:
+                    self._tl_depart(host)
                 self.srcpad.push(host)
             return
         peer = self.srcpad.peer
         if len(run) > 1 and peer is not None and \
                 getattr(peer.element, "HANDLES_LIST", False):
             self._undelivered -= len(run)
+            if tl_on:
+                for it in run:
+                    self._tl_depart(it, handoff=True)
             self.srcpad.push_list(run)
             return
         for it in run:
             self._undelivered -= 1
+            if tl_on:
+                self._tl_depart(it)
             self.srcpad.push(it)
 
     def _drain(self):
@@ -466,16 +584,18 @@ class Pipeline:
     """Element container + source threads + bus.
 
     The keyword arguments are the JAX package's. ``fuse`` (default True)
-    splices fused regions at ``start()``; for the others every value but
-    the default names a feature the port does not have yet and raises."""
+    splices fused regions at ``start()``; ``lanes`` (default 1, the
+    serial path) splices ingest lanes behind each source after fusion;
+    ``error_policy`` is the default error policy of every element;
+    ``watchdog_s`` > 0 arms the liveness watchdog. ``slo_budget_ms`` names
+    the SLO scheduler, not ported yet (ROADMAP A.11b): any value but 0
+    raises."""
 
     def __init__(self, name: str = "pipeline", fuse: bool = True,
                  lanes: int = 1, slo_budget_ms: float = 0.0,
                  error_policy: Optional[str] = None,
                  watchdog_s: float = 0.0):
-        check_unported_options(lanes=lanes, slo_budget_ms=slo_budget_ms,
-                               error_policy=error_policy,
-                               watchdog_s=watchdog_s)
+        check_unported_options(slo_budget_ms=slo_budget_ms)
         self.name = name
         self.elements: List[Element] = []
         self.by_name: Dict[str, Element] = {}
@@ -487,6 +607,19 @@ class Pipeline:
         #: fused regions (pipeline/fuse.py), spliced at the first start()
         #: and kept across restarts
         self._regions: Optional[list] = None
+        #: requested ingest lane count (pipeline/lanes.py); 1 = serial
+        #: path, NNSTPU_LANES overrides at start()
+        self.lanes = lanes
+        #: lane executors, spliced at the first start() after fusion and
+        #: kept across restarts
+        self._lane_execs: Optional[list] = None
+        #: pipeline-default error policy (pipeline/supervise.py): elements
+        #: without their own ``error-policy`` inherit it; None = halt
+        self.error_policy = error_policy
+        #: watchdog deadline in seconds (>0 arms PipelineWatchdog at
+        #: start()); NNSTPU_WATCHDOG_S applies when it is 0
+        self.watchdog_s = float(watchdog_s or 0.0)
+        self._watchdog = None
 
     # -- construction ---------------------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":
@@ -529,6 +662,10 @@ class Pipeline:
             # the process-wide staging pool (sources, converters and
             # aggregators share it): is the hot path recycling?
             out["pool"] = get_pool().snapshot()
+        if self._lane_execs:
+            # lane executors are spliced, not in self.elements
+            out["lanes"] = {ex.name: ex.obs_snapshot()
+                            for ex in self._lane_execs}
         if self._regions:
             # regions are spliced, not in self.elements: their dispatch
             # counts (eager frames, replays, captures, retraces)
@@ -541,16 +678,22 @@ class Pipeline:
     # -- state ----------------------------------------------------------------
     def start(self) -> "Pipeline":
         """NULL→PLAYING: start all elements (non-sources first so queues and
-        filters are ready), splice fused regions over them (once; they
-        persist across restarts), then spawn one streaming thread per
-        source."""
+        filters are ready), splice fused regions over them and then ingest
+        lanes behind the sources (once; both persist across restarts),
+        spawn one streaming thread per source, and arm the watchdog."""
         if self.state is State.PLAYING:
             return self
+        # the frame ledger and fault injection from the environment, before
+        # any element starts, so the source stamp and every hook see them;
+        # unset, both stay None and every site is one attribute read
+        _timeline.maybe_activate_env()
+        _faults.maybe_activate_env()
         sources = [e for e in self.elements if isinstance(e, SourceElement)]
         others = [e for e in self.elements
                   if not isinstance(e, SourceElement)]
         # a restart streams anew: the last run's EOS no longer holds
-        for el in self.elements + (self._regions or []):
+        for el in self.elements + (self._regions or []) + \
+                (self._lane_execs or []):
             for pad in el.sinkpads + el.srcpads:
                 pad.eos = False
         started: List[Element] = []
@@ -564,6 +707,19 @@ class Pipeline:
             for r in self._regions or ():
                 r.start()
                 started.append(r)
+            # lanes after fusion: a transform folded into a region is out
+            # of the replicable segment, so its math stays in the graph
+            if self._lane_execs is None:
+                from nnstreamer_tpu_torch.pipeline.lanes import (
+                    effective_lanes,
+                    splice_lanes,
+                )
+
+                self._lane_execs = splice_lanes(
+                    self, effective_lanes(self.lanes))
+            for ex in self._lane_execs:
+                ex.start()
+                started.append(ex)
             for el in sources:
                 el.start()
                 started.append(el)
@@ -580,25 +736,63 @@ class Pipeline:
             )
             self._threads.append(t)
             t.start()
+        wd_s = self._effective_watchdog_s()
+        if wd_s > 0 and self._watchdog is None:
+            from nnstreamer_tpu_torch.pipeline.supervise import (
+                PipelineWatchdog,
+            )
+
+            self._watchdog = PipelineWatchdog(self, wd_s)
+            self._watchdog.start()
         return self
+
+    def _effective_watchdog_s(self) -> float:
+        if self.watchdog_s > 0:
+            return self.watchdog_s
+        raw = os.environ.get("NNSTPU_WATCHDOG_S", "").strip()
+        if not raw:
+            return 0.0
+        try:
+            return float(raw)
+        except ValueError:
+            log.warning("NNSTPU_WATCHDOG_S=%r is not a number; watchdog "
+                        "stays off", raw)
+            return 0.0
 
     def stop(self) -> "Pipeline":
         if self.state is State.NULL:
             return self
+        # watchdog first: teardown quiescence must not read as a stall
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        # an injected stall models a hung device; teardown ends it
+        fi = _faults.ACTIVE
+        if fi is not None:
+            fi.release_stalls()
         for el in self.elements:
             if isinstance(el, SourceElement):
                 el.stop()
         for t in self._threads:
             t.join(timeout=10)
         self._threads.clear()
+        # lane executors stop after their upstream source threads and
+        # before the elements they feed
+        for ex in self._lane_execs or ():
+            ex.stop()
         for el in self.elements:
             if not isinstance(el, SourceElement):
                 el.stop()
         for r in self._regions or ():
             r.stop()
-        # a stopped pipeline holds no free staging slabs
+        # a stopped pipeline holds no free staging slabs (shared pool and
+        # lane arenas)
         release_all_pools()
         self.state = State.NULL
+        # an env-owned timeline (NNSTPU_TRACE=<path>) exports its ledger
+        # once the run is over; an explicitly installed one is the
+        # caller's to export
+        _timeline.maybe_export_env()
         return self
 
     # -- bus ------------------------------------------------------------------
@@ -655,14 +849,9 @@ class Pipeline:
             self.stop()
 
 
-def check_unported_options(lanes=1, slo_budget_ms=0.0, error_policy=None,
-                           watchdog_s=0.0) -> None:
-    """Raise for a pipeline-level option whose feature is not ported."""
-    if lanes not in (None, 1):
-        raise not_ported("ingest lanes (lanes=)", _TRACING)
+def check_unported_options(slo_budget_ms=0.0) -> None:
+    """Raise for a pipeline-level option whose feature is not ported: of
+    the JAX package's ``lanes``, ``slo_budget_ms``, ``error_policy`` and
+    ``watchdog_s``, only the SLO budget is still missing."""
     if slo_budget_ms:
-        raise not_ported("the SLO scheduler (slo_budget_ms=)", _TRACING)
-    if error_policy not in (None, "halt"):
-        raise not_ported("error policies (error_policy=)", _TRACING)
-    if watchdog_s:
-        raise not_ported("the pipeline watchdog (watchdog_s=)", _TRACING)
+        raise not_ported("the SLO scheduler (slo_budget_ms=)", _SCHEDULER)

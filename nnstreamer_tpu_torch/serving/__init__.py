@@ -5,7 +5,7 @@ N generation streams share ONE batched, KV-cached decode loop on the card
 engine by the name it was registered under here. The engine module is
 imported lazily: it pulls in the transformer model stack, which a frame
 pipeline never needs. The JAX package's SLO scheduler and replicated fleet
-wait for ROADMAP A.11 and slice 6.
+wait for ROADMAP A.11b and slice 6.
 """
 
 import threading

@@ -24,7 +24,7 @@ cache, greedy path:
 Options of the JAX engine that are not ported yet raise with their
 ROADMAP item: ``mesh`` (A.24), ``block_tokens`` (A.13.3),
 ``prefill_chunk`` and ``prefix_cache`` (A.13.2), ``kv_quant`` (A.13.1),
-``speculate`` (A.13.4), ``slo_budget_ms`` (A.11) and sampled decoding —
+``speculate`` (A.13.4), ``slo_budget_ms`` (A.11b) and sampled decoding —
 ``temperature > 0``, ``top_k``, ``min_p`` (A.13.5).
 """
 
@@ -202,7 +202,7 @@ class ContinuousBatchingEngine:
             raise not_ported("speculative decoding (speculate > 0)",
                              "A.13.4")
         if float(slo_budget_ms or 0.0) > 0:
-            raise not_ported("SLO admission (slo_budget_ms > 0)", "A.11")
+            raise not_ported("SLO admission (slo_budget_ms > 0)", "A.11b")
         if attention not in ("auto", "reference"):
             raise ValueError(
                 f"serving: attention must be 'auto' or 'reference', got "

@@ -23,11 +23,18 @@ stream, and an upload, the dispatch that reads it and the fetch of its
 results run in the order the host enqueued them, whichever threads did.
 A host→device copy from a pool slab records an event that the pool waits
 for before it hands the slab out again (:func:`note_h2d`).
+
+**Observability.** With a timeline active (``obs/timeline.py``) every
+transfer records an ``h2d`` or ``d2h`` span for the frame it moves — each
+frame of a batched upload or grouped fetch gets its own, over the whole
+transfer — and the ``transfer.h2d`` / ``transfer.d2h`` fault hooks
+(``pipeline/faults.py``) fire where the JAX module's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import threading
 import time
 import weakref
@@ -36,7 +43,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nnstreamer_tpu_torch.tensors.pool import get_pool, pinned_view
+from nnstreamer_tpu_torch.obs import timeline as _timeline
+from nnstreamer_tpu_torch.tensors.pool import get_pool, note_copy, pinned_view
 from nnstreamer_tpu_torch.tensors.types import (
     NNS_TENSOR_SIZE_LIMIT,
     TensorsInfo,
@@ -120,6 +128,32 @@ def transfer_snapshot() -> Dict[str, float]:
         return dict(_xfer)
 
 
+def _tl_xfer_span(kind: str, metas, t0: float, nbytes: int = 0) -> None:
+    """Record a transfer span (``h2d``/``d2h``) on the active timeline for
+    each frame whose meta is in ``metas`` — one attribute read when
+    tracing is off."""
+    tl = _timeline.ACTIVE
+    if tl is None:
+        return
+    t1 = time.monotonic()
+    for meta in metas:
+        seq = meta.get(_timeline.TRACE_SEQ_META)
+        if seq is not None:
+            tl.span(kind, seq, t0, t1, track="transfer", nbytes=nbytes)
+
+
+def _fault_check(site: str, meta: Dict[str, Any]) -> None:
+    """Transfer-site chaos hook (pipeline/faults.py), resolved through
+    ``sys.modules`` so the tensors layer never imports the pipeline
+    package (element.py imports this module). With injection off this is
+    one dict lookup; an injector can only exist once its module is
+    imported, so the lazy resolution never misses an active one."""
+    faults = sys.modules.get("nnstreamer_tpu_torch.pipeline.faults")
+    if faults is None or faults.ACTIVE is None:
+        return
+    faults.ACTIVE.check(site, seq=meta.get(_timeline.TRACE_SEQ_META))
+
+
 def note_h2d(arr, device: torch.device) -> None:
     """After a host→device copy from ``arr`` was enqueued on ``device``'s
     current stream: if ``arr`` lies in a page-locked pool slab, record an
@@ -129,7 +163,7 @@ def note_h2d(arr, device: torch.device) -> None:
         return
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
-    get_pool().note_copy(arr, event)
+    note_copy(arr, event)
 
 
 def tensor_nbytes(t) -> int:
@@ -311,7 +345,14 @@ class TensorBuffer:
     def to_host(self) -> "TensorBuffer":
         """Materialize all tensors on the host (blocking D2H if needed),
         then apply the deferred ``finalize`` hook if one is attached."""
-        buf = TensorBuffer(tensors=self._host_tensors(), pts=self.pts,
+        t0 = time.monotonic()
+        host = self._host_tensors()
+        moved = sum(tensor_nbytes(t) for t in self.tensors
+                    if is_device_array(t))
+        if moved:
+            _fault_check("transfer.d2h", self.meta)
+            _tl_xfer_span("d2h", (self.meta,), t0, nbytes=moved)
+        buf = TensorBuffer(tensors=host, pts=self.pts,
                            dts=self.dts, duration=self.duration,
                            meta=dict(self.meta))
         if self.finalize is not None:
@@ -322,11 +363,15 @@ class TensorBuffer:
         """Move all tensors onto ``device`` (:func:`upload_tensor`: host
         arrays are copied, asynchronously from a page-locked slab)."""
         device = torch.device(device)
+        t0 = time.monotonic()
         moved = sum(tensor_nbytes(t) for t in self.tensors
                     if not isinstance(t, torch.Tensor))
         out = [upload_tensor(t, device) for t in self.tensors]
         if moved and device.type != "cpu":
             _tally(h2d_bytes=moved, h2d_events=1)
+        if moved:
+            _fault_check("transfer.h2d", self.meta)
+            _tl_xfer_span("h2d", (self.meta,), t0, nbytes=moved)
         return self.replace(tensors=out)
 
     def pad_rows_device(self) -> "TensorBuffer":
@@ -477,6 +522,8 @@ def upload_many(bufs: List[TensorBuffer], device: torch.device
 
     k = len(bufs)
     pool = get_pool()
+    t0 = time.monotonic()
+    _fault_check("transfer.h2d", bufs[0].meta)
     slabs: List[np.ndarray] = []
     devs: List[torch.Tensor] = []
     moved = 0
@@ -494,6 +541,7 @@ def upload_many(bufs: List[TensorBuffer], device: torch.device
     if device.type != "cpu":
         _tally(h2d_bytes=moved, h2d_batched_events=1,
                h2d_batched_frames=k)
+    _tl_xfer_span("h2d", [b.meta for b in bufs], t0, nbytes=moved)
     out: List[TensorBuffer] = []
     for i, b in enumerate(bufs):
         nb = b.with_tensors([d[i] for d in devs])
@@ -513,6 +561,9 @@ def materialize_many(bufs: List[TensorBuffer]) -> List[TensorBuffer]:
     fetched: Dict[Tuple[int, int], Any] = {}
     devices = set()
     moved = 0
+    t0 = time.monotonic()
+    if any(is_device_array(t) for b in bufs for t in b.tensors):
+        _fault_check("transfer.d2h", bufs[0].meta)
     for i, b in enumerate(bufs):
         if isinstance(b, DeviceBuffer) and (
                 b._host_cache is not None or b._host_src is not None):
@@ -529,18 +580,27 @@ def materialize_many(bufs: List[TensorBuffer]) -> List[TensorBuffer]:
     if fetched:
         _tally(d2h_bytes=moved, d2h_batched_events=1,
                d2h_batched_frames=len(bufs), d2h_syncs=len(devices))
+    tl = _timeline.ACTIVE
     out: List[TensorBuffer] = []
     for i, b in enumerate(bufs):
         if not any((i, j) in fetched for j in range(len(b.tensors))):
-            out.append(b.to_host())  # cached view or host payload
-            continue
-        host = [host_array(fetched.get((i, j), t))
-                for j, t in enumerate(b.tensors)]
-        hb = TensorBuffer(tensors=host, pts=b.pts, dts=b.dts,
-                          duration=b.duration, meta=dict(b.meta))
-        if b.finalize is not None:
-            hb = b.finalize(hb)
-        if isinstance(b, DeviceBuffer):
-            b._host_cache = hb  # later to_host() callers share this
+            hb = b.to_host()  # cached view or host payload
+        else:
+            if tl is not None:
+                # the frame's fetch: from the copies' enqueue to its own
+                # turn on the host, the run's synchronisation included
+                _tl_xfer_span("d2h", (b.meta,), t0, nbytes=moved)
+            host = [host_array(fetched.get((i, j), t))
+                    for j, t in enumerate(b.tensors)]
+            hb = TensorBuffer(tensors=host, pts=b.pts, dts=b.dts,
+                              duration=b.duration, meta=dict(b.meta))
+            if b.finalize is not None:
+                hb = b.finalize(hb)
+            if isinstance(b, DeviceBuffer):
+                b._host_cache = hb  # later to_host() callers share this
+        if tl is not None and _timeline.TRACE_SEQ_META in hb.meta:
+            # back in its queue, behind the run's earlier frames: the
+            # queue's hand-off ends this wait (``Queue._tl_depart``)
+            hb.meta["tl_q_t"] = time.monotonic()
         out.append(hb)
     return out

@@ -46,10 +46,19 @@ per-frame slot views out of a single pool allocation so the whole run
 crosses H2D as one copy. ``contiguous_window_view`` is the zero-copy fast
 path for frames already written into consecutive slots of one slab.
 
-Not ported: the ``pool.alloc`` fault-injection hook (JAX
-``_alloc_fault_check``, ROADMAP A.11), the HBM accountant's pool category
-(``_mem_account``, A.19) and the per-lane arenas (``get_lane_pool``, the
-ingest lanes of A.11).
+**Lane arenas.** :func:`get_lane_pool` gives each ingest lane
+(``pipeline/lanes.py``) its own arena, distinct from :func:`get_pool`, so
+N lane workers never serialize on one free-list lock. A lane slab that
+reaches an H2D copy is gated exactly as a shared one: :func:`note_copy`
+records the copy's event with whichever arena holds the slab, and that
+arena's ``acquire`` waits it out. A lane worker calls CUDA only to
+page-lock a new slab (``cudaHostAlloc``) and, in ``acquire``, to query a
+copy event; a CUDA-graph capture on another thread in ``thread_local``
+mode (``pipeline/fuse.py``) permits both.
+
+The ``pool.alloc`` fault hook (``_alloc_fault_check``) fires on the
+slab-growth path only. Not ported: the HBM accountant's pool category
+(``_mem_account``, ROADMAP A.19).
 """
 
 from __future__ import annotations
@@ -87,6 +96,19 @@ def _pin_slabs() -> bool:
     from nnstreamer_tpu_torch.device import get_device
 
     return get_device().type == "cuda" and torch.cuda.is_available()
+
+
+def _alloc_fault_check() -> None:
+    """``pool.alloc`` chaos hook on the slab-growth (miss) path only —
+    the recycled-slab hot path never pays. Resolved via sys.modules so
+    the tensors layer never imports the pipeline layer: an injector can
+    only exist once its module is imported."""
+    faults = sys.modules.get("nnstreamer_tpu_torch.pipeline.faults")
+    if faults is None:
+        return
+    fi = faults.ACTIVE
+    if fi is not None:
+        fi.check("pool.alloc")
 
 
 def _new_slab(nbytes: int, pinned: bool) -> np.ndarray:
@@ -235,6 +257,7 @@ class BufferPool:
             self.grows += 1
             obs["misses"].inc()
             obs["grows"].inc()
+            _alloc_fault_check()
             slab = _new_slab(cls + self.align, _pin_slabs())
         else:
             self.hits += 1
@@ -390,10 +413,25 @@ class BufferPool:
 
 
 def release_all_pools() -> None:
-    """Free the free lists of the process-wide pool — the
-    ``Pipeline.stop()`` footprint hook."""
+    """Free the free lists of every process-wide arena (the shared ingest
+    pool and each lane's) — the ``Pipeline.stop()`` footprint hook."""
     if _default is not None:
         _default.clear()
+    with _lane_pools_lock:
+        pools = list(_lane_pools.values())
+    for p in pools:
+        p.clear()
+
+
+def note_copy(arr, event) -> bool:
+    """Record an H2D copy reading ``arr`` with the arena that holds its
+    slab (the shared pool or a lane's), so that arena's ``acquire`` waits
+    for ``event``. False when no arena holds it."""
+    if _default is not None and _default.note_copy(arr, event):
+        return True
+    with _lane_pools_lock:
+        pools = list(_lane_pools.values())
+    return any(p.note_copy(arr, event) for p in pools)
 
 
 def contiguous_window_view(arrays) -> Optional[np.ndarray]:
@@ -442,3 +480,24 @@ def get_pool() -> BufferPool:
             if _default is None:
                 _default = BufferPool()
     return _default
+
+
+_lane_pools: Dict[int, BufferPool] = {}
+_lane_pools_lock = threading.Lock()
+
+
+def get_lane_pool(lane: int) -> BufferPool:
+    """Per-lane staging arena for the ingest lane executor
+    (``pipeline/lanes.py``): each worker lane copies its frames into its
+    own pool, so N lanes never serialize on one free-list lock or trip
+    each other's slab refcount guards. Keyed process-wide by lane index
+    (lane k of every pipeline shares arena k), so metric label
+    cardinality stays bounded by the lane count."""
+    pool = _lane_pools.get(lane)
+    if pool is None:
+        with _lane_pools_lock:
+            pool = _lane_pools.get(lane)
+            if pool is None:
+                pool = BufferPool(name=f"ingest-lane{lane}")
+                _lane_pools[lane] = pool
+    return pool

@@ -172,7 +172,9 @@ def test_import_leaves_jax_out():
         "'models.transformer', 'ops.flash_attention', 'ops.quantize', "
         "'elements.quant', 'elements.query', 'query.protocol', "
         "'query.server', 'tensors.meta', 'tensors.pool', "
-        "'tensors.buffer', 'pipeline.dispatch', 'elements.aggregator'):\n"
+        "'tensors.buffer', 'pipeline.dispatch', 'elements.aggregator', "
+        "'obs.timeline', 'pipeline.faults', 'pipeline.supervise', "
+        "'pipeline.lanes'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -198,8 +200,9 @@ def test_staging_properties_are_ported(desc):
 
 
 @pytest.mark.parametrize("desc,item", [
-    ("appsrc ! queue stamp-admission=true ! tensor_sink", "A.11"),
-    ("appsrc ! queue slo-budget-ms=20 ! tensor_sink", "A.11"),
+    ("appsrc ! tensor_filter framework=jax model=m throttle=5 ! "
+     "tensor_sink", "A.11b"),
+    ("appsrc ! queue slo-budget-ms=20 ! tensor_sink", "A.11b"),
 ])
 def test_admission_properties_still_raise(desc, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -235,3 +238,47 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_shape_probe_leaves_a_running_module_alone():
+    """The torch backend probes output shapes on a meta twin of the
+    registered module: the module itself, which other threads may be
+    running (a second pipeline naming it, a region's first frame), never
+    has its weights swapped for meta tensors."""
+    from nnstreamer_tpu_torch.filters.api import FilterProperties
+    from nnstreamer_tpu_torch.tensors.types import TensorsInfo
+
+    seen = []
+
+    class Spy(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4, 3))
+
+        def forward(self, x):
+            # the registered module's own weight, whichever copy runs
+            seen.append(spy.w.device.type)
+            return x.float() @ self.w
+
+    spy = Spy()
+    tnt.set_device("cpu")
+    register_torch_model("probe_race", spy)
+    try:
+        fw = TorchFilter()
+        fw.open(FilterProperties(model="probe_race"))
+        out = fw.set_input_info(TensorsInfo.from_str("4:2", "float32"))
+        assert out[0].dim == (3, 2)
+        assert seen == ["cpu"]
+        # a second filter of the module takes the probed shapes: no
+        # second forward; another input shape probes again
+        fw2 = TorchFilter()
+        fw2.open(FilterProperties(model="probe_race"))
+        assert fw2.set_input_info(
+            TensorsInfo.from_str("4:2", "float32"))[0].dim == (3, 2)
+        assert seen == ["cpu"]
+        assert fw2.set_input_info(
+            TensorsInfo.from_str("4:5", "float32"))[0].dim == (3, 5)
+        assert seen == ["cpu", "cpu"]
+    finally:
+        unregister_torch_model("probe_race")
+        tnt.set_device(None)
