@@ -47,6 +47,21 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   live source paced for partial windows (``latency-budget-ms``,
   ``pad-device``) keeps one capture and labels every frame as the unpaced
   run; the batch-1 fused flagship on the same frames is its comparison.
+- bench.py's string with no cuts (``pipeline_uncut``): lanes 4 and the
+  leaky stamp-admission ingress; lanes parity, the frame ledger, fault
+  policies (with a pinned list-replay scenario) and the watchdog.
+- The same string under the SLO scheduler at a 50 ms budget against
+  without it (``pipeline_slo``: each warmed by one run, then measured;
+  admissions, rejections, sheds by reason, admitted p50/p99, one capture,
+  B1 once a window; a live 200-fps run with the budget delivers the
+  unbudgeted run's frames in order, less those it shed, bit for bit when
+  it shed none);
+  the always-on flight recorder's cost against ``NNSTPU_FLIGHT=0`` and a
+  tail dump from injected invoke stalls, its gauges over HTTP
+  (``flight``); ``tensor_rate``'s QoS dropping frames at the fused region
+  (``qos``); the LM engine's SLO admission (``lm_slo``: fp32 tokens
+  unchanged under a wide budget, ``SloRejected`` counted at 50 ms); and
+  ``python3 -m nnstreamer_tpu_torch.cli`` in a new process (``cli``).
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -114,6 +129,17 @@ STEADY_FRAMES = 40000
 FAULT_EVERY = 13
 WATCHDOG_S = 1.0
 WATCHDOG_MAX_S = 3.0
+#: the SLO scheduler's budget (serving/scheduler.py's 50 ms), and one wide
+#: enough to admit every LM prompt
+SLO_BUDGET_MS = 50.0
+LM_SLO_WIDE_MS = 600_000.0
+#: the flight recorder's dump run: frames, and the injected invoke stall
+FLIGHT_FRAMES = 160
+FLIGHT_STALL_MS = 40
+FLIGHT_COST_PAIRS = 3      # (on, off, off, on) rounds a string
+#: the QoS run: frames and tensor_rate's target (below the source's)
+QOS_FRAMES = 240
+QOS_RATE = "100/1"
 #: the frame ledger's stages the uncut string emits: the tiling ones and
 #: the transfer and lane spans beside them
 LEDGER_STAGES = ("ingest", "lane_reorder", "queue_wait", "fence_wait",
@@ -485,15 +511,28 @@ def device_ops_per_call(fn, calls: int = 20) -> dict:
     return {name: count / calls for name, count in ops.items()}
 
 
-def phase_one_launch(b1_frame, b3_frame) -> None:
+def one_launch_check() -> None:
     """One B1 call and one B3 call at the frame each run exactly one
     device operation: the trace of 20 calls holds one kernel's name and
     nothing else (no memset, no copy), at most once a call. The profiler
     may drop an event at the start of its window, so the count is held
-    to between 0.9 and 1 a call."""
+    to between 0.9 and 1 a call. Runs in the process ``phase_one_launch``
+    starts, on the frame-shaped calls of ``phase_normalize`` and
+    ``phase_quantize``."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator().manual_seed(0)
+    xin = torch.randint(0, 256, (1, IMAGE, IMAGE, 3), generator=gen,
+                        dtype=torch.uint8).to("cuda:0")
+    x = _quant_input((1, IMAGE, IMAGE, 3), torch.float32, gen)
     out = {}
-    for name, fn in (("normalize_chain", b1_frame),
-                     ("quantize_int8", b3_frame)):
+    for name, fn in (
+            ("normalize_chain",
+             lambda: pp.normalize_chain(xin, TRANSFORM_CHAIN, torch.float32)),
+            ("quantize_int8", lambda: qz.quantize_int8(x, force="reference"))):
         ops = device_ops_per_call(fn)
         out[name] = ops
         kernels = [op for op, per_call in ops.items()
@@ -502,6 +541,21 @@ def phase_one_launch(b1_frame, b3_frame) -> None:
               f"one {name} call at the frame ran device operations {ops}, "
               "not one kernel")
     emit({"phase": "one_launch", "device_ops_per_call": out})
+
+
+def phase_one_launch() -> None:
+    """``one_launch_check`` in a new process (the kernels load from this
+    run's build): on an H100 ``torch.profiler`` lost a growing share of
+    device events as a process aged — a minute of idle sleep turned
+    complete 10-call traces into 4 events of 10 (PERF.md §6) — and this
+    script's process is minutes old by now."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke as c; c.one_launch_check()"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"one_launch: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    print(proc.stdout.strip().splitlines()[-1], flush=True)
 
 
 # -- phase: kernel B2 against its plain version -----------------------------
@@ -1106,7 +1160,7 @@ def phase_lm_parity(bf16_engine):
               "bf16_logit_rel_l2": rel, "bf16_logit_rel_l2_max": max(rel),
               "rel_l2_max_allowed": LM_DRIFT_MAX, "top1_agree": top1}
     emit({"phase": "lm_parity", **result})
-    return result, fp32
+    return result, fp32, tokens["auto"]
 
 
 def profile_lm(engine) -> None:
@@ -1920,6 +1974,122 @@ def profile_pipeline_batched(result, launch) -> None:
     emit({"phase": "pipeline_batched", **result})
 
 
+def uncut_desc(n, model, labels, pattern="gradient", leaky=True,
+               live_rate=None, sink="tensor_sink name=sink to-host=true"):
+    """bench.py's flagship string (``bench.py:286-341``) at its defaults:
+    ``leaky`` the saturation run's leaky stamp-admission ingress, else a
+    blocking one; ``live_rate`` paces the source (``is-live=true``)."""
+    live = f" is-live=true framerate={live_rate}" if live_rate else ""
+    return (f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} "
+            f"pattern={pattern}{live} ! tensor_converter ! "
+            "queue name=q_ingress max-size-buffers=16 "
+            + ("leaky=downstream " if leaky else "")
+            + "stamp-admission=true ! "
+            "tensor_aggregator frames-in=1 frames-out=8 frames-flush=8 "
+            "frames-dim=3 concat=true ! "
+            "queue max-size-buffers=8 prefetch-device=true ! "
+            "tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model} name=filter "
+            "inflight=2 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} "
+            "option2=batched ! queue max-size-buffers=64 "
+            "materialize-host=true ! " + sink)
+
+
+def _counter_total(name, **labels) -> float:
+    """The sum of every series of counter ``name`` whose labels include
+    ``labels``."""
+    from nnstreamer_tpu_torch.obs import get_registry
+
+    return sum(m["value"] for m in get_registry().snapshot()["metrics"]
+               if m["name"] == name and all(
+                   m.get("labels", {}).get(k) == v
+                   for k, v in labels.items()))
+
+
+def _gated_staging_queue(windows: int):
+    """Hold the worker of the queue named ``q_stage`` until ``windows``
+    windows and the EOS are queued, so it hands them on as one list: which
+    windows a fault meets inside a list, and which alone, is then not up
+    to the threads' timing (``tests/test_torch_supervise.py`` pins the
+    same scenario against the JAX package on the CPU). Returns a restore
+    function."""
+    from nnstreamer_tpu_torch.pipeline.pipeline import Queue
+
+    drain = Queue._drain
+
+    def gated(self):
+        if self.name == "q_stage":
+            t_end = time.monotonic() + 60
+            while self._q.qsize() < windows + 1 and \
+                    not self._stop_evt.is_set() and time.monotonic() < t_end:
+                time.sleep(0.001)
+        return drain(self)
+
+    Queue._drain = gated
+    return lambda: setattr(Queue, "_drain", drain)
+
+
+def supervision_pinned(labels: str, spec: str) -> dict:
+    """The fault-parity scenario of ``tests/test_torch_supervise.py`` at
+    full width on the card: bench.py's string at lanes 4 with a blocking
+    ingress, 200 ball frames (25 windows) handed to the fused region as
+    one list, ``filter.invoke`` every 13th invoke. The 13th fails inside
+    the list and is chained again; the 26th fails alone in the per-window
+    replay: ``skip-frame`` loses exactly window 25, ``retry`` delivers all
+    25, bit-identical to the clean run; 2 faults injected either way."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.pipeline import faults
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    frames, windows = 200, 25
+    out = {}
+    for policy in (None, "skip-frame", "retry"):
+        desc = uncut_desc(frames, "mnv2_uncut", labels, pattern="ball",
+                          leaky=False).replace(
+            "queue max-size-buffers=8 prefetch-device=true",
+            "queue name=q_stage max-size-buffers=64 prefetch-device=true")
+        name = f"pinned_{policy or 'clean'}"
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name),
+                               error_policy=policy)
+        pipe.lanes = UNCUT_LANES
+        metas = []
+        pipe.get("sink").connect(lambda b: metas.append(b.meta))
+        inj = faults.activate(spec) if policy else None
+        restore = _gated_staging_queue(windows)
+        try:
+            msg = pipe.run(timeout=600)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+            faults.deactivate()
+        check(msg is not None and msg.kind == "eos", f"{name}: no EOS")
+        out[policy or "clean"] = {
+            "frames": labelled_frames(metas),
+            "injected": len(inj.fired_set("filter.invoke")) if inj else 0,
+            "skipped": _counter_total("nns_fault_skipped_frames_total",
+                                      pipeline=name),
+        }
+    clean = out["clean"]["frames"]
+    check(len(clean) == frames, "pinned: the clean run lost frames")
+    check(out["retry"]["frames"] == clean and out["retry"]["injected"] == 2,
+          f"pinned retry: {len(out['retry']['frames'])} frames, "
+          f"{out['retry']['injected']} injected")
+    check(out["skip-frame"]["frames"] == clean[:BATCH * (windows - 1)] and
+          out["skip-frame"]["injected"] == 2 and
+          out["skip-frame"]["skipped"] == 1,
+          f"pinned skip-frame: {len(out['skip-frame']['frames'])} frames, "
+          f"{out['skip-frame']['injected']} injected, "
+          f"{out['skip-frame']['skipped']} skipped")
+    return {"frames": frames, "spec": spec,
+            **{k: {"delivered": len(v["frames"]), "injected": v["injected"],
+                   "windows_skipped": v["skipped"]}
+               for k, v in out.items()}}
+
+
 def phase_pipeline_uncut(power: str) -> dict:
     """bench.py's flagship string with no cuts (``bench.py:286-341`` at its
     defaults): 800 gradient frames, lanes 4 (``pipe.lanes`` set after
@@ -1975,23 +2145,8 @@ def phase_pipeline_uncut(power: str) -> dict:
         """bench.py's string: with ``leaky`` exactly as bench.py builds it
         for a saturation run, else its ingress blocking."""
         runs["n"] += 1
-        ingress = ("queue name=q_ingress max-size-buffers=16 "
-                   + ("leaky=downstream " if leaky else "")
-                   + "stamp-admission=true ! ")
-        desc = (f"videotestsrc num-buffers={n} width={IMAGE} "
-                f"height={IMAGE} pattern={pattern} ! tensor_converter ! "
-                + ingress +
-                "tensor_aggregator frames-in=1 frames-out=8 "
-                "frames-flush=8 frames-dim=3 concat=true ! "
-                "queue max-size-buffers=8 prefetch-device=true ! "
-                "tensor_transform mode=arithmetic "
-                "option=typecast:float32,add:-127.5,div:127.5 ! "
-                "tensor_filter framework=jax model=mnv2_uncut name=filter "
-                "inflight=2 ! "
-                f"tensor_decoder mode=image_labeling option1={labels} "
-                "option2=batched ! "
-                "queue max-size-buffers=64 materialize-host=true ! "
-                "tensor_sink name=sink to-host=true")
+        desc = uncut_desc(n, "mnv2_uncut", labels, pattern=pattern,
+                          leaky=leaky)
         pipe = nt.parse_launch(desc, pipeline=Pipeline(
             name=f"uncut_{runs['n']}", fuse=fuse), **options)
         pipe.lanes = lanes  # as bench.py sets it (bench.py:342)
@@ -2272,12 +2427,21 @@ def phase_pipeline_uncut(power: str) -> dict:
         finally:
             faults.deactivate()
         fired = inj.fired_set("filter.invoke")
-        # the region's n-th dispatch is window n: a fired one is dropped
-        want = [f for i, f in enumerate(clean["frames"])
-                if i // BATCH + 1 not in fired]
-        check(fired and skipped["frames"] == want,
+        # a window that failed alone meets the policy and is dropped; one
+        # that failed inside a list is chained again first, as the JAX
+        # package does (ROADMAP C.13), so which faults cost a window
+        # depends on how the staging queue's worker gathered its runs:
+        # the lost windows are the skipped count, and the survivors are
+        # the clean run's frames in order
+        lost = round(_counter_total("nns_fault_skipped_frames_total",
+                                    pipeline=skipped["pipe"].name))
+        it = iter(clean["frames"])
+        in_order = all(any(f == g for g in it) for f in skipped["frames"])
+        check(fired and in_order and lost <= len(fired) and
+              len(skipped["frames"]) == n - BATCH * lost,
               f"uncut skip-frame: {len(skipped['frames'])} frames, "
-              f"{len(want)} expected (windows {fired} dropped)")
+              f"{lost} windows skipped, fired {fired}")
+        pinned = supervision_pinned(labels, spec)
         faults.activate("dispatch.fence:nth=5,kind=stall,ms=5000")
         pipe = launch(n, "ball", leaky=False, watchdog_s=WATCHDOG_S)
         t0 = time.monotonic()
@@ -2299,7 +2463,9 @@ def phase_pipeline_uncut(power: str) -> dict:
                       "captures": retry_region["captures"],
                       "bit_identical_frames": n},
             "skip_frame": {**summary(skipped), "fired": fired,
+                           "windows_skipped": lost,
                            "frames_lost": n - len(skipped["frames"])},
+            "pinned": pinned,
             "watchdog": {"spec": "dispatch.fence:nth=5,kind=stall,ms=5000",
                          "watchdog_s": WATCHDOG_S, "error": err,
                          "run_s": wd_wall},
@@ -2309,6 +2475,614 @@ def phase_pipeline_uncut(power: str) -> dict:
         faults.deactivate()
         unregister_torch_model("mnv2_uncut")
     emit({"phase": "pipeline_uncut", **result})
+    return result
+
+
+# -- the SLO scheduler, the flight recorder, QoS, the CLI (ROADMAP A.11b,
+# A.12) ------------------------------------------------------------------------
+def _flagship_model(name):
+    """MobileNetV2 width 1.0, 224×224×3, 1001 classes, bf16, seed 0,
+    registered under ``name``; and a labels file."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    register_torch_model(name, module)
+    labels = os.path.join(tempfile.mkdtemp(prefix="nns_smoke_slo_"),
+                          "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    return module, labels
+
+
+def _counter(name, **labels) -> float:
+    from nnstreamer_tpu_torch.obs import get_registry
+
+    c = get_registry().get(name, **labels)
+    return float(c.value) if c is not None else 0.0
+
+
+def _warm_then_measure(pipe, n):
+    """Run ``pipe`` once to warm it (cuDNN, the allocator, the staging
+    pool, the shape probe; the scheduler's estimate), then again, timed,
+    on the same Pipeline object: the region re-captures at the restart,
+    so the measured run still pays one eager window and one capture.
+    Returns the measured run's record."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+
+    pipe.run(timeout=600)
+    sink = pipe.get("sink")
+    sink.latencies.clear()
+    sink.admitted_latencies.clear()
+    sink.buffers.clear()
+    name = pipe.name
+    q = dict(pipeline=name, element="q_ingress")
+    before = {k: _counter(k, **q) for k in (
+        "nns_queue_admitted_total", "nns_queue_admitted_revoked_total",
+        "nns_queue_drops_total")}
+    sched = {k: _counter("nns_sched_shed_total", pipeline=name, reason=k)
+             for k in ("late", "capacity")}
+    rej0 = _counter("nns_sched_rejected_total", pipeline=name)
+    (region,) = pipe._regions
+    reg0 = (region.captures, region.eager_frames, region.replays)
+    metas, arrivals = [], []
+    sink.connect(lambda buf: (metas.append(buf.meta),
+                              arrivals.append(time.monotonic())))
+    pp.reset_launches()
+    t0 = time.monotonic()
+    msg = pipe.run(timeout=600)
+    torch.cuda.synchronize()
+    eos = time.monotonic()
+    launches = pp.LAUNCHES.get("normalize_chain", 0)
+    check(msg is not None and msg.kind == "eos", f"{name}: no EOS ({msg})")
+    frames = labelled_frames(metas)
+    span = eos - arrivals[0] if arrivals else 0.0
+    adm = len(sink.admitted_latencies)
+    a = {k: _counter(k, **q) - v for k, v in before.items()}
+    shed = {k: _counter("nns_sched_shed_total", pipeline=name, reason=k) - v
+            for k, v in sched.items()}
+    rejected = _counter("nns_sched_rejected_total", pipeline=name) - rej0
+    stamped = a["nns_queue_admitted_total"]
+    revoked = a["nns_queue_admitted_revoked_total"]
+    a50, a99 = sink.latency_percentiles(50.0, 99.0, base="admitted") \
+        or (None, None)
+    c50, c99 = sink.latency_percentiles(50.0, 99.0) or (None, None)
+    snap = pipe.metrics_snapshot()
+    return {
+        "frames": frames, "metas": metas,
+        "created": n, "delivered": len(frames), "windows": len(metas),
+        "fps_created": n / (eos - t0),
+        "fps_delivered": len(frames) / (eos - t0),
+        "fps_steady": (len(arrivals) - 1) * BATCH / span if span else None,
+        # bench.py's accounting (bench.py:590-627): the served admitted
+        # population a second over first arrival → EOS, and the offered
+        # traffic turned away (door rejections, post-stamp sheds/drops)
+        "admitted_fps": adm / span if span else None,
+        "shed_ratio": ((rejected + revoked) / (stamped + rejected)
+                       if stamped + rejected else None),
+        "admitted": stamped, "revoked": revoked, "rejected": rejected,
+        "drops": a["nns_queue_drops_total"], "shed": shed,
+        "admitted_samples": adm,
+        "admitted_p50_ms": a50, "admitted_p99_ms": a99,
+        "latency_p50_ms": c50, "latency_p99_ms": c99,
+        "first_window_s": arrivals[0] - t0 if arrivals else None,
+        "wall_s": eos - t0,
+        "captures": region.captures - reg0[0],
+        "region_windows": (region.eager_frames - reg0[1]
+                           + region.replays - reg0[2]),
+        "launches": launches,
+        "scheduler": snap.get("scheduler"),
+    }
+
+
+def phase_pipeline_slo(power: str) -> dict:
+    """bench.py's uncut string (lanes 4, the leaky stamp-admission ingress,
+    batch 8, 800 gradient frames) with the SLO scheduler at the 50 ms budget
+    of ``serving/scheduler.py`` against the same string without it, each
+    warmed once and measured on the same Pipeline object, in turns; a
+    blocking unscheduled run labels the frames for reference; and a live
+    200-fps run of 160 ball frames with the budget against without it: a
+    uniform budget makes the EDF heap FIFO, so the same frames in the same
+    order, less those shed as late while the measured run's region
+    re-captured (bit-identical when none were). bench.py's
+    contract (admitted p99 ≤ 2× budget while ``admitted_fps`` ≥ 80 % of the
+    unscheduled rate) is reported, not gated."""
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    _module, labels = _flagship_model("mnv2_slo")
+    n = BATCHED_FRAMES
+    runs = {"n": 0}
+
+    def launch(budget, frames=n, **kw):
+        runs["n"] += 1
+        pipe = nt.parse_launch(
+            uncut_desc(frames, "mnv2_slo", labels, **kw),
+            pipeline=Pipeline(name=f"slo_{runs['n']}"),
+            slo_budget_ms=budget)
+        pipe.lanes = UNCUT_LANES
+        return pipe
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("frames", "metas")}
+
+    def held(r, what, ref_labels):
+        check(r["captures"] == 1, f"slo {what}: {r['captures']} captures")
+        check(r["launches"] == r["region_windows"] == r["windows"],
+              f"slo {what}: B1 {r['launches']} for {r['windows']} windows "
+              f"({r['region_windows']} the region took)")
+        check(r["delivered"] == BATCH * r["windows"] and all(
+            f[0].startswith("class_") for f in r["frames"]),
+            f"slo {what}: a frame without a label")
+        check(set(r["frames"]) <= ref_labels,
+              f"slo {what}: labels differ from the blocking run's")
+        # every delivered frame carries its admission stamp: no shed
+        # frame reached the sink
+        check(r["admitted_samples"] == r["delivered"],
+              f"slo {what}: {r['admitted_samples']} admitted samples for "
+              f"{r['delivered']} frames")
+        # admitted = delivered + revoked, less the aggregator's last
+        # partial window (under 8 frames, dropped at EOS without a budget)
+        tail = r["admitted"] - r["revoked"] - r["delivered"]
+        check(0 <= tail < BATCH, f"slo {what}: admitted {r['admitted']}, "
+                                 f"revoked {r['revoked']}, delivered "
+                                 f"{r['delivered']}")
+        r["aggregator_tail"] = tail
+
+    result = {"frames": n, "budget_ms": SLO_BUDGET_MS, "gpu": power}
+    try:
+        ref = _warm_then_measure(launch(0.0, leaky=False), n)
+        check(ref["delivered"] == n, "slo: the blocking run lost frames")
+        ref_labels = set(ref["frames"])
+        sched = _warm_then_measure(launch(SLO_BUDGET_MS), n)
+        plain = _warm_then_measure(launch(0.0), n)
+        held(sched, "scheduled", ref_labels)
+        held(plain, "unscheduled", ref_labels)
+        check(sched["scheduler"] is not None and plain["scheduler"] is None,
+              "slo: the scheduler attached where it should not, or not")
+        check(sched["rejected"] + sched["admitted"] == n,
+              f"slo: {sched['rejected']} rejected + {sched['admitted']} "
+              f"admitted of {n}")
+        contract = {
+            "admitted_p99_ms": sched["admitted_p99_ms"],
+            "p99_limit_ms": 2 * SLO_BUDGET_MS,
+            "admitted_fps": sched["admitted_fps"],
+            "unscheduled_fps_steady": plain["fps_steady"],
+            "admitted_fps_over_unscheduled": (
+                sched["admitted_fps"] / plain["fps_steady"]
+                if sched["admitted_fps"] and plain["fps_steady"] else None),
+        }
+        contract["met"] = bool(
+            contract["admitted_p99_ms"] is not None and
+            contract["admitted_p99_ms"] <= contract["p99_limit_ms"] and
+            contract["admitted_fps_over_unscheduled"] is not None and
+            contract["admitted_fps_over_unscheduled"] >= 0.8)
+        # live-paced, blocking ingress: a uniform budget keeps FIFO order,
+        # so the budget run delivers the unbudgeted run's frames in order,
+        # less exactly the frames it shed or rejected (the measured run
+        # re-captures its region at the restart, and frames that wait out
+        # the capture in the heap go late); with none shed, bit for bit
+        live = {}
+        for key, budget in (("budget", SLO_BUDGET_MS), ("none", 0.0)):
+            live[key] = _warm_then_measure(
+                launch(budget, frames=BUDGET_FRAMES, pattern="ball",
+                       leaky=False, live_rate=BUDGET_RATE), BUDGET_FRAMES)
+            check(live[key]["captures"] == 1,
+                  f"slo live {key}: {live[key]['captures']} captures")
+        check(live["none"]["delivered"] == BUDGET_FRAMES,
+              f"slo live: {live['none']['delivered']} of {BUDGET_FRAMES} "
+              "frames without the budget")
+        lost = int(live["budget"]["revoked"] + live["budget"]["rejected"])
+        kept = BUDGET_FRAMES - lost
+        check(live["budget"]["delivered"] == kept - kept % BATCH,
+              f"slo live: {live['budget']['delivered']} of {BUDGET_FRAMES} "
+              f"frames delivered with {lost} shed or rejected "
+              f"({live['budget']['shed']})")
+        it = iter(f[:2] for f in live["none"]["frames"])
+        check(all(any(f[:2] == g for g in it)
+                  for f in live["budget"]["frames"]),
+              "slo live: the budget changed the frames' order or labels")
+        if lost == 0:
+            check(live["budget"]["frames"] == live["none"]["frames"],
+                  "slo live: frames differ with the budget")
+        result.update({
+            "scheduled": summary(sched), "unscheduled": summary(plain),
+            "blocking_reference": summary(ref), "contract": contract,
+            "live": {"rate": BUDGET_RATE, "frames": BUDGET_FRAMES,
+                     "shed_or_rejected": lost,
+                     "bit_identical": lost == 0,
+                     "budget": summary(live["budget"]),
+                     "none": summary(live["none"])},
+        })
+    finally:
+        unregister_torch_model("mnv2_slo")
+    emit({"phase": "pipeline_slo", **result})
+    return result
+
+
+def phase_flight(power: str) -> dict:
+    """The always-on flight recorder's cost and its tail dump:
+
+    - the batch-8 blocking string (lanes 1) and bench.py's uncut string
+      (lanes 4, leaky ingress), 800 gradient frames, each timed six times
+      with the recorder on (the default) and six with ``NNSTPU_FLIGHT=0``,
+      in turns; the blocking runs' outputs bit-identical;
+    - ``NNSTPU_FLIGHT=<dir>`` and ``filter.invoke`` stalls on the fused
+      batch-8 flagship with no queue before the region: one dump file, its
+      window around a stalled window, and ``attribution()`` naming
+      ``device``;
+    - ``nns_stage_p50_ms`` / ``nns_stage_p99_ms`` read through
+      ``obs/server.py`` over HTTP on 127.0.0.1."""
+    import urllib.request
+
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.obs import MetricsServer
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline import faults
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    _module, labels = _flagship_model("mnv2_flight")
+    n = BATCHED_FRAMES
+    runs = {"n": 0}
+
+    def run(recorder, leaky, lanes):
+        runs["n"] += 1
+        if recorder:
+            os.environ.pop("NNSTPU_FLIGHT", None)
+        else:
+            os.environ["NNSTPU_FLIGHT"] = "0"
+        try:
+            pipe = nt.parse_launch(
+                uncut_desc(n, "mnv2_flight", labels, leaky=leaky),
+                pipeline=Pipeline(name=f"flight_{runs['n']}"))
+            pipe.lanes = lanes
+            metas, arrivals = [], []
+            pipe.get("sink").connect(lambda b: (metas.append(b.meta),
+                                                arrivals.append(
+                                                    time.monotonic())))
+            t0 = time.monotonic()
+            msg = pipe.run(timeout=600)
+            torch.cuda.synchronize()
+            eos = time.monotonic()
+        finally:
+            os.environ.pop("NNSTPU_FLIGHT", None)
+        check(msg is not None and msg.kind == "eos", "flight: no EOS")
+        check((pipe._flight is not None) == recorder,
+              f"flight: recorder {pipe._flight} with recorder={recorder}")
+        span = eos - arrivals[0] if len(arrivals) > 1 else 0.0
+        return {"frames": labelled_frames(metas),
+                "fps_created": n / (eos - t0),
+                "fps_steady": (len(arrivals) - 1) * BATCH / span
+                if span else None,
+                "delivered": BATCH * len(metas), "wall_s": eos - t0}
+
+    result = {"frames": n, "gpu": power}
+    try:
+        cost = {}
+        for string, leaky, lanes in (("batch8_blocking", False, 1),
+                                     ("uncut", True, UNCUT_LANES)):
+            rs = {"on": [], "off": []}
+            # in turns, each side first as often: run-to-run spread on
+            # the card's host is wide (PERF.md §6), so six runs a side
+            for recorder in (True, False, False, True) * FLIGHT_COST_PAIRS:
+                rs["on" if recorder else "off"].append(
+                    run(recorder, leaky, lanes))
+            if not leaky:
+                for r in rs["on"] + rs["off"]:
+                    check(r["frames"] == rs["on"][0]["frames"] and
+                          len(r["frames"]) == n,
+                          "flight: the recorder changed the output")
+            key = "fps_created" if leaky else "fps_steady"
+            on = statistics.median(r[key] for r in rs["on"])
+            off = statistics.median(r[key] for r in rs["off"])
+            cost[string] = {
+                "metric": key, "recorder_on": [r[key] for r in rs["on"]],
+                "recorder_off": [r[key] for r in rs["off"]],
+                "on_quartiles": statistics.quantiles(
+                    [r[key] for r in rs["on"]], n=4),
+                "off_quartiles": statistics.quantiles(
+                    [r[key] for r in rs["off"]], n=4),
+                "delivered_on": [r["delivered"] for r in rs["on"]],
+                "delivered_off": [r["delivered"] for r in rs["off"]],
+                "on_over_off_median": on / off if off else None}
+        result["cost"] = cost
+
+        # a tail dump from injected invoke stalls, no queue before the
+        # region (a queue absorbs the stall as its own queue_wait)
+        dump_dir = tempfile.mkdtemp(prefix="nns_smoke_flight_")
+        os.environ["NNSTPU_FLIGHT"] = dump_dir
+        os.environ["NNSTPU_FLIGHT_MIN_SAMPLES"] = "6"
+        stall = f"filter.invoke:every=2,kind=stall,ms={FLIGHT_STALL_MS}"
+        faults.activate(stall)
+        try:
+            pipe = nt.parse_launch(
+                f"videotestsrc num-buffers={FLIGHT_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=ball ! tensor_converter ! "
+                "tensor_aggregator frames-in=1 frames-out=8 frames-flush=8 "
+                "frames-dim=3 concat=true ! tensor_transform "
+                "mode=arithmetic option=typecast:float32,add:-127.5,"
+                "div:127.5 ! tensor_filter framework=jax model=mnv2_flight "
+                f"inflight=2 ! tensor_decoder mode=image_labeling "
+                f"option1={labels} option2=batched ! "
+                "tensor_sink name=sink to-host=true",
+                pipeline=Pipeline(name="flight_dump"))
+            pp.reset_launches()
+            msg = pipe.run(timeout=600)
+        finally:
+            faults.deactivate()
+            os.environ.pop("NNSTPU_FLIGHT", None)
+            os.environ.pop("NNSTPU_FLIGHT_MIN_SAMPLES", None)
+        check(msg is not None and msg.kind == "eos", "flight dump: no EOS")
+        (region,) = pipe._regions
+        check(not region._dead and region.captures == 1,
+              "flight dump: the region fell back or captured again")
+        files = [os.path.join(dump_dir, f) for f in os.listdir(dump_dir)
+                 if f.endswith(".json")]
+        check(len(files) == 1, f"flight dump: {len(files)} dump files")
+        with open(files[0]) as f:
+            doc = json.load(f)
+        stalled = doc["trigger"]["seq"]
+        check(doc["trigger"]["kind"] == "fault" and stalled is not None and
+              any(s["seq"] == stalled and s["kind"] == "device"
+                  for s in doc["spans"]),
+              f"flight dump: trigger {doc['trigger']}")
+        check(doc["window"]["seq_lo"] <= stalled <= doc["window"]["seq_hi"],
+              "flight dump: the stalled window outside the dump's window")
+        attr = pipe.metrics_snapshot()["attribution"]
+        check(attr["dominant_stage"] == "device",
+              f"flight: attribution names {attr['dominant_stage']}")
+        # the gauges over HTTP
+        with MetricsServer(host="127.0.0.1", port=0) as srv:
+            text = urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=10
+            ).read().decode()
+        gauges = {}
+        for line in text.splitlines():
+            if line.startswith(("nns_stage_p50_ms", "nns_stage_p99_ms")) \
+                    and 'pipeline="flight_dump"' in line:
+                stage = line.split('stage="', 1)[1].split('"', 1)[0]
+                if stage in ("e2e", "device"):
+                    gauges[f"{line.split('{', 1)[0]}[{stage}]"] = float(
+                        line.rsplit(None, 1)[1])
+        check(len(gauges) == 4 and all(v > 0 for v in gauges.values()),
+              f"flight: gauges over HTTP {gauges}")
+        result["dump"] = {
+            "spec": stall, "frames": FLIGHT_FRAMES,
+            "file": os.path.basename(files[0]),
+            "trigger": doc["trigger"], "window": doc["window"],
+            "attribution": attr, "gauges_http": gauges,
+            "launches": pp.LAUNCHES.get("normalize_chain", 0),
+            "windows": region.eager_frames + region.replays,
+        }
+        check(result["dump"]["launches"] == result["dump"]["windows"],
+              "flight dump: B1 not once a window")
+    finally:
+        unregister_torch_model("mnv2_flight")
+    emit({"phase": "flight", **result})
+    return result
+
+
+def phase_qos(power: str) -> dict:
+    """``tensor_rate framerate=100/1 throttle=true`` behind the fused batch-1
+    flagship's filter, the source's stream at 1000/1: the QoS interval
+    reaches the region (transform ! filter), which drops the frames that
+    come too soon before any copy or replay. The rate sits before the
+    decoder: behind it the caps are text, and ``tensor_rate`` posts QoS
+    only for tensor caps, in both packages (ROADMAP C.15). Checks: the
+    drops counted, every delivered frame labelled as an unthrottled run
+    of the same frames labels it (by its trace seq, the source's frame
+    index), and B1 once for each frame the region ran."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.obs.timeline import TRACE_SEQ_META
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    _module, labels = _flagship_model("mnv2_qos")
+
+    def run(name, rate):
+        desc = (f"videotestsrc num-buffers={QOS_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=ball framerate=1000/1 ! "
+                "tensor_converter ! tensor_transform mode=arithmetic "
+                "option=typecast:float32,add:-127.5,div:127.5 ! "
+                "tensor_filter framework=jax model=mnv2_qos name=filter ! "
+                + (f"tensor_rate name=rate framerate={rate} throttle=true ! "
+                   if rate else "")
+                + f"tensor_decoder mode=image_labeling option1={labels} ! "
+                "tensor_sink name=sink to-host=true")
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
+        got = []
+        pipe.get("sink").connect(lambda b: got.append(
+            (b.meta[TRACE_SEQ_META], b.meta["label"], b.meta["label_index"])))
+        pp.reset_launches()
+        msg = pipe.run(timeout=600)
+        torch.cuda.synchronize()
+        check(msg is not None and msg.kind == "eos", f"qos {name}: no EOS")
+        return pipe, got, pp.LAUNCHES.get("normalize_chain", 0)
+
+    try:
+        _ref_pipe, ref, _ = run("qos_ref", None)
+        check(len(ref) == QOS_FRAMES, "qos: the unthrottled run lost frames")
+        by_seq = {s: (lab, idx) for s, lab, idx in ref}
+        pipe, got, launches = run("qos_rate", QOS_RATE)
+        (region,) = pipe._regions
+        ran = region.eager_frames + region.replays
+        check(not region._dead and region.captures == 1,
+              "qos: the region fell back or captured again")
+        check(region.qos_drops > 0 and region.qos_drops + ran == QOS_FRAMES,
+              f"qos: {region.qos_drops} dropped + {ran} run of "
+              f"{QOS_FRAMES}")
+        check(launches == ran, f"qos: B1 {launches} for {ran} frames run")
+        check(got and all(by_seq[s] == (lab, idx) for s, lab, idx in got),
+              "qos: a delivered frame's label differs from the "
+              "unthrottled run's")
+        rate = pipe.get("rate")
+        result = {"frames": QOS_FRAMES, "rate": QOS_RATE,
+                  "qos_interval_s": pipe.get("filter")._qos_interval_s,
+                  "qos_drops": region.qos_drops, "frames_run": ran,
+                  "launches": launches, "delivered": len(got),
+                  "rate_dropped": rate.dropped,
+                  "rate_duplicated": rate.duplicated, "gpu": power}
+    finally:
+        unregister_torch_model("mnv2_qos")
+    emit({"phase": "qos", **result})
+    return result
+
+
+def phase_lm_slo(power: str, fp32_tokens) -> dict:
+    """The engine of ``lm_serving`` with ``slo_budget_ms``:
+
+    - fp32 with a budget that admits all 12 prompts: greedy tokens
+      identical to ``lm_parity``'s run without a budget;
+    - bf16 at the 50 ms budget: a first burst of 12 prompts meets a cold
+      estimate and is admitted (128 tokens each, B2 in every prefill);
+      a second burst meets the estimate the first left, and exactly the
+      submits that raise ``SloRejected`` are counted in
+      ``nns_sched_rejected_total``."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        SloRejected,
+    )
+
+    nt.set_device(None)
+    prompts, _ = _lm_prompts()
+    cfg32 = TransformerConfig(**LM, dtype=torch.float32)
+    eng = ContinuousBatchingEngine(cfg32, init_params(cfg32, seed=0),
+                                   max_streams=LM_SLOTS,
+                                   steps_per_dispatch=8,
+                                   slo_budget_ms=LM_SLO_WIDE_MS).start()
+    try:
+        streams = [eng.submit(p, max_new_tokens=LM_PARITY_NEW)
+                   for p in prompts]
+        tokens = [s.result(timeout=600) for s in streams]
+        wide = eng._slo.snapshot()
+    finally:
+        eng.stop()
+    differ = [i for i, (a, b) in enumerate(zip(tokens, fp32_tokens))
+              if a != b]
+    check(not differ and len(tokens) == len(fp32_tokens),
+          f"lm_slo: fp32 tokens of prompts {differ} differ with a budget")
+    check(wide["admitted"] == len(prompts) and wide["rejected"] == 0,
+          f"lm_slo: the wide budget rejected {wide['rejected']}")
+
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    eng = ContinuousBatchingEngine(cfg, init_params(cfg, seed=0),
+                                   max_streams=LM_SLOTS,
+                                   steps_per_dispatch="auto",
+                                   slo_budget_ms=SLO_BUDGET_MS).start()
+    try:
+        rej0 = _counter("nns_sched_rejected_total", pipeline=eng.obs_name)
+        reset_launches()
+        first = [eng.submit(p, max_new_tokens=LM_NEW) for p in prompts]
+        out = [s.result(timeout=600) for s in first]
+        torch.cuda.synchronize()
+        flash = LAUNCHES.get("flash_attention", 0)
+        est_ms = eng._slo.estimator.service_time_s() * 1e3
+        raised, admitted = 0, []
+        for p in prompts:
+            try:
+                admitted.append(eng.submit(p, max_new_tokens=LM_NEW))
+            except SloRejected:
+                raised += 1
+        for s in admitted:
+            check(len(s.result(timeout=600)) == LM_NEW,
+                  "lm_slo: an admitted stream came back short")
+        snap = eng._slo.snapshot()
+        rejected = _counter("nns_sched_rejected_total",
+                            pipeline=eng.obs_name) - rej0
+    finally:
+        eng.stop()
+    check(all(len(t) == LM_NEW for t in out),
+          "lm_slo: a first-burst stream came back short")
+    check(flash == cfg.n_layers * len(prompts),
+          f"lm_slo: flash kernel {flash} for {len(prompts)} prefills")
+    check(raised == rejected == snap["rejected"] and raised > 0,
+          f"lm_slo: {raised} raised, {rejected} counted")
+    check(snap["admitted"] == len(prompts) + len(admitted),
+          f"lm_slo: {snap['admitted']} admitted")
+    result = {
+        "wide_budget_ms": LM_SLO_WIDE_MS, "fp32_tokens_identical": True,
+        "prompts": len(prompts), "fp32_new_tokens": LM_PARITY_NEW,
+        "budget_ms": SLO_BUDGET_MS, "first_burst_admitted": len(first),
+        "service_estimate_ms": est_ms,
+        "second_burst_rejected": raised,
+        "second_burst_admitted": len(admitted),
+        "nns_sched_rejected_total": rejected, "flash_launches": flash,
+        "scheduler": snap, "gpu": power}
+    emit({"phase": "lm_slo", **result})
+    return result
+
+
+def phase_cli(power: str) -> dict:
+    """``python3 -m nnstreamer_tpu_torch.cli --slo-budget-ms 50
+    --metrics-port 0 "<the batch-8 string, 160 frames>"``: the model is a
+    pickled MobileNetV2 (seed 0, bf16) in a ``.pt`` file. It exits 0 and
+    reports the CUDA device."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_cli_")
+    model = os.path.join(tmp, "mnv2.pt")
+    torch.save(module, model)
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    desc = uncut_desc(BUDGET_FRAMES, model, labels, pattern="ball",
+                      leaky=False)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.cli", "--slo-budget-ms",
+         str(SLO_BUDGET_MS), "--metrics-port", "0", desc],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    kind = torch.cuda.get_device_name(0)
+    check(proc.returncode == 0,
+          f"cli: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    check(f"Device: cuda:0 {kind}" in proc.stdout,
+          f"cli: no CUDA device line in {proc.stdout[:500]!r}")
+    check("Got EOS from pipeline." in proc.stdout and
+          "-- slo scheduler: budget" in proc.stdout and
+          "Serving metrics on http://0.0.0.0:" in proc.stdout,
+          f"cli: output {proc.stdout[-1500:]!r}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("Device:", "-- slo scheduler",
+                               "-- flight recorder"))]
+    result = {"rc": proc.returncode, "wall_s": wall, "lines": lines,
+              "frames": BUDGET_FRAMES, "gpu": power}
+    emit({"phase": "cli", **result})
     return result
 
 
@@ -2412,11 +3186,15 @@ def main() -> int:
     b2, timed_b2 = phase_flash_attention()
     b3, timed_b3 = phase_quantize()
     lm, lm_engine, lm_tokens = phase_lm_serving(power)
-    _, fp32_engine = phase_lm_parity(lm_engine)
+    _, fp32_engine, fp32_tokens = phase_lm_parity(lm_engine)
     phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
+    lm_slo = phase_lm_slo(power, fp32_tokens)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
     uncut = phase_pipeline_uncut(power)
+    slo = phase_pipeline_slo(power)
+    flight = phase_flight(power)
+    qos = phase_qos(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine)
@@ -2426,7 +3204,10 @@ def main() -> int:
     dev_b2 = phase_device_times("flash_attention", timed_b2)
     dev_b3 = phase_device_times("quantize_int8", timed_b3)
     frame_tag = "x".join(str(n) for n in QUANT_TIMED[0])
-    phase_one_launch(timed_b1[""][0], timed_b3[f"{frame_tag}_"][""])
+    phase_one_launch()
+    # a new process on the card: last, after every profiled run (after it
+    # the parent's torch.profiler traces began to lose device events)
+    phase_cli(power)
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     prefill_tag = "x".join(str(n) for n in FLASH_TIMED[0])
@@ -2442,6 +3223,11 @@ def main() -> int:
         "launches_batched": batched["launches"]["normalize_chain"],
         # bench.py's string with no cuts: once a window the region took
         "launches_uncut": uncut["bench_string"]["launches"],
+        # the same string under the SLO scheduler, the flight recorder's
+        # dump run, and the QoS run (once a frame the region ran)
+        "launches_slo": slo["scheduled"]["launches"],
+        "launches_flight": flight["dump"]["launches"],
+        "launches_qos": qos["launches"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"],
         "device_ms": dev_b1["device_ms"],
@@ -2455,6 +3241,8 @@ def main() -> int:
         "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
         "replaces": "nnstreamer_tpu/ops/flash_attention.py:130",
         "launches": lm["launches"]["flash_attention"],
+        # the engine under an SLO budget: the first burst's prefills
+        "launches_lm_slo": lm_slo["flash_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
         "device_ms": dev_b2[f"{prefill_tag}_device_ms"],

@@ -182,7 +182,8 @@ class TensorAggregator(Element):
             deficit = max(0, len(self._windows[0]) - len(self._tl_frames))
             self._tl_frames.extend([None] * deficit)
             seq = buf.meta.get(_timeline.TRACE_SEQ_META)
-            t_in = buf.meta.pop("tl_handoff_t", None) or time.monotonic()
+            t_in = buf.meta.pop(_timeline.HANDOFF_META, None) or \
+                time.monotonic()
             self._tl_frames.extend(
                 (seq, t_in, stamps[i] if stamps else None)
                 for i in range(n))
@@ -276,7 +277,8 @@ class TensorAggregator(Element):
     def _tl_carry(self, meta: dict, count: int) -> None:
         """The window's frame-ledger identity: the first traced frame of
         its ``count`` unit frames gives its seq and create stamp, and that
-        frame's hold here ends now as its ``queue_wait``."""
+        frame's hold here ends now as its ``queue_wait``, the window's
+        hand-off reading."""
         first = next((e for e in self._tl_frames[:count]
                       if e is not None and e[0] is not None), None)
         if first is None:
@@ -287,8 +289,9 @@ class TensorAggregator(Element):
             meta["tl_create_t"] = create
         tl = _timeline.ACTIVE
         if tl is not None:
-            tl.span("queue_wait", seq, t_in, time.monotonic(),
-                    track=self.name)
+            now = time.monotonic()
+            tl.span("queue_wait", seq, t_in, now, track=self.name)
+            meta[_timeline.HANDOFF_META] = now
 
     def _announce_caps(self, outs):
         if self.srcpad.caps is None:

@@ -34,15 +34,18 @@ from nnstreamer_tpu_torch.tensors.types import TensorsConfig
 
 def _decode_span(fn, buf, *args):
     """``fn(buf, *args)``, recorded as ``buf``'s ``decode`` span when a
-    timeline is active."""
+    timeline is active: from the sender's hand-off reading where it left
+    one, to a reading the output carries on as its own hand-off."""
     tl = _timeline.ACTIVE
     if tl is None:
         return fn(buf, *args)
-    t0 = time.monotonic()
+    t0 = buf.meta.pop(_timeline.HANDOFF_META, None) or time.monotonic()
     out = fn(buf, *args)
     seq = buf.meta.get(_timeline.TRACE_SEQ_META)
     if seq is not None:
-        tl.span("decode", seq, t0, time.monotonic(), track="decode")
+        t1 = time.monotonic()
+        tl.span("decode", seq, t0, t1, track="decode")
+        out.meta[_timeline.HANDOFF_META] = t1
     return out
 
 

@@ -27,8 +27,15 @@ with ``accelerator=true:cpu``. With a timeline active each invoke is the
 frame's ``device`` span: on the card that is the host's enqueue of the
 model's kernels, not their run time. The ``filter.open`` and
 ``filter.invoke`` fault hooks fire before the backend's open and invoke.
-Model sharing, hot reload, throttling and mesh sharding of the JAX
-package are not ported yet.
+
+``throttle`` (max invokes a second) and a downstream QoS event
+(``tensor_rate throttle=true``) skip invokes that come too soon
+(``nns_tensor_filter_qos_drops_total``); a filter with ``throttle > 0``
+is not fusible, and a QoS interval that reaches a fused region makes the
+region run its members eagerly (``pipeline/fuse.py``). In a pipeline with
+an SLO budget each invoke's time feeds the scheduler's service estimate
+(``serving/scheduler.py``). Model sharing, hot reload and mesh sharding
+of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,9 +51,11 @@ from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.pipeline.dispatch import (
     POOL_STASH_META,
     DispatchWindow,
+    release_shed_payload,
 )
 from nnstreamer_tpu_torch.pipeline.element import (
     Element,
+    QosEvent,
     peer_device_capable,
 )
 from nnstreamer_tpu_torch.registry import ELEMENT, FILTER, get_subplugin, subplugin
@@ -104,6 +113,7 @@ class TensorFilter(Element):
         "outputtype": None,
         "input_combination": None,
         "output_combination": None,
+        "throttle": 0,            # max invokes/sec; 0 = unthrottled
         # max device batches outstanding past this filter before the
         # streaming thread fences the oldest; 0 fences every batch
         "inflight": 2,
@@ -111,7 +121,6 @@ class TensorFilter(Element):
     UNPORTED_PROPERTIES = {
         "mesh": _MULTI,
         "shard": _MULTI,
-        "throttle": "A.11b the filter's throttle (QoS)",
         "is_updatable": _CONTINUITY,
         "shared_tensor_filter_key": _CONTINUITY,
     }
@@ -126,6 +135,8 @@ class TensorFilter(Element):
         self._out_model_info: Optional[TensorsInfo] = None
         self._comb_cache: dict = {}
         self._m_invoke = None  # created lazily: labels need pipeline name
+        self._m_qos = None
+        self._last_invoke_t = 0.0
         self._window = DispatchWindow(self)
 
     def _obs_invoke(self):
@@ -140,12 +151,23 @@ class TensorFilter(Element):
                 element=self.name)
         return self._m_invoke
 
+    def _obs_qos(self):
+        """``nns_tensor_filter_qos_drops_total``: invokes skipped by the
+        throttle or a downstream QoS interval."""
+        if self._m_qos is None:
+            self._m_qos = get_registry().counter(
+                "nns_tensor_filter_qos_drops_total",
+                "Invokes skipped by throttle/QoS", **self._obs_labels())
+        return self._m_qos
+
     def obs_snapshot(self):
         out = super().obs_snapshot()
         h = self._m_invoke
         if h is not None and h.count:
             out["invoke_p50_ms"] = round(h.percentile(50) * 1e3, 3)
             out["invoke_p99_ms"] = round(h.percentile(99) * 1e3, 3)
+        if self._m_qos is not None:
+            out["qos_drops"] = int(self._m_qos.value)
         out.update(self._window.snapshot())
         return out
 
@@ -251,8 +273,24 @@ class TensorFilter(Element):
         return TensorsInfo([out_info[idx] if kind == "o" else in_info[idx]
                             for kind, idx in comb])
 
+    def src_event(self, pad, event):
+        """Throttle QoS from downstream (``tensor_rate throttle=true``):
+        adopt the target interval and consume the event — the filter is
+        the expensive element the QoS targets."""
+        if isinstance(event, QosEvent):
+            self._qos_interval_s = event.target_interval_ns / 1e9
+            return
+        super().src_event(pad, event)
+
     # -- hot path ------------------------------------------------------------
     def chain(self, pad, buf):
+        throttle = int(self.get_property("throttle"))
+        # min invoke interval: the filter's own throttle and a downstream
+        # QoS interval combine; a dropped frame never reaches a fence
+        if self._qos_throttled(1.0 / throttle if throttle > 0 else 0.0):
+            self._obs_qos().inc()
+            release_shed_payload(buf)
+            return None
         fw = self.fw or self._open_fw()
         if not fw.KEEP_ON_DEVICE and isinstance(buf, DeviceBuffer):
             # host-only backend consuming a resident buffer: one cached
@@ -282,11 +320,27 @@ class TensorFilter(Element):
                 # still release the staging arrays at a fence
                 buf.meta[POOL_STASH_META] = stash
             raise
-        dt = _time.monotonic() - t0
-        self._obs_invoke().observe(dt)
+        t1 = _time.monotonic()
+        self._obs_invoke().observe(t1 - t0)
+        sched = getattr(self.pipeline, "_slo_scheduler", None)
+        if sched is not None:
+            # the scheduler's service-rate EWMA; the leading dim of a
+            # batched input is its frame count. On the card this is the
+            # enqueue time, and the scheduler takes the slower of it and
+            # the sink's completion spacing
+            shape = getattr(model_inputs[0], "shape", None) \
+                if model_inputs else None
+            sched.observe_service(t1 - t0,
+                                  frames=int(shape[0]) if shape else 1)
         tl = _timeline.ACTIVE
         if tl is not None and seq is not None:
-            tl.span("device", seq, t0, t0 + dt, track=self.name)
+            # from the sender's hand-off: the unfused preprocessing ahead
+            # of the filter is device work too
+            tl.span("device", seq,
+                    buf.meta.pop(_timeline.HANDOFF_META, None) or t0, t1,
+                    track=self.name)
+        else:
+            t1 = None
 
         out_comb = self._combination("output_combination")
         if out_comb is not None:
@@ -299,6 +353,8 @@ class TensorFilter(Element):
         # staging arrays this dispatch read recycle at that fence
         self._window.admit(final, stash, frame=seq)
         out_buf = buf.with_tensors(final)
+        if t1 is not None:
+            out_buf.meta[_timeline.HANDOFF_META] = t1
         if peer_device_capable(self.srcpad):
             # device-capable downstream: keep the result resident
             out_buf = as_device_buffer(out_buf)
@@ -306,8 +362,12 @@ class TensorFilter(Element):
 
     # -- region fusion (pipeline/fuse.py) ------------------------------------
     def device_stage(self):
-        """Fusible when the backend hands over a stage; the combinations
-        route tensors around it as :meth:`chain` does."""
+        """Fusible when the backend hands over a stage and no throttle is
+        configured (throttle drops are time-dependent host decisions); the
+        combinations route tensors around the stage as :meth:`chain`
+        does."""
+        if int(self.get_property("throttle")) > 0:
+            return None
         fw = self.fw
         stage_getter = getattr(fw, "device_stage", None)
         if fw is None or stage_getter is None:

@@ -15,9 +15,10 @@ go back to the pool once the payload is on the host. Frames stamped by a
 ``stamp-admission`` queue (``meta["admitted_t"]``, or one stamp a frame of
 a window in ``meta["admitted_ts"]``) also feed ``admitted_latencies``,
 the served-traffic population behind ``latency_percentiles(
-base="admitted")``. With a timeline active the sink records each frame's
-``sink`` span, carrying its end-to-end time for the ledger's
-reconciliation.
+base="admitted")``, and in a pipeline with an SLO budget the scheduler's
+completion feed (``serving/scheduler.py``). With a timeline active (the
+flight recorder, by default) the sink records each frame's ``sink`` span,
+carrying its end-to-end time for the ledger's reconciliation.
 """
 
 from __future__ import annotations
@@ -103,10 +104,13 @@ class TensorSink(Element):
                 buf = buf.with_tensors([
                     t[:k] if getattr(t, "ndim", 0) and t.shape[0] > k
                     else t for t in buf.tensors])
-        # the sink span starts after materialization: the fetch is the
-        # frame's d2h stage
+        # the sink span starts after materialization (the fetch is the
+        # frame's d2h stage), at the sender's hand-off reading
         tl = _timeline.ACTIVE
-        t_sink0 = time.monotonic() if tl is not None else 0.0
+        t_sink0 = 0.0
+        if tl is not None:
+            t_sink0 = buf.meta.pop(_timeline.HANDOFF_META, None) or \
+                time.monotonic()
         e2e_s = e2e_adm_s = None
         # only a host payload counts as delivered: recording a device
         # handle's arrival would measure the enqueue, not the completion
@@ -138,6 +142,15 @@ class TensorSink(Element):
                     self.admitted_latencies.append(now - t)
                 if tl is not None:
                     e2e_adm_s = now - adm_list[0]
+                sched = getattr(self.pipeline, "_slo_scheduler", None)
+                if sched is not None:
+                    # completion feed: the drain-rate estimate (covers a
+                    # fused pipeline, whose filter chain never runs, and
+                    # on the card the kernels an enqueue time misses) and
+                    # the feedback controller's p99 — event-driven, the
+                    # controller has no polling thread
+                    sched.observe_completion(now - adm_list[0], now,
+                                             frames=len(adm_list))
         with self._cv:
             if len(self.buffers) < int(self.get_property("max_stored")):
                 self.buffers.append(buf)

@@ -5,9 +5,10 @@ The counters, gauges and histograms of the JAX package's ``obs`` package
 they are. ``quantiles.P2Quantile``, ``flight.LMTokenStats`` and
 ``collectors.register_engine_collector`` carry the serving engine's
 metrics. ``timeline`` is the frame ledger (per-frame spans across lanes,
-queues, the dispatch window and transfers; ``NNSTPU_TRACE``). The
-per-frame flight recorder (ROADMAP.md, A.11b) and the export server
-(A.12) are not ported yet.
+queues, the dispatch window and transfers; ``NNSTPU_TRACE``);
+``flight.FlightRecorder`` is the always-on recorder every pipeline
+installs on that ledger (``NNSTPU_FLIGHT``); ``server.MetricsServer``
+serves the registry over HTTP (Prometheus text and JSON).
 """
 
 from nnstreamer_tpu_torch.obs.registry import (  # noqa: F401
@@ -25,3 +26,4 @@ from nnstreamer_tpu_torch.obs.timeline import (  # noqa: F401
     trace_enabled,
     tracing,
 )
+from nnstreamer_tpu_torch.obs.server import MetricsServer  # noqa: F401,E402

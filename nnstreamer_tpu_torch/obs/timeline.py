@@ -41,8 +41,8 @@ latency:
                   is ``queue_wait`` too: in a fused region until its
                   dispatch starts, in ``tensor_aggregator`` until its
                   window is pushed
-- ``sched_hold``  EDF-heap residency in a scheduler-mode queue (the
-                  SLO scheduler is ROADMAP A.11b: never recorded yet)
+- ``sched_hold``  EDF-heap residency in a scheduler-mode queue (the SLO
+                  scheduler, ``serving/scheduler.py``)
 - ``fence_wait``  dispatch-window fence block for the frame's own entry
 - ``shard``       mesh placement (ROADMAP A.24: never recorded yet)
 - ``device``      filter/fused-region invoke: on CUDA the HOST's enqueue
@@ -70,7 +70,11 @@ excluded from the reconciliation sum — they overlap the stages above in
 wall time.
 
 Spans are ``time.monotonic()`` pairs, the clock of the source's
-``create_t`` stamp; recording one never synchronises the device.
+``create_t`` stamp; recording one never synchronises the device. Where
+one stage ends at a hand-off to the next element, the two share one
+reading (:data:`HANDOFF_META` in the frame's meta), so the time a frame
+spends between two threads or in a ``push`` belongs to the receiver's
+span and the stages tile the frame's life even on a busy host.
 
 Export
 ------
@@ -103,6 +107,14 @@ from typing import Any, Dict, List, Optional, Tuple
 #: stamped once by the source thread (single writer, like the lane
 #: executor's ``lane_seq``)
 TRACE_SEQ_META = "trace_seq"
+
+#: meta key carrying the time a critical-path span ended at a hand-off
+#: (a queue's hand-off downstream, a window's push, a dispatch's or a
+#: decode's end): the receiver's next span starts at this same reading,
+#: so the wall time between two elements — a ``push`` call, a thread
+#: waiting for the GIL — lands in the receiver's span and never between
+#: two spans
+HANDOFF_META = "tl_handoff_t"
 
 #: span kinds that tile a frame's critical path — the stage_breakdown /
 #: reconciliation set, in pipeline order

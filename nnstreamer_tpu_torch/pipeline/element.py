@@ -86,6 +86,17 @@ class CustomEvent(Event):
     data: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class QosEvent(Event):
+    """Throttling QoS — flows *upstream* (reference GST_EVENT_QOS, posted
+    by tensor_rate with throttle=true so upstream inference skips frames
+    that would be dropped).
+
+    ``target_interval_ns == 0`` lifts the throttle."""
+
+    target_interval_ns: int = 0
+
+
 # --------------------------------------------------------------------------
 # Pad
 # --------------------------------------------------------------------------
@@ -157,6 +168,14 @@ class Pad:
             self.caps = event.caps
         if self.peer is not None:
             self.peer.element._event_entry(self.peer, event)
+
+    def push_upstream_event(self, event: Event) -> None:
+        """Send an event upstream (sink pads only): it arrives on the
+        peer src pad and dispatches to that element's ``src_event``."""
+        if self.direction is not PadDirection.SINK:
+            raise ValueError(f"{self}: upstream events leave via sink pads")
+        if self.peer is not None:
+            self.peer.element._upstream_event_entry(self.peer, event)
 
     def set_caps(self, caps: Caps) -> None:
         """Fix this src pad's caps and announce downstream."""
@@ -481,6 +500,9 @@ class Element:
             pad.eos = True
         self.sink_event(pad, event)
 
+    def _upstream_event_entry(self, pad: Pad, event: Event) -> None:
+        self.src_event(pad, event)
+
     # -- subclass hooks ------------------------------------------------------
     def chain(self, pad: Pad, buf: TensorBuffer) -> Optional[FlowReturn]:
         """Process one input buffer. Default: passthrough to first src pad."""
@@ -510,6 +532,28 @@ class Element:
             if ret is FlowReturn.EOS:
                 break
         return ret
+
+    def src_event(self, pad: Pad, event: Event) -> None:
+        """Handle an upstream-flowing event arriving on a src pad.
+        Default: forward further upstream through every sink pad."""
+        for sp in self.sinkpads:
+            sp.push_upstream_event(event)
+
+    def _qos_throttled(self, min_interval_s: float = 0.0) -> bool:
+        """Shared invoke drop check: True when this invoke must be skipped
+        to honor the larger of the element's own minimum interval and the
+        downstream QoS interval adopted in ``src_event``
+        (``_qos_interval_s``). Updates the invoke clock when the invoke is
+        allowed."""
+        interval = max(min_interval_s,
+                       getattr(self, "_qos_interval_s", 0.0))
+        if interval <= 0:
+            return False
+        now = _time.monotonic()
+        if now - getattr(self, "_last_invoke_t", 0.0) < interval:
+            return True
+        self._last_invoke_t = now
+        return False
 
     def sink_event(self, pad: Pad, event: Event) -> None:
         """Handle a downstream-flowing event. Default: CAPS → negotiate via

@@ -36,11 +36,18 @@ the same graph. With a timeline active each dispatch is the frame's
 replay and the copies out, not kernel time — and a frame handed in a
 list records its wait for its turn as ``queue_wait``.
 
+A QoS event from downstream (``tensor_rate throttle=true``) that a member
+consumes (the filter) gates the region's dispatch: a frame that comes
+too soon is dropped before any copy or replay (``qos_drops``), and the
+rest replay the captured graph as before. A member that stops being
+fusible mid-stream (a filter's ``throttle`` set above 0) makes the next
+frame unsplice the region: from then on the members run eagerly, the
+transform launching B1 itself, and no captured graph is replayed.
+
 What the JAX module has and this one does not: donation of the input slab
 (``NNSTPU_DONATE``) has no counterpart, since the graph reads static input
-buffers into which each frame is copied; QoS events (its ``src_event``)
-wait for the filter's throttle (ROADMAP A.11b); a mesh-sharded stage
-raises (A.24).
+buffers into which each frame is copied; a mesh-sharded stage raises
+(A.24).
 
 Disable globally with ``NNSTPU_FUSE=0`` or per pipeline with
 ``Pipeline(fuse=False)``.
@@ -70,12 +77,14 @@ from nnstreamer_tpu_torch.pipeline.element import (
     Event,
     FlowError,
     Pad,
+    QosEvent,
     not_ported,
     peer_device_capable,
 )
 from nnstreamer_tpu_torch.pipeline.dispatch import (
     POOL_STASH_META,
     DispatchWindow,
+    release_shed_payload,
 )
 from nnstreamer_tpu_torch.tensors.buffer import (
     as_device_buffer,
@@ -238,6 +247,8 @@ class FusedRegion(Element):
         self.eager_frames = 0
         self.replays = 0
         self.captures = 0
+        #: frames dropped by a downstream QoS interval before dispatch
+        self.qos_drops = 0
 
     # -- stage (re)build -----------------------------------------------------
     def _build(self):
@@ -301,7 +312,7 @@ class FusedRegion(Element):
     def obs_snapshot(self):
         out = super().obs_snapshot()
         out.update(eager_frames=self.eager_frames, replays=self.replays,
-                   captures=self.captures)
+                   captures=self.captures, qos_drops=self.qos_drops)
         out.update(self._window.snapshot())
         if self._m_retrace is not None:
             out["retraces"] = int(self._m_retrace.value)
@@ -346,15 +357,22 @@ class FusedRegion(Element):
     def chain(self, pad, buf):
         if pad is self.internal_pad:
             raise FlowError(f"{self.name}: buffer on internal event pad")
+        if self._qos_throttled():
+            # downstream-rate QoS drop, before any copy or replay; the
+            # frame never reaches a fence
+            self.qos_drops += 1
+            release_shed_payload(buf)
+            return None
         seq = buf.meta.get(_timeline.TRACE_SEQ_META)
         # the device span starts before the chaos hook: an injected
         # filter.invoke stall models a slow dispatch
         t_dev0 = time.monotonic()
         tl = _timeline.ACTIVE
         if tl is not None and seq is not None:
-            t_in = buf.meta.pop("tl_handoff_t", None)
+            t_in = buf.meta.pop(_timeline.HANDOFF_META, None)
             if t_in is not None:
-                # handed in a list: its wait behind the frames before it
+                # from the sender's hand-off; handed in a list, its wait
+                # behind the frames before it
                 tl.span("queue_wait", seq, t_in, t_dev0, track=self.name)
         fi = _faults.ACTIVE
         if fi is not None:
@@ -402,11 +420,14 @@ class FusedRegion(Element):
         # copies on this stream; the oldest batch fences only when more
         # than `inflight` are outstanding, and this frame's staging
         # arrays recycle at its fence
+        t_dev1 = None
         if tl is not None and seq is not None:
-            tl.span("device", seq, t_dev0, time.monotonic(),
-                    track=self.name)
+            t_dev1 = time.monotonic()
+            tl.span("device", seq, t_dev0, t_dev1, track=self.name)
         self._window.admit(out, stash, frame=seq)
         out_buf = buf.with_tensors(out)
+        if t_dev1 is not None:
+            out_buf.meta[_timeline.HANDOFF_META] = t_dev1
         if finalize is not None:
             out_buf = out_buf.replace(finalize=finalize)
         if peer_device_capable(self.srcpad):
@@ -484,6 +505,24 @@ class FusedRegion(Element):
         super().stop()
 
     # -- events --------------------------------------------------------------
+    def src_event(self, pad: Pad, event: Event) -> None:
+        if isinstance(event, QosEvent) and any(
+                type(m).src_event is not Element.src_event
+                for m in self.members):
+            # a member consumes QoS (the filter): the event targets THIS
+            # region's dispatch, since the members' chains don't run.
+            # Delivered through the member chain too, so the members' QoS
+            # state is right if the region later unsplices — and exactly
+            # one throttle gates the stream
+            self._qos_interval_s = event.target_interval_ns / 1e9
+            last = self.members[-1]
+            last._upstream_event_entry(last.srcpads[0], event)
+            return
+        # no consuming member: upstream past the region via the data sink
+        # pad only (the base default would also loop the internal pad,
+        # re-dispatching the event into the member chain)
+        self.sinkpads[0].push_upstream_event(event)
+
     def sink_event(self, pad: Pad, event: Event) -> None:
         if pad is self.internal_pad:
             # an event the member chain chose to forward — pass it on

@@ -47,10 +47,7 @@ from typing import List, Optional, Tuple
 
 from nnstreamer_tpu_torch.pipeline.caps import Caps
 from nnstreamer_tpu_torch.pipeline.element import Element, Pad
-from nnstreamer_tpu_torch.pipeline.pipeline import (
-    Pipeline,
-    check_unported_options,
-)
+from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
 from nnstreamer_tpu_torch.registry import ELEMENT, get_subplugin, subplugin
 
 
@@ -344,16 +341,19 @@ def parse_launch(description: str, pipeline: Optional[Pipeline] = None,
     in the description), then resolve links.
 
     The keyword arguments are the JAX package's: ``lanes`` sets the
-    pipeline's ingest lane count (``pipeline/lanes.py``), ``error_policy``
+    pipeline's ingest lane count (``pipeline/lanes.py``),
+    ``slo_budget_ms`` its SLO budget (``serving/scheduler.py``: deadline
+    admission, EDF ordering and feedback-tuned batch forming on the
+    admission-point queues; 0 leaves the scheduler off), ``error_policy``
     its default error policy (``pipeline/supervise.py``) and
     ``watchdog_s`` arms the stall watchdog; None leaves the pipeline's own
-    value. ``slo_budget_ms`` names the SLO scheduler (ROADMAP A.11b), not
-    ported yet: any value but None or 0 raises ``NotImplementedError``.
+    value.
     """
-    check_unported_options(slo_budget_ms=slo_budget_ms)
     pipe = pipeline or Pipeline()
     if lanes is not None:
         pipe.lanes = max(1, int(lanes))
+    if slo_budget_ms is not None:
+        pipe.slo_budget_ms = max(0.0, float(slo_budget_ms))
     if error_policy is not None:
         pipe.error_policy = error_policy
     if watchdog_s is not None:

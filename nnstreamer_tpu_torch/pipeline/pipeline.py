@@ -24,15 +24,20 @@ of device-capable elements (``pipeline/fuse.py``; ``fuse=False`` or
 default error policy of every element (``pipeline/supervise.py``) and
 ``watchdog_s`` (or ``NNSTPU_WATCHDOG_S``) arms the liveness watchdog.
 ``start()`` honours ``NNSTPU_TRACE`` (the frame ledger,
-``obs/timeline.py``) and ``NNSTPU_FAULTS`` (``pipeline/faults.py``). The
-JAX package's SLO scheduler (``slo_budget_ms``, ROADMAP A.11b) and
-serving continuity (A.20) are not ported yet: asking for one raises
-``NotImplementedError`` naming its item.
+``obs/timeline.py``) and ``NNSTPU_FAULTS`` (``pipeline/faults.py``), and
+installs the always-on flight recorder (``obs/flight.py``; off with
+``NNSTPU_FLIGHT=0``, tail dumps into ``flight_dir`` or a directory named
+by ``NNSTPU_FLIGHT``). ``slo_budget_ms`` (or a queue's
+``slo-budget-ms``) attaches the SLO scheduler (``serving/scheduler.py``)
+to the admission-point queues. ``NNSTPU_DUMP_DOT_DIR`` writes the started
+graph as Graphviz dot (``pipeline/dot.py``). The JAX package's serving
+continuity (A.20) is not ported yet.
 """
 
 from __future__ import annotations
 
 import enum
+import heapq
 import os
 import queue as _queue
 import threading
@@ -57,7 +62,6 @@ from nnstreamer_tpu_torch.pipeline.element import (
     Event,
     FlowError,
     FlowReturn,
-    not_ported,
 )
 from nnstreamer_tpu_torch.pipeline.fuse import fuse_pipeline, fusion_enabled
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
@@ -75,8 +79,6 @@ from nnstreamer_tpu_torch.tensors.pool import (
 )
 
 log = get_logger("pipeline")
-
-_SCHEDULER = "A.11b the SLO scheduler (serving/scheduler.py)"
 
 
 class State(enum.Enum):
@@ -190,7 +192,20 @@ class Queue(Element):
       pipeline: each buffer the queue accepts gets ``meta["admitted_t"]``
       (``nns_queue_admitted_total``), and a leaky drop of an admitted
       buffer revokes the stamp (``nns_queue_admitted_revoked_total``), so
-      a sink's ``base="admitted"`` latency covers the served frames only.
+      a sink's ``base="admitted"`` latency covers the served frames only;
+    - ``slo-budget-ms`` (or a pipeline's ``slo_budget_ms`` on a
+      stamp-admission queue) makes the queue an admission point of the
+      pipeline's SLO scheduler (``serving/scheduler.py``): deadline
+      admission at ``chain()`` (a rejected frame is dropped and never
+      admitted), an earliest-deadline-first heap in place of the FIFO,
+      late-first shedding on overflow (a shed frame's stamp is revoked
+      and its staged slabs released), and runs formed under the
+      controller's ``batch_cap``, with ``sched_hold`` as the frames'
+      ledger span. With a uniform budget the heap's order is arrival
+      order. The port supports the scheduler queue before
+      ``tensor_aggregator``, where bench.py's string has it: the
+      aggregator still forms whole windows, so a fused region behind it
+      sees one input signature.
 
     The ``queue.push`` fault hook fires on entry; with a timeline active
     the queue records each frame's ``queue_wait`` (and the first queue a
@@ -206,12 +221,13 @@ class Queue(Element):
     PROPERTIES = {**Element.PROPERTIES, "max_size_buffers": 16, "leaky": "no",
                   "prefetch_host": False, "prefetch_device": False,
                   "materialize_host": False, "drain_batch": 64,
-                  "batch_h2d": True, "stamp_admission": False}
-    UNPORTED_PROPERTIES = {
-        "slo_budget_ms": _SCHEDULER,
-    }
+                  "batch_h2d": True, "stamp_admission": False,
+                  "slo_budget_ms": 0.0}
 
     _EOS = object()
+    #: worker wake token in scheduler mode: data rides the EDF heap, the
+    #: FIFO carries only ordering (tokens, events, EOS)
+    _TOKEN = object()
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -230,6 +246,13 @@ class Queue(Element):
         self._undelivered = 0
         #: where prefetch-device uploads to, resolved at start()
         self._device: Optional[torch.device] = None
+        #: SLO scheduler binding (serving/scheduler.py), resolved at
+        #: start(); None = the plain FIFO queue
+        self._sched = None
+        self._budget_ms = 0.0
+        self._edf: list = []          # (deadline_t, seq, buf) heap
+        self._edf_lock = threading.Lock()
+        self._edf_seq = 0             # FIFO tiebreak for equal deadlines
 
     def property_changed(self, key):
         if key == "leaky" and self._props["leaky"] not in ("no", "downstream"):
@@ -237,8 +260,14 @@ class Queue(Element):
                              f"'downstream', not {self._props['leaky']!r}")
 
     def _depth(self) -> int:
-        """Occupancy: queued plus popped but not yet handed on."""
-        return self._q.qsize() + self._undelivered
+        """Occupancy: queued (the FIFO, or the EDF heap in scheduler
+        mode) plus popped but not yet handed on."""
+        if self._sched is not None:
+            with self._edf_lock:
+                queued = len(self._edf)
+        else:
+            queued = self._q.qsize()
+        return queued + self._undelivered
 
     def obs_snapshot(self):
         out = super().obs_snapshot()
@@ -259,8 +288,26 @@ class Queue(Element):
         self._undelivered = 0
         if self.get_property("prefetch_device"):
             self._device = resolve_device()
-        self._q = _queue.Queue(
-            maxsize=int(self.get_property("max_size_buffers")))
+        # scheduler binding: an admission point when the pipeline has an
+        # SloScheduler AND this queue stamps admission or carries its own
+        # budget; otherwise the plain FIFO path
+        own_budget = float(self.get_property("slo_budget_ms") or 0.0)
+        sched = getattr(self.pipeline, "_slo_scheduler", None)
+        if sched is not None and (own_budget > 0
+                                  or self.get_property("stamp_admission")):
+            self._sched = sched
+            self._budget_ms = own_budget if own_budget > 0 \
+                else sched.budget_ms
+            # data rides the EDF heap (bounded by max-size-buffers in
+            # _chain_scheduled); the FIFO carries only wake tokens and
+            # serialized events, so it never blocks a producer
+            self._edf = []
+            self._edf_seq = 0
+            self._q = _queue.Queue()
+        else:
+            self._sched = None
+            self._q = _queue.Queue(
+                maxsize=int(self.get_property("max_size_buffers")))
         if self._m_drops is None:
             reg = get_registry()
             labels = dict(pipeline=getattr(self.pipeline, "name", "") or "",
@@ -281,7 +328,8 @@ class Queue(Element):
                 "Admitted buffers later dropped before delivery (the "
                 "admitted population nets these out)", **labels)
         self._worker = threading.Thread(
-            target=self._drain, name=f"{self.name}-worker", daemon=True)
+            target=self._drain_sched if self._sched is not None
+            else self._drain, name=f"{self.name}-worker", daemon=True)
         self._worker.start()
 
     def stop(self):
@@ -301,6 +349,10 @@ class Queue(Element):
         partial window early."""
         if self._worker is None:
             return True
+        if self._sched is not None:
+            with self._edf_lock:
+                return len(self._edf) < \
+                    int(self.get_property("max_size_buffers"))
         maxsize = self._q.maxsize
         return maxsize <= 0 or self._q.qsize() < maxsize
 
@@ -309,15 +361,16 @@ class Queue(Element):
         """The FIRST queue a frame reaches closes its ingest span (source
         ``create()`` → here, minus any lane reorder wait, so ingest +
         lane_reorder tile exactly); every queue stamps the entry time its
-        drain side turns into a queue_wait span. One attribute read with
-        tracing off."""
+        drain side turns into a queue_wait span: the sender's hand-off
+        reading where it left one (``HANDOFF_META``). One attribute read
+        with tracing off."""
         tl = _timeline.ACTIVE
         if tl is None:
             return
         seq = buf.meta.get(_timeline.TRACE_SEQ_META)
         if seq is None:
             return
-        now = time.monotonic()
+        now = buf.meta.pop(_timeline.HANDOFF_META, None) or time.monotonic()
         if "tl_ingest_done" not in buf.meta:
             buf.meta["tl_ingest_done"] = True
             create = buf.meta.get("create_t")
@@ -327,11 +380,13 @@ class Queue(Element):
                         track="ingest")
         buf.meta["tl_q_t"] = now
 
-    def _tl_depart(self, buf, handoff: bool = False) -> None:
+    def _tl_depart(self, buf, now: Optional[float] = None) -> None:
         """Drain-side twin of :meth:`_tl_arrive`: queue residency ends at
-        the frame's hand-off downstream. A frame handed on in a list
-        (``handoff``) carries the time as ``meta["tl_handoff_t"]``, from
-        which the receiver records its wait for its own turn."""
+        the frame's hand-off downstream (at ``now`` when the caller took
+        the reading): ``queue_wait``, or ``sched_hold`` for the EDF heap
+        of a scheduler-mode queue. The frame carries the time as
+        ``HANDOFF_META``, from which the receiver starts its next span: a
+        frame handed on in a list waits there for its own turn."""
         tl = _timeline.ACTIVE
         if tl is None:
             return
@@ -339,10 +394,11 @@ class Queue(Element):
         seq = buf.meta.get(_timeline.TRACE_SEQ_META)
         if t0 is None or seq is None:
             return
-        now = time.monotonic()
-        tl.span("queue_wait", seq, t0, now, track=self.name)
-        if handoff:
-            buf.meta["tl_handoff_t"] = now
+        if now is None:
+            now = time.monotonic()
+        tl.span("sched_hold" if self._sched is not None else "queue_wait",
+                seq, t0, now, track=self.name)
+        buf.meta[_timeline.HANDOFF_META] = now
 
     def _drop_oldest(self) -> None:
         """leaky=downstream: drop the oldest queued buffer to make room."""
@@ -380,6 +436,10 @@ class Queue(Element):
             if not defer:
                 buf = self._upload_one(buf)
         self._tl_arrive(buf)
+        if self._sched is not None and self._worker is not None:
+            # SLO path: deadline admission + EDF heap; a rejected frame
+            # never carries an admission stamp and is dropped here
+            return self._chain_scheduled(buf)
         if self.get_property("stamp_admission") and \
                 "admitted_t" not in buf.meta:
             buf.meta["admitted_t"] = time.monotonic()
@@ -507,11 +567,15 @@ class Queue(Element):
             # the residency pauses where the run's fetch starts: the fetch
             # is each frame's d2h stage, its finalize its decode stage
             # (tensors/buffer.py), and the wait behind the run's earlier
-            # frames resumes it until the frame's own hand-off
+            # frames resumes it until the frame's own hand-off; the pause
+            # and the fetch share one reading
+            t_pause = None
             if tl_on:
+                t_pause = time.monotonic()
                 for it in run:
-                    self._tl_depart(it)
-            for host in materialize_many(run):
+                    self._tl_depart(it, t_pause)
+                    it.meta.pop(_timeline.HANDOFF_META, None)
+            for host in materialize_many(run, t0=t_pause):
                 self._undelivered -= 1
                 if tl_on:
                     self._tl_depart(host)
@@ -523,7 +587,7 @@ class Queue(Element):
             self._undelivered -= len(run)
             if tl_on:
                 for it in run:
-                    self._tl_depart(it, handoff=True)
+                    self._tl_depart(it)
             self.srcpad.push_list(run)
             return
         for it in run:
@@ -579,6 +643,124 @@ class Queue(Element):
                 self._eos_done.set()
                 return
 
+    # -- SLO scheduler mode (serving/scheduler.py) ---------------------------
+    def _chain_scheduled(self, buf) -> FlowReturn:
+        """Producer side of scheduler mode: deadline admission, EDF
+        enqueue, late-first shedding on overflow. With a uniform budget
+        deadlines are monotone in arrival order, so an unloaded queue's
+        pop order equals FIFO — byte-identical output."""
+        sched = self._sched
+        now = time.monotonic()
+        with self._edf_lock:
+            backlog = len(self._edf) + self._undelivered
+        if not sched.admit(buf, now=now, backlog=backlog,
+                           budget_ms=self._budget_ms):
+            # rejected at the door, never admitted: nothing staged for it
+            # reaches a fence
+            self._m_drops.inc()
+            release_shed_payload(buf)
+            return FlowReturn.OK
+        self._m_admitted.inc()
+        cap = int(self.get_property("max_size_buffers"))
+        shed = None
+        with self._edf_lock:
+            self._edf_seq += 1
+            heapq.heappush(self._edf,
+                           (buf.meta["deadline_t"], self._edf_seq, buf))
+            if cap > 0 and len(self._edf) > cap:
+                shed = self._shed_one_locked(now)
+        if shed is not None:
+            sched.note_shed(shed, now)
+            self._m_adm_revoked.inc()
+            self._m_drops.inc()
+        self._q.put_nowait(self._TOKEN)  # wake the worker (unbounded)
+        return FlowReturn.OK
+
+    def _shed_one_locked(self, now: float):
+        """The overflow victim (caller holds ``_edf_lock``): late-first —
+        the MOST-late frame (the heap root, if its deadline passed) sheds
+        before any on-time one; with nothing late, the least-urgent
+        (latest-deadline) frame goes."""
+        if self._edf[0][0] <= now:
+            return heapq.heappop(self._edf)[2]
+        i = max(range(len(self._edf)), key=lambda j: self._edf[j][0])
+        victim = self._edf[i][2]
+        last = self._edf.pop()
+        if i < len(self._edf):
+            self._edf[i] = last
+            heapq.heapify(self._edf)
+        return victim
+
+    def _flush_edf(self, limit: Optional[int]) -> None:
+        """Batch former: pop up to ``limit`` admitted frames in EDF order
+        and deliver them as one run (one ``push_list`` to a HANDLES_LIST
+        peer: the downstream dispatch window's fence is the free-slot
+        backpressure). A frame whose deadline passed while it sat in the
+        heap is shed here, not delivered; on the per-frame hand-off path
+        the deadline is tested again right before each push. An unloaded
+        pipeline never goes late, so its output equals the FIFO's."""
+        now = time.monotonic()
+        shed: list = []
+        with self._edf_lock:
+            n = len(self._edf) if limit is None \
+                else min(max(1, limit), len(self._edf))
+            run = []
+            while self._edf and len(run) < n:
+                deadline_t, _seq, buf = heapq.heappop(self._edf)
+                if deadline_t <= now:
+                    shed.append(buf)
+                else:
+                    run.append(buf)
+        if run:
+            self._undelivered += len(run)
+            self._m_drain.observe(len(run))
+            peer = self.srcpad.peer
+            if len(run) > 1 and not self.get_property("materialize_host") \
+                    and peer is not None \
+                    and getattr(peer.element, "HANDLES_LIST", False):
+                self._flush_run(run)
+            else:
+                for it in run:
+                    if it.meta["deadline_t"] <= time.monotonic():
+                        self._undelivered -= 1
+                        shed.append(it)
+                        continue
+                    self._flush_run([it])
+        for buf in shed:
+            self._sched.note_shed(buf, time.monotonic())
+            self._m_adm_revoked.inc()
+            self._m_drops.inc()
+
+    def _drain_sched(self):
+        """Scheduler-mode worker: wake tokens pop EDF runs capped by the
+        feedback controller; events and EOS flush all pending data first
+        (EDF order), so an event never overtakes data queued ahead of
+        it."""
+        sched = self._sched
+        while not self._stop_evt.is_set():
+            try:
+                item = self._q.get(timeout=0.1)
+            except _queue.Empty:
+                continue
+            try:
+                if item is self._EOS or isinstance(item, Event):
+                    self._flush_edf(None)
+                    if item is self._EOS:
+                        self.srcpad.push_event(EosEvent())
+                        self._eos_done.set()
+                        return
+                    self.srcpad.push_event(item)
+                else:
+                    # a shed frame leaves its wake token behind: the token
+                    # then pops an empty heap, a cheap no-op
+                    self._flush_edf(sched.batch_cap())
+            except Exception as e:  # noqa: BLE001 — downstream failures
+                # must reach the bus, not silently kill this worker
+                self.post_error(e if isinstance(e, FlowError)
+                                else FlowError(f"{self.name}: {e}"))
+                self._eos_done.set()
+                return
+
 
 class Pipeline:
     """Element container + source threads + bus.
@@ -587,15 +769,14 @@ class Pipeline:
     splices fused regions at ``start()``; ``lanes`` (default 1, the
     serial path) splices ingest lanes behind each source after fusion;
     ``error_policy`` is the default error policy of every element;
-    ``watchdog_s`` > 0 arms the liveness watchdog. ``slo_budget_ms`` names
-    the SLO scheduler, not ported yet (ROADMAP A.11b): any value but 0
-    raises."""
+    ``watchdog_s`` > 0 arms the liveness watchdog; ``slo_budget_ms`` > 0
+    attaches the SLO scheduler at ``start()``; ``flight_dir`` (set before
+    ``start()``) arms the flight recorder's tail dumps."""
 
     def __init__(self, name: str = "pipeline", fuse: bool = True,
                  lanes: int = 1, slo_budget_ms: float = 0.0,
                  error_policy: Optional[str] = None,
                  watchdog_s: float = 0.0):
-        check_unported_options(slo_budget_ms=slo_budget_ms)
         self.name = name
         self.elements: List[Element] = []
         self.by_name: Dict[str, Element] = {}
@@ -620,6 +801,17 @@ class Pipeline:
         #: start()); NNSTPU_WATCHDOG_S applies when it is 0
         self.watchdog_s = float(watchdog_s or 0.0)
         self._watchdog = None
+        #: pipeline-wide SLO budget in ms (serving/scheduler.py); > 0
+        #: attaches deadline admission, EDF and feedback control to the
+        #: admission-point queues at start(). 0 with no queue budget = no
+        #: scheduler object at all
+        self.slo_budget_ms = float(slo_budget_ms or 0.0)
+        self._slo_scheduler = None
+        #: tail-event dump directory of the flight recorder
+        #: (obs/flight.py); None defers to NNSTPU_FLIGHT. The recorder
+        #: itself is always on unless NNSTPU_FLIGHT=0
+        self.flight_dir: Optional[str] = None
+        self._flight = None
 
     # -- construction ---------------------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":
@@ -640,6 +832,13 @@ class Pipeline:
 
     def get(self, name: str) -> Element:
         return self.by_name[name]
+
+    def to_dot(self) -> str:
+        """Graphviz dot text of the current runtime graph (fused regions
+        as clusters) — ``pipeline/dot.py``."""
+        from nnstreamer_tpu_torch.pipeline.dot import pipeline_to_dot
+
+        return pipeline_to_dot(self)
 
     def metrics_snapshot(self) -> Dict[str, Any]:
         """In-process structured metrics read: one dict per element with
@@ -673,6 +872,15 @@ class Pipeline:
                                        "unspliced": r._dead,
                                        **r.obs_snapshot()}
                               for r in self._regions}
+        if self._slo_scheduler is not None:
+            out["scheduler"] = self._slo_scheduler.snapshot()
+        if self._flight is not None:
+            # the always-on flight recorder: streaming stage/e2e
+            # quantiles and burn rates, the continuous variance
+            # attribution, and the raw P² marker states per stage
+            out["slo"] = self._flight.slo_snapshot()
+            out["attribution"] = self._flight.attribution()
+            out["quantiles"] = self._flight.quantile_states()
         return out
 
     # -- state ----------------------------------------------------------------
@@ -691,6 +899,26 @@ class Pipeline:
         sources = [e for e in self.elements if isinstance(e, SourceElement)]
         others = [e for e in self.elements
                   if not isinstance(e, SourceElement)]
+        # the SLO scheduler before any element starts: admission-point
+        # queues bind to it in their start(). No budget anywhere, no
+        # scheduler object
+        if self._slo_scheduler is None and (
+                self.slo_budget_ms > 0
+                or any(float(el._props.get("slo_budget_ms") or 0.0) > 0
+                       for el in self.elements)):
+            from nnstreamer_tpu_torch.serving.scheduler import (
+                ensure_scheduler,
+            )
+
+            ensure_scheduler(self)
+        # the always-on flight recorder, after the scheduler (so the SLO
+        # budget is known) and only when no explicit or env timeline owns
+        # the ledger slot; NNSTPU_FLIGHT=0 keeps ACTIVE None
+        from nnstreamer_tpu_torch.obs import flight as _flight
+
+        fr = _flight.maybe_install(self)
+        if fr is not None:
+            self._flight = fr
         # a restart streams anew: the last run's EOS no longer holds
         for el in self.elements + (self._regions or []) + \
                 (self._lane_execs or []):
@@ -726,8 +954,15 @@ class Pipeline:
         except Exception:
             for el in reversed(started):
                 el.stop()
+            if fr is not None:
+                _flight.retire(fr)
             raise
         self.state = State.PLAYING
+        # GST_DEBUG_DUMP_DOT_DIR's counterpart (pipeline/dot.py), after
+        # fusion so the dump shows the regions that will run
+        from nnstreamer_tpu_torch.pipeline.dot import maybe_dump_dot
+
+        maybe_dump_dot(self)
         self._eos_pending = len(sources)
         for src in sources:
             t = threading.Thread(
@@ -789,6 +1024,13 @@ class Pipeline:
         # lane arenas)
         release_all_pools()
         self.state = State.NULL
+        # retire the flight recorder before the env-owned export check: a
+        # pending tail dump near EOS flushes here, and the recorder stays
+        # on self._flight for the caller to read
+        if self._flight is not None:
+            from nnstreamer_tpu_torch.obs import flight as _flight
+
+            _flight.retire(self._flight)
         # an env-owned timeline (NNSTPU_TRACE=<path>) exports its ledger
         # once the run is over; an explicitly installed one is the
         # caller's to export
@@ -848,10 +1090,3 @@ class Pipeline:
         finally:
             self.stop()
 
-
-def check_unported_options(slo_budget_ms=0.0) -> None:
-    """Raise for a pipeline-level option whose feature is not ported: of
-    the JAX package's ``lanes``, ``slo_budget_ms``, ``error_policy`` and
-    ``watchdog_s``, only the SLO budget is still missing."""
-    if slo_budget_ms:
-        raise not_ported("the SLO scheduler (slo_budget_ms=)", _SCHEDULER)

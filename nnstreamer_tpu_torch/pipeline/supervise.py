@@ -23,12 +23,12 @@ pipeline. Robustness here is the per-element ``error-policy`` property
   A *memory-pressure* failure (an injected ``kind=oom`` or a
   ``torch.cuda.OutOfMemoryError``) under ``degrade`` halts with a
   ``FlowError`` naming ROADMAP A.19: the JAX package's memory-pressure
-  ladder (evict → pool → shed → cpu) needs the HBM accountant (A.19) and
-  the SLO scheduler's shed term (A.11b), and a partial ladder is not
-  run.
+  ladder (evict → pool → shed → cpu) needs the HBM accountant (A.19),
+  and a partial ladder is not run.
 
-The JAX module also reports the wall time burnt on retries to the SLO
-scheduler; the port has no scheduler until ROADMAP A.11b.
+The wall time burnt on retries (failed attempts and backoff) is reported
+to the pipeline's SLO scheduler (:meth:`SloScheduler.note_retry`), so
+admission does not over-admit while the service is browning out.
 
 The **watchdog** (:class:`PipelineWatchdog`) is the liveness half: a
 thread that samples a pipeline-wide progress vector (chain invokes,
@@ -115,6 +115,16 @@ def _mark(kind: str, buf, **args) -> None:
         tl.mark(kind, seq, track="faults", **args)
 
 
+def _note_scheduler_retry(el, busy_s: float) -> None:
+    """Feed the wall time burnt on failed attempts and backoff into the
+    SLO scheduler's service-rate estimate: during a brownout each served
+    frame costs its retries too, and admission computed from the healthy
+    path's estimate would over-admit exactly when capacity is lowest."""
+    sched = getattr(el.pipeline, "_slo_scheduler", None)
+    if sched is not None and busy_s > 0:
+        sched.note_retry(busy_s)
+
+
 def _backoff_sleep(el, attempt: int, base_ms: float) -> float:
     """Bounded exponential backoff with deterministic jitter: the delay
     for (element, attempt) is a pure function, so a seeded fault spec
@@ -153,36 +163,25 @@ def recover_chain_list(el, pad, bufs: List[Any],
     ``chain`` calls with the policy applied per frame, so one poisoned
     frame in a drained batch costs (at most) itself, not the batch.
 
-    The default ``chain_list`` marks the index of the buffer that raised
-    (``_nns_list_done``): the buffers before it were delivered and are
-    not replayed, the policy answers the failure of that buffer itself
-    (``skip-frame`` drops it, ``retry`` retries it with backoff), and the
-    buffers after it are chained one by one. The JAX module re-chains the
-    failed buffer once before applying the policy, so there a transient
-    fault in a list costs no frame even under ``skip-frame``; here the
-    policy decides, as it does for a buffer that arrived alone. A custom
-    ``chain_list`` without the marker replays every buffer."""
+    The default ``chain_list`` marks how many leading buffers were fully
+    chained before the failure (``_nns_list_done``): those were pushed
+    downstream and are not replayed. The rest, the failing buffer first,
+    are re-chained one by one through ``el.chain`` with the policy per
+    frame, as the JAX module does: the failing buffer gets one more
+    chain before any policy acts on it, so a transient fault in a list
+    costs no frame even under ``skip-frame``. On the card the re-chain of
+    a fused region is the region's own ``chain`` (copy in, replay). A
+    custom ``chain_list`` without the marker replays every buffer."""
     policy = effective_policy(el)
     if policy == "halt":
         raise _wrap(el, exc)
-    done = getattr(exc, "_nns_list_done", None)
+    done = int(getattr(exc, "_nns_list_done", 0) or 0)
+    if 0 < done <= len(bufs):
+        bufs = bufs[done:]
+    log.warning("%s: chain_list failed (%s); replaying %d undelivered "
+                "buffer(s) individually under error-policy=%s", el.name,
+                exc, len(bufs), policy)
     ret: FlowReturn = FlowReturn.OK
-    if done is not None and 0 <= int(done) < len(bufs):
-        done = int(done)
-        log.warning("%s: chain_list failed on buffer %d of %d (%s); "
-                    "error-policy=%s takes it, the %d after it are "
-                    "chained one by one", el.name, done, len(bufs), exc,
-                    policy, len(bufs) - done - 1)
-        r = recover_chain(el, pad, bufs[done], exc)
-        if r is FlowReturn.EOS:
-            return r
-        if r is not None:
-            ret = r
-        bufs = bufs[done + 1:]
-    else:
-        log.warning("%s: chain_list failed (%s); replaying %d buffer(s) "
-                    "individually under error-policy=%s", el.name, exc,
-                    len(bufs), policy)
     for b in bufs:
         try:
             r = el.chain(pad, b)
@@ -219,6 +218,7 @@ def _retry(el, pad, buf, exc: BaseException,
     m = _metrics(el)
     retry_max = max(1, int(el._props.get("retry_max") or 3))
     base_ms = float(el._props.get("retry_backoff_ms") or 5.0)
+    t0 = time.monotonic()
     last: BaseException = exc
     for attempt in range(1, retry_max + 1):
         _backoff_sleep(el, attempt, base_ms)
@@ -230,10 +230,12 @@ def _retry(el, pad, buf, exc: BaseException,
             # as FlowError below when attempts run out
             last = e
             continue
+        _note_scheduler_retry(el, time.monotonic() - t0)
         m["recovered"].inc()
         el.log.warning("%s: recovered on retry %d/%d (first failure: %s)",
                        el.name, attempt, retry_max, exc)
         return FlowReturn.OK if ret is None else ret
+    _note_scheduler_retry(el, time.monotonic() - t0)
     if exhausted == "skip":
         return _skip(el, buf, last)
     raise FlowError(

@@ -4,8 +4,9 @@ N generation streams share ONE batched, KV-cached decode loop on the card
 (``serving/engine.py``); ``tensor_lm_serve`` reaches an app-constructed
 engine by the name it was registered under here. The engine module is
 imported lazily: it pulls in the transformer model stack, which a frame
-pipeline never needs. The JAX package's SLO scheduler and replicated fleet
-wait for ROADMAP A.11b and slice 6.
+pipeline never needs. ``serving/scheduler.py`` is the SLO scheduler of
+pipelines and of the engine's request path (``SloRejected``). The JAX
+package's replicated fleet waits for ROADMAP 26b.
 """
 
 import threading
@@ -38,8 +39,13 @@ def __getattr__(name: str):
         from nnstreamer_tpu_torch.serving import engine as _engine
 
         return getattr(_engine, name)
+    if name in ("SloRejected", "SloScheduler"):
+        from nnstreamer_tpu_torch.serving import scheduler as _scheduler
+
+        return getattr(_scheduler, name)
     raise AttributeError(name)
 
 
-__all__ = ["ContinuousBatchingEngine", "GenerationStream",
-           "register_engine", "get_engine", "unregister_engine"]
+__all__ = ["ContinuousBatchingEngine", "GenerationStream", "SloRejected",
+           "SloScheduler", "register_engine", "get_engine",
+           "unregister_engine"]

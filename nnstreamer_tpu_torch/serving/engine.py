@@ -21,11 +21,19 @@ cache, greedy path:
   decode attends over dynamically placed cache slots with the plain
   masked form (``_attend_cache``), as the JAX package leaves it to XLA.
 
+- **Request-path SLO admission.** With ``slo_budget_ms`` > 0 the engine
+  owns an :class:`~nnstreamer_tpu_torch.serving.scheduler.SloScheduler`:
+  ``submit()`` raises ``SloRejected`` when the request's deadline cannot
+  be met behind the queued and active requests at the current
+  per-request service estimate (cold: everything is admitted), and each
+  finished request's submit-to-finish time feeds the estimate. The paged
+  engine's per-token deadlines and KV-pressure shedding wait for A.13.3.
+
 Options of the JAX engine that are not ported yet raise with their
 ROADMAP item: ``mesh`` (A.24), ``block_tokens`` (A.13.3),
 ``prefill_chunk`` and ``prefix_cache`` (A.13.2), ``kv_quant`` (A.13.1),
-``speculate`` (A.13.4), ``slo_budget_ms`` (A.11b) and sampled decoding —
-``temperature > 0``, ``top_k``, ``min_p`` (A.13.5).
+``speculate`` (A.13.4) and sampled decoding — ``temperature > 0``,
+``top_k``, ``min_p`` (A.13.5).
 """
 
 from __future__ import annotations
@@ -201,8 +209,6 @@ class ContinuousBatchingEngine:
         if int(speculate or 0) > 0:
             raise not_ported("speculative decoding (speculate > 0)",
                              "A.13.4")
-        if float(slo_budget_ms or 0.0) > 0:
-            raise not_ported("SLO admission (slo_budget_ms > 0)", "A.11b")
         if attention not in ("auto", "reference"):
             raise ValueError(
                 f"serving: attention must be 'auto' or 'reference', got "
@@ -268,6 +274,15 @@ class ContinuousBatchingEngine:
             "submit() to batch-slot admission wait",
             engine=self.obs_name)
         register_engine_collector(self)
+        #: request-path SLO admission (serving/scheduler.py): submit()
+        #: rejects prompts whose deadline is unmeetable under the EWMA
+        #: per-request service estimate; 0 = admit everything (default)
+        self._slo = None
+        if float(slo_budget_ms or 0.0) > 0:
+            from nnstreamer_tpu_torch.serving.scheduler import SloScheduler
+
+            self._slo = SloScheduler(budget_ms=float(slo_budget_ms),
+                                     name=self.obs_name)
         #: per-token latency quantiles (TTFT vs inter-token split)
         self._lm_stats = LMTokenStats(self.obs_name)
         #: reference-style windowed read-outs (latency_us = one [B, K]
@@ -419,6 +434,13 @@ class ContinuousBatchingEngine:
                 raise RuntimeError(
                     "serving: engine is not running — call start() first "
                     "(a submit with no loop thread would never complete)")
+            if self._slo is not None:
+                # backlog ahead of this request: queued + active streams;
+                # raises SloRejected before any slot or queue capacity is
+                # taken — overload is turned away at the door
+                backlog = self._pending.qsize() + sum(
+                    1 for s in self._slots if s is not None)
+                self._slo.admit_request(_time.monotonic(), backlog)
             sid = self._next_id
             self._next_id += 1
             stream = GenerationStream(sid, prompt.size)
@@ -510,6 +532,17 @@ class ContinuousBatchingEngine:
         observes its stream done also observes the slot released."""
         st = self._slots[slot]
         self._budget[slot] -= 1
+        done = (self.eos_id is not None and tok == self.eos_id) or \
+            self._budget[slot] <= 0
+        if done and self._slo is not None:
+            t0 = getattr(st, "submit_t", None)
+            if t0 is not None:
+                # the whole request's service time feeds the admission
+                # EWMA and the controller's p99 window — per REQUEST, the
+                # engine's admission unit
+                now = _time.monotonic()
+                self._slo.observe_completion(now - t0, now, frames=1)
+                self._slo.observe_service(now - t0, frames=1)
         if self.eos_id is not None and tok == self.eos_id:
             self._slots[slot] = None
             st._finish("eos")

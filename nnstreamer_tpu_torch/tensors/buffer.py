@@ -344,17 +344,26 @@ class TensorBuffer:
 
     def to_host(self) -> "TensorBuffer":
         """Materialize all tensors on the host (blocking D2H if needed),
-        then apply the deferred ``finalize`` hook if one is attached."""
+        then apply the deferred ``finalize`` hook if one is attached. A
+        traced fetch's ``d2h`` span starts at the sender's hand-off
+        reading and its end is the host buffer's hand-off."""
         t0 = time.monotonic()
         host = self._host_tensors()
         moved = sum(tensor_nbytes(t) for t in self.tensors
                     if is_device_array(t))
+        t1 = None
         if moved:
             _fault_check("transfer.d2h", self.meta)
-            _tl_xfer_span("d2h", (self.meta,), t0, nbytes=moved)
+            if _timeline.ACTIVE is not None and \
+                    _timeline.TRACE_SEQ_META in self.meta:
+                t0 = self.meta.pop(_timeline.HANDOFF_META, None) or t0
+                _tl_xfer_span("d2h", (self.meta,), t0, nbytes=moved)
+                t1 = time.monotonic()
         buf = TensorBuffer(tensors=host, pts=self.pts,
                            dts=self.dts, duration=self.duration,
                            meta=dict(self.meta))
+        if t1 is not None:
+            buf.meta[_timeline.HANDOFF_META] = t1
         if self.finalize is not None:
             buf = self.finalize(buf)
         return buf
@@ -551,17 +560,25 @@ def upload_many(bufs: List[TensorBuffer], device: torch.device
     return out, slabs
 
 
-def materialize_many(bufs: List[TensorBuffer]) -> List[TensorBuffer]:
+def materialize_many(bufs: List[TensorBuffer],
+                     t0: Optional[float] = None) -> List[TensorBuffer]:
     """Drain-side grouped materialization: every CUDA tensor of the run is
     copied into page-locked host memory with ``non_blocking=True`` on the
     current stream, then the host waits ONCE for the run (that stream,
     per device), not once per frame. Results equal per-buffer ``to_host()``:
     finalize hooks run in order on the host payloads, DeviceBuffer host
-    caches are honoured and filled."""
+    caches are honoured and filled.
+
+    With a timeline active each traced frame's time from ``t0`` (the
+    caller's reading where the frames' queue residency paused; now if
+    None) to its own turn is its ``d2h`` (fetched) or ``queue_wait``
+    (nothing to fetch), its finalize starts at that turn, and its
+    residency resumes where the finalize ended."""
     fetched: Dict[Tuple[int, int], Any] = {}
     devices = set()
     moved = 0
-    t0 = time.monotonic()
+    if t0 is None:
+        t0 = time.monotonic()
     if any(is_device_array(t) for b in bufs for t in b.tensors):
         _fault_check("transfer.d2h", bufs[0].meta)
     for i, b in enumerate(bufs):
@@ -583,13 +600,24 @@ def materialize_many(bufs: List[TensorBuffer]) -> List[TensorBuffer]:
     tl = _timeline.ACTIVE
     out: List[TensorBuffer] = []
     for i, b in enumerate(bufs):
-        if not any((i, j) in fetched for j in range(len(b.tensors))):
+        was_fetched = any((i, j) in fetched for j in range(len(b.tensors)))
+        seq = b.meta.get(_timeline.TRACE_SEQ_META)
+        t_turn = None
+        if tl is not None and seq is not None:
+            # the frame's turn: a fetched frame's d2h runs from the
+            # copies' enqueue (the run's synchronisation included), an
+            # unfetched one waited behind the run's earlier frames; its
+            # finalize starts at this same reading
+            t_turn = time.monotonic()
+            if was_fetched:
+                tl.span("d2h", seq, t0, t_turn, track="transfer",
+                        nbytes=moved)
+            else:
+                tl.span("queue_wait", seq, t0, t_turn, track="transfer")
+            b.meta[_timeline.HANDOFF_META] = t_turn
+        if not was_fetched:
             hb = b.to_host()  # cached view or host payload
         else:
-            if tl is not None:
-                # the frame's fetch: from the copies' enqueue to its own
-                # turn on the host, the run's synchronisation included
-                _tl_xfer_span("d2h", (b.meta,), t0, nbytes=moved)
             host = [host_array(fetched.get((i, j), t))
                     for j, t in enumerate(b.tensors)]
             hb = TensorBuffer(tensors=host, pts=b.pts, dts=b.dts,
@@ -598,9 +626,12 @@ def materialize_many(bufs: List[TensorBuffer]) -> List[TensorBuffer]:
                 hb = b.finalize(hb)
             if isinstance(b, DeviceBuffer):
                 b._host_cache = hb  # later to_host() callers share this
-        if tl is not None and _timeline.TRACE_SEQ_META in hb.meta:
-            # back in its queue, behind the run's earlier frames: the
-            # queue's hand-off ends this wait (``Queue._tl_depart``)
-            hb.meta["tl_q_t"] = time.monotonic()
+        if t_turn is not None:
+            # back in its queue, behind the run's earlier frames, from
+            # where its finalize ended: the queue's hand-off ends this
+            # wait (``Queue._tl_depart``)
+            b.meta.pop(_timeline.HANDOFF_META, None)
+            hb.meta["tl_q_t"] = hb.meta.pop(_timeline.HANDOFF_META,
+                                            None) or t_turn
         out.append(hb)
     return out

@@ -1,0 +1,153 @@
+"""``nns-launch`` on the PyTorch port (``cli.py``): the JAX CLI's flags on
+the CPU (``--platforms cpu``), the device it reports, the refusal to run
+without CUDA when the CPU was not asked for, and a ``NotImplementedError``
+naming the ROADMAP item for every flag whose feature is not ported.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from nnstreamer_tpu.cli import main as jax_main
+from nnstreamer_tpu_torch import set_device
+from nnstreamer_tpu_torch.cli import main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DESC = ("videotestsrc num-buffers=20 width=16 height=16 ! tensor_converter ! "
+        "queue name=q stamp-admission=true ! tensor_sink name=out")
+
+
+@pytest.fixture(autouse=True)
+def _default_device():
+    set_device(None)
+    yield
+    set_device(None)
+
+
+def test_without_cuda_the_cli_refuses(capsys):
+    assert main(["-q", DESC]) == 1
+    err = capsys.readouterr().err
+    assert "CUDA is not available" in err and "set_device('cpu')" in err
+
+
+def test_platforms_cpu_runs_and_reports_the_device(capsys):
+    assert main(["--platforms", "cpu", DESC]) == 0
+    out = capsys.readouterr().out
+    assert "Device: cpu (asked for)" in out
+    assert "Got EOS from pipeline." in out
+    assert "-- flight recorder: 20 frames" in out
+
+
+def test_confchk_reports_the_device(capsys):
+    assert main(["--confchk"]) == 0
+    out = capsys.readouterr().out
+    assert "device : cuda:0 unavailable" in out
+    assert "tensor_rate" in out and "queue" in out
+    assert main(["--platforms", "cpu", "--confchk"]) == 0
+    assert "device : cpu (asked for)" in capsys.readouterr().out
+
+
+def test_slo_metrics_and_run_flags(tmp_path, capsys):
+    trace = tmp_path / "trace.json"
+    rc = main(["--platforms", "cpu", "--slo-budget-ms", "50",
+               "--metrics-port", "0", "--lanes", "2", "--inflight", "1",
+               "--error-policy", "retry", "--watchdog-s", "5",
+               "--flight-dir", str(tmp_path / "flight"),
+               "--trace-out", str(trace), DESC])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "Serving metrics on http://0.0.0.0:" in out
+    assert "-- slo scheduler: budget 50ms" in out
+    assert "-- ingest lanes" in out and "2 lanes" in out
+    assert "-- frame timeline:" in out
+    assert json.loads(trace.read_text())["traceEvents"]
+
+
+def test_slo_footer_counts_as_the_jax_cli(capsys):
+    """The same string under the same budget, unloaded: both CLIs admit
+    every frame and reject none (the counters are process-wide and
+    labelled by the pipeline's name, so a delta is read)."""
+    from nnstreamer_tpu.obs import get_registry as jget_registry
+    from nnstreamer_tpu_torch.obs import get_registry
+
+    desc = DESC.replace("num-buffers=20", "num-buffers=12").replace(
+        "stamp-admission=true", "stamp-admission=true max-size-buffers=64")
+
+    def counts(reg):
+        return tuple(
+            (lambda c: c.value if c is not None else 0.0)(
+                reg().get(name, pipeline="pipeline"))
+            for name in ("nns_sched_admitted_total",
+                         "nns_sched_rejected_total"))
+
+    got = {}
+    for key, reg, run in (
+            ("port", get_registry, lambda: main(
+                ["--platforms", "cpu", "--slo-budget-ms", "60000", desc])),
+            ("jax", jget_registry, lambda: jax_main(
+                ["--slo-budget-ms", "60000", desc]))):
+        before = counts(reg)
+        assert run() == 0
+        after = counts(reg)
+        got[key] = tuple(a - b for a, b in zip(after, before))
+        assert any(ln.startswith("-- slo scheduler: budget 60000ms")
+                   for ln in capsys.readouterr().out.splitlines())
+    assert got["port"] == got["jax"] == (12.0, 0.0)
+
+
+def test_check_parses_without_running(capsys):
+    assert main(["--platforms", "cpu", "--check", DESC]) == 0
+    assert "OK: 4 elements" in capsys.readouterr().out
+    assert main(["--check", "videotestsrc ! no_such_element ! "
+                 "tensor_sink"]) == 1
+    assert main(["--check", "videotestsrc ! tensor_filter framework=jax "
+                 "model=m mesh=dp2 ! tensor_sink"]) == 1
+    assert "A.24" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--fleet", "127.0.0.1:9000"], "26b"),
+    (["--export", "m.py", "out.pt2"], "A.20"),
+    (["--checkpoint-dir", "/nonexistent"], "A.20"),
+    (["--compile-cache", "/nonexistent"], "A.20"),
+    (["--custom", "x"], "A.20"),
+    (["--input", "3:4:4:1"], "A.20"),
+    (["--scaffold", "filter", "mine"], "26g"),
+])
+def test_unported_flags_raise_naming_their_item(argv, item):
+    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+        main(argv + [DESC])
+
+
+def test_bad_platform_is_a_usage_error():
+    with pytest.raises(SystemExit):
+        main(["--platforms", "tpu", DESC])
+
+
+def test_module_entry_point_runs_without_jax(tmp_path):
+    """``python -m nnstreamer_tpu_torch.cli`` in a fresh interpreter: it
+    runs the string on the CPU, and imports neither JAX nor the JAX
+    package on the way."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['nns-launch-torch', '-q', '--platforms', 'cpu', "
+            f"{DESC!r}]\n"
+            "try:\n"
+            "    runpy.run_module('nnstreamer_tpu_torch.cli', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'nnstreamer_tpu'))\n"
+            "print('BAD', bad)\n"
+            "sys.exit(rc or (1 if bad else 0))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Got EOS from pipeline." in proc.stdout
+    assert "BAD []" in proc.stdout

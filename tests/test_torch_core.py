@@ -128,9 +128,10 @@ def test_queue_properties_run(queue_props):
 
 
 @pytest.mark.parametrize("desc,item", [
-    ("videotestsrc ! queue slo-budget-ms=5 ! tensor_sink", "A.11b"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
-     "model=m throttle=10 ! tensor_sink", "A.11b"),
+     "model=m shard=dp2 ! tensor_sink", "A.24"),
+    ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
+     "model=m shared-tensor-filter-key=k ! tensor_sink", "A.20"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
@@ -147,10 +148,18 @@ def test_unported_properties_raise_naming_the_roadmap(desc, item):
     dict(slo_budget_ms=10.0, watchdog_s=1.0),
 ])
 def test_unported_pipeline_options_raise(kwargs):
-    """Of the JAX package's pipeline options only the SLO budget is not
-    ported (A.11b); it raises beside the ported ones too."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, A\.11b"):
-        Pipeline(**kwargs)
+    """Every pipeline option of the JAX package is ported: the SLO budget
+    attaches the scheduler beside the other options. What the scheduler
+    still lacks, the serving mesh's admission quantum, raises naming
+    ROADMAP A.24."""
+    from nnstreamer_tpu_torch.serving.scheduler import ensure_scheduler
+
+    pipe = Pipeline(**kwargs)
+    assert pipe.slo_budget_ms == 10.0
+    sched = ensure_scheduler(pipe)
+    assert sched is pipe._slo_scheduler and sched.budget_ms == 10.0
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, A\.24"):
+        sched.note_mesh(2)
 
 
 def test_unknown_property_is_an_error():

@@ -174,7 +174,9 @@ def test_import_leaves_jax_out():
         "'query.server', 'tensors.meta', 'tensors.pool', "
         "'tensors.buffer', 'pipeline.dispatch', 'elements.aggregator', "
         "'obs.timeline', 'pipeline.faults', 'pipeline.supervise', "
-        "'pipeline.lanes'):\n"
+        "'pipeline.lanes', 'serving.scheduler', 'obs.flight', "
+        "'obs.quantiles', 'obs.server', 'pipeline.dot', 'elements.rate', "
+        "'cli'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -194,17 +196,24 @@ def test_import_leaves_jax_out():
     "appsrc ! queue prefetch-device=true batch-h2d=false drain-batch=4 ! "
     "tensor_sink",
     "appsrc ! tensor_filter framework=jax model=m inflight=3 ! tensor_sink",
+    "appsrc ! tensor_filter framework=jax model=m throttle=5 ! tensor_sink",
+    "appsrc ! queue slo-budget-ms=20 stamp-admission=true ! tensor_sink",
+    "appsrc ! tensor_rate framerate=10/1 throttle=true ! tensor_sink",
 ])
 def test_staging_properties_are_ported(desc):
     tnt.parse_launch(desc)
 
 
 @pytest.mark.parametrize("desc,item", [
-    ("appsrc ! tensor_filter framework=jax model=m throttle=5 ! "
-     "tensor_sink", "A.11b"),
-    ("appsrc ! queue slo-budget-ms=20 ! tensor_sink", "A.11b"),
+    ("appsrc ! tensor_query_client propagate-deadline=true ! "
+     "tensor_sink", "26a"),
+    ("appsrc ! tensor_query_client balance=shortest-slack ! "
+     "tensor_sink", "26b"),
 ])
 def test_admission_properties_still_raise(desc, item):
+    """The filter's throttle and the queue's SLO budget are ported; the
+    admission pieces that ride the query wire are not: a deadline carried
+    to the server (26a) and slack-aware fleet balancing (26b)."""
     with pytest.raises(NotImplementedError, match=item):
         tnt.parse_launch(desc)
 

@@ -261,7 +261,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ({"prefix_cache": 2}, "A.13.2"),
     ({"kv_quant": "int8"}, "A.13.1"),
     ({"speculate": 2}, "A.13.4"),
-    ({"slo_budget_ms": 50.0}, "A.11"),
+    # the request-path budget is ported; the paged engine's deadlines
+    # and shedding come with the paged cache
+    ({"slo_budget_ms": 50.0, "block_tokens": 8}, "A.13.3"),
     ({"temperature": 0.8}, "A.13.5"),
     ({"temperature": 0.8, "top_k": 8}, "A.13.5"),
     ({"top_k": 8}, "A.13.5"),

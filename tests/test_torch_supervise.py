@@ -264,40 +264,171 @@ def test_backoff_is_the_jax_schedule(monkeypatch):
 
 
 def test_list_failure_replays_only_the_undelivered_suffix():
-    """A chain_list that fails part-way: the buffers before the failing one
-    are not delivered twice, the policy takes the failing one (here
-    skip-frame drops it, as for a buffer that came alone; ROADMAP C.13),
-    and the rest are chained one by one."""
-    faults.activate("filter.invoke:nth=3")
-    got = []
+    """A chain_list that fails part-way, in both packages: the buffers
+    before the failing one are not delivered twice, and the rest, the
+    failing one first, are re-chained one by one with the policy per
+    frame. The failing buffer's second chain succeeds (the fault was
+    transient), so even skip-frame loses nothing (ROADMAP C.13)."""
+    for pkg in ("jax", "port"):
+        m = PKGS[pkg]
+        got = []
 
-    class Collect(element.Element):
-        ELEMENT_NAME = "_supcollect"
-        HANDLES_LIST = True
+        class Collect(m["el"].Element):
+            ELEMENT_NAME = f"_supcollect_{pkg}"
+            HANDLES_LIST = True
 
-        def __init__(self, name=None, **props):
-            super().__init__(name, **props)
-            self.add_sink_pad("sink")
+            def __init__(self, name=None, **props):
+                super().__init__(name, **props)
+                self.add_sink_pad("sink")
 
-        def chain(self, pad, buf):
-            fi = faults.ACTIVE
-            fi.check("filter.invoke")
-            got.append(float(np.asarray(buf.tensors[0])[0]))
+            def chain(self, pad, buf):
+                m["faults"].ACTIVE.check("filter.invoke")
+                got.append(float(np.asarray(buf.tensors[0])[0]))
 
-    col = Collect(error_policy="skip-frame")
-    col.pipeline = None
-    bufs = [TensorBuffer([np.full((2,), float(i), np.float32)])
-            for i in range(6)]
-    # the first buffer failing (marker 0) is the same case
-    faults.activate("filter.invoke:nth=1")
-    col._chain_list_entry(col.sinkpads[0], bufs[:3])
-    assert got == [1.0, 2.0]
-    got.clear()
-    faults.activate("filter.invoke:nth=3")
-    col._chain_list_entry(col.sinkpads[0], bufs)
-    # frames 0 and 1 were delivered once; frame 2's failure went to the
-    # policy, which dropped it; 3-5 were chained one by one
-    assert got == [0.0, 1.0, 3.0, 4.0, 5.0]
+        col = Collect(error_policy="skip-frame")
+        col.pipeline = None
+        bufs = [m["buf"]([np.full((2,), float(i), np.float32)])
+                for i in range(6)]
+        # the first buffer failing (marker 0) is the same case
+        m["faults"].activate("filter.invoke:nth=1")
+        col._chain_list_entry(col.sinkpads[0], bufs[:3])
+        assert got == [0.0, 1.0, 2.0], pkg
+        got.clear()
+        m["faults"].activate("filter.invoke:nth=3")
+        col._chain_list_entry(col.sinkpads[0], bufs)
+        # frames 0 and 1 were delivered once; frame 2 failed and was
+        # chained again, then 3-5 one by one
+        assert got == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0], pkg
+        m["faults"].deactivate()
+
+
+def _uncut_small(model, labels, n):
+    """bench.py's uncut string at a small size: lanes come from the
+    caller, a stamp-admission ingress (blocking, so every frame reaches
+    the aggregator), batch 8, the staging queue's list hand-off into the
+    filter (fused region or plain), a materialize-host drain. The staging
+    queue holds every window of the run."""
+    return (f"videotestsrc num-buffers={n} width=16 height=16 "
+            "pattern=ball ! tensor_converter ! "
+            "queue name=q_ingress max-size-buffers=16 stamp-admission=true ! "
+            "tensor_aggregator frames-in=1 frames-out=8 frames-flush=8 "
+            "frames-dim=3 concat=true ! "
+            "queue name=q_stage max-size-buffers=64 prefetch-device=true ! "
+            "tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model} inflight=2 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} "
+            "option2=batched ! queue max-size-buffers=64 "
+            "materialize-host=true ! tensor_sink name=out")
+
+
+_FAULT_COUNTERS = ("nns_fault_retries_total", "nns_fault_skipped_frames_total")
+
+
+def _gate_staging_queue(monkeypatch, pipeline_mod, windows):
+    """Hold ``q_stage``'s worker until all ``windows`` and the EOS are
+    queued, so it hands them on as ONE list in both packages: which
+    windows a fault meets in a list and which alone is then no longer up
+    to the threads' timing."""
+    drain = pipeline_mod.Queue._drain
+
+    def gated(self):
+        if self.name == "q_stage":
+            t_end = time.monotonic() + 60
+            while self._q.qsize() < windows + 1 and \
+                    not self._stop_evt.is_set() and time.monotonic() < t_end:
+                time.sleep(0.001)
+        return drain(self)
+
+    monkeypatch.setattr(pipeline_mod.Queue, "_drain", gated)
+
+
+def _counter_sum(reg, name, **labels):
+    return sum(m.value for m in reg.collect()
+               if m.name == name and all(m.labels.get(k) == v
+                                         for k, v in labels.items()))
+
+
+@pytest.fixture
+def scores_models(tmp_path):
+    """The same 4-class scorer in both packages: a frame's mean times
+    1, 2, 3, 4."""
+    from nnstreamer_tpu.filters.jax_backend import (
+        register_jax_model,
+        unregister_jax_model,
+    )
+
+    class Scores(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("w", torch.arange(1.0, 5.0)[None])
+
+        def forward(self, x):
+            return x.float().mean(dim=(1, 2, 3))[:, None] * self.w
+
+    w = np.arange(1.0, 5.0, dtype=np.float32)[None]
+
+    def jax_scores(x):
+        return x.astype("float32").mean(axis=(1, 2, 3))[:, None] * w
+
+    register_jax_model("sup_scores", jax_scores)
+    register_torch_model("sup_scores", Scores())
+    tnt.set_device("cpu")
+    labels = tmp_path / "labels.txt"
+    labels.write_text("".join(f"l{i}\n" for i in range(4)))
+    yield "sup_scores", str(labels)
+    tnt.set_device(None)
+    unregister_jax_model("sup_scores")
+    unregister_torch_model("sup_scores")
+
+
+@pytest.mark.parametrize("policy", ["skip-frame", "retry"])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_uncut_string_under_faults_delivers_the_jax_frames(
+        scores_models, monkeypatch, policy, fuse):
+    """The uncut string (lanes 4) with ``filter.invoke:every=13`` in both
+    packages: the same windows (pts and bytes) reach the sink, with the
+    same injected, retried and skipped counts. A failed list re-chains
+    its failing window once before the policy acts (ROADMAP C.13)."""
+    from nnstreamer_tpu.obs import get_registry as jget_registry
+
+    model, labels = scores_models
+    got = {}
+    for pkg, reg in (("jax", jget_registry()), ("port", get_registry())):
+        m = PKGS[pkg]
+        _gate_staging_queue(monkeypatch, m["pipe"], 25)
+        name = f"sup-uncut-{policy}-{fuse}-{pkg}-{next(_ids)}"
+        inj0 = _counter_sum(reg, "nns_fault_injected_total",
+                            site="filter.invoke")
+        m["faults"].activate("filter.invoke:every=13")
+        mod = jnt if pkg == "jax" else tnt
+        pipe = mod.parse_launch(
+            _uncut_small(model, labels, 200), lanes=4, error_policy=policy,
+            pipeline=m["pipe"].Pipeline(name=name, fuse=fuse))
+        outs = []
+        pipe.get("out").connect(lambda b: outs.append(
+            (b.pts, b"".join(np.asarray(t).tobytes() for t in b.tensors),
+             tuple(b.meta["label"]))))
+        assert pipe.run(timeout=120).kind == "eos"
+        m["faults"].deactivate()
+        counts = {c: _counter_sum(reg, c, pipeline=name)
+                  for c in _FAULT_COUNTERS}
+        counts["injected"] = _counter_sum(
+            reg, "nns_fault_injected_total", site="filter.invoke") - inj0
+        got[pkg] = (outs, counts)
+    (outs, counts), (ref, ref_counts) = got["port"], got["jax"]
+    assert counts == ref_counts
+    assert [o[0] for o in outs] == [r[0] for r in ref]
+    assert [o[2] for o in outs] == [r[2] for r in ref]
+    assert [o[1] for o in outs] == [r[1] for r in ref]
+    # fused, the region takes the list: window 13 failed inside it and
+    # was re-chained, and window 25 (the 26th invoke) failed alone in the
+    # per-window replay and met the policy. Unfused, every window meets
+    # the filter alone and the policy answers the 13th invoke. Either
+    # way skip-frame drops one window and retry delivers all 25.
+    assert counts["injected"] == (1 if not fuse and policy == "skip-frame"
+                                  else 2)
+    assert len(outs) == (24 if policy == "skip-frame" else 25)
 
 
 # -- lanes under supervision ----------------------------------------------------
