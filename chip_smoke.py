@@ -14,8 +14,18 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   128 new tokens on a decoder-only transformer at full width (vocab
   32000, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 512,
   bfloat16, weights made from a seed); prefill runs kernel B2 (flash
-  attention) in every layer. An fp32 run holds the kernel's greedy
-  tokens to the plain attention's, and the bf16 logits to the fp32 ones.
+  attention) in every layer, and the engine's K decode steps a dispatch
+  are one CUDA graph, captured once and replayed. An fp32 run holds the
+  kernel's greedy tokens to the plain attention's, and the bf16 logits to
+  the fp32 ones.
+- The captured K-step dispatch against its eager body (``lm_graph``): one
+  capture at the K that served, replays = dispatches, fp32 tokens
+  identical, bf16 rates of both; the int8 KV cache (``lm_kv_int8``: its
+  bytes, the 12 × 128 run, fp32 first tokens equal to the raw cache's,
+  six decode steps within 0.08 of the raw logits); the prefix cache and
+  chunked prefill (``lm_prefix_chunk``: 12 prompts behind a 200-token
+  preamble, fp32 tokens identical to a cold engine's with
+  ``prefix_cache=4``, ``prefill_chunk=64`` and both).
 - The same engine behind the query pair (``tensor_query_serversrc !
   tensor_lm_serve ! tensor_query_serversink``), fed by four ``appsrc !
   tensor_query_client ! tensor_sink`` clients over 127.0.0.1; in fp32 each
@@ -196,6 +206,13 @@ LM_DRIFT_MAX = 2e-2        # bf16 vs fp32 first-token logits, relative L2
 LM_PROFILED_NEW = 32       # new tokens per prompt in the profiled run
 LM_QUERY_CLIENTS = 4       # client pipelines of the lm_query phase, each
 #                            pushing LM_PROMPT_LENS[3k:3k+3] in order
+LM_KV_DRIFT_MAX = 0.08     # int8 vs raw cache logits / max|logit|, per step
+#                            (tests/test_kv_int8.py:69-73)
+LM_KV_STEPS = [9, 14, 27, 5, 18, 40]  # the drift check's steps after the
+LM_KV_PROMPT = [7, 3, 11, 30, 2]      # prompt (tests/test_kv_int8.py:55-67)
+LM_PREAMBLE = 200          # shared preamble of the lm_prefix_chunk prompts
+LM_PREFIX_ENTRIES = 4      # prefix_cache=
+LM_PREFILL_CHUNK = 64      # prefill_chunk=
 
 # -- kernel B3 and the query offload path -------------------------------------
 #: lengths held against the plain versions beside the 224x224x3 frame
@@ -999,6 +1016,80 @@ def _serve(prompts, new_tokens: int, engine_name: str = "lm"):
     return got, time.monotonic() - t0
 
 
+def _b2_prefills(engine, stats0) -> int:
+    """Admissions since ``stats0`` (a copy of ``engine.stats``) whose prompt
+    went through the bucketed prefill, where kernel B2 runs in every
+    layer: a chunked prefill and a prefix hit run the chunk program."""
+    if engine.prefill_chunk is not None:
+        return 0
+    return (engine.stats["prefills"] - stats0["prefills"]) - (
+        engine.stats["prefix_hits"] - stats0["prefix_hits"])
+
+
+def _fp32_engine(**kw):
+    """An fp32 engine of the LM configuration (TF32 is off since
+    lm_parity), 8 slots, K = 8."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = TransformerConfig(**LM, dtype=torch.float32)
+    return ContinuousBatchingEngine(cfg, init_params(cfg, seed=0),
+                                    max_streams=LM_SLOTS,
+                                    steps_per_dispatch=8, **kw)
+
+
+def _token_quantiles(engine) -> dict:
+    return {f"{name}_{which}_ms": (est.quantile() or 0.0) * 1e3
+            for name, pair in engine._lm_stats._q.items()
+            for which, est in pair.items()}
+
+
+def _check_responses(got, n_prompts: int, new_tokens: int, what: str):
+    """Every response full-length int32 ids in the vocab, logprobs finite
+    and <= 0, finished by length. Returns the tokens generated."""
+    import numpy as np
+
+    check(len(got) == n_prompts, f"{what}: {len(got)} of {n_prompts} "
+                                 "responses")
+    total = 0
+    for i, buf in enumerate(got):
+        toks_i = np.asarray(buf.tensors[0])
+        lps = np.asarray(buf.tensors[1])
+        check(toks_i.dtype == np.int32 and toks_i.shape == (new_tokens,),
+              f"{what} response {i}: tokens {toks_i.dtype} {toks_i.shape}")
+        check(bool(((toks_i >= 0) & (toks_i < LM["vocab"])).all()),
+              f"{what} response {i}: token ids out of range")
+        check(lps.dtype == np.float32 and lps.shape == (new_tokens,) and
+              bool(np.isfinite(lps).all()) and bool((lps <= 0).all()),
+              f"{what} response {i}: logprobs not finite and <= 0")
+        check(buf.meta.get("lm_finish_reason") == "length",
+              f"{what} response {i}: finish "
+              f"{buf.meta.get('lm_finish_reason')}")
+        total += toks_i.size
+    return total
+
+
+def _check_graph(engine, what: str, captures_max: int = 1) -> dict:
+    """The engine's K-step program was captured once at the K it served,
+    and at most ``captures_max`` times in its life (2 under "auto": the
+    initial K, then the chosen one), and every dispatch was a replay."""
+    g = engine.graph_stats
+    check(g["captures"] and g["captures"][-1] == engine.K and
+          g["captures"].count(engine.K) == 1 and
+          len(g["captures"]) <= captures_max,
+          f"{what}: captures {g['captures']} at K={engine.K}")
+    check(g["replays"] == engine.stats["dispatches"] > 0,
+          f"{what}: {g['replays']} replays for "
+          f"{engine.stats['dispatches']} dispatches")
+    return {"captures": list(g["captures"]), "capture_s": g["capture_s"],
+            "replays": g["replays"], "dispatches": engine.stats["dispatches"]}
+
+
 def phase_lm_serving(power: str):
     import numpy as np
     import torch
@@ -1032,15 +1123,14 @@ def phase_lm_serving(power: str):
             engine.generate(p, max_new_tokens=engine.K, timeout=600)
         # the measured run's latency quantiles only
         engine._lm_stats = LMTokenStats(engine.obs_name)
-        prefills0 = engine.stats["prefills"]
+        stats0 = dict(engine.stats)
         reset_launches()
         got, wall = _serve(prompts, LM_NEW)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
-        prefills = engine.stats["prefills"] - prefills0
-        q = {f"{name}_{which}_ms": (est.quantile() or 0.0) * 1e3
-             for name, pair in engine._lm_stats._q.items()
-             for which, est in pair.items()}
+        prefills = engine.stats["prefills"] - stats0["prefills"]
+        b2_prefills = _b2_prefills(engine, stats0)
+        q = _token_quantiles(engine)
 
         # prefill of a [4, 512] batch through the engine's own prefill
         # program (kernel B2 in every layer), median of 3
@@ -1059,33 +1149,19 @@ def phase_lm_serving(power: str):
         engine.stop()
         unregister_engine("lm")
 
-    check(len(got) == len(prompts),
-          f"{len(got)} of {len(prompts)} responses")
-    total = 0
-    for i, buf in enumerate(got):
-        toks_i = np.asarray(buf.tensors[0])
-        lps = np.asarray(buf.tensors[1])
-        check(toks_i.dtype == np.int32 and toks_i.shape == (LM_NEW,),
-              f"response {i}: tokens {toks_i.dtype} {toks_i.shape}")
-        check(bool(((toks_i >= 0) & (toks_i < cfg.vocab)).all()),
-              f"response {i}: token ids out of range")
-        check(lps.dtype == np.float32 and lps.shape == (LM_NEW,) and
-              bool(np.isfinite(lps).all()) and bool((lps <= 0).all()),
-              f"response {i}: logprobs not finite and <= 0")
-        check(buf.meta.get("lm_finish_reason") == "length",
-              f"response {i}: finish {buf.meta.get('lm_finish_reason')}")
-        total += toks_i.size
+    total = _check_responses(got, len(prompts), LM_NEW, "lm_serving")
     check(prefills == len(prompts), f"{prefills} prefills for "
                                     f"{len(prompts)} prompts")
-    check(launches["flash_attention"] == cfg.n_layers * prefills,
+    check(launches["flash_attention"] == cfg.n_layers * b2_prefills,
           f"flash kernel launched {launches['flash_attention']} times for "
-          f"{prefills} prefills of {cfg.n_layers} layers")
+          f"{b2_prefills} bucketed prefills of {cfg.n_layers} layers")
     result = {
         "config": {**LM, "dtype": "bfloat16", "slots": LM_SLOTS,
                    "new_tokens": LM_NEW, "prompts": len(prompts)},
         "responses": len(got), "tokens": total, "wall_s": wall,
         "tokens_per_s": total / wall, "K": engine.K,
-        "prefills": prefills, "launches": launches, **q,
+        "prefills": prefills, "b2_prefills": b2_prefills,
+        "launches": launches, **q, "graph": dict(engine.graph_stats),
         "prefill_batch": list(LM_PREFILL_BATCH),
         "prefill_tokens_per_s": statistics.median(samples),
         "prefill_tokens_per_s_samples": samples, "gpu": power,
@@ -1100,23 +1176,14 @@ def phase_lm_parity(bf16_engine):
     import numpy as np
     import torch
 
-    from nnstreamer_tpu_torch.models.transformer import (
-        TransformerConfig,
-        init_params,
-    )
     from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
-    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TransformerConfig(**LM, dtype=torch.float32)
-    params = init_params(cfg, seed=0)
     prompts, _ = _lm_prompts()
     tokens, launches, engines = {}, {}, {}
     for mode in ("auto", "reference"):
-        eng = ContinuousBatchingEngine(cfg, params, max_streams=LM_SLOTS,
-                                       steps_per_dispatch=8,
-                                       attention=mode).start()
+        eng = _fp32_engine(attention=mode).start()
         try:
             reset_launches()
             streams = [eng.submit(p, max_new_tokens=LM_PARITY_NEW)
@@ -1134,7 +1201,7 @@ def phase_lm_parity(bf16_engine):
                       "between kernel B2 and the plain attention")
     check(all(len(t) == LM_PARITY_NEW for t in tokens["auto"]),
           "a parity stream came back short")
-    check(launches["auto"]["flash_attention"] == cfg.n_layers * len(prompts)
+    check(launches["auto"]["flash_attention"] == LM["n_layers"] * len(prompts)
           and launches["reference"]["flash_attention"] == 0,
           f"attention launches {launches}")
 
@@ -1163,10 +1230,52 @@ def phase_lm_parity(bf16_engine):
     return result, fp32, tokens["auto"]
 
 
-def profile_lm(engine) -> None:
-    """One serving run under ``torch.profiler``: the device's busy time per
-    generated token, its idle share of the run, and the kernels that take
-    the most device time."""
+def _host_calls_per_dispatch(prof) -> dict:
+    """From a trace of a captured engine's run: the host's launch calls
+    between one graph launch and the next, per dispatch (the median is the
+    steady state: one replay and the block's fetch; an interval that holds
+    an admission also holds its prefill's launches), and the device's idle
+    share from the first graph launch to the trace's last device event
+    (the decode after the first admission wave)."""
+    import torch
+
+    calls = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                   if ev.device_type != torch.autograd.DeviceType.CUDA
+                   and ev.name in HOST_LAUNCH_CALLS)
+    graphs = [t for t, name in calls if name == "cudaGraphLaunch"]
+    intervals = [[name for t, name in calls if a <= t < b]
+                 for a, b in zip(graphs, graphs[1:])]
+    if not intervals:
+        return {"graph_launches": len(graphs)}
+    counts = [len(iv) for iv in intervals]
+    steady = statistics.median_low(counts)
+    typical = next(iv for iv in intervals if len(iv) == steady)
+    spans = sorted((max(ev.time_range.start, graphs[0]), ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.time_range.end > graphs[0])
+    busy, end = 0.0, None  # union of device intervals after the launch
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"graph_launches": len(graphs),
+            "host_launch_calls_per_dispatch_median": steady,
+            "host_launch_calls_per_dispatch_max": max(counts),
+            "host_launch_calls_per_dispatch_by_call": {
+                name: typical.count(name) for name in sorted(set(typical))},
+            "device_idle_share_from_first_replay":
+                1.0 - busy / (end - graphs[0]) if end else None}
+
+
+def profile_lm(engine, eager_engine) -> None:
+    """One serving run of each engine under ``torch.profiler`` (the
+    captured one first): the device's busy time per generated token, its
+    idle share of the run, kernels and host launch calls per token and per
+    dispatch, and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,24 +1283,33 @@ def profile_lm(engine) -> None:
 
     prompts, _ = _lm_prompts()
     prompts = prompts[:LM_SLOTS]
-    engine.start()
-    register_engine("lm", engine)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            got, _ = _serve(prompts, LM_PROFILED_NEW)
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
-    finally:
-        engine.stop()
-        unregister_engine("lm")
-    tokens = sum(len(buf.tensors[0]) for buf in got)
-    check(tokens == len(prompts) * LM_PROFILED_NEW,
-          f"profiled LM run produced {tokens} tokens")
+    out = {}
+    for tag, eng in (("captured", engine), ("eager", eager_engine)):
+        eng.start()
+        register_engine("lm", eng)
+        try:
+            dispatches0 = eng.stats["dispatches"]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                got, _ = _serve(prompts, LM_PROFILED_NEW)
+                torch.cuda.synchronize()
+                wall_us = (time.monotonic() - t0) * 1e6
+        finally:
+            eng.stop()
+            unregister_engine("lm")
+        tokens = sum(len(buf.tensors[0]) for buf in got)
+        check(tokens == len(prompts) * LM_PROFILED_NEW,
+              f"profiled LM run ({tag}) produced {tokens} tokens")
+        dispatches = eng.stats["dispatches"] - dispatches0
+        prof_tok = device_profile(prof, wall_us, tokens, "token")
+        out[tag] = {
+            "K": eng.K, "dispatches": dispatches, **prof_tok,
+            "host_launches_per_dispatch": prof_tok[
+                "host_launches_per_token"] * tokens / dispatches,
+            **_host_calls_per_dispatch(prof)}
     emit({"phase": "lm_profile", "prompts": len(prompts),
-          "new_tokens": LM_PROFILED_NEW,
-          **device_profile(prof, wall_us, tokens, "token")})
+          "new_tokens": LM_PROFILED_NEW, **out})
 
 
 # -- phases: tensor_lm_serve behind the query pair ----------------------------
@@ -1275,9 +1393,7 @@ def phase_lm_query(power: str, bf16_engine, fp32_engine, local_bf16):
         bf16_engine._lm_stats = LMTokenStats(bf16_engine.obs_name)
         got, wall = _serve_over_query("lmq", prompts, LM_NEW)
         torch.cuda.synchronize()
-        q = {f"{name}_{which}_ms": (est.quantile() or 0.0) * 1e3
-             for name, pair in bf16_engine._lm_stats._q.items()
-             for which, est in pair.items()}
+        q = _token_quantiles(bf16_engine)
     finally:
         bf16_engine.stop()
         unregister_engine("lmq")
@@ -2976,11 +3092,7 @@ def phase_lm_slo(power: str, fp32_tokens) -> dict:
 
     nt.set_device(None)
     prompts, _ = _lm_prompts()
-    cfg32 = TransformerConfig(**LM, dtype=torch.float32)
-    eng = ContinuousBatchingEngine(cfg32, init_params(cfg32, seed=0),
-                                   max_streams=LM_SLOTS,
-                                   steps_per_dispatch=8,
-                                   slo_budget_ms=LM_SLO_WIDE_MS).start()
+    eng = _fp32_engine(slo_budget_ms=LM_SLO_WIDE_MS).start()
     try:
         streams = [eng.submit(p, max_new_tokens=LM_PARITY_NEW)
                    for p in prompts]
@@ -3002,11 +3114,13 @@ def phase_lm_slo(power: str, fp32_tokens) -> dict:
                                    slo_budget_ms=SLO_BUDGET_MS).start()
     try:
         rej0 = _counter("nns_sched_rejected_total", pipeline=eng.obs_name)
+        stats0 = dict(eng.stats)
         reset_launches()
         first = [eng.submit(p, max_new_tokens=LM_NEW) for p in prompts]
         out = [s.result(timeout=600) for s in first]
         torch.cuda.synchronize()
         flash = LAUNCHES.get("flash_attention", 0)
+        b2_prefills = _b2_prefills(eng, stats0)
         est_ms = eng._slo.estimator.service_time_s() * 1e3
         raised, admitted = 0, []
         for p in prompts:
@@ -3024,8 +3138,8 @@ def phase_lm_slo(power: str, fp32_tokens) -> dict:
         eng.stop()
     check(all(len(t) == LM_NEW for t in out),
           "lm_slo: a first-burst stream came back short")
-    check(flash == cfg.n_layers * len(prompts),
-          f"lm_slo: flash kernel {flash} for {len(prompts)} prefills")
+    check(b2_prefills == len(prompts) and flash == cfg.n_layers * b2_prefills,
+          f"lm_slo: flash kernel {flash} for {b2_prefills} prefills")
     check(raised == rejected == snap["rejected"] and raised > 0,
           f"lm_slo: {raised} raised, {rejected} counted")
     check(snap["admitted"] == len(prompts) + len(admitted),
@@ -3040,6 +3154,282 @@ def phase_lm_slo(power: str, fp32_tokens) -> dict:
         "nns_sched_rejected_total": rejected, "flash_launches": flash,
         "scheduler": snap, "gpu": power}
     emit({"phase": "lm_slo", **result})
+    return result
+
+
+def _timed_serve(engine, prompts, new_tokens: int, name: str) -> dict:
+    """The warm-up prompts, then one measured ``_serve`` run: tokens/s and
+    the run's TTFT and inter-token quantiles."""
+    from nnstreamer_tpu_torch.obs.flight import LMTokenStats
+    from nnstreamer_tpu_torch.serving import register_engine, unregister_engine
+
+    _, warm = _lm_prompts()
+    engine.start()
+    register_engine(name, engine)
+    try:
+        for p in warm:
+            engine.generate(p, max_new_tokens=engine.K, timeout=600)
+        engine._lm_stats = LMTokenStats(engine.obs_name)
+        got, wall = _serve(prompts, new_tokens, engine_name=name)
+    finally:
+        engine.stop()
+        unregister_engine(name)
+    total = _check_responses(got, len(prompts), new_tokens, name)
+    return {"tokens": total, "wall_s": wall, "tokens_per_s": total / wall,
+            **_token_quantiles(engine)}
+
+
+def phase_lm_graph(power: str, bf16_engine, fp32_engine, fp32_tokens):
+    """The engine's K-step dispatch as one CUDA graph against its eager
+    body (the private ``_eager_dispatch``), in this call:
+
+    - the captured engines of lm_serving (bf16, "auto") and lm_parity
+      (fp32): one capture at the K that served, at most 2 in a life,
+      replays = dispatches, the seconds each capture took;
+    - fp32 (TF32 off), 12 prompts × 32 tokens: an eager engine's greedy
+      tokens identical to lm_parity's captured ones;
+    - bf16, 12 × 128 through tensor_lm_serve: tokens/s, TTFT and
+      inter-token p50/p99, captured, eager, captured (reported);
+    - one replayed decode step's device time against the fp32 upcast of
+      the cache in ``_attend_cache`` (CUDA events)."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
+
+    graphs = {"bf16": _check_graph(bf16_engine, "lm_graph bf16", 2),
+              "fp32": _check_graph(fp32_engine, "lm_graph fp32")}
+    prompts, _ = _lm_prompts()
+    reset_launches()
+    b2 = 0
+    eager32 = _fp32_engine()
+    eager32._eager_dispatch = True
+    eager32.start()
+    try:
+        stats0 = dict(eager32.stats)
+        streams = [eager32.submit(p, max_new_tokens=LM_PARITY_NEW)
+                   for p in prompts]
+        tokens = [s.result(timeout=600) for s in streams]
+        b2 += _b2_prefills(eager32, stats0)
+    finally:
+        eager32.stop()
+    check(eager32.graph_stats["captures"] == [],
+          "lm_graph: the eager engine captured")
+    differ = [i for i, (a, b) in enumerate(zip(tokens, fp32_tokens))
+              if a != b]
+    check(not differ and len(tokens) == len(fp32_tokens),
+          f"lm_graph: fp32 tokens of prompts {differ} differ between the "
+          "captured and the eager dispatch")
+
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    eager = ContinuousBatchingEngine(cfg, init_params(cfg, seed=0),
+                                     max_streams=LM_SLOTS,
+                                     steps_per_dispatch=bf16_engine.K)
+    eager._eager_dispatch = True
+    rates = {}
+    for tag, eng in (("captured", bf16_engine), ("eager", eager),
+                     ("captured_again", bf16_engine)):
+        stats0 = dict(eng.stats)
+        rates[tag] = _timed_serve(eng, prompts, LM_NEW, f"lmg_{tag}")
+        b2 += _b2_prefills(eng, stats0)
+    torch.cuda.synchronize()
+    flash = LAUNCHES["flash_attention"]
+    check(flash == cfg.n_layers * b2,
+          f"lm_graph: flash kernel {flash} for {b2} bucketed prefills")
+    graphs["bf16"] = _check_graph(bf16_engine, "lm_graph bf16", 2)
+
+    # one decode step's device time, replayed, against the upcast of the
+    # bf16 cache that _attend_cache makes in every layer (k and v to fp32)
+    prog = bf16_engine._program
+    with torch.inference_mode():
+        step_ms = cuda_time_ms(prog.run, launches=20, repeats=5) / prog.K
+        ck, cv = bf16_engine._cache.values[0]
+        upcast_ms = cfg.n_layers * cuda_time_ms(
+            lambda: (ck.float(), cv.float()), launches=50, repeats=5)
+    bf16_engine._reload = True  # the timing runs moved the program's state
+    result = {
+        "graphs": graphs, "K": bf16_engine.K,
+        "fp32_prompts": len(prompts), "fp32_new_tokens": LM_PARITY_NEW,
+        "fp32_tokens_identical": True, "rates": rates,
+        "captured_over_eager": rates["captured"]["tokens_per_s"] /
+        rates["eager"]["tokens_per_s"],
+        "flash_launches": flash, "b2_prefills": b2,
+        "replayed_step_device_ms": step_ms,
+        "attend_upcast_ms_per_step": upcast_ms,
+        "attend_upcast_share_of_step": upcast_ms / step_ms,
+        "attend_upcast_bound_ms_per_step": cfg.n_layers * 2 * ck.numel() *
+        (2 + 4) / HBM_BYTES_PER_S * 1e3,
+        "gpu": power}
+    emit({"phase": "lm_graph", **result})
+    return result, eager
+
+
+def phase_lm_kv_int8(power: str, fp32_tokens) -> dict:
+    """The int8 KV cache (``kv_quant="int8"``) at full width:
+
+    - its bytes against the bf16 cache's: ≤ 0.5 + 4/dh + 0.05
+      (tests/test_kv_int8.py:30-41);
+    - a bf16 int8 engine serves the 12 × 128 run through tensor_lm_serve,
+      every response full-length with finite logprobs ≤ 0, captured once;
+    - in fp32 each prompt's first token equals the raw engine's
+      (lm_parity's);
+    - ``build_decode_step`` on the card, fp32, six steps: the int8 cache's
+      logits within 0.08 × max|logit| of the raw cache's."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        build_decode_step,
+        build_prefill,
+        init_cache,
+        init_params,
+        prepare_params,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    raw = init_cache(cfg, LM_SLOTS, device="cuda:0")
+    q8 = init_cache(cfg, LM_SLOTS, kv_codec="int8", device="cuda:0")
+    ratio = q8.nbytes / raw.nbytes
+    bound = 0.5 + 4 / cfg.head_dim + 0.05
+    check(ratio <= bound and q8.dtype is torch.int8,
+          f"lm_kv_int8: int8 cache {q8.nbytes} B, {ratio} of bf16's")
+    sizes = {"bf16_bytes": raw.nbytes, "int8_bytes": q8.values.nbytes,
+             "scale_bytes": q8.scale.nbytes}
+    del raw, q8
+
+    prompts, _ = _lm_prompts()
+    eng = ContinuousBatchingEngine(cfg, init_params(cfg, seed=0),
+                                   max_streams=LM_SLOTS,
+                                   steps_per_dispatch=8, kv_quant="int8")
+    reset_launches()
+    stats0 = dict(eng.stats)
+    served = _timed_serve(eng, prompts, LM_NEW, "lm_int8")
+    torch.cuda.synchronize()
+    flash = LAUNCHES["flash_attention"]
+    b2 = _b2_prefills(eng, stats0)
+    check(flash == cfg.n_layers * b2, f"lm_kv_int8: flash kernel {flash} "
+                                      f"for {b2} bucketed prefills")
+    graph = _check_graph(eng, "lm_kv_int8")
+
+    eng32 = _fp32_engine(kv_quant="int8").start()
+    try:
+        streams = [eng32.submit(p, max_new_tokens=1) for p in prompts]
+        firsts = [s.result(timeout=600) for s in streams]
+    finally:
+        eng32.stop()
+    check([f[0] for f in firsts] == [t[0] for t in fp32_tokens],
+          f"lm_kv_int8: fp32 first tokens {firsts} differ from the raw "
+          "cache's")
+
+    cfg32 = TransformerConfig(**LM, dtype=torch.float32)
+    params = prepare_params(init_params(cfg32, seed=0), cfg32, "cuda:0")
+    logits = {}
+    with torch.inference_mode():
+        for codec in (None, "int8"):
+            _, cache = build_prefill(cfg32, kv_codec=codec)(
+                params, torch.tensor([LM_KV_PROMPT], dtype=torch.int32,
+                                     device="cuda:0"))
+            step = build_decode_step(cfg32, kv_codec=codec)
+            out, tok = [], LM_KV_STEPS[0]
+            for i, nxt in enumerate(LM_KV_STEPS[1:] + [0]):
+                lg, cache = step(params, torch.tensor(
+                    [tok], dtype=torch.int32, device="cuda:0"), cache,
+                    len(LM_KV_PROMPT) + i)
+                out.append(lg)
+                tok = nxt
+            logits[codec] = torch.stack(out, 1)
+    err = float((logits[None] - logits["int8"]).abs().max())
+    ref = float(logits[None].abs().max())
+    check(err < LM_KV_DRIFT_MAX * ref,
+          f"lm_kv_int8: int8 logits {err} from the raw cache's "
+          f"(max |logit| {ref})")
+    result = {**sizes, "int8_over_bf16": ratio, "ratio_bound": bound,
+              "served": served, "flash_launches": flash, "b2_prefills": b2,
+              "graph": graph, "fp32_first_tokens_equal_raw": True,
+              "decode_steps": len(LM_KV_STEPS),
+              "step_drift_over_max_logit": err / ref,
+              "drift_bound": LM_KV_DRIFT_MAX, "gpu": power}
+    emit({"phase": "lm_kv_int8", **result})
+    return result
+
+
+def _preamble_prompts():
+    """LM_PREAMBLE tokens from seed 1, each measured-run prompt after it."""
+    import numpy as np
+
+    preamble = np.random.default_rng(1).integers(
+        1, LM["vocab"], LM_PREAMBLE).tolist()
+    prompts, _ = _lm_prompts()
+    return [preamble + p for p in prompts]
+
+
+def phase_lm_prefix_chunk(power: str) -> dict:
+    """The prefix cache and chunked prefill in fp32 (TF32 off): 12 prompts
+    sharing a 200-token preamble, 32 tokens each, submitted at once. A
+    cold engine; ``prefix_cache=4`` (11 or more hits); ``prefill_chunk=64``;
+    both. Every engine's greedy tokens identical to the cold one's, and
+    kernel B2 once a layer for each bucketed (cold, unchunked) prefill."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+
+    prompts = _preamble_prompts()
+    runs, tokens = {}, {}
+    variants = (("cold", {}), ("prefix", {"prefix_cache": LM_PREFIX_ENTRIES}),
+                ("chunked", {"prefill_chunk": LM_PREFILL_CHUNK}),
+                ("prefix_chunked", {"prefix_cache": LM_PREFIX_ENTRIES,
+                                    "prefill_chunk": LM_PREFILL_CHUNK}))
+    flash_total = b2_total = 0
+    for tag, kw in variants:
+        eng = _fp32_engine(**kw)
+        reset_launches()
+        eng.start()
+        try:
+            t0 = time.monotonic()
+            streams = [eng.submit(p, max_new_tokens=LM_PARITY_NEW)
+                       for p in prompts]
+            tokens[tag] = [s.result(timeout=600) for s in streams]
+            wall = time.monotonic() - t0
+        finally:
+            eng.stop()
+        torch.cuda.synchronize()
+        flash = LAUNCHES["flash_attention"]
+        b2 = _b2_prefills(eng, {"prefills": 0, "prefix_hits": 0})
+        check(flash == LM["n_layers"] * b2,
+              f"lm_prefix_chunk {tag}: flash kernel {flash} for {b2} "
+              "bucketed prefills")
+        flash_total += flash
+        b2_total += b2
+        runs[tag] = {"wall_s": wall, "flash_launches": flash,
+                     "b2_prefills": b2, "graph": _check_graph(eng, tag),
+                     **{k: eng.stats[k] for k in (
+                         "prefills", "prefill_chunks", "prefix_hits",
+                         "prefix_tokens_reused")},
+                     **_token_quantiles(eng)}
+        if tag != "cold":
+            differ = [i for i, (a, b) in enumerate(zip(tokens[tag],
+                                                        tokens["cold"]))
+                      if a != b]
+            check(not differ, f"lm_prefix_chunk {tag}: tokens of prompts "
+                              f"{differ} differ from the cold engine's")
+        if "prefix" in tag:
+            check(eng.stats["prefix_hits"] >= len(prompts) - 1,
+                  f"lm_prefix_chunk {tag}: {eng.stats['prefix_hits']} hits")
+    check(all(len(t) == LM_PARITY_NEW for t in tokens["cold"]),
+          "lm_prefix_chunk: a cold stream came back short")
+    result = {"prompts": len(prompts), "preamble": LM_PREAMBLE,
+              "new_tokens": LM_PARITY_NEW,
+              "prefix_cache": LM_PREFIX_ENTRIES,
+              "prefill_chunk": LM_PREFILL_CHUNK, "tokens_identical": True,
+              "runs": runs, "flash_launches": flash_total,
+              "b2_prefills": b2_total, "gpu": power}
+    emit({"phase": "lm_prefix_chunk", **result})
     return result
 
 
@@ -3189,6 +3579,10 @@ def main() -> int:
     _, fp32_engine, fp32_tokens = phase_lm_parity(lm_engine)
     phase_lm_query(power, lm_engine, fp32_engine, lm_tokens)
     lm_slo = phase_lm_slo(power, fp32_tokens)
+    lm_graph, lm_eager = phase_lm_graph(power, lm_engine, fp32_engine,
+                                        fp32_tokens)
+    lm_kv = phase_lm_kv_int8(power, fp32_tokens)
+    lm_prefix = phase_lm_prefix_chunk(power)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
     uncut = phase_pipeline_uncut(power)
@@ -3197,7 +3591,7 @@ def main() -> int:
     qos = phase_qos(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
-    profile_lm(lm_engine)
+    profile_lm(lm_engine, lm_eager)
     dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
         for tag, (kernel, plain) in timed_b1.items()})
@@ -3243,6 +3637,12 @@ def main() -> int:
         "launches": lm["launches"]["flash_attention"],
         # the engine under an SLO budget: the first burst's prefills
         "launches_lm_slo": lm_slo["flash_launches"],
+        # the captured engine against the eager one, the int8 cache, and
+        # the prefix cache with chunked prefill (B2 once a layer of each
+        # bucketed prefill; a prefix hit or a chunk runs none)
+        "launches_lm_graph": lm_graph["flash_launches"],
+        "launches_lm_kv_int8": lm_kv["flash_launches"],
+        "launches_lm_prefix": lm_prefix["flash_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
         "device_ms": dev_b2[f"{prefill_tag}_device_ms"],

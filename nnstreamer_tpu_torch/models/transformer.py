@@ -15,13 +15,15 @@ the same seeded weights, and the same layer math:
 
 Where the JAX package scans one compiled layer body over the stacked
 params, this module runs a Python loop over layers; where it relies on
-donation to update the KV cache, the decode step writes the cache tensor
-in place and returns it.
+donation to update the KV cache, the decode and chunk steps write the
+cache's tensors in place and return it. A cache is a :class:`KVCache`
+for both codecs: the raw one (the model dtype) and the int8 one
+(per-vector absmax scales, ``kv_codec="int8"``).
 
-Not ported yet, each raising with its ROADMAP item: the int8 KV codec
-(A.13.1), chunk decode (A.13.2), the paged builders (A.13.3) and the
-sampled path — ``temperature > 0``, ``top_k``, ``min_p`` (A.13.5). The
-repo-loop stream steps wait for A.13.6.
+Not ported yet, each raising with its ROADMAP item: the paged builders
+and the codecs' paged methods (A.13.3) and the sampled path —
+``temperature > 0``, ``top_k``, ``min_p`` (A.13.5). The repo-loop stream
+steps wait for A.13.6.
 """
 
 from __future__ import annotations
@@ -125,8 +127,10 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary embeddings; x [b, s, h, d], positions [b, s]."""
     half = x.shape[-1] // 2
     ar = torch.arange(half, dtype=torch.float32, device=x.device)
-    freqs = torch.exp(torch.tensor(-math.log(10000.0), dtype=torch.float32,
-                                   device=x.device) * ar / half)
+    # torch.full, not torch.tensor: a host-to-card copy cannot be captured
+    # in a CUDA graph (serving/engine.py captures the decode step)
+    freqs = torch.exp(torch.full((), -math.log(10000.0), dtype=torch.float32,
+                                 device=x.device) * ar / half)
     angles = positions[..., None].float() * freqs          # [b, s, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -253,29 +257,128 @@ def build_forward(cfg: TransformerConfig,
     return apply_fn
 
 
+@dataclasses.dataclass
+class KVCache:
+    """A KV cache: ``values [L, 2, b, S, h, dh]`` (k = 0, v = 1) in the
+    model dtype, or int8 beside fp32 per-vector ``scale [L, 2, b, S, h]``
+    (the int8 codec). Every tensor has the same leading axes, so a view of
+    one layer, one batch slot or the first n slots is the same view of
+    each (:meth:`map`), and :meth:`copy_` writes one cache into another in
+    place: the decode step a CUDA graph captured keeps reading the same
+    storage."""
+
+    values: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return (self.values,) if self.scale is None else (self.values,
+                                                          self.scale)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "KVCache":
+        return KVCache(fn(self.values),
+                       None if self.scale is None else fn(self.scale))
+
+    def copy_(self, src: "KVCache") -> "KVCache":
+        for dst, s in zip(self.leaves(), src.leaves()):
+            dst.copy_(s)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.leaves())
+
+
+def _slot_write(leaf: torch.Tensor, upd: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """Write ``upd [2, b, c, ...]`` into a layer cache leaf ``[2, b, S,
+    ...]`` at slots ``[start[r], start[r] + c)`` of each row r (in
+    place; the callers keep the run inside the cache)."""
+    b, c = upd.shape[1], upd.shape[2]
+    rows = torch.arange(b, device=leaf.device)[:, None]
+    slots = start[:, None] + torch.arange(c, device=leaf.device)[None, :]
+    leaf[:, rows, slots] = upd
+
+
 class _RawKVCodec:
-    """Cache = one tensor [L, 2, b, S, h, dh] in the model dtype, written
-    in place."""
+    """Cache values in the model dtype."""
 
     def __init__(self, dtype):
         self.dtype = dtype
 
-    def init(self, L, b, S, h, dh, device=None):
-        return torch.zeros((L, 2, b, S, h, dh), dtype=self.dtype,
-                           device=device)
+    def init(self, L, b, S, h, dh, device=None) -> KVCache:
+        return KVCache(torch.zeros((L, 2, b, S, h, dh), dtype=self.dtype,
+                                   device=device))
 
-    def write(self, layer_cache, kv, pos):
-        """kv [2, b, 1, h, dh] → slot ``pos[r]`` of each row r (in place)."""
-        rows = torch.arange(kv.shape[1], device=layer_cache.device)
-        layer_cache[:, rows, pos] = kv[:, :, 0].to(self.dtype)
+    def write(self, layer_cache: KVCache, kv, start) -> KVCache:
+        """kv [2, b, c, h, dh] → slots [start[r], start[r] + c) of each row
+        r (in place)."""
+        _slot_write(layer_cache.values, kv.to(self.dtype), start)
         return layer_cache
 
-    def read(self, layer_cache):
-        return layer_cache[0], layer_cache[1]
+    def read(self, layer_cache: KVCache):
+        return layer_cache.values[0], layer_cache.values[1]
 
-    def place_prefix(self, cache, kv):
+    def place_prefix(self, cache: KVCache, kv) -> KVCache:
         """kv [L, 2, b, s, h, dh] → cache slots [0, s) (in place)."""
-        cache[:, :, :, :kv.shape[3]] = kv.to(self.dtype)
+        cache.values[:, :, :, :kv.shape[3]] = kv.to(self.dtype)
+        return cache
+
+    def paged_init(self, *_args, **_kw):
+        raise not_ported("the paged KV cache (the codec's paged methods)",
+                         "A.13.3")
+
+    paged_write = paged_read = paged_init
+
+
+class _Int8KVCodec(_RawKVCodec):
+    """int8 values [L, 2, b, S, h, dh] + per-vector absmax scales [L, 2, b,
+    S, h] fp32: half the bytes of a bf16 cache (plus 4/dh for the scales).
+    The scale is ``max(amax / 127, 1e-30)`` and the value
+    ``clip(round(x / scale), -127, 127)`` with ``torch.round``'s half to
+    even, as ``jnp.round``. Reads dequantize in fp32 right before the
+    attention einsums, so ``_attend_cache`` is unchanged. Torch ops, as
+    the JAX package leaves the codec to XLA (it has no ``pallas_call``):
+    kernel B3 is per-tensor absmax, another function."""
+
+    def __init__(self):
+        super().__init__(torch.int8)
+
+    @staticmethod
+    def _q(kv):
+        kf = kv.float()
+        amax = torch.amax(torch.abs(kf), dim=-1, keepdim=True)
+        scale = torch.clamp(amax / 127.0, min=1e-30)
+        q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
+        return q, scale[..., 0]
+
+    def init(self, L, b, S, h, dh, device=None) -> KVCache:
+        return KVCache(
+            torch.zeros((L, 2, b, S, h, dh), dtype=torch.int8, device=device),
+            torch.zeros((L, 2, b, S, h), dtype=torch.float32, device=device))
+
+    def write(self, layer_cache: KVCache, kv, start) -> KVCache:
+        q, s = self._q(kv)                 # [2, b, c, h, dh], [2, b, c, h]
+        _slot_write(layer_cache.values, q, start)
+        _slot_write(layer_cache.scale, s, start)
+        return layer_cache
+
+    def read(self, layer_cache: KVCache):
+        deq = layer_cache.values.float() * layer_cache.scale[..., None]
+        return deq[0], deq[1]
+
+    def place_prefix(self, cache: KVCache, kv) -> KVCache:
+        q, s = self._q(kv)                 # [L, 2, b, s, h, dh], [.., h]
+        n = kv.shape[3]
+        cache.values[:, :, :, :n] = q
+        cache.scale[:, :, :, :n] = s
         return cache
 
 
@@ -283,15 +386,16 @@ def _kv_codec(cfg: TransformerConfig, kv_codec: Optional[str]):
     if kv_codec in (None, "raw"):
         return _RawKVCodec(cfg.dtype)
     if kv_codec == "int8":
-        raise not_ported("the int8 KV cache (kv_codec='int8')", "A.13.1")
+        return _Int8KVCodec()
     raise ValueError(
         f"kv_codec must be None/'raw'/'int8', got {kv_codec!r}")
 
 
 def init_cache(cfg: TransformerConfig, batch: int,
                max_seq: Optional[int] = None,
-               kv_codec: Optional[str] = None, device=None) -> torch.Tensor:
-    """KV cache [L, 2, b, S, h, dh] (k = 0, v = 1), zeros."""
+               kv_codec: Optional[str] = None, device=None) -> KVCache:
+    """A zero KV cache of ``batch`` rows; ``kv_codec="int8"`` gives the
+    quantized layout the matching ``build_*`` functions take."""
     s = max_seq or cfg.max_seq
     return _kv_codec(cfg, kv_codec).init(
         cfg.n_layers, batch, s, cfg.n_heads, cfg.head_dim, device)
@@ -306,7 +410,8 @@ def build_decode_step(cfg: TransformerConfig,
     under a ``slot <= pos`` mask. ``pos`` is a scalar (all rows in step)
     or a ``[b]`` tensor (one position per row, the continuous-batching
     shape). Positions past the cache are clamped to its last slot, the
-    JAX package's cache-length contract."""
+    JAX package's cache-length contract. ``kv_codec="int8"`` takes the
+    matching ``init_cache(..., kv_codec="int8")`` cache."""
     dtype = cfg.dtype
     s_max = max_seq or cfg.max_seq
     codec = _kv_codec(cfg, kv_codec)
@@ -325,7 +430,8 @@ def build_decode_step(cfg: TransformerConfig,
         for l in range(cfg.n_layers):
             lp = _layer(params, l)
             q, k, v = _block_qkv(x, lp, positions, dtype)   # [b, 1, h, dh]
-            layer_cache = codec.write(cache[l], torch.stack([k, v]), pos_c)
+            layer_cache = codec.write(cache.map(lambda t: t[l]),
+                                      torch.stack([k, v]), pos_c)
             ck, cv = codec.read(layer_cache)
             a = _attend_cache(q, ck, cv, mask, cfg.head_dim, dtype)
             x = _block_tail(x, a, lp, cfg)
@@ -334,16 +440,57 @@ def build_decode_step(cfg: TransformerConfig,
     return step
 
 
+def build_chunk_decode(cfg: TransformerConfig,
+                       max_seq: Optional[int] = None,
+                       kv_codec: Optional[str] = None) -> Callable:
+    """KV-cached decode of a whole chunk of c tokens in one pass:
+    ``chunk(params, tokens[int b, c], cache, pos0) -> (logits[b, c,
+    vocab], cache)`` — :func:`build_decode_step` generalized to c
+    positions (chunked prefill, the prefix cache's remainder). Position
+    ``pos0 + i`` writes cache slot ``pos0 + i`` before the attend (in
+    place) and query i sees slots ``<= pos0 + i``. ``pos0`` is a scalar or
+    a ``[b]`` tensor (one origin per row), clamped to ``S - c`` so the
+    chunk's writes stay inside the cache."""
+    dtype = cfg.dtype
+    s_max = max_seq or cfg.max_seq
+    codec = _kv_codec(cfg, kv_codec)
+
+    def chunk(params, tokens, cache, pos0):
+        b, c = tokens.shape
+        dev = cache.device
+        pos0 = torch.as_tensor(pos0, device=dev).long()
+        if pos0.dim() == 0:
+            pos0 = pos0.expand(b)
+        pos0 = torch.clamp(pos0, max=s_max - c)
+        positions = pos0[:, None] + torch.arange(c, device=dev)[None, :]
+        slots = torch.arange(s_max, device=dev)
+        # query i of row r (global position pos0[r] + i) sees slots
+        # <= pos0[r] + i
+        mask = slots[None, None, None, :] <= positions[:, None, :, None]
+        x = _embed(params, tokens, dtype)                   # [b, c, d]
+        for l in range(cfg.n_layers):
+            lp = _layer(params, l)
+            q, k, v = _block_qkv(x, lp, positions, dtype)   # [b, c, h, dh]
+            layer_cache = codec.write(cache.map(lambda t: t[l]),
+                                      torch.stack([k, v]), pos0)
+            ck, cv = codec.read(layer_cache)
+            a = _attend_cache(q, ck, cv, mask, cfg.head_dim, dtype)
+            x = _block_tail(x, a, lp, cfg)
+        return _final_logits(x, params), cache
+
+    return chunk
+
+
 def build_prefill(cfg: TransformerConfig,
                   max_seq: Optional[int] = None,
                   attention_fn: Optional[Callable] = None,
                   kv_codec: Optional[str] = None) -> Callable:
     """Prompt ingestion: ``prefill(params, tokens[int b, s], lengths=None)
-    -> (logits[b, vocab], cache[L, 2, b, S, h, dh])`` — one full-sequence
-    forward with k/v captured into the first s slots of a fresh cache.
-    With ``lengths`` (right-padded prompts, the engine's buckets) the
-    logits come from each row's position ``lengths - 1``; the pad k/v in
-    slots ``>= length`` is unreachable before decode overwrites it."""
+    -> (logits[b, vocab], cache)`` — one full-sequence forward with k/v
+    captured into the first s slots of a fresh :class:`KVCache` of S
+    slots. With ``lengths`` (right-padded prompts, the engine's buckets)
+    the logits come from each row's position ``lengths - 1``; the pad k/v
+    in slots ``>= length`` is unreachable before decode overwrites it."""
     dtype = cfg.dtype
     s_max = max_seq or cfg.max_seq
     codec = _kv_codec(cfg, kv_codec)
@@ -371,10 +518,6 @@ def build_prefill(cfg: TransformerConfig,
         return logits, cache
 
     return prefill
-
-
-def build_chunk_decode(*_args, **_kw):
-    raise not_ported("chunk decode (build_chunk_decode)", "A.13.2")
 
 
 def build_paged_decode_step(*_args, **_kw):

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops._counts import count_launch
 
 #: scores below this act as -inf without producing exp() NaNs in fully
@@ -131,8 +132,6 @@ def kernel_takes(head_dim: int) -> bool:
 def _kernel_entry():
     """``nns_flash_attention`` from the built library, with its C types
     declared (built at first use)."""
-    from nnstreamer_tpu_torch.ops import _build
-
     fn = _build.load("flash_attention").nns_flash_attention
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -196,10 +195,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  b, h, sq, sk, d, int(bool(causal)), d ** -0.5)
-    fn = _kernel_entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(ctypes.addressof(args), DTYPE_CODES[q.dtype], stream)
+    rc = _build.call_on_stream(_kernel_entry(), q.device,
+                               ctypes.addressof(args), DTYPE_CODES[q.dtype])
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -4,23 +4,40 @@ The JAX package's ``serving/engine.py`` on its single-chip, monolithic-
 cache, greedy path:
 
 - **One batched decode.** ``max_streams`` batch slots share one KV cache
-  ``[L, 2, B, S, h, dh]``, a single preallocated device tensor that the
-  prefill insert and every decode step update in place. Empty slots
-  decode garbage that the host ignores; shapes never change as streams
-  come and go.
-- **Multi-step dispatch.** Each dispatch runs ``steps_per_dispatch`` (K)
-  decode steps back to back on the device and yields a ``[B, K]`` token
-  block. The last token and the advanced positions stay on the device and
-  feed the next dispatch; the block goes to pinned host memory behind a
-  CUDA event and is processed one block behind, so the host's fetch
-  overlaps the next block's compute.
+  ``[L, 2, B, S, h, dh]`` (``models.transformer.KVCache``: int8 values
+  with per-vector scales under ``kv_quant="int8"``), preallocated once
+  and updated in place by the prefill insert and every decode step.
+  Empty slots decode garbage that the host ignores; shapes never change
+  as streams come and go.
+- **The K-step dispatch as one program.** Each dispatch runs
+  ``steps_per_dispatch`` (K) decode steps and yields a ``[B, K]`` token
+  block. Where the JAX engine jits the K steps under ``lax.scan``, this
+  one captures them on the card as one CUDA graph per (B, K)
+  (:class:`_DecodeProgram`) and replays it for every dispatch: one graph
+  launch where the steps' kernels would each be a launch from Python.
+  The last token and the advanced positions stay in the program's static
+  buffers and feed the next replay; the block goes to pinned host memory
+  behind a CUDA event and is processed one block behind, so the host's
+  fetch overlaps the next block's compute. On the CPU the program runs
+  its body, the same eager loop, on the same static buffers.
 - **Bucketed prefill.** Prompts are right-padded to power-of-two buckets
   (16, 32, ...); logits come from the true last position, and the pad
   k/v is unreachable before decode overwrites it. Prefill attention is
-  kernel B2 (``ops/flash_attention.py``) unless ``attention="reference"``;
-  decode attends over dynamically placed cache slots with the plain
-  masked form (``_attend_cache``), as the JAX package leaves it to XLA.
-
+  kernel B2 (``ops/flash_attention.py``) unless ``attention="reference"``,
+  run eagerly: B2 encodes its TMA tensor maps from each call's
+  addresses. Decode and the chunk program attend over dynamically placed
+  cache slots with the plain masked form (``_attend_cache``), as the JAX
+  package leaves it to XLA.
+- **Chunked prefill** (``prefill_chunk``): a prompt ingests in chunks of
+  C tokens through the chunk program (``build_chunk_decode`` at ``[1,
+  C]``, eager), one chunk per loop iteration between decode dispatches;
+  its batch slot is reserved meanwhile.
+- **Prefix cache** (``prefix_cache``): the KV of the last N admitted
+  prompts stays on the card; a prompt that shares a prefix with one of
+  them prefills only the remainder through the chunk program, and an
+  exact repeat none. Registering the entries with the HBM accountant as
+  droppable units waits for ``tensors/memory.py`` (A.19): without an
+  accountant the JAX engine does not register them either.
 - **Request-path SLO admission.** With ``slo_budget_ms`` > 0 the engine
   owns an :class:`~nnstreamer_tpu_torch.serving.scheduler.SloScheduler`:
   ``submit()`` raises ``SloRejected`` when the request's deadline cannot
@@ -30,15 +47,15 @@ cache, greedy path:
   engine's per-token deadlines and KV-pressure shedding wait for A.13.3.
 
 Options of the JAX engine that are not ported yet raise with their
-ROADMAP item: ``mesh`` (A.24), ``block_tokens`` (A.13.3),
-``prefill_chunk`` and ``prefix_cache`` (A.13.2), ``kv_quant`` (A.13.1),
-``speculate`` (A.13.4) and sampled decoding — ``temperature > 0``,
-``top_k``, ``min_p`` (A.13.5).
+ROADMAP item: ``mesh`` (A.24), ``block_tokens`` (A.13.3), ``speculate``
+(A.13.4) and sampled decoding — ``temperature > 0``, ``top_k``,
+``min_p`` (A.13.5).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import queue as _queue
 import threading
@@ -50,6 +67,7 @@ import torch
 
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.ops import _counts
 from nnstreamer_tpu_torch.pipeline.element import not_ported
 
 log = get_logger("serving")
@@ -118,6 +136,159 @@ class GenerationStream:
         self._q.put(self._DONE)
 
 
+
+
+class _PrefixTrie:
+    """Token trie over the prefix-cache keys: longest-common-prefix lookup
+    in O(prompt_len), independent of entry count (a copy of the JAX
+    engine's).
+
+    Each node counts the entries in its subtree and keeps a representative
+    one (``rep``), so a lookup never descends below the walk: every entry
+    in the deepest walkable node's subtree shares exactly the walked
+    tokens with the prompt, i.e. all tie at the maximal LCP.
+    """
+
+    __slots__ = ("root",)
+
+    @staticmethod
+    def _node():
+        return {"kids": {}, "entry": None, "count": 0, "rep": None}
+
+    def __init__(self):
+        self.root = self._node()
+
+    def insert(self, key: tuple) -> None:
+        node = self.root
+        node["count"] += 1
+        node["rep"] = key
+        for tok in key:
+            node = node["kids"].setdefault(tok, self._node())
+            node["count"] += 1
+            node["rep"] = key
+        node["entry"] = key
+
+    def remove(self, key: tuple) -> None:
+        path = [self.root]
+        node = self.root
+        for tok in key:
+            node = node["kids"][tok]
+            path.append(node)
+        node["entry"] = None
+        for n in path:
+            n["count"] -= 1
+        # prune empty nodes; repair representatives that pointed at key
+        for i in range(len(path) - 1, 0, -1):
+            parent, child = path[i - 1], path[i]
+            if child["count"] == 0:
+                del parent["kids"][key[i - 1]]
+        for n in path:
+            if n["count"] > 0 and n["rep"] == key:
+                n["rep"] = self._any_entry(n)
+
+    @staticmethod
+    def _any_entry(node):
+        while node["entry"] is None:
+            node = next(k for k in node["kids"].values() if k["count"] > 0)
+        return node["entry"]
+
+    def lookup(self, prompt) -> tuple:
+        """→ (best_key, lcp): a cached key maximizing LCP with ``prompt``
+        (an exact whole-prompt entry preferred), or (None, 0)."""
+        node = self.root
+        d = 0
+        for tok in prompt:
+            child = node["kids"].get(int(tok))
+            if child is None:
+                break
+            node = child
+            d += 1
+        if d == 0 or node["count"] == 0:
+            return None, 0
+        if d == len(prompt) and node["entry"] is not None:
+            return node["entry"], d  # exact match carries reusable logits
+        return node["rep"], d
+
+
+class _DecodeProgram:
+    """The engine's K-step dispatch over static device buffers.
+
+    ``token [B]`` and ``pos [B]`` feed the first step. The body is the
+    engine's eager :meth:`ContinuousBatchingEngine._dispatch` loop; it
+    leaves the ``[B, K]`` tokens and logprobs in ``toks`` and ``lps`` and,
+    as its last op, writes the advanced token and positions back into
+    ``token`` and ``pos``, so the next run chains off them with no host
+    step. :meth:`load` copies the host mirrors in after an admission or a
+    recovery.
+
+    :meth:`capture` records the body once as a CUDA graph (on a side
+    stream, in ``thread_local`` mode, so the process's other threads keep
+    using the card meanwhile); every :meth:`run` after it is one replay,
+    which reads the engine's cache and parameters where they were at the
+    capture. Without a capture (the CPU) a run executes the body."""
+
+    def __init__(self, engine: "ContinuousBatchingEngine"):
+        self.engine = engine
+        self.K = engine.K
+        B, dev = engine.B, engine.device
+        self.token = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.toks = torch.zeros((B, self.K), dtype=torch.int32, device=dev)
+        self.lps = torch.zeros((B, self.K), dtype=torch.float32, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: kernel-wrapper launches one replay runs (ops/_counts.py)
+        self.tally: Dict[str, int] = {}
+        self.capture_s = 0.0
+
+    def body(self) -> None:
+        toks, lps, last, pos = self.engine._dispatch(self.token, self.pos)
+        self.toks.copy_(toks)
+        self.lps.copy_(lps)
+        self.token.copy_(last)
+        self.pos.copy_(pos)
+
+    def load(self, last: np.ndarray, pos: np.ndarray) -> None:
+        self.token.copy_(self.engine._upload(last))
+        self.pos.copy_(self.engine._upload(pos))
+
+    def capture(self, stream: "torch.cuda.Stream", warm: bool) -> None:
+        """Capture the body on ``stream``. ``warm`` first runs it eagerly
+        there (cuBLAS's set-up for the stream, outside the capture): it
+        advances the buffers and writes the cache at their positions, so
+        only a caller with no live stream may ask for it."""
+        t0 = _time.monotonic()
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        if warm:
+            with torch.cuda.stream(stream):
+                self.body()
+            cur.wait_stream(stream)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with _counts.capture_tally() as tally, torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            self.body()
+        self.graph, self.tally = graph, dict(tally)
+        self.capture_s = _time.monotonic() - t0
+
+    def run(self) -> None:
+        if self.graph is None:
+            self.body()
+            return
+        self.graph.replay()
+        _counts.add_replay(self.tally)
+
+    def release(self) -> None:
+        """Drop the graph once the card is done with it (its private pool
+        returns to the allocator)."""
+        if self.graph is None:
+            return
+        with contextlib.suppress(RuntimeError):  # a failed card: drop anyway
+            torch.cuda.synchronize(self.token.device)
+        self.graph.reset()
+        self.graph = None
+
+
 class _PendingRequest:
     def __init__(self, prompt: np.ndarray, max_new: int,
                  stream: GenerationStream):
@@ -139,11 +310,21 @@ class ContinuousBatchingEngine:
     max_seq: cache length S (defaults to ``cfg.max_seq``).
     steps_per_dispatch: decode steps per dispatch (K), or "auto" —
         start() measures the host↔device round trip and the per-step
-        decode time and picks K so the fixed cost is at most ~20% of a
-        block (see _calibrate_k).
+        decode time of the captured program and picks K so the fixed cost
+        is at most ~20% of a block (see _calibrate_k).
     eos_id: generation stops when the model emits this id (None → length
         -bounded only).
     min_bucket: smallest prefill padding bucket.
+    prefill_chunk: when set, prompts ingest in chunks of this many tokens,
+        one chunk per engine-loop iteration, interleaved with decode
+        dispatches. Requires ``0 < prefill_chunk < max_seq`` and a prompt
+        whose last chunk fits the cache: ``ceil(n / C) * C <= max_seq``.
+    kv_quant: ``"int8"`` stores the KV cache quantized (per-vector absmax
+        scales, ``models.transformer._Int8KVCodec``): about half the
+        cache bytes, at a small, bounded numeric cost.
+    prefix_cache: keep the KV of the last N admitted prompts on the card
+        (LRU) and prefill only what a new prompt adds to the longest
+        common prefix with one of them. 0 (default) disables.
     attention: prefill attention: "auto" (kernel B2 for CUDA tensors; on
         the card a head_dim the kernel does not take raises here) or
         "reference" (the plain version).
@@ -158,6 +339,18 @@ class ContinuousBatchingEngine:
 
     #: process-wide sequence behind ``obs_name`` (engine0, engine1, ...)
     _OBS_SEQ = itertools.count()
+
+    #: reserves a batch slot while its chunked prefill is in flight
+    _RESERVED = object()
+
+    #: minimum common-prefix length worth a warm (remainder-only)
+    #: admission; exact whole-prompt hits are never thresholded
+    PREFIX_MIN_REUSE = 4
+
+    #: the K-step dispatch runs eagerly on a card too when True: set only
+    #: by chip_smoke.py and the card's tests, to compare the captured
+    #: program with its body (the JAX engine has no such switch)
+    _eager_dispatch = False
 
     def __init__(self, cfg, params, max_streams: int = 4,
                  max_seq: Optional[int] = None,
@@ -177,6 +370,7 @@ class ContinuousBatchingEngine:
                  speculate_layers: Optional[int] = None,
                  device=None):
         from nnstreamer_tpu_torch.models.transformer import (
+            build_chunk_decode,
             build_decode_step,
             build_prefill,
             init_cache,
@@ -199,13 +393,6 @@ class ContinuousBatchingEngine:
         if int(block_tokens or 0) > 0:
             raise not_ported("the paged KV cache (block_tokens > 0)",
                              "A.13.3")
-        if prefill_chunk is not None:
-            raise not_ported("chunked prefill (prefill_chunk)", "A.13.2")
-        if int(prefix_cache or 0) > 0:
-            raise not_ported("the prefix cache (prefix_cache > 0)",
-                             "A.13.2")
-        if kv_quant is not None:
-            raise not_ported("the int8 KV cache (kv_quant)", "A.13.1")
         if int(speculate or 0) > 0:
             raise not_ported("speculative decoding (speculate > 0)",
                              "A.13.4")
@@ -219,6 +406,23 @@ class ContinuousBatchingEngine:
                                     with_logprobs=True)
 
         self.cfg = cfg
+        self.B = int(max_streams)
+        self.S = int(max_seq or cfg.max_seq)
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        if self.prefill_chunk is not None and not (
+                0 < self.prefill_chunk < self.S):
+            raise ValueError(
+                f"serving: prefill_chunk must be in (0, {self.S}), got "
+                f"{prefill_chunk}")
+        self.prefix_cache = int(prefix_cache)
+        if self.prefix_cache < 0:
+            raise ValueError(
+                f"serving: prefix_cache must be >= 0, got {prefix_cache}")
+        self.kv_quant = kv_quant
+        # the codec's ValueError for an unknown kv_quant comes first
+        self._decode = build_decode_step(cfg, self.S, kv_codec=kv_quant)
+        self._chunk_fn = build_chunk_decode(cfg, self.S, kv_codec=kv_quant)
         self.device = resolve_device() if device is None \
             else torch.device(device)
         if attention == "auto" and self.device.type == "cuda" and \
@@ -228,32 +432,48 @@ class ContinuousBatchingEngine:
                 f"{cfg.head_dim} (a multiple of 8, at most 256); pass "
                 "attention='reference' for plain attention")
         self.params = prepare_params(params, cfg, self.device)
-        self.B = int(max_streams)
-        self.S = int(max_seq or cfg.max_seq)
         self._auto_k = steps_per_dispatch == "auto"
         self.K = 8 if self._auto_k else int(steps_per_dispatch)
         self.eos_id = eos_id
         self.min_bucket = int(min_bucket)
 
-        self._decode = build_decode_step(cfg, self.S)
         self._prefill_fn = build_prefill(
             cfg, self.S,
-            attention_fn=flash_attention if attention == "auto" else None)
+            attention_fn=flash_attention if attention == "auto" else None,
+            kv_codec=kv_quant)
         self._init_cache = lambda: init_cache(cfg, self.B, self.S,
+                                              kv_codec=kv_quant,
                                               device=self.device)
+        self._init_cache1 = lambda: init_cache(cfg, 1, self.S,
+                                               kv_codec=kv_quant,
+                                               device=self.device)
 
         # host-side per-slot state
         self._pos = np.zeros(self.B, np.int64)
         self._last = np.zeros(self.B, np.int32)
-        #: device-resident decode feedback (last, pos) chaining dispatch
-        #: N+1 off dispatch N without a host sync; None = the host mirrors
-        #: are authoritative (after admissions/recovery)
-        self._dev_state = None
+        #: the K-step program (captured on a card); None until start()
+        #: builds it, and again after a recovery or a K change
+        self._program: Optional[_DecodeProgram] = None
+        self._capture_stream = None
+        #: True when the host mirrors are authoritative (after admissions
+        #: or a recovery): the next dispatch loads them into the program
+        self._reload = True
+        #: captures (K of each), their seconds, and the dispatches that
+        #: were graph replays
+        self.graph_stats: Dict[str, Any] = {"captures": [],
+                                            "capture_s": 0.0, "replays": 0}
         #: issued-but-unprocessed dispatch blocks:
         #: (t0, K, toks_host, lps_host, event, [(slot, stream), ...])
         self._inflight: "collections.deque" = collections.deque()
-        self._slots: List[Optional[GenerationStream]] = [None] * self.B
+        self._slots: List[Any] = [None] * self.B
         self._budget = np.zeros(self.B, np.int64)  # tokens still allowed
+        #: in-progress chunked admission: (request, slot, cache1, k, base)
+        #: with k the next chunk; one at a time, advanced between dispatches
+        self._partial = None
+        #: tuple(prompt ids) → (kv KVCache [L, 2, 1, n, ...], logits[1, V])
+        #: — LRU, engine thread only; the trie mirrors the key set
+        self._prefix: "collections.OrderedDict" = collections.OrderedDict()
+        self._prefix_trie = _PrefixTrie()
 
         self._cache = self._init_cache()
         self._pending: "_queue.Queue[_PendingRequest]" = _queue.Queue()
@@ -300,9 +520,11 @@ class ContinuousBatchingEngine:
 
     def _fetch_async(self, *tensors: torch.Tensor):
         """Start device→host copies into pinned memory; returns the host
-        tensors and a CUDA event marking their arrival (None off CUDA)."""
+        tensors and a CUDA event marking their arrival (None off CUDA,
+        where the copies are made at once: the program's buffers are
+        overwritten by the next dispatch)."""
         if self.device.type != "cuda":
-            return [t.cpu() for t in tensors], None
+            return [t.to("cpu", copy=True) for t in tensors], None
         out = []
         for t in tensors:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -314,7 +536,8 @@ class ContinuousBatchingEngine:
 
     def _dispatch(self, token: torch.Tensor, pos: torch.Tensor):
         """K greedy decode steps: ([B] token, [B] pos) → ([B, K] tokens,
-        [B, K] logprobs, last token, advanced pos), all on the device."""
+        [B, K] logprobs, last token, advanced pos), all on the device. The
+        body of :class:`_DecodeProgram`."""
         toks, lps = [], []
         for _ in range(self.K):
             logits, _ = self._decode(self.params, token, self._cache, pos)
@@ -324,16 +547,42 @@ class ContinuousBatchingEngine:
             pos = pos + 1
         return torch.stack(toks, 1), torch.stack(lps, 1), token, pos
 
+    def _ensure_program(self, warm: bool) -> _DecodeProgram:
+        """The program at the current K, built (and, on a card, captured)
+        if there is none at that K. ``warm`` as in
+        :meth:`_DecodeProgram.capture`: only start() asks for it."""
+        if self._program is not None and self._program.K == self.K:
+            return self._program
+        self._drop_program()
+        prog = _DecodeProgram(self)
+        if self.device.type == "cuda" and not self._eager_dispatch:
+            with torch.cuda.device(self.device):
+                if self._capture_stream is None:
+                    self._capture_stream = torch.cuda.Stream(self.device)
+                prog.capture(self._capture_stream, warm)
+            self.graph_stats["captures"].append(self.K)
+            self.graph_stats["capture_s"] += prog.capture_s
+        self._program = prog
+        self._reload = True
+        return prog
+
+    def _drop_program(self) -> None:
+        if self._program is not None:
+            self._program.release()
+            self._program = None
+
     def _calibrate_k(self) -> None:
         """steps_per_dispatch="auto": pick K from MEASURED costs.
 
         A decode block costs ``rtt + K·s`` wall time for ``rtt`` = the
         fixed dispatch + sync cost (a tiny op and its ``.item()``) and
-        ``s`` = one batched decode step, which falls out of one timed
-        block at the initial K. K is chosen so the fixed cost is ≤ ~20% of
-        the block (K ≥ 4·rtt/s), clamped to [8, 128] and rounded down to a
-        power of two. Runs once, before the engine loop starts, on the
-        live cache (admission overwrites a slot's whole KV)."""
+        ``s`` = one batched decode step, which falls out of one timed run
+        of the program at the initial K (on a card a graph replay, as
+        every dispatch will be). K is chosen so the fixed cost is ≤ ~20%
+        of the block (K ≥ 4·rtt/s), clamped to [8, 128] and rounded down
+        to a power of two; the program is built again only if K changed.
+        Runs once, before the engine loop starts, on the live cache
+        (admission overwrites a slot's whole KV)."""
         x = torch.zeros((8,), dtype=torch.int32, device=self.device)
         (x + 1)[0].item()  # warm off the clock
         rtts = []
@@ -342,11 +591,12 @@ class ContinuousBatchingEngine:
             (x + 1)[0].item()
             rtts.append(_time.monotonic() - t0)
         rtt = min(rtts)
-        token = torch.zeros((self.B,), dtype=torch.int32, device=self.device)
-        pos = torch.zeros((self.B,), dtype=torch.int64, device=self.device)
-        self._dispatch(token, pos)[0].cpu()  # warm
+        prog = self._ensure_program(warm=True)
+        prog.run()
+        prog.toks.cpu()  # warm
         t0 = _time.monotonic()
-        self._dispatch(token, pos)[0].cpu()
+        prog.run()
+        prog.toks.cpu()
         block = _time.monotonic() - t0
         step = max((block - rtt) / self.K, 1e-5)
         k = max(8, min(128, int(4 * rtt / step)))
@@ -367,17 +617,21 @@ class ContinuousBatchingEngine:
                     "serving: previous engine loop is still shutting "
                     "down; retry start() after it exits")
             return self  # already running
-        if self._auto_k:
-            self._auto_k = False  # calibrate once, not per restart
-            try:
-                with torch.inference_mode():
+        with torch.inference_mode():
+            if self._auto_k:
+                self._auto_k = False  # calibrate once, not per restart
+                try:
                     self._calibrate_k()
-            except Exception as e:  # noqa: BLE001 — auto-tune is an
-                # optimization; the initial K always works
-                log.warning("serving: K auto-calibration failed (%s); "
-                            "keeping K=%d", e, self.K)
-                self._cache = None
-                self._cache = self._init_cache()
+                except Exception as e:  # noqa: BLE001 — auto-tune is an
+                    # optimization; the initial K always works
+                    log.warning("serving: K auto-calibration failed (%s); "
+                                "keeping K=%d", e, self.K)
+                    self._drop_program()
+                    self._cache = None
+                    self._cache = self._init_cache()
+            # no stream is live before the loop starts: the program may
+            # warm up on the cache (a capture error raises here)
+            self._ensure_program(warm=True)
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._loop,
                                         name="cb-engine", daemon=True)
@@ -401,8 +655,12 @@ class ContinuousBatchingEngine:
         # lock serializes with submit()'s running-check + enqueue, so a
         # request can't slip into _pending after this drain
         with self._lock:
+            if self._partial is not None:
+                self._partial[0].stream._finish("engine-stopped")
+                self._partial = None
             for i, st in enumerate(self._slots):
-                if st is not None and not st.finished:
+                if st is not None and st is not self._RESERVED and \
+                        not st.finished:
                     st._finish("engine-stopped")
                 self._slots[i] = None
             while True:
@@ -422,11 +680,16 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"serving: max_new_tokens must be >= 1, got {max_new_tokens}"
                 " (the prefill always yields the first token)")
-        limit = self.S - 1
+        # chunked mode: the last chunk's writes (ceil(n/C)*C slots) must
+        # fit the cache — equal to the plain n < S bound when C divides S
+        limit = self.S - 1 if self.prefill_chunk is None else min(
+            self.S - 1, (self.S // self.prefill_chunk) * self.prefill_chunk)
         if prompt.size > limit:
             raise ValueError(
                 f"serving: prompt length {prompt.size} must be <= {limit} "
-                f"(cache length {self.S})")
+                f"(cache length {self.S}"
+                + (f", prefill chunk {self.prefill_chunk})"
+                   if self.prefill_chunk is not None else ")"))
         with self._lock:
             # running-check + enqueue under the same lock stop() drains
             # under, so a request can't land after the drain
@@ -457,7 +720,8 @@ class ContinuousBatchingEngine:
 
     @property
     def active_streams(self) -> int:
-        return sum(1 for s in self._slots if s is not None)
+        return sum(1 for s in self._slots
+                   if s is not None and s is not self._RESERVED)
 
     # -- engine internals ------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -466,29 +730,163 @@ class ContinuousBatchingEngine:
             b *= 2
         return min(b, self.S)
 
+    # -- prefix cache (engine thread only) ------------------------------------
+    def _prefix_lookup(self, prompt: np.ndarray):
+        """Longest COMMON prefix between ``prompt`` and any cached entry
+        (two prompts sharing a preamble reuse the shared part); returns
+        (p, kv sliced to p, logits) — logits only when the whole prompt
+        equals a whole stored key."""
+        best_key, best_lcp = self._prefix_trie.lookup(prompt)
+        if best_key is None or best_lcp <= 0:
+            return 0, None, None
+        self._prefix.move_to_end(best_key)
+        kv, logits = self._prefix[best_key]
+        if not (best_lcp == prompt.size == len(best_key)):
+            logits = None
+        if logits is None and best_lcp == prompt.size:
+            # whole prompt covered by a LONGER stored key: we have its kv
+            # but not its last-position logits — recompute one position
+            best_lcp -= 1
+        if best_lcp <= 0:
+            return 0, None, None
+        if best_lcp < len(best_key):
+            kv = kv.map(lambda a: a[:, :, :, :best_lcp])
+        return best_lcp, kv, logits
+
+    def _prefix_store(self, prompt: np.ndarray, cache1, logits) -> None:
+        if not self.prefix_cache:
+            return
+        key = tuple(int(t) for t in prompt)
+        n = prompt.size
+        # the prompt's n slots only (axis 3 = S in every cache tensor),
+        # copied out of the S-slot admission cache
+        kv = cache1.map(lambda a: a[:, :, :, :n].clone())
+        if key not in self._prefix:
+            self._prefix_trie.insert(key)
+        self._prefix[key] = (kv, logits)
+        self._prefix.move_to_end(key)
+        while len(self._prefix) > self.prefix_cache:
+            evicted, _ = self._prefix.popitem(last=False)
+            self._prefix_trie.remove(evicted)
+
+    @staticmethod
+    def _place_prefix_kv(cache1, kv):
+        """Write a cached kv slice into slots [0, n) of a fresh cache (in
+        place)."""
+        n = kv.values.shape[3]
+        cache1.map(lambda a: a[:, :, :, :n]).copy_(kv)
+        return cache1
+
     def _admit(self, req: _PendingRequest, slot: int):
-        """Device phase of one admission: bucketed prefill and first-token
-        sample, dispatched without a host sync. Returns the record
-        :meth:`_activate_commit` completes."""
+        """Device phase of one admission: prefill (or prefix reuse) and
+        first-token sample, dispatched without a host sync. Returns the
+        record :meth:`_activate_commit` completes."""
         self._m_queue_wait.observe(_time.monotonic() - req.submit_t)
         prompt = req.prompt
         n = prompt.size
+        p, kv, cached_logits = (self._prefix_lookup(prompt)
+                                if self.prefix_cache else (0, None, None))
+        if p == n:  # whole prompt cached: no prefill compute
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += p
+            cache1 = self._place_prefix_kv(self._init_cache1(), kv)
+            return self._activate_begin(req, slot, cached_logits, cache1)
+        if (p >= self.PREFIX_MIN_REUSE
+                and p + self._bucket(n - p) <= self.S):
+            # prefill only the remainder through the chunk program; the
+            # first bound skips near-useless hits, the second keeps the
+            # padded chunk's writes inside the cache
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += p
+            cache1 = self._place_prefix_kv(self._init_cache1(), kv)
+            rem = n - p
+            padded = np.zeros((1, self._bucket(rem)), np.int32)
+            padded[0, :rem] = prompt[p:]
+            logits, cache1 = self._chunk_fn(
+                self.params, self._upload(padded), cache1,
+                self._upload(np.asarray(p, np.int64)))
+            logits = logits[:, rem - 1]
+            self._prefix_store(prompt, cache1, logits)
+            return self._activate_begin(req, slot, logits, cache1)
         padded = np.zeros((1, self._bucket(n)), np.int32)
         padded[0, :n] = prompt
         logits, cache1 = self._prefill_fn(
             self.params, self._upload(padded),
             lengths=self._upload(np.asarray([n], np.int64)))
+        self._prefix_store(prompt, cache1, logits)
         return self._activate_begin(req, slot, logits, cache1)
+
+    def _begin_partial(self, req: _PendingRequest, slot: int) -> None:
+        self._m_queue_wait.observe(_time.monotonic() - req.submit_t)
+        base = 0
+        cache1 = self._init_cache1()
+        if self.prefix_cache:
+            p, kv, cached_logits = self._prefix_lookup(req.prompt)
+            if p == req.prompt.size:  # whole prompt cached: no chunks
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += p
+                cache1 = self._place_prefix_kv(cache1, kv)
+                self._activate(req, slot, cached_logits, cache1)
+                return
+            if p // self.prefill_chunk > 0:
+                # resume at the last chunk boundary <= p: chunk starts
+                # stay multiples of C (the submit-time bound assumes it).
+                # A hit below one chunk is a miss
+                self.stats["prefix_hits"] += 1
+                base = (p // self.prefill_chunk) * self.prefill_chunk
+                self.stats["prefix_tokens_reused"] += base
+                cache1 = self._place_prefix_kv(cache1, kv)
+        self._slots[slot] = self._RESERVED
+        self._partial = (req, slot, cache1, 0, base)
+
+    def _advance_partial(self) -> None:
+        """Run ONE prefill chunk; on the last chunk, activate the slot."""
+        req, slot, cache1, k, base = self._partial
+        C = self.prefill_chunk
+        prompt, n = req.prompt, req.prompt.size
+        start = base + k * C
+        end = min(start + C, n)
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :end - start] = prompt[start:end]
+        try:
+            logits, cache1 = self._chunk_fn(
+                self.params, self._upload(chunk), cache1,
+                self._upload(np.asarray(start, np.int64)))
+            self.stats["prefill_chunks"] += 1
+            if end < n:
+                self._partial = (req, slot, cache1, k + 1, base)
+                return
+            # final chunk: logits at the prompt's true last position
+            self._partial = None
+            logits_last = logits[:, (n - 1) - start]
+            self._prefix_store(prompt, cache1, logits_last)
+            self._activate(req, slot, logits_last, cache1)
+        except Exception as e:  # noqa: BLE001 — a failed chunk must free
+            # the reserved slot and fail only this request
+            log.warning("serving: chunked prefill failed: %s", e)
+            self._partial = None
+            self._slots[slot] = None
+            req.stream._finish(f"error: {e}")
 
     def _activate_begin(self, req: _PendingRequest, slot: int, logits,
                         cache1):
         """Device half of an activation: sample the first token, write the
-        prompt's KV into the slot (the whole slot, in place), and CLAIM
-        the slot. Returns ``(req, slot, first_d, lp_d)``."""
+        prompt's KV into the slot (the whole slot, in place: the captured
+        program reads the cache where it is), and CLAIM the slot. Returns
+        ``(req, slot, first_d, lp_d)``."""
         first_d, _, lp_d = self._sample(logits)
-        self._cache[:, :, slot].copy_(cache1[:, :, 0])
+        self._cache.map(lambda t: t[:, :, slot]).copy_(
+            cache1.map(lambda t: t[:, :, 0]))
         self._slots[slot] = req.stream  # claimed; mirrors land at commit
         return (req, slot, first_d, lp_d)
+
+    def _activate(self, req: _PendingRequest, slot: int, logits,
+                  cache1) -> None:
+        """Single-admission tail (the chunked path): begin, one host sync,
+        commit."""
+        rec = self._activate_begin(req, slot, logits, cache1)
+        self._sync_host_state()
+        self._commit_wave([rec])
 
     def _activate_commit(self, rec, first: int, first_lp: float) -> None:
         """Host half: install the per-slot host mirrors and emit the first
@@ -585,28 +983,34 @@ class ContinuousBatchingEngine:
 
     def _sync_host_state(self):
         """Drain the pipeline so admissions (which write per-slot host
-        state) operate on current values; the next dispatch rebuilds its
-        device state from the host mirrors."""
+        state) operate on current values; the next dispatch loads the
+        program's buffers from the host mirrors."""
         self._drain_inflight()
-        self._dev_state = None
+        self._reload = True
 
     def _recover(self, e) -> None:
-        """Device failure: salvage what the card already computed (a
-        best-effort drain — those tokens were generated), then fail every
-        in-flight stream, rebuild the cache, and keep serving."""
+        """Device failure (a capture or a replay included): salvage what
+        the card already computed (a best-effort drain — those tokens were
+        generated), then fail every in-flight stream and any half-ingested
+        prompt, drop the program (its graph read the old cache), rebuild
+        the cache, and keep serving: the next dispatch captures anew."""
         log.error("serving: dispatch failed: %s", e)
         try:
             self._drain_inflight()
         except Exception:  # noqa: BLE001 — wedged device: drop the rest
             self._inflight.clear()
-        self._dev_state = None
+        if self._partial is not None:
+            self._partial[0].stream._finish(f"error: {e}")
+            self._partial = None
         for slot in range(self.B):
             st = self._slots[slot]
-            if st is not None:
+            if st is not None and st is not self._RESERVED:
                 st._finish(f"error: {e}")
-                self._slots[slot] = None
+            self._slots[slot] = None
+        self._drop_program()
         self._cache = None
         self._cache = self._init_cache()
+        self._reload = True
 
     def _loop(self):
         # grad mode is per thread: this thread enters inference mode itself
@@ -620,20 +1024,33 @@ class ContinuousBatchingEngine:
     def _loop_mono(self):
         while not self._stop_evt.is_set():
             # honor cancellations first: active slots free at this block
-            # boundary
+            # boundary; a half-ingested prompt stops mid-prefill
             for slot in range(self.B):
                 st = self._slots[slot]
-                if st is not None and st.cancelled:
+                if (st is not None and st is not self._RESERVED
+                        and st.cancelled):
                     self._slots[slot] = None
                     st._finish("cancelled")
+            if self._partial is not None and \
+                    self._partial[0].stream.cancelled:
+                _, slot, _, _, _ = self._partial
+                self._slots[slot] = None
+                self._partial[0].stream._finish("cancelled")
+                self._partial = None
+            # an in-flight chunked prefill: ONE chunk per iteration, so the
+            # decode dispatch below keeps running streams moving
+            progressed = False
+            if self._partial is not None:
+                self._advance_partial()
+                progressed = True
             # admission: fill free slots from the pending queue. The
             # device work (prefill + first-token sample) dispatches per
             # request; the host fetch commits the wave at once below.
-            progressed = False
             queue_dry = False
             admitted = []
             for slot in range(self.B):
-                if queue_dry or self._slots[slot] is not None:
+                if queue_dry or self._slots[slot] is not None \
+                        or self._partial is not None:
                     continue
                 # retry THIS slot past cancelled/failed queue heads
                 while True:
@@ -646,13 +1063,17 @@ class ContinuousBatchingEngine:
                         req.stream._finish("cancelled")
                         continue
                     try:
-                        admitted.append(self._admit(req, slot))
+                        if self.prefill_chunk is not None:
+                            self._begin_partial(req, slot)
+                        else:
+                            admitted.append(self._admit(req, slot))
                         progressed = True
                         break  # slot filled
                     except Exception as e:  # noqa: BLE001 — a bad request
                         # (or a prefill failure) must not kill the loop
                         log.warning("serving: admit failed: %s", e)
                         self._slots[slot] = None
+                        self._partial = None
                         req.stream._finish(f"error: {e}")
             if admitted:
                 try:
@@ -676,19 +1097,20 @@ class ContinuousBatchingEngine:
                     continue
             try:
                 t0 = _time.monotonic()
-                if self._dev_state is None:
-                    last_d = self._upload(self._last)
-                    pos_d = self._upload(self._pos)
-                else:
-                    last_d, pos_d = self._dev_state
-                toks, lps, last_d, pos_d = self._dispatch(last_d, pos_d)
-                self._dev_state = (last_d, pos_d)
+                prog = self._ensure_program(warm=False)
+                if self._reload:
+                    prog.load(self._last, self._pos)
+                    self._reload = False
+                prog.run()
+                if prog.graph is not None:
+                    self.graph_stats["replays"] += 1
                 # start the copies NOW; the blocking wait runs one block
                 # behind, so the fetch overlaps the next dispatch
-                (toks_h, lps_h), event = self._fetch_async(toks, lps)
-                self._inflight.append((t0, self.K, toks_h, lps_h, event, [
+                (toks_h, lps_h), event = self._fetch_async(prog.toks,
+                                                           prog.lps)
+                self._inflight.append((t0, prog.K, toks_h, lps_h, event, [
                     (slot, st) for slot, st in enumerate(self._slots)
-                    if st is not None]))
+                    if st is not None and st is not self._RESERVED]))
                 if len(self._inflight) > 1:
                     self._process_block(*self._inflight.popleft())
             except Exception as e:  # noqa: BLE001 — a device failure must

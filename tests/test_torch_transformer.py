@@ -85,9 +85,9 @@ def test_prefill_right_padded_matches_jax(jcfg, tcfg):
         jp, jnp.asarray(toks), jnp.asarray(lengths))
     logits, cache = ttr.build_prefill(tcfg)(
         tp, torch.from_numpy(toks), torch.from_numpy(lengths))
-    assert tuple(cache.shape) == tuple(ref_cache.shape)
+    assert tuple(cache.values.shape) == tuple(ref_cache.shape)
     _close(logits, ref_logits)
-    _close(cache, ref_cache)
+    _close(cache.values, ref_cache)
 
 
 def test_prefill_without_lengths_takes_the_last_position():
@@ -120,7 +120,7 @@ def test_decode_steps_match_jax(jcfg, tcfg, per_row):
         got, tcache = tstep(tp, torch.from_numpy(nxt[i]), tcache,
                             torch.as_tensor(pos))
         _close(got, ref)
-    _close(tcache, jcache)
+    _close(tcache.values, jcache)
 
 
 def test_decode_position_past_the_cache_is_clamped():
@@ -146,7 +146,7 @@ def test_flash_prefill_equals_reference_prefill():
     toks = torch.from_numpy(_tokens(TCFG, 2, 16, seed=8))
     a, ca = ttr.build_prefill(TCFG, attention_fn=flash_attention)(tp, toks)
     b, cb = ttr.build_prefill(TCFG)(tp, toks)
-    assert torch.equal(a, b) and torch.equal(ca, cb)
+    assert torch.equal(a, b) and torch.equal(ca.values, cb.values)
 
 
 def test_gelu_is_the_tanh_form(monkeypatch):
@@ -201,17 +201,105 @@ def test_bf16_model_runs_in_bf16():
     (lambda: ttr.make_sampler(97, temperature=0.8), "A.13.5"),
     (lambda: ttr.make_sampler(97, temperature=0.0, top_k=5), "A.13.5"),
     (lambda: ttr.make_sampler(97, temperature=0.0, min_p=0.1), "A.13.5"),
-    (lambda: ttr.init_cache(TCFG, 1, kv_codec="int8"), "A.13.1"),
-    (lambda: ttr.build_decode_step(TCFG, kv_codec="int8"), "A.13.1"),
-    (lambda: ttr.build_chunk_decode(TCFG), "A.13.2"),
     (lambda: ttr.build_paged_decode_step(TCFG, 8), "A.13.3"),
     (lambda: ttr.build_paged_chunk(TCFG, 8), "A.13.3"),
+    (lambda: ttr._Int8KVCodec().paged_init(2, 4, 8, 4, 16), "A.13.3"),
+    (lambda: ttr._RawKVCodec(torch.float32).paged_write(None, None, None,
+                                                        None), "A.13.3"),
     (lambda: ttr.build_greedy_stream_step(TCFG), "A.13.6"),
     (lambda: ttr.build_sample_stream_step(TCFG), "A.13.6"),
 ])
 def test_unported_parts_raise_with_their_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         call()
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_init_cache_layouts(codec):
+    """One cache type for both codecs: values [L, 2, b, S, h, dh] in the
+    model dtype, or int8 with fp32 per-vector scales [L, 2, b, S, h]."""
+    cache = ttr.init_cache(TCFG, 3, max_seq=16, kv_codec=codec)
+    jcache = jtr.init_cache(JCFG, 3, max_seq=16, kv_codec=codec)
+    assert isinstance(cache, ttr.KVCache)
+    if codec is None:
+        assert cache.scale is None and cache.dtype is torch.float32
+        assert tuple(cache.values.shape) == tuple(jcache.shape)
+    else:
+        assert cache.dtype is torch.int8
+        assert cache.scale.dtype is torch.float32
+        assert tuple(cache.values.shape) == tuple(jcache["q"].shape)
+        assert tuple(cache.scale.shape) == tuple(jcache["scale"].shape)
+    assert cache.nbytes == sum(t.numel() * t.element_size()
+                               for t in cache.leaves())
+    assert all(not t.any() for t in cache.leaves())
+    with pytest.raises(ValueError):
+        ttr.init_cache(TCFG, 1, kv_codec="int4")
+
+
+@pytest.mark.parametrize("pos0", [9, [9, 4], 70],
+                         ids=["scalar", "per_row", "clamped"])
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_chunk_decode_matches_jax(codec, pos0):
+    """build_chunk_decode against the JAX package's off one prefill: one
+    origin for the batch, one per row, and an origin past the cache
+    (clamped to S - c); raw and int8 caches. Logits within 2e-5, the JAX
+    package's own chunk-against-steps bound (tests/test_kv_int8.py:93-94);
+    the raw cache within it too."""
+    tp = ttr.init_params(TCFG, seed=12)
+    jp = jtr.init_params(JCFG, seed=12)
+    toks = _tokens(JCFG, 2, 9, seed=12)
+    _, jcache = jtr.build_prefill(JCFG, kv_codec=codec)(jp, jnp.asarray(toks))
+    _, tcache = ttr.build_prefill(TCFG, kv_codec=codec)(
+        tp, torch.from_numpy(toks))
+    chunk = _tokens(JCFG, 2, 5, seed=13)
+    ref, jcache = jtr.build_chunk_decode(JCFG, kv_codec=codec)(
+        jp, jnp.asarray(chunk), jcache, jnp.asarray(pos0, jnp.int32))
+    got, tcache = ttr.build_chunk_decode(TCFG, kv_codec=codec)(
+        tp, torch.from_numpy(chunk), tcache, torch.as_tensor(pos0))
+    assert tuple(got.shape) == (2, 5, JCFG.vocab)
+    _close(got, ref, 2e-5)
+    if codec is None:
+        _close(tcache.values, jcache, 2e-5)
+
+
+def test_chunk_of_one_equals_the_decode_step():
+    """c = 1 is the decode step: the same logits and the same cache, bit
+    for bit (one code path writes both)."""
+    tp = ttr.init_params(TCFG, seed=14)
+    toks = torch.from_numpy(_tokens(TCFG, 2, 6, seed=14))
+    _, c1 = ttr.build_prefill(TCFG)(tp, toks)
+    _, c2 = ttr.build_prefill(TCFG)(tp, toks)
+    nxt = torch.from_numpy(_tokens(TCFG, 2, 1, seed=15))
+    pos = torch.tensor([6, 3])
+    a, c1 = ttr.build_decode_step(TCFG)(tp, nxt[:, 0], c1, pos)
+    b, c2 = ttr.build_chunk_decode(TCFG)(tp, nxt, c2, pos)
+    assert torch.equal(a, b[:, 0]) and torch.equal(c1.values, c2.values)
+
+
+@pytest.mark.parametrize("part", ["init_cache_int8", "decode_step_int8",
+                                  "chunk_decode"])
+def test_formerly_unported_parts_run(part):
+    """The three calls that raised until A.13.1 and A.13.2 were ported
+    now build what the JAX package's build: the int8 cache, the int8 decode
+    step and chunk decode, each run once against a prefill."""
+    tp = ttr.init_params(TCFG, seed=16)
+    toks = torch.from_numpy(_tokens(TCFG, 1, 6, seed=16))
+    codec = None if part == "chunk_decode" else "int8"
+    if part == "init_cache_int8":
+        cache = ttr.init_cache(TCFG, 1, kv_codec="int8")
+        assert cache.values.dtype is torch.int8
+        assert tuple(cache.scale.shape) == (2, 2, 1, TCFG.max_seq, 4)
+        return
+    _, cache = ttr.build_prefill(TCFG, kv_codec=codec)(tp, toks)
+    if part == "decode_step_int8":
+        out, _ = ttr.build_decode_step(TCFG, kv_codec="int8")(
+            tp, torch.tensor([3], dtype=torch.int32), cache, 6)
+        assert tuple(out.shape) == (1, TCFG.vocab)
+    else:
+        out, _ = ttr.build_chunk_decode(TCFG)(
+            tp, torch.tensor([[3, 4]], dtype=torch.int32), cache, 6)
+        assert tuple(out.shape) == (1, 2, TCFG.vocab)
+    assert bool(torch.isfinite(out).all())
 
 
 def test_min_p_out_of_range_is_a_value_error():
