@@ -34,8 +34,10 @@ query pair as it serves an in-process ``appsrc``::
     tensor_query_serversrc port=P id=I ! tensor_lm_serve engine=E !
     tensor_query_serversink id=I
 
-Not ported yet: ``speculate`` (A.13.4), which raises when set to anything
-but 0.
+``speculate=K`` (and ``speculate-layers=N``, the draft's depth; 0 = the
+engine's default) turns the engine's speculative decoding on at
+``start()`` (``ContinuousBatchingEngine.set_speculate``), which raises if
+the engine is already running with another K.
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ from nnstreamer_tpu_torch.pipeline.element import (
     EosEvent,
     FlowError,
     FlowReturn,
-    not_ported,
 )
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import host_array
@@ -67,9 +68,9 @@ class TensorLMServe(Element):
         "max_new_tokens": 64,    # default generation budget per request
         "timeout": 600.0,        # seconds a drainer waits on one result
         "idle_timeout": 60.0,    # seconds before an idle drainer retires
-        "speculate": 0,          # not ported (A.13.4): only 0 is taken
+        "speculate": 0,          # draft-then-verify lookahead (engine knob)
+        "speculate_layers": 0,   # draft depth override (0 = engine default)
     }
-    UNPORTED_PROPERTIES = {"speculate_layers": "A.13.4"}
 
     #: error response payload — exactly one buffer per request keeps the
     #: order-matched framed protocol in sync (see module docstring)
@@ -99,10 +100,6 @@ class TensorLMServe(Element):
         self._stopped = False  # set under _state_lock; _enqueue rejects
         self._idle = threading.Condition(self._state_lock)
 
-    def property_changed(self, key: str) -> None:
-        if key == "speculate" and int(self.get_property("speculate")):
-            raise not_ported("tensor_lm_serve speculate", "A.13.4")
-
     def start(self):
         super().start()
         with self._state_lock:
@@ -115,6 +112,14 @@ class TensorLMServe(Element):
             raise FlowError(
                 f"{self.name}: no engine registered as {name!r} "
                 f"(serving.register_engine first)")
+        spec = int(self.get_property("speculate"))
+        if spec and spec != getattr(self._engine, "speculate", 0):
+            # opt-in draft-then-verify: the knob is the element's, the
+            # machinery the engine's (models/speculative.py); set_speculate
+            # raises if the engine is already decoding with another K — a
+            # conflict that fails start()
+            layers = int(self.get_property("speculate_layers")) or None
+            self._engine.set_speculate(spec, draft_layers=layers)
 
     def _cancel_all_inflight(self):
         """Nobody will read these streams anymore — the engine must not

@@ -20,8 +20,15 @@ cache's tensors in place and return it. A cache is a :class:`KVCache`
 for both codecs: the raw one (the model dtype) and the int8 one
 (per-vector absmax scales, ``kv_codec="int8"``).
 
-Not ported yet, each raising with its ROADMAP item: the paged builders
-and the codecs' paged methods (A.13.3) and the sampled path —
+The paged KV cache (``serving/kvpool.py``) has its builders here too:
+:func:`build_paged_decode_step` and :func:`build_paged_chunk` gather each
+row's block table into the contiguous ``[b, S, ...]`` layout the shared
+attention core reads, so a paged cache gives the monolithic cache's
+tokens. Their scatters never index out of range (a CUDA device-side
+assert): a write the JAX package drops (``mode="drop"``) lands in the
+arena's private trash block, at the same fixed shape.
+
+Not ported yet, each raising with its ROADMAP item: the sampled path —
 ``temperature > 0``, ``top_k``, ``min_p`` (A.13.5). The repo-loop stream
 steps wait for A.13.6.
 """
@@ -307,6 +314,30 @@ def _slot_write(leaf: torch.Tensor, upd: torch.Tensor,
     leaf[:, rows, slots] = upd
 
 
+def _paged_gather(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Per-layer block gather: ``pages [NTOT + 1, 2, T, ...]`` (the pool's
+    blocks, its ZERO block at NTOT - 1, its trash block at NTOT) + block
+    table ``bt [b, MB]`` → contiguous ``[b, 2, MB*T, ...]`` k/v in
+    global-slot order. Entries ≥ NTOT - 1 (the sentinel) clamp onto the
+    ZERO block, so unallocated slots read exact zeros."""
+    zero = pages.shape[0] - 2
+    g = pages[torch.clamp(bt.long(), max=zero)]          # [b, MB, 2, T, ..]
+    g = g.movedim(2, 1)                                  # [b, 2, MB, T, ..]
+    b, two, mb, t = g.shape[:4]
+    return g.reshape((b, two, mb * t) + tuple(g.shape[4:]))
+
+
+def _paged_scatter(pages: torch.Tensor, upd: torch.Tensor,
+                   blk: torch.Tensor, off: torch.Tensor) -> None:
+    """Per-layer block scatter, in place: ``upd [b, c, 2, ...]`` into
+    ``pages[blk, :, off]`` (``blk``/``off`` are ``[b, c]``). Block ids at
+    or past the sentinel write the trash block (index NTOT, never read):
+    the JAX package's dropped write at a fixed shape, so the ZERO block is
+    never written and no index leaves the arena."""
+    trash = pages.shape[0] - 1
+    pages[torch.clamp(blk.long(), max=trash), :, off.long()] = upd
+
+
 class _RawKVCodec:
     """Cache values in the model dtype."""
 
@@ -331,11 +362,24 @@ class _RawKVCodec:
         cache.values[:, :, :, :kv.shape[3]] = kv.to(self.dtype)
         return cache
 
-    def paged_init(self, *_args, **_kw):
-        raise not_ported("the paged KV cache (the codec's paged methods)",
-                         "A.13.3")
+    def paged_init(self, L, ntot, T, h, dh, device=None) -> KVCache:
+        """Paged arena ``[L, NTOT + 1, 2, T, h, dh]``: leading L so each
+        layer takes its own block-pool slice; ``serving/kvpool.py`` owns
+        allocation (NTOT - 1 is the permanent ZERO block, NTOT the trash
+        block)."""
+        return KVCache(torch.zeros((L, ntot + 1, 2, T, h, dh),
+                                   dtype=self.dtype, device=device))
 
-    paged_write = paged_read = paged_init
+    def paged_write(self, pages: KVCache, kv, blk, off) -> KVCache:
+        """kv [2, b, c, h, dh] → pages[blk[b, c], :, off[b, c]] (in
+        place)."""
+        _paged_scatter(pages.values,
+                       kv.to(self.dtype).permute(1, 2, 0, 3, 4), blk, off)
+        return pages
+
+    def paged_read(self, pages: KVCache, bt):
+        g = _paged_gather(pages.values, bt)
+        return g[:, 0], g[:, 1]
 
 
 class _Int8KVCodec(_RawKVCodec):
@@ -380,6 +424,28 @@ class _Int8KVCodec(_RawKVCodec):
         cache.values[:, :, :, :n] = q
         cache.scale[:, :, :, :n] = s
         return cache
+
+    def paged_init(self, L, ntot, T, h, dh, device=None) -> KVCache:
+        return KVCache(
+            torch.zeros((L, ntot + 1, 2, T, h, dh), dtype=torch.int8,
+                        device=device),
+            torch.zeros((L, ntot + 1, 2, T, h), dtype=torch.float32,
+                        device=device))
+
+    def paged_write(self, pages: KVCache, kv, blk, off) -> KVCache:
+        """The codec applied per written vector with the monolithic
+        write's absmax math, so a paged int8 cache holds the monolithic
+        int8 cache's bits."""
+        q, s = self._q(kv)                 # [2, b, c, h, dh], [2, b, c, h]
+        _paged_scatter(pages.values, q.permute(1, 2, 0, 3, 4), blk, off)
+        _paged_scatter(pages.scale, s.permute(1, 2, 0, 3), blk, off)
+        return pages
+
+    def paged_read(self, pages: KVCache, bt):
+        gq = _paged_gather(pages.values, bt)
+        gs = _paged_gather(pages.scale, bt)
+        deq = gq.float() * gs[..., None]
+        return deq[:, 0], deq[:, 1]
 
 
 def _kv_codec(cfg: TransformerConfig, kv_codec: Optional[str]):
@@ -520,13 +586,109 @@ def build_prefill(cfg: TransformerConfig,
     return prefill
 
 
-def build_paged_decode_step(*_args, **_kw):
-    raise not_ported("the paged KV cache (build_paged_decode_step)",
-                     "A.13.3")
+def _block_tokens(name: str, s_max: int, block_tokens: int) -> int:
+    T = int(block_tokens)
+    if T <= 0 or s_max % T:
+        raise ValueError(
+            f"{name}: max_seq ({s_max}) must be a positive multiple of "
+            f"block_tokens ({block_tokens})")
+    return T
 
 
-def build_paged_chunk(*_args, **_kw):
-    raise not_ported("the paged KV cache (build_paged_chunk)", "A.13.3")
+def build_paged_decode_step(cfg: TransformerConfig,
+                            block_tokens: int,
+                            max_seq: Optional[int] = None,
+                            kv_codec: Optional[str] = None) -> Callable:
+    """Single-token decode against a paged KV cache
+    (``serving/kvpool.py``): ``step(params, token[int b], arena, bt[int
+    b, MB], pos[int b]) -> (logits[b, vocab], arena)``.
+
+    ``arena`` is the pool's :class:`KVCache` of ``[L, NTOT + 1, 2, T, h,
+    dh]`` leaves; ``bt`` maps each row's logical blocks ``0..MB-1`` (MB =
+    S/T) to physical blocks, unallocated entries holding the sentinel.
+    Each layer writes k/v into slot ``(bt[pos//T], pos%T)`` in place, then
+    gathers the row's table back into the contiguous ``[b, S, ...]``
+    layout of :func:`build_decode_step`: the same slot order and
+    write-before-attend, masked slots contributing exact zeros, so greedy
+    tokens equal the monolithic cache's. A row whose table is all
+    sentinel (an empty lane) writes the trash block and reads zeros."""
+    dtype = cfg.dtype
+    s_max = max_seq or cfg.max_seq
+    T = _block_tokens("build_paged_decode_step", s_max, block_tokens)
+    codec = _kv_codec(cfg, kv_codec)
+
+    def step(params, token, arena, bt, pos):
+        dev = arena.device
+        pos = torch.as_tensor(pos, device=dev).long()
+        pos_c = torch.clamp(pos, max=s_max - 1)   # cache-length contract
+        bt = bt.long()
+        x = _embed(params, token, dtype)[:, None]           # [b, 1, d]
+        positions = pos[:, None]
+        blk = torch.gather(bt, 1, (pos_c // T)[:, None])    # [b, 1]
+        off = (pos_c % T)[:, None]
+        slots = torch.arange(s_max, device=dev)
+        mask = slots[None, None, None, :] <= pos_c[:, None, None, None]
+        for l in range(cfg.n_layers):
+            lp = _layer(params, l)
+            q, k, v = _block_qkv(x, lp, positions, dtype)   # [b, 1, h, dh]
+            pages = codec.paged_write(arena.map(lambda t: t[l]),
+                                      torch.stack([k, v]), blk, off)
+            ck, cv = codec.paged_read(pages, bt)
+            a = _attend_cache(q, ck, cv, mask, cfg.head_dim, dtype)
+            x = _block_tail(x, a, lp, cfg)
+        return _final_logits(x, params)[:, 0], arena
+
+    return step
+
+
+def build_paged_chunk(cfg: TransformerConfig,
+                      block_tokens: int,
+                      max_seq: Optional[int] = None,
+                      kv_codec: Optional[str] = None) -> Callable:
+    """Chunk decode against a paged KV cache, :func:`build_chunk_decode`'s
+    paged twin: ``chunk(params, tokens[int b, c], arena, bt[int b, MB],
+    pos0[int b], limit[int b]) -> (logits[b, c, vocab], arena)``.
+
+    Row r's token i sits at position ``pos0[r] + i``, writes slot
+    ``(bt[r, p//T], p%T)`` and attends under a ``slot <= p`` mask.
+    ``limit[r]`` is the row's real chunk length: positions at or past it
+    (bucket padding) write the trash block, so a padded warm prefix
+    extension never smears pad k/v into blocks another stream could
+    inherit. The prefix cache's extension and speculative verification
+    use it on the paged path."""
+    dtype = cfg.dtype
+    s_max = max_seq or cfg.max_seq
+    T = _block_tokens("build_paged_chunk", s_max, block_tokens)
+    codec = _kv_codec(cfg, kv_codec)
+
+    def chunk(params, tokens, arena, bt, pos0, limit):
+        b, c = tokens.shape
+        dev = arena.device
+        pos0 = torch.clamp(torch.as_tensor(pos0, device=dev).long(),
+                           max=s_max - c)
+        ar = torch.arange(c, device=dev)
+        positions = pos0[:, None] + ar[None, :]             # [b, c]
+        valid = ar[None, :] < torch.as_tensor(limit,
+                                              device=dev).long()[:, None]
+        bt = bt.long()
+        trash = arena.values.shape[1] - 1
+        blk = torch.gather(bt, 1, positions // T)           # [b, c]
+        blk = torch.where(valid, blk, torch.full_like(blk, trash))
+        off = positions % T
+        slots = torch.arange(s_max, device=dev)
+        mask = slots[None, None, None, :] <= positions[:, None, :, None]
+        x = _embed(params, tokens, dtype)                   # [b, c, d]
+        for l in range(cfg.n_layers):
+            lp = _layer(params, l)
+            q, k, v = _block_qkv(x, lp, positions, dtype)   # [b, c, h, dh]
+            pages = codec.paged_write(arena.map(lambda t: t[l]),
+                                      torch.stack([k, v]), blk, off)
+            ck, cv = codec.paged_read(pages, bt)
+            a = _attend_cache(q, ck, cv, mask, cfg.head_dim, dtype)
+            x = _block_tail(x, a, lp, cfg)
+        return _final_logits(x, params), arena
+
+    return chunk
 
 
 def make_sampler(vocab: int, temperature: float = 1.0,

@@ -20,6 +20,17 @@ None``. Elements whose per-frame behaviour is host control flow do not,
 and stay unfused; so do neighbours whose stages compute on different
 devices.
 
+A plain ``stop()``/``start()`` keeps the captured graphs, as the JAX
+region keeps its trace: ``start()`` rebuilds the stages and keeps the
+graphs only when every stage key equals the last build's (no key None)
+and so does every stage's storage pin — the (data_ptr, dtype, shape,
+device) of each tensor its consts hold, a module's parameters and
+buffers included — since a graph replays the addresses it captured: a
+weight rebound between runs (``module.half()``, ``param.data = ...``,
+``load_state_dict(assign=True)``) captures anew. A property edit, a custom
+event, a model reload and ``degrade`` call :meth:`FusedRegion.invalidate`,
+which drops them, and the next frame captures anew.
+
 Each frame's copy into the static inputs, its replay and its output
 copies run in that order on the dispatching thread's current stream (the
 device's default stream): the next frame's copy overwrites the static
@@ -104,7 +115,8 @@ class DeviceStage:
     must be capturable on the card: no host synchronisation, no data-
     dependent Python control flow. ``consts`` is threaded through every
     call (a model's module). ``key`` identifies the computation, not the
-    consts; None means it cannot be shown unchanged.
+    consts' storage (the region pins that itself); None means it cannot
+    be shown unchanged.
     """
 
     consts: Any
@@ -124,6 +136,30 @@ class DeviceStage:
         if self.mesh is not None:
             raise not_ported("mesh-sharded region stages (mesh=)",
                              "A.24 multi-GPU serving")
+
+
+def _storage_pin(consts) -> Optional[tuple]:
+    """What a captured graph reads of ``consts``: the (data_ptr, dtype,
+    shape, device) of every tensor they hold, a module's parameters and
+    buffers by name; scalars and strings by value. None when ``consts``
+    hold something else, whose storage cannot be shown unchanged."""
+    if consts is None or isinstance(consts, (bool, int, float, str)):
+        return ("value", consts)
+    if isinstance(consts, torch.Tensor):
+        return ("tensor", consts.data_ptr(), consts.dtype,
+                tuple(consts.shape), str(consts.device))
+    if isinstance(consts, torch.nn.Module):
+        named = list(consts.named_parameters()) + \
+            list(consts.named_buffers())
+        return ("module",) + tuple((n, _storage_pin(t)) for n, t in named)
+    if isinstance(consts, (list, tuple)):
+        items = tuple(_storage_pin(c) for c in consts)
+        return None if None in items else ("seq",) + items
+    if isinstance(consts, dict):
+        items = tuple((k, _storage_pin(v)) for k, v in sorted(consts.items()))
+        return None if any(v is None for _, v in items) \
+            else ("dict",) + items
+    return None
 
 
 def fusion_enabled() -> bool:
@@ -264,11 +300,18 @@ class FusedRegion(Element):
             raise FlowError(f"fused region {self.name}: members compute on "
                             f"{sorted(str(d) for d in devices)}")
         device = devices.pop() if devices else None
-        keys = [st.key for st in stages]
+        # the device is part of what a graph computes: a stage key names
+        # the computation, not where it runs; the storage pin names the
+        # addresses its consts hold, which a graph replays
+        keys = [None if st.key is None or pin is None else (st.key, pin)
+                for st, pin in ((st, _storage_pin(st.consts))
+                                for st in stages)]
+        keys.append(("device", str(device)))
         # a None key means "cannot prove the computation is unchanged"
         if any(k is None for k in keys) or keys != self._keys:
             self._keys = None if any(k is None for k in keys) else keys
             self._seen = set()
+            self._drop_graphs()
         fns = [st.fn for st in stages]
 
         def composed(consts, tensors):
@@ -318,25 +361,38 @@ class FusedRegion(Element):
             out["retraces"] = int(self._m_retrace.value)
         return out
 
+    def _drop_graphs(self) -> None:
+        if self._graphs:
+            # a replay may still run on the card: the graphs' memory pool
+            # must outlive it (no graph was captured where CUDA never
+            # started)
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            self._graphs = {}
+
     def invalidate(self) -> None:
         """Drop the built stages and the captured graphs; the next frame
-        re-pulls member stages (and captures anew on the card)."""
+        re-pulls member stages (and captures anew on the card). A property
+        edit, a custom event, a model reload and ``degrade`` come here."""
         self._compiled = None
         # outstanding dispatches belong to the old stages
         self._window.drain()
-        if self._graphs:
-            # a replay may still run on the card: the graphs' memory pool
-            # must outlive it
-            torch.cuda.synchronize()
-            self._graphs = {}
+        self._drop_graphs()
 
     def start(self):
         super().start()
         if self._dead:
             return
         # members were restarted (backends re-opened, possibly with changed
-        # properties): never replay a graph captured over the old backend
-        self.invalidate()
+        # properties): rebuild the stages. _build keeps the captured graphs
+        # only when every new stage key and storage pin equals the last
+        # build's and none is None, as the JAX region keeps its trace: the
+        # pin holds the addresses of the consts the graph replays (the
+        # torch backend's module's parameters and buffers, the decoder's
+        # consts), so a plain restart replays instead of capturing again
+        # and a rebound weight captures anew
+        self._compiled = None
+        self._window.drain()  # stop() drained it: nothing crosses a restart
         try:
             self._build()
         except FlowError:

@@ -1,7 +1,6 @@
 """Continuous-batching decode engine, on the card.
 
-The JAX package's ``serving/engine.py`` on its single-chip, monolithic-
-cache, greedy path:
+The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
 
 - **One batched decode.** ``max_streams`` batch slots share one KV cache
   ``[L, 2, B, S, h, dh]`` (``models.transformer.KVCache``: int8 values
@@ -38,24 +37,43 @@ cache, greedy path:
   exact repeat none. Registering the entries with the HBM accountant as
   droppable units waits for ``tensors/memory.py`` (A.19): without an
   accountant the JAX engine does not register them either.
+- **The paged KV cache** (``block_tokens`` > 0, ``serving/kvpool.py``):
+  the cache becomes fixed-size blocks of one preallocated arena with a
+  block table per stream, and admission is bounded by free blocks, not
+  batch slots: more streams than lanes time-share the B decode lanes
+  under per-token EDF deadlines (``scheduler.token_deadline``), a shared
+  prompt prefix costs its blocks once (copy-on-write), and block
+  exhaustion walks the evict → defer → shed ladder. The paged K-step
+  dispatch is the same one graph per (B, K), with the block table one
+  more static ``[B, MB]`` buffer loaded before each replay; the paged
+  loop is synchronous, as the JAX engine's is, because the next block
+  table depends on what the host emitted.
+- **Speculative decoding** (``speculate`` = γ > 0, greedy only): a
+  ``speculate_layers``-deep prefix slice of the target
+  (``models/speculative.py``) drafts γ tokens, the target verifies the
+  γ+1 positions in one chunk pass, and each stream emits the accepted
+  prefix plus the target's own next token — exactly the greedy tokens.
+  On the card each round (γ draft steps, the target chunk, the accept,
+  the draft fix-up) is one CUDA graph per (B, γ) over static buffers
+  (:class:`_SpecRoundProgram`); the host reads the ``[B, γ+1]`` tokens,
+  their logprobs and ``n_emit``. Both cache modes.
 - **Request-path SLO admission.** With ``slo_budget_ms`` > 0 the engine
   owns an :class:`~nnstreamer_tpu_torch.serving.scheduler.SloScheduler`:
   ``submit()`` raises ``SloRejected`` when the request's deadline cannot
   be met behind the queued and active requests at the current
   per-request service estimate (cold: everything is admitted), and each
   finished request's submit-to-finish time feeds the estimate. The paged
-  engine's per-token deadlines and KV-pressure shedding wait for A.13.3.
+  engine's streams carry its budget as their deadline.
 
 Options of the JAX engine that are not ported yet raise with their
-ROADMAP item: ``mesh`` (A.24), ``block_tokens`` (A.13.3), ``speculate``
-(A.13.4) and sampled decoding — ``temperature > 0``, ``top_k``,
-``min_p`` (A.13.5).
+ROADMAP item: ``mesh`` (A.24) and sampled decoding — ``temperature > 0``,
+``top_k``, ``min_p`` (A.13.5). The pool's registration with the HBM
+accountant and its pressure counters wait for A.19.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import itertools
 import queue as _queue
 import threading
@@ -210,83 +228,91 @@ class _PrefixTrie:
         return node["rep"], d
 
 
-class _DecodeProgram:
-    """The engine's K-step dispatch over static device buffers.
+class _LaneProgram(_counts.GraphProgram):
+    """A program over the engine's lanes: the static inputs every lane
+    program reads, ``token [B]`` and ``pos [B]`` (and, on the paged
+    engine, the block table ``bt [B, MB]``), and :meth:`load`, which
+    copies the host mirrors into them. A subclass allocates its outputs
+    and defines the body.
 
-    ``token [B]`` and ``pos [B]`` feed the first step. The body is the
+    Captured (``_counts.GraphProgram``), every :meth:`run` is one replay,
+    which reads the engine's cache (or arena) and parameters where they
+    were at the capture. Without a capture (the CPU) a run executes the
+    body."""
+
+    def __init__(self, engine: "ContinuousBatchingEngine"):
+        super().__init__(engine.device)
+        self.engine = engine
+        B, dev = engine.B, engine.device
+        self.token = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+        #: the paged engine's block tables (all sentinel: every write of
+        #: an unloaded program lands in the arena's trash block)
+        self.bt = torch.full((B, engine.MB), engine._pool.SENTINEL,
+                             dtype=torch.int64, device=dev) \
+            if engine.paged else None
+
+    def load(self, last: np.ndarray, pos: np.ndarray,
+             bt: Optional[np.ndarray] = None) -> None:
+        """Copy host arrays in, each through a fresh pinned staging copy on
+        the current stream, ordered before the next run: the host mirrors
+        may change as soon as this returns."""
+        up = self.engine._upload
+        self.token.copy_(up(last))
+        self.pos.copy_(up(pos))
+        if bt is not None:
+            self.bt.copy_(up(bt))
+
+
+class _DecodeProgram(_LaneProgram):
+    """The engine's K-step dispatch. ``token`` and ``pos`` feed the first
+    step (the block table is constant over the K steps). The body is the
     engine's eager :meth:`ContinuousBatchingEngine._dispatch` loop; it
     leaves the ``[B, K]`` tokens and logprobs in ``toks`` and ``lps`` and,
     as its last op, writes the advanced token and positions back into
     ``token`` and ``pos``, so the next run chains off them with no host
-    step. :meth:`load` copies the host mirrors in after an admission or a
-    recovery.
-
-    :meth:`capture` records the body once as a CUDA graph (on a side
-    stream, in ``thread_local`` mode, so the process's other threads keep
-    using the card meanwhile); every :meth:`run` after it is one replay,
-    which reads the engine's cache and parameters where they were at the
-    capture. Without a capture (the CPU) a run executes the body."""
+    step. :meth:`load` runs after an admission or a recovery (the paged
+    loop before every dispatch)."""
 
     def __init__(self, engine: "ContinuousBatchingEngine"):
-        self.engine = engine
+        super().__init__(engine)
         self.K = engine.K
         B, dev = engine.B, engine.device
-        self.token = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.toks = torch.zeros((B, self.K), dtype=torch.int32, device=dev)
         self.lps = torch.zeros((B, self.K), dtype=torch.float32, device=dev)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        #: kernel-wrapper launches one replay runs (ops/_counts.py)
-        self.tally: Dict[str, int] = {}
-        self.capture_s = 0.0
 
     def body(self) -> None:
-        toks, lps, last, pos = self.engine._dispatch(self.token, self.pos)
+        toks, lps, last, pos = self.engine._dispatch(self.token, self.pos,
+                                                     self.bt)
         self.toks.copy_(toks)
         self.lps.copy_(lps)
         self.token.copy_(last)
         self.pos.copy_(pos)
 
-    def load(self, last: np.ndarray, pos: np.ndarray) -> None:
-        self.token.copy_(self.engine._upload(last))
-        self.pos.copy_(self.engine._upload(pos))
 
-    def capture(self, stream: "torch.cuda.Stream", warm: bool) -> None:
-        """Capture the body on ``stream``. ``warm`` first runs it eagerly
-        there (cuBLAS's set-up for the stream, outside the capture): it
-        advances the buffers and writes the cache at their positions, so
-        only a caller with no live stream may ask for it."""
-        t0 = _time.monotonic()
-        cur = torch.cuda.current_stream(stream.device)
-        stream.wait_stream(cur)
-        if warm:
-            with torch.cuda.stream(stream):
-                self.body()
-            cur.wait_stream(stream)
-        stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with _counts.capture_tally() as tally, torch.cuda.graph(
-                graph, stream=stream, capture_error_mode="thread_local"):
-            self.body()
-        self.graph, self.tally = graph, dict(tally)
-        self.capture_s = _time.monotonic() - t0
+class _SpecRoundProgram(_LaneProgram):
+    """One speculative round for every lane: the ``[B, γ+1]`` verified
+    tokens ``tgt`` and their logprobs ``lps`` and the per-lane emit count
+    ``n_emit [B]`` out. The body is
+    :meth:`ContinuousBatchingEngine._spec_round`: γ draft steps, one
+    target chunk of γ+1, the accept and the draft fix-up, all on the
+    device (the accept count stays there). Captured once per (B, γ) on
+    the card; the body on the CPU."""
 
-    def run(self) -> None:
-        if self.graph is None:
-            self.body()
-            return
-        self.graph.replay()
-        _counts.add_replay(self.tally)
+    def __init__(self, engine: "ContinuousBatchingEngine"):
+        super().__init__(engine)
+        self.gamma = engine.speculate
+        B, dev, g = engine.B, engine.device, engine.speculate
+        self.tgt = torch.zeros((B, g + 1), dtype=torch.int32, device=dev)
+        self.lps = torch.zeros((B, g + 1), dtype=torch.float32, device=dev)
+        self.n_emit = torch.zeros((B,), dtype=torch.int64, device=dev)
 
-    def release(self) -> None:
-        """Drop the graph once the card is done with it (its private pool
-        returns to the allocator)."""
-        if self.graph is None:
-            return
-        with contextlib.suppress(RuntimeError):  # a failed card: drop anyway
-            torch.cuda.synchronize(self.token.device)
-        self.graph.reset()
-        self.graph = None
+    def body(self) -> None:
+        tgt, lps, n_emit = self.engine._spec_round(self.token, self.pos,
+                                                   self.bt)
+        self.tgt.copy_(tgt)
+        self.lps.copy_(lps)
+        self.n_emit.copy_(n_emit)
 
 
 class _PendingRequest:
@@ -328,13 +354,22 @@ class ContinuousBatchingEngine:
     attention: prefill attention: "auto" (kernel B2 for CUDA tensors; on
         the card a head_dim the kernel does not take raises here) or
         "reference" (the plain version).
+    block_tokens: > 0 turns the paged KV cache on (``serving/kvpool.py``;
+        it must divide ``max_seq``); 0 (default) or ``NNSTPU_PAGED_KV=0``
+        keeps the monolithic cache.
+    kv_blocks: arena size in blocks (paged mode); defaults to
+        ``max_streams * max_seq / block_tokens``, the monolithic cache's
+        bytes.
+    speculate: > 0 turns speculative decoding on with that many drafted
+        tokens a round (greedy only); ``speculate_layers`` is the draft's
+        depth (default half the target's, at least 1). Concurrency is
+        capped at ``max_streams``: the draft cache is slot-structured.
     device: where the engine computes; None → the package device
         (``cuda:0`` unless ``set_device`` says otherwise).
 
     The other parameters keep the JAX engine's signature: each raises when
     it asks for an unported feature (see the module docstring), and
-    ``seed`` and ``kv_blocks``/``speculate_layers`` have nothing to seed
-    or size on the greedy, monolithic path.
+    ``seed`` has nothing to seed on the greedy path.
     """
 
     #: process-wide sequence behind ``obs_name`` (engine0, engine1, ...)
@@ -347,10 +382,15 @@ class ContinuousBatchingEngine:
     #: admission; exact whole-prompt hits are never thresholded
     PREFIX_MIN_REUSE = 4
 
-    #: the K-step dispatch runs eagerly on a card too when True: set only
-    #: by chip_smoke.py and the card's tests, to compare the captured
-    #: program with its body (the JAX engine has no such switch)
+    #: the K-step dispatch and the speculative round run eagerly on a
+    #: card too when True: set only by chip_smoke.py and the card's tests,
+    #: to compare the captured programs with their bodies (the JAX engine
+    #: has no such switch)
     _eager_dispatch = False
+
+    _GREEDY_ONLY = ("serving: speculate requires greedy decoding "
+                    "(temperature=0) — draft/verify parity is exact only "
+                    "for argmax")
 
     def __init__(self, cfg, params, max_streams: int = 4,
                  max_seq: Optional[int] = None,
@@ -372,6 +412,8 @@ class ContinuousBatchingEngine:
         from nnstreamer_tpu_torch.models.transformer import (
             build_chunk_decode,
             build_decode_step,
+            build_paged_chunk,
+            build_paged_decode_step,
             build_prefill,
             init_cache,
             make_sampler,
@@ -386,22 +428,21 @@ class ContinuousBatchingEngine:
             flash_attention,
             kernel_takes,
         )
+        from nnstreamer_tpu_torch.serving import kvpool as _kvpool
         from nnstreamer_tpu_torch.utils.stats import InvokeStats
 
         if mesh is not None:
             raise not_ported("multi-device serving (mesh=)", "A.24")
-        if int(block_tokens or 0) > 0:
-            raise not_ported("the paged KV cache (block_tokens > 0)",
-                             "A.13.3")
-        if int(speculate or 0) > 0:
-            raise not_ported("speculative decoding (speculate > 0)",
-                             "A.13.4")
         if attention not in ("auto", "reference"):
             raise ValueError(
                 f"serving: attention must be 'auto' or 'reference', got "
                 f"{attention!r}")
+        self.temperature = float(temperature)
+        if int(speculate or 0) > 0 and self.temperature > 0:
+            # before the sampler's own refusal: the JAX engine's guard
+            raise ValueError(self._GREEDY_ONLY)
         #: the one sampling function; raises for the unported sampled path
-        self._sample = make_sampler(cfg.vocab, float(temperature),
+        self._sample = make_sampler(cfg.vocab, self.temperature,
                                     int(top_k), float(min_p),
                                     with_logprobs=True)
 
@@ -441,6 +482,27 @@ class ContinuousBatchingEngine:
             cfg, self.S,
             attention_fn=flash_attention if attention == "auto" else None,
             kv_codec=kv_quant)
+
+        self.block_tokens = int(block_tokens or 0)
+        #: paged KV cache on: block_tokens > 0 and the kill switch
+        #: (NNSTPU_PAGED_KV) allows it; off, every path below is the
+        #: monolithic engine's
+        self.paged = self.block_tokens > 0 and _kvpool.paged_enabled()
+        self._pool = None
+        self.MB = 0
+        if self.paged:
+            if self.S % self.block_tokens:
+                raise ValueError(
+                    f"serving: block_tokens ({self.block_tokens}) must "
+                    f"divide max_seq ({self.S})")
+            #: block-table width: blocks a stream holds at full context
+            self.MB = self.S // self.block_tokens
+            self._paged_decode = build_paged_decode_step(
+                cfg, self.block_tokens, self.S, kv_codec=kv_quant)
+            self._paged_chunk_fn = build_paged_chunk(
+                cfg, self.block_tokens, self.S, kv_codec=kv_quant)
+            self._num_blocks = int(kv_blocks) if kv_blocks \
+                else self.B * self.MB
         self._init_cache = lambda: init_cache(cfg, self.B, self.S,
                                               kv_codec=kv_quant,
                                               device=self.device)
@@ -475,7 +537,9 @@ class ContinuousBatchingEngine:
         self._prefix: "collections.OrderedDict" = collections.OrderedDict()
         self._prefix_trie = _PrefixTrie()
 
-        self._cache = self._init_cache()
+        # paged mode never allocates the monolithic cache: the pool's
+        # arena (made below, after obs_name) is the only KV storage
+        self._cache = None if self.paged else self._init_cache()
         self._pending: "_queue.Queue[_PendingRequest]" = _queue.Queue()
         self._next_id = 0
         self._lock = threading.Lock()
@@ -486,6 +550,8 @@ class ContinuousBatchingEngine:
             "tokens_generated": 0, "dispatches": 0, "prefills": 0,
             "prefill_chunks": 0, "slot_steps": 0, "active_slot_steps": 0,
             "prefix_hits": 0, "prefix_tokens_reused": 0,
+            "concurrent_streams_max": 0, "kv_sheds": 0, "kv_defers": 0,
+            "spec_drafted": 0, "spec_accepted": 0,
         }
         #: registry label distinguishing concurrent engines in one process
         self.obs_name = f"engine{next(self._OBS_SEQ)}"
@@ -508,6 +574,32 @@ class ContinuousBatchingEngine:
         #: reference-style windowed read-outs (latency_us = one [B, K]
         #: dispatch wall time including the token fetch)
         self.invoke_stats = InvokeStats()
+        if self.paged:
+            self._pool = _kvpool.BlockPool(
+                cfg, self._num_blocks, self.block_tokens, kv_codec=kv_quant,
+                owner=self.obs_name, device=self.device)
+            #: sid → per-stream decode state (stream, blocks, pos, last,
+            #: budget, deadline_t, slot); engine thread only. Every
+            #: admitted stream lives here, on a decode lane or parked
+            self._sstate: Dict[int, dict] = {}
+            #: admission head deferred on block exhaustion (FIFO order
+            #: keeps: nothing behind it admits until it fits)
+            self._held: Optional[_PendingRequest] = None
+            #: decode lane → sid on it (None = free lane)
+            self._lane: List[Optional[int]] = [None] * self.B
+            #: host mirror of the device block tables, one row a lane
+            self._bt = np.full((self.B, self.MB), self._pool.SENTINEL,
+                               np.int64)
+
+        self.speculate = 0
+        self._speculate_layers: Optional[int] = None
+        #: the draft model, its cache and builders (set_speculate)
+        self._spec: Optional[dict] = None
+        #: the speculative round program (captured on a card); None until
+        #: start() builds it, and again after a recovery
+        self._spec_program: Optional[_SpecRoundProgram] = None
+        if int(speculate or 0) > 0:
+            self.set_speculate(int(speculate), speculate_layers)
 
     # -- device helpers -------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -534,42 +626,72 @@ class ContinuousBatchingEngine:
         event.record(torch.cuda.current_stream(self.device))
         return out, event
 
-    def _dispatch(self, token: torch.Tensor, pos: torch.Tensor):
+    def _dispatch(self, token: torch.Tensor, pos: torch.Tensor,
+                  bt: Optional[torch.Tensor] = None):
         """K greedy decode steps: ([B] token, [B] pos) → ([B, K] tokens,
-        [B, K] logprobs, last token, advanced pos), all on the device. The
+        [B, K] logprobs, last token, advanced pos), all on the device; on
+        the paged engine against the arena through the block tables ``bt
+        [B, MB]``, which the loop has topped up through pos + K - 1. The
         body of :class:`_DecodeProgram`."""
         toks, lps = [], []
         for _ in range(self.K):
-            logits, _ = self._decode(self.params, token, self._cache, pos)
+            if self.paged:
+                logits, _ = self._paged_decode(self.params, token,
+                                               self._pool.arena, bt, pos)
+            else:
+                logits, _ = self._decode(self.params, token, self._cache,
+                                         pos)
             token, _, lp = self._sample(logits)
             toks.append(token)
             lps.append(lp)
             pos = pos + 1
         return torch.stack(toks, 1), torch.stack(lps, 1), token, pos
 
+    def _capture(self, prog: _counts.GraphProgram, warm: bool,
+                 tag: int) -> None:
+        """Capture ``prog`` on the card (not on the CPU, nor under
+        ``_eager_dispatch``); ``graph_stats`` records ``tag``."""
+        if self.device.type != "cuda" or self._eager_dispatch:
+            return
+        with torch.cuda.device(self.device):
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            prog.capture(self._capture_stream, warm)
+        self.graph_stats["captures"].append(tag)
+        self.graph_stats["capture_s"] += prog.capture_s
+
     def _ensure_program(self, warm: bool) -> _DecodeProgram:
         """The program at the current K, built (and, on a card, captured)
         if there is none at that K. ``warm`` as in
-        :meth:`_DecodeProgram.capture`: only start() asks for it."""
+        :meth:`_counts.GraphProgram.capture`: only start() asks for it (on
+        the paged engine the unloaded program writes the trash block
+        only)."""
         if self._program is not None and self._program.K == self.K:
             return self._program
         self._drop_program()
         prog = _DecodeProgram(self)
-        if self.device.type == "cuda" and not self._eager_dispatch:
-            with torch.cuda.device(self.device):
-                if self._capture_stream is None:
-                    self._capture_stream = torch.cuda.Stream(self.device)
-                prog.capture(self._capture_stream, warm)
-            self.graph_stats["captures"].append(self.K)
-            self.graph_stats["capture_s"] += prog.capture_s
+        self._capture(prog, warm, self.K)
         self._program = prog
         self._reload = True
         return prog
+
+    def _ensure_spec_program(self, warm: bool) -> _SpecRoundProgram:
+        """The speculative round program, built and captured if there is
+        none. Its warm-up writes every lane's caches at positions 0..γ:
+        only start() asks for it, before any stream is live."""
+        if self._spec_program is None:
+            prog = _SpecRoundProgram(self)
+            self._capture(prog, warm, self.speculate)
+            self._spec_program = prog
+        return self._spec_program
 
     def _drop_program(self) -> None:
         if self._program is not None:
             self._program.release()
             self._program = None
+        if self._spec_program is not None:
+            self._spec_program.release()
+            self._spec_program = None
 
     def _calibrate_k(self) -> None:
         """steps_per_dispatch="auto": pick K from MEASURED costs.
@@ -582,7 +704,8 @@ class ContinuousBatchingEngine:
         of the block (K ≥ 4·rtt/s), clamped to [8, 128] and rounded down
         to a power of two; the program is built again only if K changed.
         Runs once, before the engine loop starts, on the live cache
-        (admission overwrites a slot's whole KV)."""
+        (admission overwrites a slot's whole KV; the paged program's
+        unloaded block tables send every write to the trash block)."""
         x = torch.zeros((8,), dtype=torch.int32, device=self.device)
         (x + 1)[0].item()  # warm off the clock
         rtts = []
@@ -627,11 +750,21 @@ class ContinuousBatchingEngine:
                     log.warning("serving: K auto-calibration failed (%s); "
                                 "keeping K=%d", e, self.K)
                     self._drop_program()
-                    self._cache = None
-                    self._cache = self._init_cache()
+                    if self.paged:
+                        self._pool.reset()
+                    else:
+                        self._cache = None
+                        self._cache = self._init_cache()
             # no stream is live before the loop starts: the program may
             # warm up on the cache (a capture error raises here)
-            self._ensure_program(warm=True)
+            if self._spec is None:
+                self._ensure_program(warm=True)
+            else:
+                # speculative rounds replace the K-step dispatch
+                if self._program is not None:
+                    self._program.release()
+                    self._program = None
+                self._ensure_spec_program(warm=True)
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._loop,
                                         name="cb-engine", daemon=True)
@@ -663,6 +796,12 @@ class ContinuousBatchingEngine:
                         not st.finished:
                     st._finish("engine-stopped")
                 self._slots[i] = None
+            if self.paged:
+                for state in list(self._sstate.values()):
+                    self._finish_paged(state, "engine-stopped")
+                if self._held is not None:
+                    self._held.stream._finish("engine-stopped")
+                    self._held = None
             while True:
                 try:
                     req = self._pending.get_nowait()
@@ -684,6 +823,11 @@ class ContinuousBatchingEngine:
         # fit the cache — equal to the plain n < S bound when C divides S
         limit = self.S - 1 if self.prefill_chunk is None else min(
             self.S - 1, (self.S // self.prefill_chunk) * self.prefill_chunk)
+        if self.speculate:
+            # a verify chunk writes kv at positions [pos, pos + γ]; the
+            # per-stream budget keeps pos <= S - 1 - γ only if admission
+            # does
+            limit = min(limit, self.S - 1 - self.speculate)
         if prompt.size > limit:
             raise ValueError(
                 f"serving: prompt length {prompt.size} must be <= {limit} "
@@ -701,8 +845,11 @@ class ContinuousBatchingEngine:
                 # backlog ahead of this request: queued + active streams;
                 # raises SloRejected before any slot or queue capacity is
                 # taken — overload is turned away at the door
-                backlog = self._pending.qsize() + sum(
-                    1 for s in self._slots if s is not None)
+                backlog = self._pending.qsize() + (
+                    len(self._sstate) + (1 if self._held is not None
+                                         else 0)
+                    if self.paged else
+                    sum(1 for s in self._slots if s is not None))
                 self._slo.admit_request(_time.monotonic(), backlog)
             sid = self._next_id
             self._next_id += 1
@@ -720,6 +867,8 @@ class ContinuousBatchingEngine:
 
     @property
     def active_streams(self) -> int:
+        if self.paged:
+            return len(self._sstate)
         return sum(1 for s in self._slots
                    if s is not None and s is not self._RESERVED)
 
@@ -859,13 +1008,28 @@ class ContinuousBatchingEngine:
             # final chunk: logits at the prompt's true last position
             self._partial = None
             logits_last = logits[:, (n - 1) - start]
+            if self.paged:
+                rec = self._activate_paged_from_cache1(req, logits_last,
+                                                       cache1)
+                if rec is None:  # pool exhausted: re-ingest when it isn't
+                    self.stats["kv_defers"] += 1
+                    self._held = req
+                else:
+                    self._commit_wave([rec], self._activate_commit_paged)
+                return
             self._prefix_store(prompt, cache1, logits_last)
             self._activate(req, slot, logits_last, cache1)
         except Exception as e:  # noqa: BLE001 — a failed chunk must free
             # the reserved slot and fail only this request
             log.warning("serving: chunked prefill failed: %s", e)
             self._partial = None
-            self._slots[slot] = None
+            if slot is not None:
+                self._slots[slot] = None
+            state = self._sstate.get(req.stream.stream_id) \
+                if self.paged else None
+            if state is not None:  # activated: its blocks go back too
+                self._finish_paged(state, f"error: {e}")
+                return
             req.stream._finish(f"error: {e}")
 
     def _activate_begin(self, req: _PendingRequest, slot: int, logits,
@@ -877,6 +1041,11 @@ class ContinuousBatchingEngine:
         first_d, _, lp_d = self._sample(logits)
         self._cache.map(lambda t: t[:, :, slot]).copy_(
             cache1.map(lambda t: t[:, :, 0]))
+        if self._spec is not None:
+            # the shallow draft re-reads the whole prompt (half the
+            # layers, one bucketed prefill), so its cache is canonical
+            # from position 0
+            self._draft_prefill(req, slot)
         self._slots[slot] = req.stream  # claimed; mirrors land at commit
         return (req, slot, first_d, lp_d)
 
@@ -886,7 +1055,7 @@ class ContinuousBatchingEngine:
         commit."""
         rec = self._activate_begin(req, slot, logits, cache1)
         self._sync_host_state()
-        self._commit_wave([rec])
+        self._commit_wave([rec], self._activate_commit)
 
     def _activate_commit(self, rec, first: int, first_lp: float) -> None:
         """Host half: install the per-slot host mirrors and emit the first
@@ -898,7 +1067,9 @@ class ContinuousBatchingEngine:
         self._pos[slot] = n
         self._last[slot] = first
         # cap generation so cache writes stay inside the slot's S window
-        self._budget[slot] = min(req.max_new, self.S - n)
+        # (a speculative verify chunk writes through pos + γ, hence the
+        # margin; zero when speculation is off)
+        self._budget[slot] = min(req.max_new, self.S - n - self.speculate)
         t0 = getattr(req.stream, "submit_t", None)
         if t0 is not None:
             self._lm_stats.observe_ttft(_time.monotonic() - t0)
@@ -906,9 +1077,9 @@ class ContinuousBatchingEngine:
         self.stats["tokens_generated"] += 1
         self._post_emit(slot, first)
 
-    def _commit_wave(self, admitted) -> None:
+    def _commit_wave(self, admitted, commit) -> None:
         """Fetch a whole admission wave's first tokens in one copy, then
-        commit each; a failed commit fails only its stream."""
+        ``commit`` each; a failed commit fails only its stream."""
         (firsts, lps), event = self._fetch_async(
             torch.cat([rec[2] for rec in admitted]),
             torch.cat([rec[3] for rec in admitted]))
@@ -917,11 +1088,17 @@ class ContinuousBatchingEngine:
         firsts, lps = firsts.numpy(), lps.numpy()
         for i, rec in enumerate(admitted):
             try:
-                self._activate_commit(rec, int(firsts[i]), float(lps[i]))
+                commit(rec, int(firsts[i]), float(lps[i]))
             except Exception as e:  # noqa: BLE001 — fail only this
-                # stream; the slot frees for the next prompt
+                # stream; its slot or blocks free for the next prompt
                 log.warning("serving: activate failed: %s", e)
-                self._slots[rec[1]] = None
+                if self.paged:
+                    state = rec[1]
+                    if self._sstate.get(state["sid"]) is state:
+                        self._finish_paged(state, f"error: {e}")
+                        continue
+                else:
+                    self._slots[rec[1]] = None
                 rec[0].stream._finish(f"error: {e}")
 
     def _post_emit(self, slot: int, tok: int):
@@ -1008,18 +1185,683 @@ class ContinuousBatchingEngine:
                 st._finish(f"error: {e}")
             self._slots[slot] = None
         self._drop_program()
-        self._cache = None
-        self._cache = self._init_cache()
+        if self.paged:
+            for state in list(self._sstate.values()):
+                state["stream"]._finish(f"error: {e}")
+            self._sstate.clear()
+            if self._held is not None:
+                self._held.stream._finish(f"error: {e}")
+                self._held = None
+            self._lane = [None] * self.B
+            # zeroed in place, the same bytes; paged prefix entries hold
+            # block ids into the dropped allocation map and go with it
+            self._pool.reset()
+            self._bt[:] = self._pool.SENTINEL
+            self._prefix.clear()
+            self._prefix_trie = _PrefixTrie()
+        else:
+            self._cache = None
+            self._cache = self._init_cache()
+        if self._spec is not None:
+            self._spec["dcache"] = None
+            self._spec["dcache"] = self._spec["init_dcache"]()
         self._reload = True
+
+    # -- speculative decoding (speculate=γ) -----------------------------------
+    def set_speculate(self, k: int,
+                      draft_layers: Optional[int] = None) -> None:
+        """Reconfigure speculative decoding (``tensor_lm_serve
+        speculate=``). No-op when unchanged; requires a stopped engine
+        loop (the draft cache and the round program are rebuilt). ``k=0``
+        turns it off."""
+        k = int(k or 0)
+        if k == self.speculate and (
+                k == 0 or draft_layers == self._speculate_layers):
+            return
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError(
+                "serving: set_speculate requires a stopped engine loop")
+        if k < 0:
+            raise ValueError(f"serving: speculate must be >= 0, got {k}")
+        if k >= self.S:
+            raise ValueError(
+                f"serving: speculate ({k}) must be < max_seq ({self.S})")
+        if k and self.temperature > 0:
+            raise ValueError(self._GREEDY_ONLY)
+        if self._spec_program is not None:
+            self._spec_program.release()
+            self._spec_program = None
+        self.speculate = k
+        self._speculate_layers = draft_layers
+        self._spec = None
+        if k:
+            self._build_speculative()
+
+    def _build_speculative(self) -> None:
+        """The draft: a ``speculate_layers``-deep prefix slice of the
+        target's stacked params (views, no copy), with its own raw
+        slot-structured cache, its decode step and its plain-attention
+        prefill (the JAX engine's draft prefill takes no flash kernel)."""
+        from nnstreamer_tpu_torch.models.speculative import (
+            draft_from_target,
+        )
+        from nnstreamer_tpu_torch.models.transformer import (
+            build_decode_step,
+            build_prefill,
+            init_cache,
+        )
+
+        nl = self._speculate_layers or max(1, self.cfg.n_layers // 2)
+        dcfg, dparams = draft_from_target(self.cfg, self.params, nl)
+
+        def init_dcache():
+            return init_cache(dcfg, self.B, self.S, device=self.device)
+
+        self._spec = {
+            "dparams": dparams, "dcfg": dcfg,
+            "dcache": init_dcache(), "init_dcache": init_dcache,
+            "decode": build_decode_step(dcfg, self.S),
+            "prefill": build_prefill(dcfg, self.S),
+        }
+
+    def _draft_prefill(self, req: _PendingRequest, slot: int) -> None:
+        sp = self._spec
+        n = req.prompt.size
+        padded = np.zeros((1, self._bucket(n)), np.int32)
+        padded[0, :n] = req.prompt
+        _lg, dcache1 = sp["prefill"](
+            sp["dparams"], self._upload(padded),
+            lengths=self._upload(np.asarray([n], np.int64)))
+        sp["dcache"].map(lambda t: t[:, :, slot]).copy_(
+            dcache1.map(lambda t: t[:, :, 0]))
+
+    def _spec_round(self, token: torch.Tensor, pos: torch.Tensor,
+                    bt: Optional[torch.Tensor] = None):
+        """One speculative round for every lane, on the device: γ greedy
+        draft steps, then the target verifies the γ+1 positions ``[token,
+        d_1..d_γ]`` in one chunk pass (the paged chunk on the paged
+        engine), so ``n_emit`` ∈ [1, γ+1] tokens per lane are exactly what
+        greedy decoding emits. A rejected draft needs no undo: the host
+        advances pos by ``n_emit``, and the slots above it are written
+        before they are ever attended. Last, the draft's cache takes the
+        last emitted token's k/v at its position (a no-op rewrite unless
+        all γ were accepted, when it fills the one position the draft
+        steps never wrote). Returns ``(tgt [B, γ+1], lps [B, γ+1], n_emit
+        [B])``; the body of :class:`_SpecRoundProgram`."""
+        sp = self._spec
+        g = self.speculate
+        dparams, dcache, ddecode = sp["dparams"], sp["dcache"], sp["decode"]
+        tok, p, drafts = token, pos, []
+        for _ in range(g):
+            lg, _ = ddecode(dparams, tok, dcache, p)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            drafts.append(tok)
+            p = p + 1
+        drafts = torch.stack(drafts, 1)                     # [B, γ]
+        chunk_toks = torch.cat([token[:, None], drafts], 1)  # [B, γ+1]
+        if self.paged:
+            limit = torch.full((token.shape[0],), g + 1, dtype=torch.int64,
+                               device=token.device)
+            logits, _ = self._paged_chunk_fn(self.params, chunk_toks,
+                                             self._pool.arena, bt, pos,
+                                             limit)
+        else:
+            logits, _ = self._chunk_fn(self.params, chunk_toks, self._cache,
+                                       pos)
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, γ+1]
+        lps = torch.gather(torch.log_softmax(logits.float(), dim=-1), -1,
+                           tgt.long()[..., None])[..., 0]
+        match = (tgt[:, :g] == drafts).to(torch.int32)
+        n_emit = torch.cumprod(match, dim=1).sum(dim=1) + 1
+        fix = torch.where(
+            n_emit == 1, token,
+            torch.gather(tgt, 1, torch.clamp(n_emit - 2, min=0)[:, None]
+                         )[:, 0])
+        ddecode(dparams, fix, dcache, pos + n_emit - 1)
+        return tgt, lps, n_emit
+
+    def _run_spec_round(self, last: np.ndarray, pos: np.ndarray,
+                        bt: Optional[np.ndarray] = None):
+        """Load the round program, run it (one replay on the card), and
+        fetch its tokens, logprobs and emit counts: the one host read a
+        round."""
+        prog = self._spec_program
+        if prog is None:  # after a recovery: capture anew (no warm-up)
+            prog = self._ensure_spec_program(warm=False)
+        prog.load(last, pos, bt)
+        prog.run()
+        if prog.graph is not None:
+            self.graph_stats["replays"] += 1
+        (tgt, lps, n_emit), event = self._fetch_async(prog.tgt, prog.lps,
+                                                      prog.n_emit)
+        if event is not None:
+            event.synchronize()
+        return tgt.numpy(), lps.numpy(), n_emit.numpy()
+
+    def _spec_emit(self, st, m: int, tgt_row, lps_row, post_emit,
+                   still_live) -> None:
+        self.stats["spec_drafted"] += self.speculate
+        self.stats["spec_accepted"] += m - 1
+        for j in range(m):
+            tok = int(tgt_row[j])
+            self.stats["tokens_generated"] += 1
+            self.stats["active_slot_steps"] += 1
+            st._emit(tok, float(lps_row[j]))
+            post_emit(tok)
+            if not still_live():
+                break
+
+    def _spec_step_mono(self) -> None:
+        g = self.speculate
+        snapshot = [(slot, st) for slot, st in enumerate(self._slots)
+                    if st is not None and st is not self._RESERVED]
+        if not snapshot:
+            return
+        t0 = _time.monotonic()
+        tgt, lps, n_emit = self._run_spec_round(self._last, self._pos)
+        dt = _time.monotonic() - t0
+        self.invoke_stats.record(dt)
+        self.stats["dispatches"] += 1
+        self.stats["slot_steps"] += self.B * (g + 1)
+        for slot, st in snapshot:
+            if self._slots[slot] is not st:
+                continue
+            m = int(n_emit[slot])
+            self._pos[slot] += m
+            self._last[slot] = int(tgt[slot, m - 1])
+            self._lm_stats.observe_token(dt / max(1, m))
+            self._spec_emit(st, m, tgt[slot], lps[slot],
+                            lambda tok, slot=slot: self._post_emit(slot, tok),
+                            lambda slot=slot: self._slots[slot] is not None)
+
+    def _spec_step_paged(self) -> None:
+        g = self.speculate
+        run = []
+        for st in list(self._sstate.values()):
+            if self._sstate.get(st["sid"]) is not st:
+                continue
+            if not self._topup(st):
+                continue
+            slot = st["slot"]
+            self._bt[slot, :] = self._pool.SENTINEL
+            self._bt[slot, :len(st["blocks"])] = st["blocks"]
+            run.append(st)
+        if not run:
+            return
+        last = np.zeros(self.B, np.int32)
+        pos = np.zeros(self.B, np.int64)
+        for st in run:
+            last[st["slot"]] = st["last"]
+            pos[st["slot"]] = st["pos"]
+        t0 = _time.monotonic()
+        tgt, lps, n_emit = self._run_spec_round(last, pos, self._bt)
+        dt = _time.monotonic() - t0
+        self.invoke_stats.record(dt)
+        self.stats["dispatches"] += 1
+        self.stats["slot_steps"] += self.B * (g + 1)
+        for st in run:
+            if self._sstate.get(st["sid"]) is not st:
+                continue
+            slot = st["slot"]
+            m = int(n_emit[slot])
+            # rejected drafts roll the block table's tail back by
+            # construction: pos advances only m, and the stale kv above it
+            # is written again before it is ever attended
+            st["pos"] += m
+            st["last"] = int(tgt[slot, m - 1])
+            self._lm_stats.observe_token(dt / max(1, m))
+            self._spec_emit(
+                st["stream"], m, tgt[slot], lps[slot],
+                lambda tok, st=st: self._post_emit_paged(st, tok),
+                lambda st=st: self._sstate.get(st["sid"]) is st)
+
+    # -- paged mode (block_tokens > 0) ----------------------------------------
+    def _blocks_for(self, n: int) -> int:
+        """Blocks a fresh n-token-prompt stream needs up front: the
+        prompt's positions plus the first decode write (n // T + 1: the
+        tail block doubles as the decode block unless the prompt ends on a
+        boundary)."""
+        return n // self.block_tokens + 1
+
+    def _alloc_blocks(self, k: int):
+        """Pool alloc with the evict rung of the pressure ladder: LRU paged
+        prefix entries are dropped until the allocation fits (or nothing
+        is left to drop: the caller then defers or sheds). The JAX
+        engine's ``count_pressure("evict")`` waits for A.19."""
+        ids = self._pool.alloc(k)
+        while ids is None and self._evict_prefix_paged():
+            ids = self._pool.alloc(k)
+        return ids
+
+    def _evict_prefix_paged(self) -> bool:
+        if not self._prefix:
+            return False
+        evicted, (ids, _logits) = self._prefix.popitem(last=False)
+        self._prefix_trie.remove(evicted)
+        self._pool.release(list(ids))
+        return True
+
+    def _prefix_lookup_paged(self, prompt: np.ndarray):
+        """→ (lcp, entry key, logits): the longest common prefix between
+        ``prompt`` and a cached entry; logits only on an exact whole-prompt
+        == whole-key hit. Reuse is at block granularity (the caller rounds
+        down)."""
+        if not self.prefix_cache:
+            return 0, None, None
+        best_key, lcp = self._prefix_trie.lookup(prompt)
+        if best_key is None or lcp <= 0:
+            return 0, None, None
+        self._prefix.move_to_end(best_key)
+        _ids, logits = self._prefix[best_key]
+        if not (lcp == prompt.size == len(best_key)):
+            logits = None
+        return lcp, best_key, logits
+
+    def _prefix_store_paged(self, prompt: np.ndarray, blocks,
+                            logits) -> None:
+        """Retain the stream's prompt-covering blocks as a cache entry:
+        sharing is a refcount bump, so a prefix costs its blocks once and
+        reuse is exact by construction (the same physical k/v). The tail
+        block may be partial; every reader takes a copy-on-write copy of
+        it, and the donor's later appends land at offsets >= n % T,
+        outside the entry's [0, n)."""
+        if not self.prefix_cache:
+            return
+        key = tuple(int(t) for t in prompt)
+        if key in self._prefix:
+            return
+        n = prompt.size
+        T = self.block_tokens
+        ids = tuple(blocks[:(n + T - 1) // T])
+        self._pool.retain(ids)
+        self._prefix_trie.insert(key)
+        self._prefix[key] = (ids, logits)
+        self._prefix.move_to_end(key)
+        while len(self._prefix) > self.prefix_cache:
+            evicted, (eids, _lg) = self._prefix.popitem(last=False)
+            self._prefix_trie.remove(evicted)
+            self._pool.release(list(eids))
+
+    def _admit_paged(self, req: _PendingRequest):
+        """Paged admission: allocate the stream's blocks, prefill cold /
+        block-aligned warm / exact hit, and return the activation record —
+        or None to defer when the pool cannot cover the prompt (admission
+        is bounded by free blocks; the caller holds the request so FIFO
+        order keeps). Every path allocates before any device work."""
+        self._m_queue_wait.observe(_time.monotonic() - req.submit_t)
+        prompt = req.prompt
+        n = prompt.size
+        T = self.block_tokens
+        p, key_hit, cached_logits = self._prefix_lookup_paged(prompt)
+        if cached_logits is not None:  # exact whole-prompt hit
+            eids, _lg = self._prefix[key_hit]
+            fresh = self._alloc_blocks(1)
+            if fresh is None:
+                return None
+            full = n // T
+            shared = list(eids[:full])
+            self._pool.retain(shared)
+            blocks = shared + fresh
+            try:
+                if n % T:
+                    # copy-on-write: a private copy of the entry's partial
+                    # tail, where the stream appends from offset n % T
+                    self._pool.copy_block(eids[full], fresh[0])
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += n
+                return self._activate_begin_paged(req, cached_logits,
+                                                  blocks)
+            except Exception:
+                self._pool.release(blocks)
+                raise
+        q = min((p // T) * T, ((n - 1) // T) * T)  # block-aligned reuse
+        if (key_hit is not None
+                and q >= max(T, self.PREFIX_MIN_REUSE)
+                and q + self._bucket(n - q) <= self.S):
+            eids, _lg = self._prefix[key_hit]
+            shared = list(eids[:q // T])
+            fresh = self._alloc_blocks(self._blocks_for(n) - len(shared))
+            if fresh is None:
+                return None
+            self._pool.retain(shared)
+            blocks = shared + fresh
+            try:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += q
+                rem = n - q
+                toks = np.zeros((1, self._bucket(rem)), np.int32)
+                toks[0, :rem] = prompt[q:]
+                bt = np.full((1, self.MB), self._pool.SENTINEL, np.int64)
+                bt[0, :len(blocks)] = blocks
+                logits, _ = self._paged_chunk_fn(
+                    self.params, self._upload(toks), self._pool.arena,
+                    self._upload(bt), self._upload(np.asarray([q], np.int64)),
+                    self._upload(np.asarray([rem], np.int64)))
+                logits = logits[:, rem - 1]
+                self._prefix_store_paged(prompt, blocks, logits)
+                return self._activate_begin_paged(req, logits, blocks)
+            except Exception:
+                self._pool.release(blocks)
+                raise
+        blocks = self._alloc_blocks(self._blocks_for(n))
+        if blocks is None:
+            return None
+        try:
+            padded = np.zeros((1, self._bucket(n)), np.int32)
+            padded[0, :n] = prompt
+            logits, cache1 = self._prefill_fn(
+                self.params, self._upload(padded),
+                lengths=self._upload(np.asarray([n], np.int64)))
+            self._pool.scatter_prefill(cache1, blocks[:(n + T - 1) // T])
+            self._prefix_store_paged(prompt, blocks, logits)
+            return self._activate_begin_paged(req, logits, blocks)
+        except Exception:
+            self._pool.release(blocks)
+            raise
+
+    def _activate_paged_from_cache1(self, req: _PendingRequest, logits,
+                                    cache1):
+        """Chunked-prefill commit: scatter the finished batch-1 cache into
+        fresh blocks. None = pool exhausted (the caller holds it)."""
+        n = req.prompt.size
+        T = self.block_tokens
+        blocks = self._alloc_blocks(self._blocks_for(n))
+        if blocks is None:
+            return None
+        try:
+            self._pool.scatter_prefill(cache1, blocks[:(n + T - 1) // T])
+            self._prefix_store_paged(req.prompt, blocks, logits)
+            return self._activate_begin_paged(req, logits, blocks)
+        except Exception:
+            self._pool.release(blocks)
+            raise
+
+    def _begin_partial_paged(self, req: _PendingRequest) -> None:
+        """Chunked prompt ingestion, paged: the chunks build a batch-1
+        monolithic cache that the final chunk scatters into fresh blocks;
+        no slot is reserved, and the blocks are allocated at activation.
+        (Prefix reuse is not wired on this path, as in the JAX engine.)"""
+        self._m_queue_wait.observe(_time.monotonic() - req.submit_t)
+        self._partial = (req, None, self._init_cache1(), 0, 0)
+
+    def _activate_begin_paged(self, req: _PendingRequest, logits, blocks):
+        """Sample the first token and create the stream's decode state. No
+        lane is claimed (EDF binds lanes a dispatch), except under
+        speculation, where the slot-structured draft cache pins a stream
+        to its lane for life."""
+        first_d, _, lp_d = self._sample(logits)
+        stream = req.stream
+        sid = stream.stream_id
+        n = req.prompt.size
+        now = _time.monotonic()
+        slo_s = self._slo.budget_s if self._slo is not None else 60.0
+        state = {
+            "sid": sid, "stream": stream, "blocks": list(blocks),
+            "pos": n, "last": 0,
+            # cap writes inside S (a verify chunk writes through pos + γ)
+            "budget": min(req.max_new, self.S - n - self.speculate),
+            #: absolute deadline feeding the per-token EDF key
+            "deadline_t": getattr(stream, "submit_t", now) + slo_s,
+            "slot": None,
+        }
+        self._sstate[sid] = state
+        if self._spec is not None:
+            slot = self._lane.index(None)
+            self._lane[slot] = sid
+            state["slot"] = slot
+            self._draft_prefill(req, slot)
+        return (req, state, first_d, lp_d)
+
+    def _activate_commit_paged(self, rec, first: int,
+                               first_lp: float) -> None:
+        req, state, _, _ = rec
+        self.stats["prefills"] += 1
+        state["last"] = first
+        t0 = getattr(req.stream, "submit_t", None)
+        if t0 is not None:
+            self._lm_stats.observe_ttft(_time.monotonic() - t0)
+        req.stream._emit(first, first_lp)
+        self.stats["tokens_generated"] += 1
+        self._post_emit_paged(state, first)
+
+    def _post_emit_paged(self, state, tok: int) -> None:
+        state["budget"] -= 1
+        done_eos = self.eos_id is not None and tok == self.eos_id
+        done = done_eos or state["budget"] <= 0
+        if done and self._slo is not None:
+            t0 = getattr(state["stream"], "submit_t", None)
+            if t0 is not None:
+                now = _time.monotonic()
+                self._slo.observe_completion(now - t0, now, frames=1)
+                self._slo.observe_service(now - t0, frames=1)
+        if done_eos:
+            self._finish_paged(state, "eos")
+        elif state["budget"] <= 0:
+            self._finish_paged(state, "length")
+
+    def _finish_paged(self, state, reason: str) -> None:
+        """Stream teardown: its blocks return to the pool before the client
+        wakes, so a caller that sees its stream done also sees the
+        capacity released."""
+        self._sstate.pop(state["sid"], None)
+        slot = state["slot"]
+        if slot is not None:
+            self._lane[slot] = None
+            self._bt[slot, :] = self._pool.SENTINEL
+            state["slot"] = None
+        if state["blocks"]:
+            self._pool.release(state["blocks"])
+            state["blocks"] = []
+        state["stream"]._finish(reason)
+
+    def _shed_one(self, keep_sid: int) -> bool:
+        """Decode-time block exhaustion: revoke the admitted stream with
+        the earliest deadline (the most late), with the SLO scheduler's
+        shed accounting and finish reason "shed" (the JAX engine's
+        ``count_pressure("shed")`` waits for A.19). False = the only
+        candidate was ``keep_sid`` itself, which the caller gives up."""
+        cands = [st for st in self._sstate.values()
+                 if st["sid"] != keep_sid]
+        self_shed = not cands
+        if self_shed:
+            victim = self._sstate.get(keep_sid)
+            if victim is None:
+                return False
+        else:
+            victim = min(cands, key=lambda st: st["deadline_t"])
+        now = _time.monotonic()
+        late = victim["deadline_t"] <= now
+        if self._slo is not None:
+            self._slo.note_shed_request(now, late)
+        self.stats["kv_sheds"] += 1
+        log.warning("serving: paged KV exhausted — shedding stream %d "
+                    "(%s)", victim["sid"], "late" if late else "capacity")
+        self._finish_paged(victim, "shed")
+        return not self_shed
+
+    def _topup(self, state) -> bool:
+        """Grow ``state``'s block table to cover the whole next dispatch
+        (pos + K - 1; pos + γ for a speculative verify), walking the evict
+        → shed ladder on exhaustion. False = the stream itself was
+        shed."""
+        steps = (self.speculate + 1) if self._spec is not None else self.K
+        # the program clamps positions to S - 1, so no dispatch writes
+        # past the table's last block (ROADMAP C.19: the JAX engine asks
+        # one more near the cache's end and its table overflows)
+        hi = min((state["pos"] + steps - 1) // self.block_tokens,
+                 self.MB - 1)
+        while len(state["blocks"]) <= hi:
+            ids = self._alloc_blocks(hi + 1 - len(state["blocks"]))
+            if ids is None:
+                if not self._shed_one(state["sid"]):
+                    return False
+                continue
+            state["blocks"].extend(ids)
+        return True
+
+    def _decode_step_paged(self) -> None:
+        """One EDF-scheduled K-step block: bind the B most urgent streams
+        (per-token deadline: a nearly late short stream preempts a long
+        one at block granularity), top up their block tables, load the
+        program (tokens, positions, block tables) and run it — one replay
+        on the card — then fetch and emit."""
+        from nnstreamer_tpu_torch.serving.scheduler import token_deadline
+
+        now = _time.monotonic()
+        states = list(self._sstate.values())
+        if len(states) > self.B:
+            states.sort(key=lambda st: token_deadline(
+                now, st["deadline_t"], st["budget"]))
+            selected = states[:self.B]
+            keep = {st["sid"] for st in selected}
+            # park the preempted streams' lanes (their k/v stays in the
+            # arena; a stream rebinds whenever EDF selects it again)
+            for slot, sid in enumerate(self._lane):
+                if sid is not None and sid not in keep:
+                    parked = self._sstate.get(sid)
+                    if parked is not None:
+                        parked["slot"] = None
+                    self._lane[slot] = None
+                    self._bt[slot, :] = self._pool.SENTINEL
+        else:
+            selected = states
+        run = []
+        for st in selected:
+            if self._sstate.get(st["sid"]) is not st:
+                continue  # shed while topping up an earlier stream
+            if not self._topup(st):
+                continue  # self-shed
+            if st["slot"] is None:
+                slot = self._lane.index(None)
+                self._lane[slot] = st["sid"]
+                st["slot"] = slot
+            slot = st["slot"]
+            self._bt[slot, :] = self._pool.SENTINEL
+            self._bt[slot, :len(st["blocks"])] = st["blocks"]
+            run.append(st)
+        if not run:
+            return
+        last = np.zeros(self.B, np.int32)
+        pos = np.zeros(self.B, np.int64)
+        for st in run:
+            last[st["slot"]] = st["last"]
+            pos[st["slot"]] = st["pos"]
+        t0 = _time.monotonic()
+        prog = self._ensure_program(warm=False)
+        prog.load(last, pos, self._bt)
+        prog.run()
+        if prog.graph is not None:
+            self.graph_stats["replays"] += 1
+        (toks, lps), event = self._fetch_async(prog.toks, prog.lps)
+        if event is not None:
+            event.synchronize()
+        toks, lps = toks.numpy(), lps.numpy()
+        dt = _time.monotonic() - t0
+        self.invoke_stats.record(dt)
+        self.stats["dispatches"] += 1
+        self.stats["slot_steps"] += self.B * self.K
+        per_tok = dt / self.K
+        for st in run:
+            if self._sstate.get(st["sid"]) is not st:
+                continue
+            slot = st["slot"]
+            st["pos"] += self.K
+            st["last"] = int(toks[slot, -1])
+            self._lm_stats.observe_token(per_tok)
+            for j in range(self.K):
+                tok = int(toks[slot, j])
+                self.stats["tokens_generated"] += 1
+                self.stats["active_slot_steps"] += 1
+                st["stream"]._emit(tok, float(lps[slot, j]))
+                self._post_emit_paged(st, tok)
+                if self._sstate.get(st["sid"]) is not st:
+                    break  # EOS, length or shed mid-block: drop the tail
+
+    def _loop_paged(self):
+        """The paged engine loop. Dispatch → emit runs synchronously (the
+        host state it loads a block is a few hundred integers), which keeps
+        lane parking and EDF preemption a host-side concern."""
+        while not self._stop_evt.is_set():
+            for state in list(self._sstate.values()):
+                if state["stream"].cancelled:
+                    self._finish_paged(state, "cancelled")
+            if self._held is not None and self._held.stream.cancelled:
+                self._held.stream._finish("cancelled")
+                self._held = None
+            progressed = False
+            if self._partial is not None:
+                if self._partial[0].stream.cancelled:
+                    self._partial[0].stream._finish("cancelled")
+                    self._partial = None
+                else:
+                    self._advance_partial()
+                    progressed = True
+            admitted = []
+            while self._partial is None:
+                if self._spec is not None and \
+                        len(self._sstate) >= self.B:
+                    break  # the slot-structured draft cache caps streams
+                if self._held is not None:
+                    req, self._held = self._held, None
+                else:
+                    try:
+                        req = self._pending.get_nowait()
+                    except _queue.Empty:
+                        break
+                if req.stream.cancelled:
+                    req.stream._finish("cancelled")
+                    continue
+                try:
+                    if self.prefill_chunk is not None:
+                        self._begin_partial_paged(req)
+                        progressed = True
+                        break
+                    rec = self._admit_paged(req)
+                except Exception as e:  # noqa: BLE001 — a bad request
+                    # must not kill the engine loop
+                    log.warning("serving: admit failed: %s", e)
+                    req.stream._finish(f"error: {e}")
+                    continue
+                if rec is None:
+                    # the pool cannot cover this prompt yet: hold the head
+                    # (completions free blocks; FIFO order keeps)
+                    self.stats["kv_defers"] += 1
+                    self._held = req
+                    break
+                admitted.append(rec)
+                progressed = True
+            if admitted:
+                try:
+                    self._commit_wave(admitted, self._activate_commit_paged)
+                except Exception as e:  # noqa: BLE001 — deferred device
+                    # errors surface at the fetch
+                    self._recover(e)
+                    continue
+            if len(self._sstate) > self.stats["concurrent_streams_max"]:
+                self.stats["concurrent_streams_max"] = len(self._sstate)
+            if not self._sstate:
+                if not progressed:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                continue
+            try:
+                if self._spec is not None:
+                    self._spec_step_paged()
+                else:
+                    self._decode_step_paged()
+            except Exception as e:  # noqa: BLE001 — a device failure must
+                # not strand clients blocked on their streams
+                self._recover(e)
 
     def _loop(self):
         # grad mode is per thread: this thread enters inference mode itself
         with torch.inference_mode():
+            loop = self._loop_paged if self.paged else self._loop_mono
             if self.device.type == "cuda":
                 with torch.cuda.device(self.device):
-                    self._loop_mono()
+                    loop()
             else:
-                self._loop_mono()
+                loop()
 
     def _loop_mono(self):
         while not self._stop_evt.is_set():
@@ -1078,7 +1920,7 @@ class ContinuousBatchingEngine:
             if admitted:
                 try:
                     self._sync_host_state()
-                    self._commit_wave(admitted)
+                    self._commit_wave(admitted, self._activate_commit)
                 except Exception as e:  # noqa: BLE001 — deferred device
                     # errors surface at the fetch; _recover fails every
                     # admitted stream and frees the slots
@@ -1095,6 +1937,16 @@ class ContinuousBatchingEngine:
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                     continue
+            if self._spec is not None:
+                # speculative rounds replace the K-step dispatch; they run
+                # synchronously off the host mirrors (per-stream emit
+                # counts vary)
+                try:
+                    self._sync_host_state()
+                    self._spec_step_mono()
+                except Exception as e:  # noqa: BLE001
+                    self._recover(e)
+                continue
             try:
                 t0 = _time.monotonic()
                 prog = self._ensure_program(warm=False)

@@ -23,6 +23,7 @@ from nnstreamer_tpu.filters.jax_backend import (
 )
 from nnstreamer_tpu.models.mobilenet_v2 import mobilenet_v2 as jax_mobilenet_v2
 from nnstreamer_tpu_torch.decoders.image_labeling import ImageLabeling
+from nnstreamer_tpu_torch.filters import torch_backend
 from nnstreamer_tpu_torch.filters.torch_backend import (
     register_torch_model,
     unregister_torch_model,
@@ -359,6 +360,74 @@ def test_restart_reuses_region_safely(cpu_device):
     np.testing.assert_array_equal(second, frame * 2.0 + 3)
 
 
+def test_restart_keeps_graphs_unless_invalidated(cpu_device):
+    """ROADMAP A.8b: a plain stop()/start() keeps the region's graphs when
+    every stage key is unchanged, as the JAX region keeps its trace (here
+    a stand-in dict: no graph is captured on the CPU); a property edit, or
+    an explicit invalidate(), drops them, and so does a restart whose keys
+    changed while the graphs were held."""
+    pipe = tnt.parse_launch(TWO_TRANSFORMS,
+                            pipeline=Pipeline(name="restart_keep"))
+    frame = np.arange(6, dtype=np.uint8).reshape(2, 3)
+    _appsrc_run(pipe, [frame])
+    (region,) = pipe._regions
+    retraces = region.obs_snapshot()["retraces"]
+    stand_in = {"sig": object()}
+    region._graphs = stand_in
+    _appsrc_run(pipe, [frame])  # a plain restart
+    assert region._graphs is stand_in
+    assert region.obs_snapshot()["retraces"] == retraces  # _seen kept
+    pipe.get("b").set_property("option", "typecast:float32,add:3.0")
+    assert region._graphs == {}  # the edit invalidated
+    region._graphs = stand_in
+    _appsrc_run(pipe, [frame])  # the keys changed since the last build
+    assert region._graphs == {}
+    assert region.obs_snapshot()["retraces"] == retraces + 1
+    np.testing.assert_array_equal(
+        np.asarray(pipe.get("out").buffers[-1][0]), frame * 2.0 + 3)
+    region._graphs = stand_in
+    region.invalidate()
+    assert region._graphs == {} and region._compiled is None
+
+
+def _rebind_classifier(module, how):
+    """Moves the classifier's weight to new storage, doubled, under the
+    same module object, one of the ways a user does it."""
+    head = module.classifier
+    if how == "data":
+        head.weight.data = head.weight.data * 2
+    else:
+        head.load_state_dict({"weight": head.weight.detach() * 2,
+                              "bias": head.bias.detach().clone()},
+                             assign=True)
+
+
+@pytest.mark.parametrize("how", ["data", "assign"])
+def test_restart_drops_graphs_when_a_weight_is_rebound(mnv2, labels, how):
+    """A stage key names the module object, which a rebound weight leaves
+    as it was; the storage pin does not, so the restart drops the graphs
+    (whose replays would read the freed storage) and the output is the
+    new weights'."""
+    pipe = tnt.parse_launch(_flagship(mnv2, labels),
+                            pipeline=Pipeline(name=f"rebind_{how}"))
+    bufs = []
+    pipe.get("out").connect(bufs.append)
+    pipe.run(timeout=120)
+    (region,) = pipe._regions
+    stand_in = {"sig": object()}
+    region._graphs = stand_in
+    pipe.run(timeout=120)  # a plain restart: the storage is the same
+    assert region._graphs is stand_in
+    module = torch_backend._registered[mnv2]["module"]  # the filter's own
+    ptr = module.classifier.weight.data_ptr()
+    _rebind_classifier(module, how)
+    assert module.classifier.weight.data_ptr() != ptr
+    pipe.run(timeout=120)
+    assert region._graphs == {}
+    _, plain = _run(_flagship(mnv2, labels), fuse=False)
+    _same_frames(bufs[-FRAMES:], plain)
+
+
 @pytest.mark.parametrize("to_host", ["true", "false"])
 def test_finalize_applied_once(mnv2, labels, monkeypatch, to_host):
     calls = []
@@ -461,3 +530,82 @@ def test_region_graph_bit_identical_on_the_card(labels):
         assert x.meta["label"] == y.meta["label"]
         assert np.float32(x.meta["score"]).tobytes() == \
             np.float32(y.meta["score"]).tobytes()
+
+
+@pytest.mark.gpu
+def test_rebound_weight_captures_again_on_the_card(labels):
+    """A weight rebound between two runs moves it to new storage: the
+    restart captures once more, and the output is the new weights',
+    bit-identical to the unfused pipeline's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the region captures a CUDA graph")
+    tnt.set_device(None)
+    module = MobileNetV2(num_classes=CLASSES).eval()
+    register_torch_model("fuse_rebind", module)
+    description = _flagship("fuse_rebind", labels)
+    try:
+        pipe = tnt.parse_launch(description,
+                                pipeline=Pipeline(name="rebind_gpu"))
+        bufs = []
+        pipe.get("out").connect(bufs.append)
+        pipe.run(timeout=120)
+        (region,) = pipe._regions
+        assert region.captures == 1
+        pipe.run(timeout=120)  # a plain restart
+        assert region.captures == 1
+        _rebind_classifier(module, "data")
+        pipe.run(timeout=120)
+        assert region.captures == 2
+        assert region.obs_snapshot()["retraces"] == 2
+        _, plain = _run(description, fuse=False)
+    finally:
+        unregister_torch_model("fuse_rebind")
+    assert len(plain) == FRAMES
+    for x, y in zip(bufs[-FRAMES:], plain):
+        assert x.meta["label"] == y.meta["label"]
+        assert np.float32(x.meta["score"]).tobytes() == \
+            np.float32(y.meta["score"]).tobytes()
+
+
+@pytest.mark.gpu
+def test_plain_restart_replays_without_capturing_on_the_card():
+    """tests/test_fuse.py:131-151's restart on the card: a plain restart
+    captures nothing and leaves ``nns_fuse_retraces_total`` where it was,
+    its output bit-identical to a cold run's; a property edit captures
+    again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the region captures a CUDA graph")
+    tnt.set_device(None)
+    frames = [np.arange(24, dtype=np.uint8).reshape(8, 3) + i
+              for i in range(3)]
+
+    def outputs(pipe):
+        return [np.asarray(b[0]).tobytes() for b in pipe.get("out").buffers]
+
+    _counts.reset_launches()
+    cold = _appsrc_run(tnt.parse_launch(
+        TWO_TRANSFORMS, pipeline=Pipeline(name="restart_cold")), frames)
+    cold_launches = _counts.LAUNCHES["normalize_chain"]
+    assert cold_launches >= len(frames)  # B1 in every frame, replayed
+    pipe = tnt.parse_launch(TWO_TRANSFORMS,
+                            pipeline=Pipeline(name="restart_warm"))
+    _appsrc_run(pipe, frames)
+    (region,) = pipe._regions
+    snap = region.obs_snapshot()
+    assert snap["captures"] == 1 and snap["retraces"] == 1
+    pipe.get("out").buffers.clear()
+    _counts.reset_launches()
+    _appsrc_run(pipe, frames)  # a plain restart
+    snap = region.obs_snapshot()
+    assert snap["captures"] == 1 and snap["retraces"] == 1
+    assert snap["replays"] == 2 * len(frames) - 1
+    assert _counts.LAUNCHES["normalize_chain"] == cold_launches
+    assert outputs(pipe) == outputs(cold)
+    pipe.get("b").set_property("option", "typecast:float32,add:3.0")
+    pipe.get("out").buffers.clear()
+    _appsrc_run(pipe, frames)
+    snap = region.obs_snapshot()
+    assert snap["captures"] == 2 and snap["retraces"] == 2
+    for f, b in zip(frames, pipe.get("out").buffers):
+        np.testing.assert_array_equal(np.asarray(b[0]),
+                                      f.astype(np.float32) * 2 + 3)

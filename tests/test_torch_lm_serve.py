@@ -142,9 +142,13 @@ def test_missing_engine_fails_at_start():
 
 @pytest.mark.parametrize("prop", ["speculate=2", "speculate-layers=2"])
 def test_speculate_is_not_ported(prop):
-    with pytest.raises(NotImplementedError, match=r"A\.13\.4"):
-        tnt.parse_launch(f"appsrc ! tensor_lm_serve engine=x {prop} ! "
-                         "tensor_sink")
+    """Until A.13.4 the properties raised at parse time; now they parse,
+    as the JAX element's do, and reach the engine at start()
+    (tests/test_torch_speculative.py)."""
+    pipe = tnt.parse_launch(f"appsrc ! tensor_lm_serve engine=x {prop} "
+                            "name=serve ! tensor_sink")
+    key, value = prop.split("=")
+    assert pipe.get("serve").get_property(key) == int(value)
 
 
 class RacyQueue(_queue.Queue):

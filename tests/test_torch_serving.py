@@ -259,11 +259,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "A.24"),
-    ({"block_tokens": 8}, "A.13.3"),
-    ({"speculate": 2}, "A.13.4"),
-    # the request-path budget is ported; the paged engine's deadlines
-    # and shedding come with the paged cache
-    ({"slo_budget_ms": 50.0, "block_tokens": 8}, "A.13.3"),
+    # the paged cache (A.13.3) and speculation (A.13.4) are ported: with
+    # them, the options that remain unported still raise
+    ({"block_tokens": 8, "mesh": object()}, "A.24"),
+    ({"speculate": 2, "top_k": 8}, "A.13.5"),
+    ({"slo_budget_ms": 50.0, "block_tokens": 8, "min_p": 0.1}, "A.13.5"),
     ({"temperature": 0.8}, "A.13.5"),
     ({"temperature": 0.8, "top_k": 8}, "A.13.5"),
     ({"top_k": 8}, "A.13.5"),

@@ -13,7 +13,9 @@ Without arguments it runs the test files that hold a ``gpu`` test; pass
 test files to narrow it. A ``gpu`` test that compares the card with the
 JAX package itself gets a mock for the JAX side and fails here:
 ``tests/test_torch_quant.py::test_device_blob_matches_host_blob_on_the_card``
-(17 of the 18 ``gpu`` tests pass on an H100).
+(every other ``gpu`` test passes on an H100). A ``gpu`` test therefore
+writes its configuration out instead of importing it from a JAX test
+module, whose values the stub replaces with mocks.
 """
 
 import importlib.abc
