@@ -82,10 +82,23 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   (``qos``); the LM engine's SLO admission (``lm_slo``: fp32 tokens
   unchanged under a wide budget, ``SloRejected`` counted at 50 ms); and
   ``python3 -m nnstreamer_tpu_torch.cli`` in a new process (``cli``).
+- bench.py's detection, pose and recurrence strings at its sizes
+  (``ssd``: SSD-MobileNet 300×300, 91 classes, bf16, 800 frames, the
+  bounding-box decoder's device NMS as the fused region's last stage, B1
+  once a frame; ``pose4``: four 257×257 sources through ``tensor_mux
+  sync-mode=slowest`` into one batch-4 PoseNet, then live at 15/1 a
+  source; ``lstm``: hidden 128, 800 steps through a ``tensor_repo`` slot
+  whose state never leaves the card, bit-identical to eager steps), the
+  segmenter with ``image_segment`` (``segment``) and YOLO with
+  ``bounding_boxes option1=yolov5`` (``yolo``): each fused against
+  unfused, the card's NMS against the CPU's on the same model outputs,
+  and, after every timed run, a profiled restart of the ssd, pose4 and
+  segment pipelines (``*_profile``).
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
-numeric input type. Kernel B3
+numeric input type (at the flagship's, the ssd's, YOLO's and the
+segmenter's frames among others). Kernel B3
 (int8 quantize, nearest and dithered) is held bit for bit against its
 plain versions, for every input type, on misaligned views, on both sides
 of 64 KB and of what its cooperative grid keeps on chip, and for
@@ -265,6 +278,33 @@ QUANT_NON_FINITE = ({2000: "nan"}, {4098: "inf"}, {7: "-inf"},
 QUERY_BYTES_MAX = 0.26     # client bytes sent per frame / the f32 frame's
 #: CUDA API calls (runtime ``cuda*`` and low-level ``cu*``) that launch
 #: device work, counted on the host side of a profiled run
+#: bench.py's detection, pose and recurrence configurations at its sizes
+#: (bench.py:728-926), and the segmenter's: frames a measured run, frames
+#: of the fused-against-unfused comparison, frames whose model outputs
+#: hold the device NMS on the card to the CPU's
+SSD_IMAGE = 300
+SSD_CLASSES = 91
+SSD_FRAMES = 800
+SSD_PARITY_FRAMES = 64
+SSD_NMS_FRAMES = 8
+YOLO_IMAGE = 320
+YOLO_CLASSES = 80
+YOLO_FRAMES = 16
+YOLO_THRESHOLD = 0.26
+POSE_IMAGE = 257
+POSE_FRAMES = 200          # a source (4 sources: 800 frames)
+POSE_PARITY_SETS = 16
+POSE_LIVE_FRAMES = 120     # a source, paced at POSE_LIVE_RATE
+POSE_LIVE_RATE = "15/1"
+LSTM_HIDDEN = 128
+LSTM_STEPS = 800
+LSTM_REGION_STEPS = 200    # the loop with a fused transform ! filter
+LSTM_CPU_ATOL = 1e-5       # card vs fp32 CPU loop after LSTM_STEPS steps
+SEG_IMAGE = 256
+SEG_CLASSES = 21
+SEG_BASE = 32
+SEG_PARITY_FRAMES = 32
+SEG_FRAMES = 240
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -389,7 +429,10 @@ def phase_normalize():
     switch = int(4 * pp.THREADS * pp.WAVE_BLOCKS_PER_SM * sms *
                  pp.PASSES_OF_4_MAX)
     shapes = [(224, 224, 3), (8, 224, 224, 3), (1,), (15,), (17,),
-              (10 ** 6 + 3,), (switch,), (switch + 17,)]
+              (10 ** 6 + 3,), (switch,), (switch + 17,),
+              # the frames of the ssd, yolo and segment paths
+              (1, SSD_IMAGE, SSD_IMAGE, 3), (1, YOLO_IMAGE, YOLO_IMAGE, 3),
+              (1, SEG_IMAGE, SEG_IMAGE, 3)]
     outs = [torch.float32, torch.bfloat16, torch.float16]
     chains = {"transform": TRANSFORM_CHAIN, "normalize_u8": NORMALIZE_U8_CHAIN}
     frame_plan = pp.normalize_plan(IMAGE * IMAGE * 3, True, sms)
@@ -485,7 +528,9 @@ def phase_normalize():
     # times at the main path's shape (one 224x224x3 uint8 frame -> float32),
     # at 8 frames and at 10**6 + 3 elements
     timed_shapes = {"": (1, IMAGE, IMAGE, 3), "batch8_": (8, IMAGE, IMAGE, 3),
-                    "big_": (10 ** 6 + 3,)}
+                    "big_": (10 ** 6 + 3,),
+                    "ssd_": (1, SSD_IMAGE, SSD_IMAGE, 3),
+                    "segment_": (1, SEG_IMAGE, SEG_IMAGE, 3)}
     times = {}
     timed = {}
     for tag, shape in timed_shapes.items():
@@ -3835,6 +3880,616 @@ def phase_cli(power: str) -> dict:
     return result
 
 
+# -- the detection, pose, recurrence and segmentation paths (ROADMAP A.17) --
+def _collect_arrivals(pipe, sink="sink"):
+    """Run ``pipe`` to EOS as bench.py's ``_collect`` does: sink arrival
+    times, and the EOS instant after a device fence. Returns (arrivals,
+    the run's start, eos, B1 launches of the run)."""
+    import gc
+
+    import torch
+
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+
+    arrivals = []
+    pipe.get(sink).connect(lambda b: arrivals.append(time.monotonic()))
+    gc.collect()
+    gc.disable()
+    pp.reset_launches()
+    t0 = time.monotonic()
+    try:
+        msg = pipe.run(timeout=900)
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    eos = time.monotonic()
+    check(msg is not None and msg.kind == "eos",
+          f"{pipe.name}: no EOS ({msg})")
+    return arrivals, t0, eos, pp.LAUNCHES.get("normalize_chain", 0)
+
+
+def steady_fps(arrivals, eos, frames_per_buffer: int = 1):
+    """bench.py's ``_steady_fps``: frames after the first arrival over
+    first arrival → EOS."""
+    span = eos - arrivals[0] if arrivals else 0.0
+    return (len(arrivals) - 1) * frames_per_buffer / span if span > 0 \
+        else None
+
+
+def _region_of(pipe, members):
+    (region,) = pipe._regions
+    got = [m.ELEMENT_NAME for m in region.members]
+    check(got == members, f"{pipe.name}: region members {got}")
+    check(not region._dead, f"{pipe.name}: the region fell back")
+    return region
+
+
+def _sink_rows(pipe, sink="sink"):
+    """(row tensor bytes, meta) of every buffer the sink kept."""
+    import numpy as np
+
+    return [(np.asarray(b[0]).tobytes(), b.meta)
+            for b in pipe.get(sink).buffers]
+
+
+def ssd_desc(n, model, pattern="gradient", size=SSD_IMAGE, decoder=None):
+    """bench.py's ``measure_ssd`` string (its ``yolo`` variant names
+    another model and decoder mode)."""
+    decoder = decoder or \
+        f"option1=mobilenet-ssd option4={size}:{size} option7=meta"
+    return (f"videotestsrc num-buffers={n} width={size} height={size} "
+            f"pattern={pattern} ! tensor_converter ! "
+            "queue max-size-buffers=8 ! "
+            "tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model} name=filter ! "
+            f"tensor_decoder mode=bounding_boxes {decoder} ! "
+            "queue max-size-buffers=64 materialize-host=true ! "
+            "tensor_sink name=sink to-host=true")
+
+
+def _dets_match(a, b, tol: float) -> bool:
+    """Two detection lists are the same set, floats within ``tol``."""
+    def key(d):
+        return (d["class"], d["box"])
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(sorted(a, key=key), sorted(b, key=key)):
+        if x["class"] != y["class"] or abs(x["score"] - y["score"]) > tol \
+                or max(abs(p - q) for p, q in zip(x["box"], y["box"])) > tol:
+            return False
+    return True
+
+
+def _run_rows(desc, name, fuse: bool):
+    """The sink rows of ``desc``, fused (the default) or not."""
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    pipe = nt.parse_launch(desc, pipeline=Pipeline(fuse=fuse, name=name))
+    msg = pipe.run(timeout=900)
+    check(msg is not None and msg.kind == "eos", f"{name}: no EOS ({msg})")
+    return _sink_rows(pipe)
+
+
+def _fused_unfused_rows(desc, name):
+    """The sink rows of ``desc`` fused and unfused."""
+    return (_run_rows(desc, f"{name}_fused", True),
+            _run_rows(desc, f"{name}_unfused", False))
+
+
+def _ball_frames(n, size):
+    """``videotestsrc pattern=ball`` frames as host arrays."""
+    import nnstreamer_tpu_torch as nt
+
+    pipe = nt.parse_launch(
+        f"videotestsrc num-buffers={n} width={size} height={size} "
+        "pattern=ball ! tensor_converter ! tensor_sink name=sink")
+    pipe.run(timeout=300)
+    return [b[0] for b in pipe.get("sink").buffers]
+
+
+def phase_ssd(power: str) -> dict:
+    """bench.py's ``ssd`` string at its sizes: SSD-MobileNet 300×300, 91
+    classes, bf16, batch 1, 800 gradient frames through the fused region
+    tensor_transform (B1) ! tensor_filter ! tensor_decoder bounding_boxes
+    (device NMS in the graph). Checks: every frame delivered with
+    detections and a [≤100, 6] row tensor, B1 once a frame, one capture;
+    64 ball frames fused and unfused bit-identical; the device half on
+    the card against the same function on the CPU for the fetched model
+    outputs of 8 frames."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.decoders.bounding_boxes import (
+        DEVICE_K_TOTAL,
+        BoundingBoxes,
+    )
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import ssd_mobilenet
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+
+    nt.set_device(None)
+    module, _, _ = ssd_mobilenet(num_classes=SSD_CLASSES,
+                                 image_size=SSD_IMAGE,
+                                 dtype=torch.bfloat16, seed=0)
+    # stays registered for profile_restarted, which unregisters it
+    register_torch_model("ssd", module)
+    try:
+        pipe = nt.parse_launch(ssd_desc(SSD_FRAMES, "ssd"),
+                               pipeline=Pipeline(name="ssd"))
+        arrivals, t0, eos, launches = _collect_arrivals(pipe)
+        region = _region_of(pipe, ["tensor_transform", "tensor_filter",
+                                   "tensor_decoder"])
+        rows = [b[0] for b in pipe.get("sink").buffers]
+        metas = [b.meta for b in pipe.get("sink").buffers]
+        p50, p99 = pipe.get("sink").latency_percentiles(50.0, 99.0)
+        fused, unfused = _fused_unfused_rows(
+            ssd_desc(SSD_PARITY_FRAMES, "ssd", "ball"), "ssd_parity")
+        # the device half on the card and on the CPU, on the same fetched
+        # model outputs of 8 ball frames
+        outs = []
+        with torch.inference_mode():
+            for f in _ball_frames(SSD_NMS_FRAMES, SSD_IMAGE):
+                x = (torch.from_numpy(np.asarray(f)).cuda().float() - 127.5) \
+                    / 127.5
+                outs.append([t.cpu() for t in module(x)])
+    except BaseException:
+        unregister_torch_model("ssd")
+        raise
+    check(len(rows) == SSD_FRAMES, f"ssd: {len(rows)} of {SSD_FRAMES} "
+                                   "frames reached the sink")
+    check(all("detections" in m for m in metas), "ssd: a frame without "
+                                                 "detections meta")
+    check(all(r.ndim == 2 and r.shape[1] == 6 and
+              r.shape[0] <= DEVICE_K_TOTAL for r in rows),
+          "ssd: a row tensor is not [<=100, 6]")
+    check(all(len(m["detections"]) == r.shape[0]
+              for m, r in zip(metas, rows)), "ssd: rows != detections")
+    check(launches == SSD_FRAMES, f"ssd: B1 launched {launches} times for "
+                                  f"{SSD_FRAMES} frames")
+    check(region.captures == 1 and region.eager_frames == 1 and
+          region.replays == SSD_FRAMES - 1,
+          f"ssd: {region.captures} captures, {region.eager_frames} eager, "
+          f"{region.replays} replays")
+    differ = [i for i, (a, b) in enumerate(zip(fused, unfused))
+              if a[0] != b[0]]
+    check(len(fused) == len(unfused) == SSD_PARITY_FRAMES and not differ,
+          f"ssd: fused rows of frames {differ[:10]} differ from unfused")
+    dec = BoundingBoxes()
+    options = {"option1": "mobilenet-ssd",
+               "option4": f"{SSD_IMAGE}:{SSD_IMAGE}", "option7": "meta"}
+    consts, fn = dec.device_kernel(options)
+    nms_equal, max_err = 0, 0.0
+    for boxes, scores in outs:
+        (cpu,) = fn(consts, [boxes, scores])
+        (card,) = fn(consts, [boxes.cuda(), scores.cuda()])
+        card = card.cpu()
+        a = dec.host_finalize(TensorBuffer([cpu.numpy()]), None, options)
+        b = dec.host_finalize(TensorBuffer([card.numpy()]), None, options)
+        if _dets_match(a.meta["detections"], b.meta["detections"], 1e-5):
+            nms_equal += 1
+        max_err = max(max_err, float((cpu - card).abs().max()))
+    check(nms_equal == SSD_NMS_FRAMES,
+          f"ssd: the device NMS on the card gave another detection set "
+          f"than on the CPU in {SSD_NMS_FRAMES - nms_equal} of "
+          f"{SSD_NMS_FRAMES} frames")
+    saturated = sum(len(m["detections"]) >= DEVICE_K_TOTAL for m in metas)
+    result = {"frames": SSD_FRAMES, "delivered": len(rows),
+              "fps": steady_fps(arrivals, eos), "wall_s": eos - arrivals[0],
+              # the first frame: its eager run, the capture, cold cuDNN
+              "first_frame_s": arrivals[0] - t0,
+              "latency_p50_ms": p50, "latency_p99_ms": p99,
+              "saturated_frames": saturated,
+              "detections_mean": float(np.mean([len(m["detections"])
+                                                for m in metas])),
+              "launches": launches, "captures": region.captures,
+              "replays": region.replays,
+              "fused_unfused_bit_identical": SSD_PARITY_FRAMES - len(differ),
+              "nms_card_vs_cpu_equal_frames": nms_equal,
+              "nms_card_vs_cpu_max_abs_err": max_err, "gpu": power}
+    emit({"phase": "ssd", **result})
+    return result, pipe
+
+
+def phase_yolo(power: str) -> dict:
+    """bench.py's ``ssd`` string with YOLO at 320×320, 80 classes (the
+    JAX factory's float32) and ``bounding_boxes option1=yolov5
+    option3=0.26 option7=meta``: 16 ball frames fused and unfused,
+    bit-identical."""
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.yolo import yolo_detector
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    module, _, _ = yolo_detector(num_classes=YOLO_CLASSES,
+                                 image_size=YOLO_IMAGE, seed=0)
+    register_torch_model("yolo", module)
+    # random weights put every class × objectness score near 0.26 (both
+    # logits near 0): option3 at that level keeps about half the anchors,
+    # so the NMS selects boxes
+    desc = ssd_desc(YOLO_FRAMES, "yolo", "ball", YOLO_IMAGE,
+                    f"option1=yolov5 option3={YOLO_THRESHOLD} option7=meta")
+    try:
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name="yolo"))
+        arrivals, _, eos, launches = _collect_arrivals(pipe)
+        region = _region_of(pipe, ["tensor_transform", "tensor_filter",
+                                   "tensor_decoder"])
+        fused = _sink_rows(pipe)
+        unfused = _run_rows(desc, "yolo_unfused", False)
+    finally:
+        unregister_torch_model("yolo")
+    differ = [i for i, (a, b) in enumerate(zip(fused, unfused))
+              if a[0] != b[0]]
+    check(len(fused) == len(unfused) == YOLO_FRAMES and not differ,
+          f"yolo: fused rows of frames {differ[:10]} differ from unfused")
+    check(launches == YOLO_FRAMES and region.captures == 1,
+          f"yolo: B1 {launches} for {YOLO_FRAMES} frames, "
+          f"{region.captures} captures")
+    result = {"frames": YOLO_FRAMES, "launches": launches,
+              "captures": region.captures,
+              "fused_unfused_bit_identical": YOLO_FRAMES - len(differ),
+              "detections_mean": sum(len(m["detections"])
+                                     for _, m in fused) / len(fused),
+              "fps_16_frames": steady_fps(arrivals, eos), "gpu": power}
+    emit({"phase": "yolo", **result})
+    return result
+
+
+def _batched4(net):
+    """bench.py's ``batched4`` as an ``nn.Module``: four uint8 frames
+    concatenated along the batch and normalized inside the model."""
+    import torch
+
+    class Batched4(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, a, b, c, d):
+            x = torch.cat([a, b, c, d], dim=0).float()
+            return self.net((x - 127.5) / 127.5)
+
+    return Batched4()
+
+
+def pose4_desc(n, live=""):
+    """bench.py's ``measure_pose_mux`` string."""
+    srcs = " ".join(
+        f"videotestsrc num-buffers={n} width={POSE_IMAGE} "
+        f"height={POSE_IMAGE} pattern=gradient {live}! tensor_converter ! "
+        "mux. " for _ in range(4))
+    return ("tensor_mux name=mux sync-mode=slowest ! "
+            "tensor_filter framework=jax model=pose4 name=filter ! "
+            "tensor_decoder mode=pose_estimation option2=meta ! "
+            "queue max-size-buffers=64 materialize-host=true ! "
+            "tensor_sink name=sink to-host=true " + srcs)
+
+
+def phase_pose4(power: str) -> dict:
+    """bench.py's ``pose4``: 4 videotestsrc 257×257 → tensor_mux
+    sync-mode=slowest → PoseNet at batch 4, bf16 (normalized inside the
+    model) → pose_estimation option2=meta; 200 frames a source, then a
+    live run at 15/1 a source, 120 frames, scored on its second half.
+    Checks: 800 frames decoded, each buffer [4, 17, 3]; fused and unfused
+    bit-identical on 16 sets (with other patterns on the four sources)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.posenet import posenet
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    net, _, _ = posenet(image_size=POSE_IMAGE, batch=4,
+                        dtype=torch.bfloat16, seed=0)
+    # stays registered for profile_restarted, which unregisters it
+    register_torch_model("pose4", _batched4(net))
+    try:
+        pipe = nt.parse_launch(pose4_desc(POSE_FRAMES),
+                               pipeline=Pipeline(name="pose4"))
+        arrivals, t0, eos, _ = _collect_arrivals(pipe)
+        region = _region_of(pipe, ["tensor_filter", "tensor_decoder"])
+        bufs = list(pipe.get("sink").buffers)
+        sat = pipe.get("sink").latency_percentiles(50.0, 99.0)
+        parity = pose4_desc(POSE_PARITY_SETS).replace(
+            "pattern=gradient", "pattern=ball", 2)
+        fused, unfused = _fused_unfused_rows(parity, "pose4_parity")
+        live = nt.parse_launch(
+            pose4_desc(POSE_LIVE_FRAMES,
+                       f"is-live=true framerate={POSE_LIVE_RATE} "),
+            pipeline=Pipeline(name="pose4_live"))
+        live_arrivals, _, live_eos, _ = _collect_arrivals(live)
+        lat = live.get("sink").latency_percentiles(
+            50.0, 99.0, skip=POSE_LIVE_FRAMES // 2 * 4)
+    except BaseException:
+        unregister_torch_model("pose4")
+        raise
+    frames = 4 * len(bufs)
+    check(frames == 4 * POSE_FRAMES, f"pose4: {frames} of {4 * POSE_FRAMES}"
+                                     " frames decoded")
+    check(all(tuple(np.asarray(b[0]).shape) == (4, 17, 3) and
+              len(b.meta["keypoints"]) == 4 for b in bufs),
+          "pose4: an output is not [4, 17, 3] with 4 keypoint lists")
+    check(region.captures == 1, f"pose4: {region.captures} captures")
+    differ = [i for i, (a, b) in enumerate(zip(fused, unfused))
+              if a[0] != b[0]]
+    check(len(fused) == len(unfused) == POSE_PARITY_SETS and not differ,
+          f"pose4: fused keypoints of sets {differ[:10]} differ")
+    result = {"frames": frames, "sets": len(bufs),
+              "fps": steady_fps(arrivals, eos, frames_per_buffer=4),
+              "first_set_s": arrivals[0] - t0,
+              "latency_sat_p50_ms": sat[0], "latency_sat_p99_ms": sat[1],
+              "latency_p50_ms": lat[0], "latency_p99_ms": lat[1],
+              "live_rate_per_source": POSE_LIVE_RATE,
+              "live_sets": len(live_arrivals),
+              "live_fps": steady_fps(live_arrivals, live_eos,
+                                     frames_per_buffer=4),
+              "captures": region.captures, "replays": region.replays,
+              "fused_unfused_bit_identical": POSE_PARITY_SETS - len(differ),
+              "gpu": power}
+    emit({"phase": "pose4", **result})
+    return result, pipe
+
+
+def _lstm_step(cell):
+    """bench.py's ``step`` as an ``nn.Module``: the state [2·hidden] is
+    [h, c] and the cell feeds itself (x = h)."""
+    import torch
+
+    class LSTMStep(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cell = cell
+
+        def forward(self, state):
+            hidden = self.cell.hidden
+            s = state.reshape(1, 2 * hidden).float()
+            h, c = s[:, :hidden], s[:, hidden:]
+            _, h2, c2 = self.cell(h, h, c)
+            return torch.cat([h2, c2], dim=1).reshape(2 * hidden)
+
+    return LSTMStep()
+
+
+def lstm_desc(num, slot="lstm", extra=""):
+    """bench.py's ``measure_lstm`` string; ``extra`` goes before the
+    filter."""
+    return (f"tensor_reposrc slot={slot} num-buffers={num} "
+            f"initial-dim={2 * LSTM_HIDDEN} initial-type=float32 "
+            "initial-value=0.01 timeout=30 ! " + extra +
+            "tensor_filter framework=jax model=lstm name=filter ! "
+            f"tee name=t  t. ! tensor_reposink slot={slot}  "
+            "t. ! tensor_sink name=sink to-host=false")
+
+
+def phase_lstm(power: str) -> dict:
+    """bench.py's ``lstm``: hidden 128, fp32, tensor_reposrc !
+    tensor_filter ! tee ! tensor_reposink plus a device sink; a 2-step
+    warm run, then 800 steps. Checks: the final slot state bit-identical
+    to 800 eager calls of the module on the card and within 1e-5 of an
+    fp32 CPU loop (TF32 off); no region forms (a lone filter between a
+    source and a tee), so no capture; no device→host copy while the loop
+    runs. A second loop with a typecast transform before the filter makes
+    transform ! filter a fused region: it captures once, takes the host
+    first frame and the slot's tensors after it as one signature, and its
+    state equals the eager steps'."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.lstm import lstm_cell
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors.buffer import transfer_snapshot
+
+    nt.set_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, _, _ = lstm_cell(input_dim=LSTM_HIDDEN, hidden=LSTM_HIDDEN,
+                           batch=1, seed=0)
+    step = _lstm_step(cell)
+    register_torch_model("lstm", step)
+
+    def eager(n, device):
+        state = torch.full((2 * LSTM_HIDDEN,), 0.01, device=device)
+        with torch.inference_mode():
+            for _ in range(n):
+                state = step(state)
+        return state
+
+    try:
+        GLOBAL_REPO.remove("lstm")
+        nt.parse_launch(lstm_desc(2)).run(timeout=300)
+        GLOBAL_REPO.get("lstm", consume=True)
+        pipe = nt.parse_launch(lstm_desc(LSTM_STEPS),
+                               pipeline=Pipeline(name="lstm"))
+        x0 = transfer_snapshot()
+        arrivals, _, eos, _ = _collect_arrivals(pipe)
+        x1 = transfer_snapshot()
+        final = GLOBAL_REPO.get("lstm")
+        check(final is not None, "lstm: the slot is empty after the run")
+        state = final.tensors[0]
+        state_host = state.cpu()  # the final state, fetched in the window
+        eos_fetched = time.monotonic()
+        GLOBAL_REPO.remove("lstm")
+        region_pipe = nt.parse_launch(
+            lstm_desc(LSTM_REGION_STEPS, "lstm_region",
+                      "tensor_transform mode=typecast option=float32 ! "),
+            pipeline=Pipeline(name="lstm_region"))
+        msg = region_pipe.run(timeout=300)
+        check(msg is not None and msg.kind == "eos", "lstm_region: no EOS")
+        region_state = GLOBAL_REPO.get("lstm_region").tensors[0]
+        GLOBAL_REPO.remove("lstm_region")
+        want = eager(LSTM_STEPS, "cuda")
+        want_region = eager(LSTM_REGION_STEPS, "cuda")
+        step.cpu()
+        cpu = eager(LSTM_STEPS, "cpu")
+    finally:
+        unregister_torch_model("lstm")
+    check(len(arrivals) == LSTM_STEPS, f"lstm: {len(arrivals)} of "
+                                       f"{LSTM_STEPS} steps reached the sink")
+    check(state.device.type == "cuda", f"lstm: the slot state is on "
+                                       f"{state.device}")
+    captures = sum(r.captures for r in pipe._regions or ())
+    check(captures <= 1, f"lstm: {captures} captures")
+    d2h = x1["d2h_events"] - x0["d2h_events"]
+    check(d2h == 0, f"lstm: {d2h} device→host copies during the loop")
+    check(torch.equal(state, want), "lstm: the loop state differs from "
+                                    "800 eager steps on the card")
+    err = float((state_host - cpu).abs().max())
+    check(err <= LSTM_CPU_ATOL, f"lstm: |card - fp32 CPU| = {err}")
+    # the recurrence contracts: after 800 steps |state| is far below the
+    # atol, so the error relative to the state's size is reported too
+    scale = float(cpu.abs().max())
+    rel = err / scale if scale > 0 else None
+    (region,) = region_pipe._regions
+    check(region.captures == 1 and region.eager_frames == 1 and
+          region.replays == LSTM_REGION_STEPS - 1,
+          f"lstm_region: {region.captures} captures, "
+          f"{region.eager_frames} eager, {region.replays} replays")
+    check(torch.equal(region_state, want_region),
+          "lstm_region: the fused loop's state differs from eager steps")
+    result = {"steps": LSTM_STEPS, "hidden": LSTM_HIDDEN,
+              "steps_per_s": steady_fps(arrivals, eos_fetched),
+              "wall_s": eos - arrivals[0], "captures": captures,
+              "d2h_events_in_loop": d2h,
+              "h2d_events_in_loop": x1["h2d_events"] - x0["h2d_events"],
+              "bit_identical_to_eager": True, "max_abs_err_vs_cpu": err,
+              "max_abs_state": scale, "rel_err_vs_cpu": rel,
+              "region_loop": {"steps": LSTM_REGION_STEPS,
+                              "captures": region.captures,
+                              "replays": region.replays,
+                              "bit_identical_to_eager": True},
+              "gpu": power}
+    emit({"phase": "lstm", **result})
+    return result
+
+
+def seg_desc(n):
+    return (f"videotestsrc num-buffers={n} width={SEG_IMAGE} "
+            f"height={SEG_IMAGE} pattern=ball ! tensor_converter ! "
+            "tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=seg name=filter ! "
+            "tensor_decoder mode=image_segment ! "
+            "queue max-size-buffers=64 materialize-host=true ! "
+            "tensor_sink name=sink to-host=true")
+
+
+def phase_segment(power: str) -> dict:
+    """videotestsrc 256×256 ball → B1 → the segmenter (21 classes, base
+    32, bf16) → image_segment: 32 frames fused and unfused with
+    ``segment_labels`` bit-identical, then a 240-frame fused run timed; B1
+    once a frame in both fused runs."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.segmenter import segmenter
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    module, _, _ = segmenter(num_classes=SEG_CLASSES, base=SEG_BASE,
+                             image_size=SEG_IMAGE, dtype=torch.bfloat16,
+                             seed=0)
+    # stays registered for profile_restarted, which unregisters it
+    register_torch_model("seg", module)
+    labels = {}
+    try:
+        for fuse in (True, False):
+            pipe = nt.parse_launch(seg_desc(SEG_PARITY_FRAMES),
+                                   pipeline=Pipeline(fuse=fuse))
+            pp.reset_launches()
+            msg = pipe.run(timeout=600)
+            check(msg is not None and msg.kind == "eos", "segment: no EOS")
+            labels[fuse] = [b.meta["segment_labels"]
+                            for b in pipe.get("sink").buffers]
+            if fuse:
+                parity_launches = pp.LAUNCHES.get("normalize_chain", 0)
+        pipe = nt.parse_launch(seg_desc(SEG_FRAMES),
+                               pipeline=Pipeline(name="segment"))
+        arrivals, t0, eos, launches = _collect_arrivals(pipe)
+        region = _region_of(pipe, ["tensor_transform", "tensor_filter",
+                                   "tensor_decoder"])
+        shapes = {np.asarray(b[0]).shape for b in pipe.get("sink").buffers}
+    except BaseException:
+        unregister_torch_model("seg")
+        raise
+    differ = [i for i, (a, b) in enumerate(zip(labels[True], labels[False]))
+              if not np.array_equal(a, b)]
+    check(len(labels[True]) == len(labels[False]) == SEG_PARITY_FRAMES and
+          not differ, f"segment: labels of frames {differ[:10]} differ")
+    check(parity_launches == SEG_PARITY_FRAMES and launches == SEG_FRAMES,
+          f"segment: B1 {parity_launches} and {launches} for "
+          f"{SEG_PARITY_FRAMES} and {SEG_FRAMES} frames")
+    check(len(arrivals) == SEG_FRAMES and
+          shapes == {(SEG_IMAGE, SEG_IMAGE, 4)},
+          f"segment: {len(arrivals)} frames, shapes {shapes}")
+    check(region.captures == 1, f"segment: {region.captures} captures")
+    classes = int(max(int(np.max(x)) for x in labels[True])) + 1
+    result = {"frames": SEG_FRAMES, "fps": steady_fps(arrivals, eos),
+              "first_frame_s": arrivals[0] - t0,
+              "launches": launches, "captures": region.captures,
+              "fused_unfused_bit_identical": SEG_PARITY_FRAMES - len(differ),
+              "classes_seen_max": classes, "gpu": power}
+    emit({"phase": "segment", **result})
+    return result, pipe
+
+
+def profile_restarted(name: str, pipe, model: str, frames_per_source: int,
+                      fps: float, power: str) -> None:
+    """Restart a measured pipeline (its region keeps its graph, A.8b) with
+    ``frames_per_source`` frames from each source under ``torch.profiler``:
+    the device's busy time a frame and the kernels that take it, and the
+    idle share at the timed run's ``fps``. Emits ``<name>_profile`` and
+    unregisters ``model``."""
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+
+    sources = [el for el in pipe.elements
+               if el.ELEMENT_NAME == "videotestsrc"]
+    for el in sources:
+        el.set_property("num_buffers", frames_per_source)
+    pipe.get("sink").buffers.clear()
+    (region,) = pipe._regions
+    captures = region.captures
+    frames = frames_per_source * len(sources)
+    try:
+        out = profile_pipeline(pipe, frames)
+    finally:
+        unregister_torch_model(model)
+    check(region.captures == captures, f"{name}: the restart captured")
+    if out["device_kernels_per_frame"] > 0:
+        out["device_idle_share_at_timed_rate"] = \
+            1.0 - out["device_busy_ms_per_frame"] * fps / 1e3
+    else:  # the trace lost the device's events: nothing was measured
+        out.update(device_busy_ms_per_frame=None, device_idle_share=None)
+    emit({"phase": f"{name}_profile", **out, "gpu": power})
+
+
 def device_profile(prof, wall_us: float, units: int, unit: str) -> dict:
     """From a ``torch.profiler`` trace of a run of ``wall_us``: the device's
     busy time (union of its intervals) per unit of work, its idle share,
@@ -3950,9 +4605,20 @@ def main() -> int:
     slo = phase_pipeline_slo(power)
     flight = phase_flight(power)
     qos = phase_qos(power)
+    ssd, ssd_pipe = phase_ssd(power)
+    yolo = phase_yolo(power)
+    pose4, pose4_pipe = phase_pose4(power)
+    phase_lstm(power)
+    seg, seg_pipe = phase_segment(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine, lm_eager)
+    profile_restarted("ssd", ssd_pipe, "ssd", PROFILED_FRAMES, ssd["fps"],
+                      power)
+    profile_restarted("pose4", pose4_pipe, "pose4", PROFILED_FRAMES // 4,
+                      pose4["fps"], power)
+    profile_restarted("segment", seg_pipe, "seg", PROFILED_FRAMES,
+                      seg["fps"], power)
     dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
         for tag, (kernel, plain) in timed_b1.items()})
@@ -3983,6 +4649,15 @@ def main() -> int:
         "launches_slo": slo["scheduled"]["launches"],
         "launches_flight": flight["dump"]["launches"],
         "launches_qos": qos["launches"],
+        # bench.py's ssd string (once a frame, 800 frames), the segmenter
+        # (240 frames) and YOLO (16 frames), each through its fused region
+        "launches_ssd": ssd["launches"],
+        "launches_segment": seg["launches"],
+        "launches_yolo": yolo["launches"],
+        # B1 at the ssd frame (one 300x300x3 uint8 frame -> float32)
+        "ssd_ms": b1["ssd_ms"],
+        "ssd_plain_ms": b1["ssd_plain_ms"],
+        "ssd_bound_ms": b1["ssd_bound_ms"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"],
         "device_ms": dev_b1["device_ms"],

@@ -3,8 +3,8 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-other elements (mux/demux, merge/split, ...) wait for later slices of the
-port (ROADMAP.md, queue A). ``tensor_lm_serve``
+other elements (demux, split, crop, tensor_if, ...) wait for later slices
+of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
 imports no model code until its engine is looked up.
 """
 
@@ -22,3 +22,7 @@ from nnstreamer_tpu_torch.elements import lm_serve  # noqa: F401
 from nnstreamer_tpu_torch.elements import quant  # noqa: F401
 from nnstreamer_tpu_torch.elements import query  # noqa: F401
 from nnstreamer_tpu_torch.elements import rate  # noqa: F401
+from nnstreamer_tpu_torch.elements import tee  # noqa: F401
+from nnstreamer_tpu_torch.elements import mux  # noqa: F401
+from nnstreamer_tpu_torch.elements import merge  # noqa: F401
+from nnstreamer_tpu_torch.elements import repo  # noqa: F401

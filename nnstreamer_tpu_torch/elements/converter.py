@@ -29,7 +29,7 @@ from nnstreamer_tpu_torch.tensors.types import (
 )
 
 _VIDEO_CHANNELS = {"RGB": 3, "BGR": 3, "RGBA": 4, "BGRA": 4, "GRAY8": 1}
-_OTHER_MEDIA = "A.17 other models, decoders and converters"
+_OTHER_MEDIA = "A.17 tensor_converter's other media"
 
 
 @subplugin(ELEMENT, "tensor_converter")

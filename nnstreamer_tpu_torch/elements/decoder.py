@@ -7,9 +7,9 @@ subplugin API ``GstTensorDecoderDef``. A decoder subplugin is an object
 dict of ``option1..option9`` strings.
 
 A subplugin may also split itself in two, as the JAX package's fused
-regions split it: ``device_kernel(options) -> (consts, fn)`` computes on
-the device and ``host_finalize(buf, config, options)`` completes on the
-host. The port runs the device half where a tensor payload lies (the
+regions split it: ``device_kernel(options) -> (consts, fn)`` (or None for
+a mode that only decodes on the host) computes on the device and
+``host_finalize(buf, config, options)`` completes on the host. The port runs the device half where a tensor payload lies (the
 card, or the CPU when asked for) as soon as it arrives, and attaches the host half as the buffer's deferred
 ``finalize``: only the device half's small results cross to the host, at
 the sink's (or a ``materialize-host`` queue's) fetch point. The same two
@@ -104,7 +104,10 @@ class TensorDecoder(Element):
         from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
 
         options = self._options()
-        consts, fn = kernel(options)
+        split = kernel(options)
+        if split is None:  # a mode with host-only semantics
+            return None
+        consts, fn = split
 
         def finalize(host_buf):
             return _decode_span(host_finalize, host_buf, self._config,
@@ -121,9 +124,12 @@ class TensorDecoder(Element):
         options = self._options()
         kernel = getattr(dec, "device_kernel", None)
         finalize = getattr(dec, "host_finalize", None)
+        split = None
         if kernel is not None and finalize is not None and buf.tensors and \
                 all(isinstance(t, torch.Tensor) for t in buf.tensors):
-            consts, fn = kernel(options)
+            split = kernel(options)  # None: a mode with host-only semantics
+        if split is not None:
+            consts, fn = split
             config = self._config
 
             def complete(host_buf):

@@ -50,14 +50,14 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with the JAX package's ``SAME`` padding, computed per input size
     (stride 1 and odd kernels pad symmetrically, so they use the conv's
-    own padding)."""
+    own padding). No bias unless ``bias`` (the JAX layer's ``use_bias``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, bias: bool = False):
         sym = stride == 1
         super().__init__(cin, cout, kernel, stride=stride,
                          padding=kernel // 2 if sym else 0, groups=groups,
-                         bias=False)
+                         bias=bias)
         self._explicit = not sym
 
     def forward(self, x):
@@ -182,48 +182,71 @@ def _conv_weight(kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))
 
 
-def params_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """The JAX package's MobileNetV2 variables (``{"params": ...,
-    "batch_stats": ...}``, leaves as numpy arrays) → this module's
-    ``state_dict`` (float32 CPU tensors).
+# -- converters from the JAX package's variable trees ------------------------
+# Each writes numpy arrays into ``out`` under this port's state_dict names;
+# :func:`to_state_dict` turns the result into tensors. The models of the
+# detection, pose and segmentation slice reuse them.
+def jax_conv(out: Dict[str, np.ndarray], dst: str, src) -> None:
+    """A JAX-package convolution (``kernel``, and ``bias`` where it has one)."""
+    out[f"{dst}.weight"] = _conv_weight(np.asarray(src["kernel"]))
+    if "bias" in src:
+        out[f"{dst}.bias"] = np.asarray(src["bias"])
 
-    The JAX package names modules in creation order: ``Conv_0`` and
-    ``BatchNorm_0`` (stem), ``InvertedResidual_k/{Conv_i, BatchNorm_i}``
-    (an ``expand == 1`` block has two convolutions, the others three),
-    ``Conv_1`` and ``BatchNorm_1`` (head) and ``Dense_0``."""
-    params, stats = variables["params"], variables["batch_stats"]
-    out: Dict[str, np.ndarray] = {}
 
-    def conv(dst: str, src):
-        out[f"{dst}.weight"] = _conv_weight(np.asarray(src["kernel"]))
+def jax_bn(out: Dict[str, np.ndarray], dst: str, p, s) -> None:
+    """A JAX-package eval-mode BatchNorm: params ``p``, batch stats ``s``."""
+    out[f"{dst}.weight"] = np.asarray(p["scale"])
+    out[f"{dst}.bias"] = np.asarray(p["bias"])
+    out[f"{dst}.running_mean"] = np.asarray(s["mean"])
+    out[f"{dst}.running_var"] = np.asarray(s["var"])
+    out[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
 
-    def bn(dst: str, p, s):
-        out[f"{dst}.weight"] = np.asarray(p["scale"])
-        out[f"{dst}.bias"] = np.asarray(p["bias"])
-        out[f"{dst}.running_mean"] = np.asarray(s["mean"])
-        out[f"{dst}.running_var"] = np.asarray(s["var"])
-        out[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
 
-    conv("stem", params["Conv_0"])
-    bn("stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+def jax_dense(out: Dict[str, np.ndarray], dst: str, src) -> None:
+    """A JAX-package dense layer ((in, out) kernel) → ``nn.Linear``."""
+    out[f"{dst}.weight"] = np.ascontiguousarray(np.asarray(src["kernel"]).T)
+    out[f"{dst}.bias"] = np.asarray(src["bias"])
+
+
+def jax_blocks(out: Dict[str, np.ndarray], params, stats,
+               dst: str = "blocks") -> None:
+    """Every ``InvertedResidual_k/{Conv_i, BatchNorm_i}`` (an ``expand ==
+    1`` block has two convolutions, the others three) → ``{dst}.k``."""
     k = 0
     while f"InvertedResidual_{k}" in params:
         name = f"InvertedResidual_{k}"
         bp, bs = params[name], stats[name]
         i = 0
         while f"Conv_{i}" in bp:
-            conv(f"blocks.{k}.convs.{i}", bp[f"Conv_{i}"])
-            bn(f"blocks.{k}.bns.{i}", bp[f"BatchNorm_{i}"],
-               bs[f"BatchNorm_{i}"])
+            jax_conv(out, f"{dst}.{k}.convs.{i}", bp[f"Conv_{i}"])
+            jax_bn(out, f"{dst}.{k}.bns.{i}", bp[f"BatchNorm_{i}"],
+                   bs[f"BatchNorm_{i}"])
             i += 1
         k += 1
-    conv("head", params["Conv_1"])
-    bn("head_bn", params["BatchNorm_1"], stats["BatchNorm_1"])
-    dense = params["Dense_0"]
-    out["classifier.weight"] = np.ascontiguousarray(
-        np.asarray(dense["kernel"]).T)
-    out["classifier.bias"] = np.asarray(dense["bias"])
+
+
+def to_state_dict(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Float32 CPU tensors (int64 for ``num_batches_tracked``)."""
     return {k: torch.from_numpy(np.array(v, dtype=np.int64
                                          if k.endswith("num_batches_tracked")
                                          else np.float32))
             for k, v in out.items()}
+
+
+def params_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's MobileNetV2 variables (``{"params": ...,
+    "batch_stats": ...}``, leaves as numpy arrays) → this module's
+    ``state_dict`` (float32 CPU tensors).
+
+    The JAX package names modules in creation order: ``Conv_0`` and
+    ``BatchNorm_0`` (stem), ``InvertedResidual_k`` (:func:`jax_blocks`),
+    ``Conv_1`` and ``BatchNorm_1`` (head) and ``Dense_0``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {}
+    jax_conv(out, "stem", params["Conv_0"])
+    jax_bn(out, "stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+    jax_blocks(out, params, stats)
+    jax_conv(out, "head", params["Conv_1"])
+    jax_bn(out, "head_bn", params["BatchNorm_1"], stats["BatchNorm_1"])
+    jax_dense(out, "classifier", params["Dense_0"])
+    return to_state_dict(out)

@@ -38,6 +38,9 @@ _BUILTIN_PROVIDERS: Dict[str, Dict[str, str]] = {
     },
     DECODER: {
         "image_labeling": "nnstreamer_tpu_torch.decoders.image_labeling",
+        "bounding_boxes": "nnstreamer_tpu_torch.decoders.bounding_boxes",
+        "pose_estimation": "nnstreamer_tpu_torch.decoders.pose_estimation",
+        "image_segment": "nnstreamer_tpu_torch.decoders.image_segment",
     },
     CONVERTER: {},
     ELEMENT: {},  # populated by nnstreamer_tpu_torch.elements at import

@@ -232,6 +232,14 @@ def host_array(t):
     return np.asarray(t)
 
 
+def host_float32(t) -> np.ndarray:
+    """A float32 numpy array of ``t`` (a ``bfloat16`` tensor included)."""
+    t = host_array(t)
+    if isinstance(t, torch.Tensor):
+        t = t.float().numpy()
+    return np.asarray(t, np.float32)
+
+
 @dataclasses.dataclass
 class TensorBuffer:
     """One frame of a tensor stream.
