@@ -33,6 +33,17 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   ``spec`` load (``lm_spec``: a 2-layer draft, γ = 4, 800 tokens fused,
   against the plain engine; fp32 tokens equal to greedy, and the
   engine's ``speculate=4`` in both cache modes).
+- Sampled decoding, the repo-loop decode step and beam search
+  (``lm_sampled``: bench.py's LM configuration with ``temperature=0.8,
+  top_k=50, min_p=0.05, seed=7`` through ``tensor_lm_serve``, in turns
+  with greedy, one capture each, two runs token-identical; in fp32 a
+  stream alone = co-batched, monolithic = paged, in process = over the
+  query pair, and the sampler's draws on a 32000-wide row against the
+  filtered softmax; ``lm_decode``: bench.py's ``decode`` string, 16 steps
+  an invoke as one CUDA graph, no cache copy to the host in the loop,
+  tokens equal to eager steps and, in fp32, to ``build_decode_step``;
+  ``beam``: W = 4, 32 new tokens, fp32, scores equal to teacher-forced
+  rescoring, W = 1 equal to greedy).
 - The same engine behind the query pair (``tensor_query_serversrc !
   tensor_lm_serve ! tensor_query_serversink``), fed by four ``appsrc !
   tensor_query_client ! tensor_sink`` clients over 127.0.0.1; in fp32 each
@@ -251,6 +262,24 @@ LM_SPEC_DAMP = 0.3
 LM_SPEC_MAX_SEQ = 1024
 LM_SPEC_NEW = 800
 LM_SPEC_FP32_NEW = 200     # the fp32 exactness run's tokens
+# sampled decoding (lm_sampled): the options and seed of the sampled
+# engines, the draws of the card's sampler check (in chunks of rows) and
+# its chi-square bound
+LM_SAMPLING = dict(temperature=0.8, top_k=50, min_p=0.05, seed=7)
+LM_CHI2_DRAWS = 20000
+LM_CHI2_CHUNK = 2000
+LM_CHI2_P_MIN = 1e-3
+# bench.py's ``decode`` (bench.py:999-1050): max_seq 1024, 16 decode steps
+# an invoke, 800 tokens; the fp32 check's invokes
+LM_DECODE_MAX_SEQ = 1024
+LM_DECODE_STEPS = 16
+LM_DECODE_TOKENS = 800
+LM_DECODE_FP32_INVOKES = 4
+LM_DECODE_FP32_SCALE = 20.0
+# beam search (beam): width, new tokens, the rescoring bound
+LM_BEAM_WIDTH = 4
+LM_BEAM_NEW = 32
+LM_BEAM_RESCORE_TOL = 1e-3
 # pipeline_slo's scheduled measured run as PERF.md §6 records it from when
 # a restart captured the region again: the runs that keep their graph are
 # reported beside it
@@ -1387,12 +1416,15 @@ def profile_lm(engine, eager_engine) -> None:
 
 
 # -- phases: tensor_lm_serve behind the query pair ----------------------------
-def _serve_over_query(engine_name: str, prompts, new_tokens: int):
+def _serve_over_query(engine_name: str, prompts, new_tokens: int,
+                      clients: int = LM_QUERY_CLIENTS):
     """``tensor_query_serversrc ! tensor_lm_serve ! tensor_query_serversink``
-    with LM_QUERY_CLIENTS ``appsrc ! tensor_query_client ! tensor_sink``
-    pipelines over 127.0.0.1, client k pushing prompts[3k:3k+3] with all
-    three in flight. Returns each client's response buffers (in arrival
-    order) and the wall time from the first push to the last response."""
+    with ``clients`` ``appsrc ! tensor_query_client ! tensor_sink``
+    pipelines over 127.0.0.1, client k pushing its share of the prompts
+    in order with all of them in flight (with one client the engine's
+    stream ids follow the push order). Returns each client's response
+    buffers (in arrival order) and the wall time from the first push to
+    the last response."""
     import numpy as np
 
     import nnstreamer_tpu_torch as nt
@@ -1402,33 +1434,33 @@ def _serve_over_query(engine_name: str, prompts, new_tokens: int):
         f"tensor_lm_serve engine={engine_name} max-new-tokens={new_tokens} "
         "! tensor_query_serversink id=32")
     server.start()
-    per = len(prompts) // LM_QUERY_CLIENTS
-    clients, got = [], []
+    per = len(prompts) // clients
+    pipes, got = [], []
     try:
         port = server.get("ss").port
-        for k in range(LM_QUERY_CLIENTS):
+        for k in range(clients):
             pipe = nt.parse_launch(
                 f"appsrc name=src ! tensor_query_client dest-host=127.0.0.1 "
                 f"dest-port={port} max-in-flight={per} timeout=600 ! "
                 "tensor_sink name=out")
             got.append([])
             pipe.get("out").connect(lambda buf, k=k: got[k].append(buf))
-            clients.append(pipe)
+            pipes.append(pipe)
         t0 = time.monotonic()
-        for pipe in clients:
+        for pipe in pipes:
             pipe.start()
-        for k, pipe in enumerate(clients):
+        for k, pipe in enumerate(pipes):
             src = pipe.get("src")
             for j, p in enumerate(prompts[k * per:(k + 1) * per]):
                 src.push([np.asarray(p, np.int32)], pts=j)
             src.end_of_stream()
-        for pipe in clients:
+        for pipe in pipes:
             msg = pipe.wait(timeout=900)
             check(msg is not None and msg.kind == "eos",
                   f"an LM query client ended with {msg}")
         wall = time.monotonic() - t0
     finally:
-        for pipe in clients:
+        for pipe in pipes:
             pipe.stop()
         server.stop()
     return got, wall
@@ -3837,6 +3869,507 @@ def phase_lm_spec(power: str) -> dict:
     return result
 
 
+# -- phases: sampled decoding, the decode loop, beam search ----------------
+def _sampled_serve(engine, prompts, new_tokens: int, name: str) -> dict:
+    """Start ``engine``, run the warm-up prompts (every prompt bucket, off
+    the clock; they take the first stream ids), then one measured
+    ``_serve``: its tokens, rate, quantiles, B2 launches and graph
+    counts. Stops the engine."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.obs.flight import LMTokenStats
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import register_engine, unregister_engine
+
+    _, warm = _lm_prompts()
+    engine.start()
+    register_engine(name, engine)
+    try:
+        for p in warm:
+            engine.generate(p, max_new_tokens=engine.K, timeout=600)
+        engine._lm_stats = LMTokenStats(engine.obs_name)
+        stats0 = dict(engine.stats)
+        reset_launches()
+        got, wall = _serve(prompts, new_tokens, engine_name=name)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["flash_attention"]
+    finally:
+        engine.stop()
+        unregister_engine(name)
+    total = _check_responses(got, len(prompts), new_tokens, name)
+    b2_prefills = _b2_prefills(engine, stats0)
+    check(launches == LM["n_layers"] * b2_prefills,
+          f"{name}: B2 launched {launches} times for {b2_prefills} cold "
+          f"prefills of {LM['n_layers']} layers")
+    return {"tokens": [np.asarray(b.tensors[0]).tolist() for b in got],
+            "generated": total, "wall_s": wall,
+            "tokens_per_s": total / wall, "flash_launches": launches,
+            "b2_prefills": b2_prefills,
+            "graph": _check_graph(engine, name), **_token_quantiles(engine)}
+
+
+def sampler_on_the_card() -> dict:
+    """The engine's sampler on one fixed 32000-wide logit row, drawn
+    LM_CHI2_DRAWS times by one stream (counters 0..n-1) on the card: every
+    draw inside the filtered set (the JAX sampler's formula, on the
+    host), the counts against the exact filtered softmax by a
+    chi-square, and the card's Philox words equal to
+    ``ops/quantize.py``'s 16-bit-limb Philox on the same keys."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from nnstreamer_tpu_torch.models import transformer as ttr
+    from nnstreamer_tpu_torch.ops.quantize import philox4x32_10
+
+    V = LM["vocab"]
+    temperature, top_k, min_p = (LM_SAMPLING["temperature"],
+                                 LM_SAMPLING["top_k"], LM_SAMPLING["min_p"])
+    row = np.random.default_rng(3).normal(0, 3, V).astype(np.float32)
+    # the filter in fp32, as the JAX formula computes it; the softmax of
+    # what it keeps in float64
+    scaled = row / np.float32(temperature)
+    support = scaled >= np.sort(scaled)[-top_k]
+    support &= scaled >= scaled[support].max() + np.float32(np.log(min_p))
+    scaled = np.where(support, scaled.astype(np.float64), -np.inf)
+    probs = np.exp(scaled - scaled.max())
+    probs /= probs.sum()
+    sample = ttr.make_sampler(V, temperature, top_k, min_p)
+    logits = torch.from_numpy(row).to("cuda:0")
+    toks = []
+    with torch.inference_mode():
+        for c0 in range(0, LM_CHI2_DRAWS, LM_CHI2_CHUNK):
+            n = min(LM_CHI2_CHUNK, LM_CHI2_DRAWS - c0)
+            keys = ttr.sampling_keys(LM_SAMPLING["seed"], [0] * n,
+                                     np.arange(c0, c0 + n), "cuda:0")
+            t, _ = sample(logits.expand(n, V), keys)
+            toks.append(t.cpu().numpy())
+        keys = ttr.sampling_keys(LM_SAMPLING["seed"], [0] * LM_CHI2_CHUNK,
+                                 np.arange(LM_CHI2_CHUNK), "cuda:0")
+        u = ttr.philox_uniforms(keys).cpu()
+        ctr = torch.arange(LM_CHI2_CHUNK, dtype=torch.int64, device="cuda:0")
+        zero = torch.zeros_like(ctr)
+        words = philox4x32_10((ctr, zero, zero, zero),
+                              (LM_SAMPLING["seed"], 0))[0].cpu()
+    check(torch.equal(u, words >> 8),
+          "the sampler's Philox differs from ops/quantize.py's on the card")
+    toks = np.concatenate(toks)
+    outside = int((~support[toks]).sum())
+    check(outside == 0, f"sampler: {outside} draws outside the filtered set")
+    counts = np.bincount(toks, minlength=V).astype(np.float64)
+    expected = probs * LM_CHI2_DRAWS
+    big = expected >= 5
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(expected[big], expected[~big].sum())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    p = float(stats.chisquare(obs, exp).pvalue)
+    check(p >= LM_CHI2_P_MIN, f"sampler chi-square p = {p} < "
+                              f"{LM_CHI2_P_MIN}")
+    return {"draws": LM_CHI2_DRAWS, "support": int(support.sum()),
+            "distinct_drawn": int((counts > 0).sum()), "chi2_p": p,
+            "chi2_bins": int(obs.size), "philox_equal": True,
+            **sampler_step_times()}
+
+
+def graph_replay_ms(fn) -> float:
+    """Device time of ``fn``'s kernels back to back: ``fn`` captured once
+    as a CUDA graph (after a warm-up run on the capture stream), its
+    replays timed by ``cuda_time_ms`` — a decode step's view of them,
+    without the eager launches."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return cuda_time_ms(graph.replay)
+
+
+def sampler_step_times() -> dict:
+    """What sampling adds to a decode step of the LM configuration (8
+    lanes, K = 8), each as a captured graph's replay: the sampled draw
+    with logprobs (the filter, softmax, int64 CDF, searchsorted) and the
+    greedy one (argmax, logprobs) on [8, 32000] fp32 logits, and a
+    dispatch's Philox call ([8, 8] counters)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import transformer as ttr
+
+    V = LM["vocab"]
+    sampling = {k: LM_SAMPLING[k] for k in ("temperature", "top_k", "min_p")}
+    logits = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 3, (LM_SLOTS, V)).astype(np.float32)).to("cuda:0")
+    keys = ttr.sampling_keys(LM_SAMPLING["seed"], range(LM_SLOTS),
+                             np.arange(LM_SLOTS), "cuda:0")
+    ctr = keys[:, 1:] + torch.arange(8, device="cuda:0")
+    dispatch_keys = torch.stack([keys[:, :1].expand_as(ctr), ctr], dim=-1)
+    u = ttr.philox_uniforms(keys)
+    sampled = ttr.make_sampler(V, **sampling, with_logprobs=True)
+    greedy = ttr.make_sampler(V, 0.0, with_logprobs=True)
+    with torch.inference_mode():
+        return {
+            "sampled_draw_graph_ms": graph_replay_ms(
+                lambda: sampled.draw(logits, u)),
+            "greedy_draw_graph_ms": graph_replay_ms(
+                lambda: greedy.draw(logits, None)),
+            "philox_dispatch_graph_ms": graph_replay_ms(
+                lambda: ttr.philox_uniforms(dispatch_keys)),
+        }
+
+
+def phase_lm_sampled(power: str, K: int = 8) -> dict:
+    """Sampled decoding (ROADMAP A.13.5) through ``tensor_lm_serve`` on the
+    LM configuration, bf16, 8 slots, 12 prompts × 128 tokens, at the K
+    that lm_serving chose: greedy, sampled (``LM_SAMPLING``), sampled,
+    greedy, each a fresh engine (stream ids from 0). Checks: one capture
+    and replays = dispatches each; B2 once a layer of each cold prefill;
+    the two sampled runs token-identical. Then fp32 with TF32 off, 12 × 32:
+    a stream served alone = co-batched, monolithic = paged
+    (``block_tokens=16``), in process = behind the query pair; and the
+    sampler on a fixed 32000-wide row (``sampler_on_the_card``)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        register_engine,
+        unregister_engine,
+    )
+
+    nt.set_device(None)
+    prompts, _ = _lm_prompts()
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    sampling = dict(LM_SAMPLING)
+    runs = {}
+    for i, name in enumerate(("greedy", "sampled", "sampled2", "greedy2")):
+        kw = sampling if name.startswith("sampled") else {}
+        eng = ContinuousBatchingEngine(cfg, params, max_streams=LM_SLOTS,
+                                       steps_per_dispatch=K, **kw)
+        runs[name] = _sampled_serve(eng, prompts, LM_NEW,
+                                    f"lm_sampled_{i}")
+    check(runs["sampled"]["tokens"] == runs["sampled2"]["tokens"],
+          "lm_sampled: two runs of the sampled engine differ")
+    check(runs["greedy"]["tokens"] == runs["greedy2"]["tokens"],
+          "lm_sampled: two runs of the greedy engine differ")
+    check(runs["sampled"]["tokens"] != runs["greedy"]["tokens"],
+          "lm_sampled: the sampled engine emitted the greedy tokens")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fcfg = TransformerConfig(**LM, dtype=torch.float32)
+    fparams = init_params(fcfg, seed=0)
+
+    def fp32(**kw):
+        return ContinuousBatchingEngine(fcfg, fparams, max_streams=LM_SLOTS,
+                                        steps_per_dispatch=8, **sampling,
+                                        **kw)
+
+    parity = {}
+    for mode, kw in (("monolithic", {}),
+                     ("paged", {"block_tokens": LM_PAGED_BLOCK})):
+        eng = fp32(**kw).start()
+        register_engine("lm_sampled_fp32", eng)
+        try:
+            got, _ = _serve(prompts, LM_PARITY_NEW, "lm_sampled_fp32")
+        finally:
+            eng.stop()
+            unregister_engine("lm_sampled_fp32")
+        parity[mode] = [np.asarray(b.tensors[0]).tolist() for b in got]
+        check(eng.paged == (mode == "paged"), f"lm_sampled: {mode} engine")
+    eng = fp32().start()
+    try:
+        alone = eng.generate(prompts[0], max_new_tokens=LM_PARITY_NEW,
+                             timeout=600)
+    finally:
+        eng.stop()
+    eng = fp32().start()
+    register_engine("lm_sampled_q", eng)
+    try:
+        got, _ = _serve_over_query("lm_sampled_q", prompts, LM_PARITY_NEW,
+                                   clients=1)
+        over_query = [np.asarray(b.tensors[0]).tolist() for b in got[0]]
+    finally:
+        eng.stop()
+        unregister_engine("lm_sampled_q")
+    mono = parity["monolithic"]
+    check(parity["paged"] == mono, "lm_sampled: fp32 paged tokens differ "
+                                   "from the monolithic engine's")
+    check(alone == mono[0],
+          "lm_sampled: a stream alone differs from it co-batched")
+    check(over_query == mono, "lm_sampled: fp32 tokens over the query pair "
+                              "differ from in process")
+    sampler = sampler_on_the_card()
+
+    def rates(r):
+        return {k: v for k, v in r.items() if k != "tokens"}
+
+    result = {
+        "config": {**LM, "dtype": "bfloat16", "slots": LM_SLOTS, "K": K,
+                   "new_tokens": LM_NEW, "prompts": len(prompts),
+                   **sampling},
+        "greedy": rates(runs["greedy"]), "sampled": rates(runs["sampled"]),
+        "sampled2": rates(runs["sampled2"]),
+        "greedy2": rates(runs["greedy2"]),
+        "sampled_over_greedy_tokens_per_s": [
+            runs[s]["tokens_per_s"] / runs[g]["tokens_per_s"]
+            for s, g in (("sampled", "greedy"), ("sampled2", "greedy2"))],
+        "flash_launches": runs["sampled"]["flash_launches"] +
+        runs["sampled2"]["flash_launches"],
+        "two_runs_identical": True,
+        "fp32": {"new_tokens": LM_PARITY_NEW, "paged_equal": True,
+                 "alone_equal_co_batched": True, "query_equal": True},
+        "sampler": sampler, "gpu": power,
+    }
+    emit({"phase": "lm_sampled", **result})
+    return result
+
+
+def decode_desc(num, model="lm_decode_bench", slot="lm_bench"):
+    """bench.py's ``measure_decode`` string (bench.py:1030-1036)."""
+    return (f"tensor_reposrc slot={slot} num-buffers={num} timeout=120 ! "
+            f"tensor_filter framework=jax model={model} name=filter "
+            "input-combination=i0,i1,i2 ! "
+            f"tee name=t  t. ! tensor_reposink slot={slot}  "
+            "t. ! tensor_sink name=sink to-host=false")
+
+
+def phase_lm_decode(power: str) -> dict:
+    """bench.py's ``decode`` (``measure_decode``, bench.py:999-1050) at its
+    sizes: the LM configuration at max_seq 1024, bf16, K = 16 decode steps
+    an invoke through ``TransformerStreamStep`` (one CUDA graph), a 2-buffer
+    warm run, then 50 invokes (800 tokens) whose final slot state is
+    fetched in the timed window; steps/s is bench.py's steady rate.
+    Checks: one capture over both runs; no device→host copy while the loop
+    runs; the tokens equal ``build_greedy_stream_step`` run eagerly on
+    the card with the prepared params; in fp32 with TF32 off, a loop's
+    tokens equal a chain of ``build_decode_step`` calls with argmax (the
+    matmul weights scaled, so that the chain's tokens vary)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.transformer import (
+        MATMUL_WEIGHTS,
+        TransformerConfig,
+        build_decode_step,
+        build_greedy_stream_step,
+        greedy_stream_model,
+        init_cache,
+        init_params,
+        prepare_params,
+    )
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors.buffer import (
+        TensorBuffer,
+        transfer_snapshot,
+    )
+
+    nt.set_device(None)
+    K, n = LM_DECODE_STEPS, LM_DECODE_TOKENS // LM_DECODE_STEPS
+
+    def seed(cfg, slot="lm_bench"):
+        GLOBAL_REPO.set(slot, TensorBuffer(
+            [np.asarray([1], np.int32),
+             init_cache(cfg, 1, device="cuda:0").values,
+             np.asarray(0, np.int32)], pts=0))
+
+    def loop(cfg, model, num, name, slot="lm_bench"):
+        """Seed the slot, run ``num`` invokes; (arrivals, eos fetched,
+        tokens, final state, transfers in the loop)."""
+        register_torch_model("lm_decode_bench", model)
+        try:
+            seed(cfg, slot)
+            pipe = nt.parse_launch(decode_desc(num, slot=slot),
+                                   pipeline=Pipeline(name=name))
+            x0 = transfer_snapshot()
+            arrivals, _, _, _ = _collect_arrivals(pipe)
+            x1 = transfer_snapshot()
+            final = GLOBAL_REPO.get(slot)
+            check(final is not None, f"{name}: the slot is empty")
+            np.asarray(final.tensors[0].cpu())  # the chain ran: in window
+            fetched = time.monotonic()
+            toks = [t for b in pipe.get("sink").buffers
+                    for t in b.tensors[3].cpu().tolist()]
+            GLOBAL_REPO.remove(slot)
+        finally:
+            unregister_torch_model("lm_decode_bench")
+        return arrivals, fetched, toks, final, {
+            k: x1[k] - x0[k] for k in ("d2h_events", "h2d_events")}
+
+    cfg = TransformerConfig(**{**LM, "max_seq": LM_DECODE_MAX_SEQ},
+                            dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    model = greedy_stream_model(cfg, params, steps=K)
+    loop(cfg, model, 2, "lm_decode_warm")
+    arrivals, fetched, toks, final, moved = loop(cfg, model, n, "lm_decode")
+    check(len(arrivals) == n, f"lm_decode: {len(arrivals)} of {n} invokes")
+    check(len(toks) == n * K, f"lm_decode: {len(toks)} tokens")
+    check(model.graph_stats["captures"] == 1,
+          f"lm_decode: {model.graph_stats['captures']} captures")
+    check(moved["d2h_events"] == 0,
+          f"lm_decode: {moved['d2h_events']} device→host copies in the loop")
+    check(final.tensors[1].device.type == "cuda" and
+          tuple(final.tensors[1].shape) == (LM["n_layers"], 2, 1,
+                                             LM_DECODE_MAX_SEQ,
+                                             LM["n_heads"],
+                                             LM["d_model"] // LM["n_heads"]),
+          "lm_decode: the final cache is not the card's [L, 2, 1, S, h, dh]")
+    check(int(final.tensors[2]) == n * K, "lm_decode: final position")
+    step = build_greedy_stream_step(cfg, steps=K)
+    p = prepare_params(params, cfg, "cuda:0")
+    state = (torch.tensor([1], dtype=torch.int32, device="cuda:0"),
+             init_cache(cfg, 1, device="cuda:0").values,
+             torch.tensor(0, dtype=torch.int32, device="cuda:0"))
+    want = []
+    with torch.inference_mode():
+        for _ in range(n):
+            out = step(p, *state)
+            want.extend(out[3].cpu().tolist())
+            state = out[:3]
+    check(toks == want, "lm_decode: the loop's tokens differ from the "
+                        "step function's eager steps on the card")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fcfg = TransformerConfig(**{**LM, "max_seq": LM_DECODE_MAX_SEQ},
+                             dtype=torch.float32)
+    # the matmul weights scaled, so that the greedy chain does not repeat
+    # its input token as the seed-0 weights' chain does
+    fparams = {k: v * LM_DECODE_FP32_SCALE if k in MATMUL_WEIGHTS else v
+               for k, v in init_params(fcfg, seed=0).items()}
+    fmodel = greedy_stream_model(fcfg, fparams, steps=K)
+    _, _, ftoks, _, _ = loop(fcfg, fmodel, LM_DECODE_FP32_INVOKES,
+                             "lm_decode_fp32", "lm_fp32")
+    decode = build_decode_step(fcfg)
+    p = prepare_params(fparams, fcfg, "cuda:0")
+    cache = init_cache(fcfg, 1, device="cuda:0")
+    tok = torch.tensor([1], dtype=torch.int32, device="cuda:0")
+    chain = []
+    with torch.inference_mode():
+        for pos in range(LM_DECODE_FP32_INVOKES * K):
+            logits, cache = decode(p, tok, cache, pos)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            chain.append(int(tok[0]))
+    check(ftoks == chain, "lm_decode: fp32 loop tokens differ from a chain "
+                          "of build_decode_step calls")
+    check(len(set(chain)) > 1, "lm_decode: the fp32 chain repeats one token")
+    result = {
+        "config": {**LM, "max_seq": LM_DECODE_MAX_SEQ, "dtype": "bfloat16",
+                   "steps_per_invoke": K, "invokes": n},
+        "steps_per_s": steady_fps(arrivals, fetched, frames_per_buffer=K),
+        "wall_s": fetched - arrivals[0], "tokens": len(toks),
+        "distinct_tokens": len(set(toks)),
+        "captures": model.graph_stats["captures"],
+        "replays": model.graph_stats["replays"],
+        "d2h_events_in_loop": moved["d2h_events"],
+        "h2d_events_in_loop": moved["h2d_events"],
+        "cache_bytes": final.tensors[1].numel() *
+        final.tensors[1].element_size(),
+        "eager_equal": True, "fp32_chain_equal": True,
+        "fp32_tokens": len(chain), "fp32_distinct_tokens": len(set(chain)),
+        "gpu": power,
+    }
+    emit({"phase": "lm_decode", **result})
+    return result
+
+
+def phase_beam(power: str) -> dict:
+    """Beam search (ROADMAP A.13.8) on the LM configuration in fp32 (TF32
+    off), W = 4, max_new = 32, on the card: every beam's score equals its
+    teacher-forced rescoring (a plain full forward) within 1e-3; W = 1
+    equals greedy decoding (prefill + decode steps, argmax); the beams are
+    distinct, best first; a search's time is reported (median of 3 after
+    one warm-up)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models import BeamSearcher
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        build_decode_step,
+        build_forward,
+        build_prefill,
+        init_params,
+        prepare_params,
+    )
+
+    nt.set_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**LM, dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    prompts, _ = _lm_prompts()
+    prompt = prompts[0]
+    bs = BeamSearcher(cfg, params, beam_width=LM_BEAM_WIDTH,
+                      max_new=LM_BEAM_NEW)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        seqs, scores = bs.search(prompt)
+        times.append(time.monotonic() - t0)
+    check(seqs.shape == (LM_BEAM_WIDTH, LM_BEAM_NEW) and
+          bool(np.isfinite(scores).all()), "beam: shapes or scores")
+    check(list(scores) == sorted(scores, reverse=True),
+          "beam: not best first")
+    check(len({tuple(s) for s in seqs.tolist()}) == LM_BEAM_WIDTH,
+          "beam: two beams are the same hypothesis")
+    p = prepare_params(params, cfg, "cuda:0")
+    fwd = build_forward(cfg)
+    errs = []
+    with torch.inference_mode():
+        for seq, score in zip(seqs.tolist(), scores):
+            toks = torch.tensor([prompt + seq], dtype=torch.int32,
+                                device="cuda:0")
+            logp = torch.log_softmax(fwd(p, toks)[0].float(), dim=-1)
+            n = len(prompt)
+            want = float(sum(logp[n + j - 1, seq[j]]
+                             for j in range(len(seq))))
+            errs.append(abs(float(score) - want))
+    check(max(errs) <= LM_BEAM_RESCORE_TOL,
+          f"beam: score vs rescoring {max(errs)} > {LM_BEAM_RESCORE_TOL}")
+    one, _ = BeamSearcher(cfg, params, beam_width=1,
+                          max_new=LM_BEAM_NEW).search(prompt)
+    prefill, decode = build_prefill(cfg), build_decode_step(cfg)
+    greedy = []
+    with torch.inference_mode():
+        logits, cache = prefill(p, torch.tensor([prompt], dtype=torch.int32,
+                                                device="cuda:0"))
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        greedy.append(int(tok[0]))
+        for j in range(LM_BEAM_NEW - 1):
+            logits, cache = decode(p, tok, cache, len(prompt) + j)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            greedy.append(int(tok[0]))
+    check(one[0].tolist() == greedy, "beam: W = 1 differs from greedy")
+    result = {"config": {**LM, "dtype": "float32", "beam_width": LM_BEAM_WIDTH,
+                         "max_new": LM_BEAM_NEW, "prompt_len": len(prompt)},
+              "search_s_median": statistics.median(times[1:]),
+              "search_s": times, "scores": [float(s) for s in scores],
+              "rescore_err_max": max(errs),
+              "rescore_tol": LM_BEAM_RESCORE_TOL, "width1_is_greedy": True,
+              "distinct": True, "gpu": power}
+    emit({"phase": "beam", **result})
+    return result
+
+
 def phase_cli(power: str) -> dict:
     """``python3 -m nnstreamer_tpu_torch.cli --slo-budget-ms 50
     --metrics-port 0 "<the batch-8 string, 160 frames>"``: the model is a
@@ -4599,6 +5132,9 @@ def main() -> int:
     lm_prefix = phase_lm_prefix_chunk(power)
     lm_paged = phase_lm_paged(power)
     lm_spec = phase_lm_spec(power)
+    lm_sampled = phase_lm_sampled(power, lm["K"])
+    phase_lm_decode(power)
+    phase_beam(power)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
     uncut = phase_pipeline_uncut(power)
@@ -4684,6 +5220,9 @@ def main() -> int:
         # prefills; the draft's prefill is plain)
         "launches_lm_paged": lm_paged["flash_launches"],
         "launches_lm_spec": lm_spec["flash_launches"],
+        # 8 × the cold prefills of the two measured sampled runs (the
+        # warm-up prompts come before the counts are reset)
+        "launches_lm_sampled": lm_sampled["flash_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
         "device_ms": dev_b2[f"{prefill_tag}_device_ms"],

@@ -28,15 +28,19 @@ tokens. Their scatters never index out of range (a CUDA device-side
 assert): a write the JAX package drops (``mode="drop"``) lands in the
 arena's private trash block, at the same fixed shape.
 
-Not ported yet, each raising with its ROADMAP item: the sampled path —
-``temperature > 0``, ``top_k``, ``min_p`` (A.13.5). The repo-loop stream
-steps wait for A.13.6.
+Sampling (:func:`make_sampler`) is the JAX sampler's filter with a
+counter-based draw: Philox4x32-10 keyed by (seed, stream id) at the
+position of the token being drawn, then the inverse CDF of the filtered
+softmax. The repo-loop stream steps (:func:`build_greedy_stream_step`,
+:func:`build_sample_stream_step`) are filter models through
+:class:`TransformerStreamStep`, one CUDA graph a step on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -44,12 +48,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nnstreamer_tpu_torch.ops import _counts
 from nnstreamer_tpu_torch.ops.flash_attention import (
     NEG_BIG,
     attention_reference,
     flash_attention,
 )
-from nnstreamer_tpu_torch.pipeline.element import not_ported
+from nnstreamer_tpu_torch.ops.quantize import _M0, _M1, _MASK32, _W0, _W1
 from nnstreamer_tpu_torch.tensors.types import TensorsInfo
 
 Params = Dict[str, torch.Tensor]
@@ -691,41 +696,330 @@ def build_paged_chunk(cfg: TransformerConfig,
     return chunk
 
 
+# -- sampling ---------------------------------------------------------------
+#: the inverse CDF's fixed point: a token's fp32 probability in units of
+#: 2**-38, summed in int64 (exact, so the same cumulative sums on every
+#: device and in every summation order); a probability below 2**-38 is
+#: never drawn
+_CDF_BITS = 38
+#: bits of the one uniform a row draws (the top of Philox's first word)
+_U_BITS = 24
+
+
+def sampling_key(seed: int, stream_id: int) -> int:
+    """One stream's Philox key as the signed int64 the sampler's
+    ``keys[:, 0]`` holds: the seed's low 32 bits are key word 0, the stream
+    id's low 32 bits key word 1."""
+    v = (int(seed) & _MASK32) | ((int(stream_id) & _MASK32) << 32)
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def sampling_keys(seed: int, stream_ids, counters, device=None
+                  ) -> torch.Tensor:
+    """``keys [n, 2]`` int64 for :func:`make_sampler`: row r holds the
+    Philox key of ``(seed, stream_ids[r])`` (:func:`sampling_key`) and its
+    counter, the position of the token it draws."""
+    ids = np.asarray(stream_ids, np.int64).reshape(-1)
+    ctr = np.broadcast_to(np.asarray(counters, np.int64), ids.shape)
+    keys = np.stack([np.asarray([sampling_key(seed, i) for i in ids],
+                                np.int64).reshape(-1), ctr], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(keys)).to(device)
+
+
+def philox_uniforms(keys: torch.Tensor) -> torch.Tensor:
+    """One uniform integer in [0, 2**24) per key row (``keys [..., 2]``
+    int64: the packed Philox key, the counter): the top 24 bits of the
+    first word of Philox4x32-10 under key ``(keys[..., 0] lo, hi)`` at
+    counter ``(counter lo, counter hi, 0, 0)``.
+
+    ``ops/quantize.py::philox4x32_10`` computes the same words (the tests
+    hold the two bit for bit) in 16-bit limbs; here a 32×32-bit product is
+    one int64 multiply, whose wrapped 64 bits are the exact product's, so
+    a call is about 130 device ops. Every op keeps its shape: the draw is
+    capturable in a CUDA graph and needs no generator state."""
+    key, ctr = keys[..., 0], keys[..., 1]
+    rounds = torch.arange(10, dtype=torch.int64,
+                          device=keys.device).reshape((10,) + (1,) * key.dim())
+    k0s = ((key & _MASK32) + rounds * _W0) & _MASK32
+    k1s = (((key >> 32) & _MASK32) + rounds * _W1) & _MASK32
+    c0, c1 = ctr & _MASK32, (ctr >> 32) & _MASK32
+    c2 = c3 = torch.zeros_like(c0)
+    for r in range(10):
+        p0, p1 = c0 * _M0, c2 * _M1
+        c0, c1, c2, c3 = (((p1 >> 32) & _MASK32) ^ c1 ^ k0s[r], p1 & _MASK32,
+                          ((p0 >> 32) & _MASK32) ^ c3 ^ k1s[r], p0 & _MASK32)
+    return c0 >> (32 - _U_BITS)
+
+
+def inverse_cdf(filtered: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Draw one token per row of ``filtered [n, V]`` (fp32 logits, dropped
+    entries at -1e30) with ``u [n]`` from :func:`philox_uniforms`: the
+    first token whose cumulative fixed-point probability exceeds
+    ``u · total / 2**24``. The target stays below the total, so a token of
+    zero probability is never chosen."""
+    q = (torch.softmax(filtered, dim=-1) * float(2 ** _CDF_BITS)).long()
+    cdf = torch.cumsum(q, dim=-1)
+    target = (u * cdf[:, -1]) >> _U_BITS
+    return torch.searchsorted(cdf, target[:, None],
+                              right=True)[:, 0].to(torch.int32)
+
+
+class Sampler:
+    """The sampling function :func:`make_sampler` returns: ``sample(logits
+    [n, vocab], keys [n, 2]) -> (tokens [int32 n], keys)``, with
+    ``logprobs [float32 n]`` appended when ``with_logprobs``.
+
+    A row's draw depends on its key row alone: the packed Philox key of
+    (seed, stream id) and the counter, the position of the token being
+    drawn (:func:`sampling_keys`); the returned keys have the counter one
+    further. So a stream's tokens do not depend on the rows beside it, on
+    how many steps a dispatch runs, or on how its prompt was prefilled.
+    Greedy (``temperature <= 0``) is argmax and passes the keys through,
+    ignoring ``top_k`` and ``min_p``, as the JAX sampler does."""
+
+    def __init__(self, vocab: int, temperature: float, top_k: int,
+                 min_p: float, with_logprobs: bool):
+        self.temperature = float(temperature)
+        self.greedy = self.temperature <= 0.0
+        self.k = min(int(top_k), int(vocab)) if top_k > 0 else 0
+        self.log_min_p = float(np.log(min_p)) if min_p > 0.0 else None
+        self.with_logprobs = with_logprobs
+
+    def filter(self, logits: torch.Tensor) -> torch.Tensor:
+        """The JAX sampler's filtered logits: ``logits / temperature``,
+        then entries below the k-th largest (ties at it stay in), then
+        entries below ``max + log(min_p)``, each dropped to -1e30."""
+        dev = logits.device
+        # 0-dim operands: a CUDA op divides by a CPU scalar through its
+        # reciprocal, and a host-to-card copy cannot be captured
+        scaled = logits.float() / torch.full((), self.temperature,
+                                             dtype=torch.float32, device=dev)
+        if self.k:
+            kth = torch.topk(scaled, self.k, dim=-1).values[:, -1:]
+            scaled = torch.where(scaled >= kth, scaled, -1e30)
+        if self.log_min_p is not None:
+            smax = torch.amax(scaled, dim=-1, keepdim=True)
+            scaled = torch.where(
+                scaled >= smax + torch.full((), self.log_min_p,
+                                            dtype=torch.float32, device=dev),
+                scaled, -1e30)
+        return scaled
+
+    def draw(self, logits: torch.Tensor, u: Optional[torch.Tensor]):
+        """Tokens (and logprobs) from given uniforms (None when greedy):
+        the engine draws a dispatch's uniforms in one Philox call."""
+        if self.greedy:
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            toks = inverse_cdf(self.filter(logits), u)
+        if not self.with_logprobs:
+            return toks, None
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return toks, torch.gather(logp, 1, toks.long()[:, None])[:, 0]
+
+    def __call__(self, logits: torch.Tensor,
+                 keys: Optional[torch.Tensor] = None):
+        if not self.greedy:
+            toks, lp = self.draw(logits, philox_uniforms(keys))
+            keys = torch.stack([keys[:, 0], keys[:, 1] + 1], dim=1)
+        else:
+            toks, lp = self.draw(logits, None)
+        return (toks, keys) if lp is None else (toks, keys, lp)
+
+
 def make_sampler(vocab: int, temperature: float = 1.0,
                  top_k: int = 0, min_p: float = 0.0,
-                 with_logprobs: bool = False) -> Callable:
-    """The sampling function: ``sample(logits[n, vocab], keys=None) ->
-    (tokens[int32 n], keys)``, with ``logprobs[float32 n]`` appended when
-    ``with_logprobs`` (the chosen token's fp32 log_softmax). Only greedy
-    decoding (``temperature <= 0``) is ported: the JAX package draws with
-    per-row threefry keys, which a CUDA generator cannot reproduce bit for
-    bit."""
+                 with_logprobs: bool = False) -> Sampler:
+    """The ONE sampling function (a :class:`Sampler`), shared by the
+    serving engine and the sampled stream step so their math cannot
+    diverge: ``sample(logits[n, vocab], keys[int64 n, 2]) -> (tokens[int32
+    n], keys)``, with ``logprobs[float32 n]`` (the chosen token's fp32
+    log_softmax of the UNMODIFIED logits) appended when ``with_logprobs``.
+
+    The filter is the JAX sampler's. The draw is not: the JAX package's
+    per-row threefry keys cannot be reproduced bit for bit, so each row
+    draws one Philox4x32-10 uniform keyed by (seed, stream id) at the
+    position of the token being drawn, then inverts the CDF of the fp32
+    softmax of the filtered logits. The two agree in distribution."""
     if not 0.0 <= min_p <= 1.0:
         raise ValueError(
             f"make_sampler: min_p must be in [0, 1], got {min_p} "
             f"(it is a probability RATIO vs the top token, not a count "
             f"or percentage)")
-    if temperature > 0.0 or top_k > 0 or min_p > 0.0:
-        raise not_ported("sampled decoding (temperature > 0, top_k, min_p)",
-                         "A.13.5")
-
-    def sample(logits, keys=None):
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not with_logprobs:
-            return toks, keys
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        chosen = torch.gather(logp, 1, toks.long()[:, None])[:, 0]
-        return toks, keys, chosen
-
-    return sample
+    return Sampler(vocab, temperature, top_k, min_p, with_logprobs)
 
 
-def build_greedy_stream_step(*_args, **_kw):
-    raise not_ported("the repo-loop stream step", "A.13.6")
+# -- the repo-loop stream steps ---------------------------------------------
+def _unwrap(cache):
+    """A stream step's cache: the raw cache travels the repo as one tensor
+    ``[L, 2, 1, S, h, dh]`` (as the JAX package's does); a
+    :class:`KVCache` (the int8 codec's) passes as it is."""
+    if isinstance(cache, torch.Tensor):
+        return KVCache(cache), lambda kv: kv.values
+    return cache, lambda kv: kv
 
 
-def build_sample_stream_step(*_args, **_kw):
-    raise not_ported("the repo-loop stream step", "A.13.6")
+def _stream_pos(pos, device) -> torch.Tensor:
+    return torch.as_tensor(pos, device=device).reshape(()).to(torch.int32)
+
+
+def build_greedy_stream_step(cfg: TransformerConfig,
+                             max_seq: Optional[int] = None,
+                             kv_codec: Optional[str] = None,
+                             steps: int = 1) -> Callable:
+    """Pipeline-shaped greedy decode step for the tensor_repo loop:
+    ``step(params, token[1], cache, pos[]) -> (next_token[int32 1], cache,
+    pos + steps)`` — the state tuple a repo slot circulates (bench.py's
+    ``decode``). The cache is written in place and returned.
+
+    With ``steps > 1`` the step runs that many decode steps and returns a
+    fourth output, the ``[steps]`` token block; use
+    ``input-combination=i0,i1,i2`` on the filter so the circulating state
+    stays (token, cache, pos). :class:`TransformerStreamStep` runs the
+    steps as one CUDA graph on the card."""
+    decode = build_decode_step(cfg, max_seq, kv_codec)
+    steps = max(1, int(steps))
+
+    def step(params, token, cache, pos):
+        kv, wrap = _unwrap(cache)
+        tok = token.reshape(1).to(torch.int32)
+        p = _stream_pos(pos, kv.device)
+        toks = []
+        for _ in range(steps):
+            logits, kv = decode(params, tok, kv, p)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            p = p + 1
+        if steps == 1:
+            return tok, wrap(kv), p
+        return tok, wrap(kv), p, torch.cat(toks)
+
+    return step
+
+
+def build_sample_stream_step(cfg: TransformerConfig,
+                             max_seq: Optional[int] = None,
+                             temperature: float = 1.0,
+                             top_k: int = 0, min_p: float = 0.0,
+                             kv_codec: Optional[str] = None) -> Callable:
+    """Sampled decode step for the repo loop: ``step(params, token, cache,
+    pos, key[int64 2]) -> (next_token, cache, pos + 1, next_key)`` — the
+    key (:func:`sampling_keys`' row: the packed Philox key and the
+    counter) rides the state tuple like the cache does, so streaming stays
+    deterministic given the seed. Seeded with counter ``pos + 1``, the
+    counter stays the position of the token being drawn, and the stream
+    draws what the serving engine draws for the same (seed, stream id).
+    Sampling math is :func:`make_sampler` with one row."""
+    decode = build_decode_step(cfg, max_seq, kv_codec)
+    sample = make_sampler(cfg.vocab, temperature, top_k, min_p)
+
+    def step(params, token, cache, pos, key):
+        kv, wrap = _unwrap(cache)
+        p = _stream_pos(pos, kv.device)
+        logits, kv = decode(params, token.reshape(1).to(torch.int32), kv, p)
+        nxt, keys = sample(logits, key.reshape(1, 2).long())
+        return nxt, wrap(kv), p + 1, keys.reshape(2)
+
+    return step
+
+
+class _StreamProgram(_counts.GraphProgram):
+    """A stream step over static copies of its inputs: the body runs the
+    step on them and keeps its outputs, which every replay rewrites in
+    place."""
+
+    def __init__(self, step_fn: Callable, params: Params, xs):
+        super().__init__(xs[0].device)
+        self.step_fn, self.params = step_fn, params
+        self.ins = [x.detach().clone() for x in xs]
+        self.outs: Tuple[torch.Tensor, ...] = ()
+
+    def body(self) -> None:
+        self.outs = tuple(self.step_fn(self.params, *self.ins))
+
+
+class TransformerStreamStep(nn.Module):
+    """A repo-loop stream step as an ``nn.Module`` for ``tensor_filter``
+    (``register_torch_model``): :func:`greedy_stream_model` or
+    :func:`sample_stream_model` makes one. The params are buffers
+    (prepared as :func:`prepare_params` does); ``forward(*state)`` returns
+    the step's outputs as new tensors, leaving its inputs as they were.
+
+    On a card the step (all ``steps`` decode steps of it) is one CUDA
+    graph over static copies of the state, captured at the first call and
+    replayed: a call copies the state in, replays, and clones the outputs
+    out (no output aliases storage a later replay rewrites; the cache of
+    bench.py's ``decode`` is 16.8 MB, two copies of about 0.01 ms). A new
+    input signature or moved weights capture again (``graph_stats``). On
+    the CPU and on the meta device (the filter's shape probe) the step
+    runs eagerly on a copy of the state."""
+
+    def __init__(self, cfg: TransformerConfig, params: Params,
+                 step_fn: Callable):
+        super().__init__()
+        self.cfg = cfg
+        self._names = sorted(params)
+        for k, v in prepare_params(params, cfg).items():
+            self.register_buffer(k, v)
+        self._step = step_fn
+        self.graph_stats = {"captures": 0, "replays": 0}
+
+    def _params(self) -> Params:
+        return {k: getattr(self, k) for k in self._names}
+
+    def _program(self, xs) -> _StreamProgram:
+        params = self._params()
+        sig = (tuple((tuple(x.shape), x.dtype, x.device) for x in xs),
+               tuple(v.data_ptr() for v in params.values()))
+        held = _STREAM_PROGRAMS.get(self)
+        if held is not None and held[0] == sig:
+            return held[1]
+        if held is not None:
+            held[1].release()
+        prog = _StreamProgram(self._step, params, xs)
+        with torch.cuda.device(prog.device):
+            prog.capture(torch.cuda.Stream(prog.device), warm=True)
+        _STREAM_PROGRAMS[self] = (sig, prog)
+        self.graph_stats["captures"] += 1
+        return prog
+
+    def forward(self, *xs: torch.Tensor):
+        if xs[0].device.type != "cuda":
+            return tuple(self._step(self._params(),
+                                    *[x.clone() for x in xs]))
+        prog = self._program(xs)
+        for dst, x in zip(prog.ins, xs):
+            dst.copy_(x)
+        prog.run()
+        self.graph_stats["replays"] += 1
+        return tuple(o.clone() for o in prog.outs)
+
+
+#: TransformerStreamStep → (input signature, its captured program); kept
+#: outside the module's __dict__, since the filter's shape probe runs on a
+#: deep copy of the module
+_STREAM_PROGRAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def greedy_stream_model(cfg: TransformerConfig, params: Params,
+                        max_seq: Optional[int] = None,
+                        steps: int = 1) -> TransformerStreamStep:
+    """:func:`build_greedy_stream_step` on the raw cache as a filter model
+    (the JAX package registers the function with ``register_jax_model``)."""
+    return TransformerStreamStep(
+        cfg, params,
+        build_greedy_stream_step(cfg, max_seq, steps=steps)).eval()
+
+
+def sample_stream_model(cfg: TransformerConfig, params: Params,
+                        max_seq: Optional[int] = None,
+                        temperature: float = 1.0, top_k: int = 0,
+                        min_p: float = 0.0) -> TransformerStreamStep:
+    """:func:`build_sample_stream_step` on the raw cache as a filter
+    model."""
+    return TransformerStreamStep(
+        cfg, params, build_sample_stream_step(cfg, max_seq, temperature,
+                                              top_k, min_p)).eval()
 
 
 class TransformerLM(nn.Module):

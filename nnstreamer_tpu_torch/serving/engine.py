@@ -57,6 +57,16 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
   the draft fix-up) is one CUDA graph per (B, γ) over static buffers
   (:class:`_SpecRoundProgram`); the host reads the ``[B, γ+1]`` tokens,
   their logprobs and ``n_emit``. Both cache modes.
+- **Sampled decoding** (``temperature`` > 0, with ``top_k`` and
+  ``min_p``): :func:`~nnstreamer_tpu_torch.models.transformer.make_sampler`
+  on every path. A stream's draws are keyed by (``seed``, stream id) at
+  the position of the token being drawn, so they do not depend on the
+  streams beside it, on K, or on how its prompt was prefilled (monolithic
+  or paged, chunked, the prefix cache). The first token samples at
+  admission; the K-step dispatch draws its K uniforms a lane in one
+  Philox call inside the same captured graph, from a static per-lane key
+  buffer that :meth:`_LaneProgram.load` fills beside ``token`` and
+  ``pos``. Greedy (``temperature <= 0``) is argmax, as before.
 - **Request-path SLO admission.** With ``slo_budget_ms`` > 0 the engine
   owns an :class:`~nnstreamer_tpu_torch.serving.scheduler.SloScheduler`:
   ``submit()`` raises ``SloRejected`` when the request's deadline cannot
@@ -65,9 +75,8 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
   finished request's submit-to-finish time feeds the estimate. The paged
   engine's streams carry its budget as their deadline.
 
-Options of the JAX engine that are not ported yet raise with their
-ROADMAP item: ``mesh`` (A.24) and sampled decoding — ``temperature > 0``,
-``top_k``, ``min_p`` (A.13.5). The pool's registration with the HBM
+The option of the JAX engine that is not ported yet raises with its
+ROADMAP item: ``mesh`` (A.24). The pool's registration with the HBM
 accountant and its pressure counters wait for A.19.
 """
 
@@ -85,6 +94,10 @@ import torch
 
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.models.transformer import (
+    philox_uniforms,
+    sampling_key,
+)
 from nnstreamer_tpu_torch.ops import _counts
 from nnstreamer_tpu_torch.pipeline.element import not_ported
 
@@ -230,8 +243,9 @@ class _PrefixTrie:
 
 class _LaneProgram(_counts.GraphProgram):
     """A program over the engine's lanes: the static inputs every lane
-    program reads, ``token [B]`` and ``pos [B]`` (and, on the paged
-    engine, the block table ``bt [B, MB]``), and :meth:`load`, which
+    program reads, ``token [B]``, ``pos [B]`` and each lane's packed
+    Philox key ``key [B]`` (read by the sampled dispatch; on the paged
+    engine also the block table ``bt [B, MB]``), and :meth:`load`, which
     copies the host mirrors into them. A subclass allocates its outputs
     and defines the body.
 
@@ -246,6 +260,7 @@ class _LaneProgram(_counts.GraphProgram):
         B, dev = engine.B, engine.device
         self.token = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.key = torch.zeros((B,), dtype=torch.int64, device=dev)
         #: the paged engine's block tables (all sentinel: every write of
         #: an unloaded program lands in the arena's trash block)
         self.bt = torch.full((B, engine.MB), engine._pool.SENTINEL,
@@ -253,7 +268,8 @@ class _LaneProgram(_counts.GraphProgram):
             if engine.paged else None
 
     def load(self, last: np.ndarray, pos: np.ndarray,
-             bt: Optional[np.ndarray] = None) -> None:
+             bt: Optional[np.ndarray] = None,
+             key: Optional[np.ndarray] = None) -> None:
         """Copy host arrays in, each through a fresh pinned staging copy on
         the current stream, ordered before the next run: the host mirrors
         may change as soon as this returns."""
@@ -262,6 +278,8 @@ class _LaneProgram(_counts.GraphProgram):
         self.pos.copy_(up(pos))
         if bt is not None:
             self.bt.copy_(up(bt))
+        if key is not None:
+            self.key.copy_(up(key))
 
 
 class _DecodeProgram(_LaneProgram):
@@ -283,7 +301,7 @@ class _DecodeProgram(_LaneProgram):
 
     def body(self) -> None:
         toks, lps, last, pos = self.engine._dispatch(self.token, self.pos,
-                                                     self.bt)
+                                                     self.bt, self.key)
         self.toks.copy_(toks)
         self.lps.copy_(lps)
         self.token.copy_(last)
@@ -325,7 +343,7 @@ class _PendingRequest:
 
 
 class ContinuousBatchingEngine:
-    """Batched multi-stream greedy generation over one transformer model.
+    """Batched multi-stream generation over one transformer model.
 
     Parameters
     ----------
@@ -360,6 +378,12 @@ class ContinuousBatchingEngine:
     kv_blocks: arena size in blocks (paged mode); defaults to
         ``max_streams * max_seq / block_tokens``, the monolithic cache's
         bytes.
+    temperature, top_k, min_p: sampling (``models.transformer.
+        make_sampler``); ``temperature <= 0`` (default) is greedy and
+        ignores ``top_k`` and ``min_p``.
+    seed: the sampling seed; each stream draws with the Philox key of
+        (seed, its stream id), so sampled output is reproducible whatever
+        the batch composition.
     speculate: > 0 turns speculative decoding on with that many drafted
         tokens a round (greedy only); ``speculate_layers`` is the draft's
         depth (default half the target's, at least 1). Concurrency is
@@ -367,9 +391,8 @@ class ContinuousBatchingEngine:
     device: where the engine computes; None → the package device
         (``cuda:0`` unless ``set_device`` says otherwise).
 
-    The other parameters keep the JAX engine's signature: each raises when
-    it asks for an unported feature (see the module docstring), and
-    ``seed`` has nothing to seed on the greedy path.
+    ``mesh`` keeps the JAX engine's signature and raises (see the module
+    docstring).
     """
 
     #: process-wide sequence behind ``obs_name`` (engine0, engine1, ...)
@@ -439,12 +462,13 @@ class ContinuousBatchingEngine:
                 f"{attention!r}")
         self.temperature = float(temperature)
         if int(speculate or 0) > 0 and self.temperature > 0:
-            # before the sampler's own refusal: the JAX engine's guard
+            # the JAX engine's guard
             raise ValueError(self._GREEDY_ONLY)
-        #: the one sampling function; raises for the unported sampled path
+        #: the one sampling function, shared with the stream step
         self._sample = make_sampler(cfg.vocab, self.temperature,
                                     int(top_k), float(min_p),
                                     with_logprobs=True)
+        self.seed = int(seed)
 
         self.cfg = cfg
         self.B = int(max_streams)
@@ -513,6 +537,8 @@ class ContinuousBatchingEngine:
         # host-side per-slot state
         self._pos = np.zeros(self.B, np.int64)
         self._last = np.zeros(self.B, np.int32)
+        #: each slot's packed Philox key (``transformer.sampling_key``)
+        self._key = np.zeros(self.B, np.int64)
         #: the K-step program (captured on a card); None until start()
         #: builds it, and again after a recovery or a K change
         self._program: Optional[_DecodeProgram] = None
@@ -627,21 +653,30 @@ class ContinuousBatchingEngine:
         return out, event
 
     def _dispatch(self, token: torch.Tensor, pos: torch.Tensor,
-                  bt: Optional[torch.Tensor] = None):
-        """K greedy decode steps: ([B] token, [B] pos) → ([B, K] tokens,
-        [B, K] logprobs, last token, advanced pos), all on the device; on
-        the paged engine against the arena through the block tables ``bt
-        [B, MB]``, which the loop has topped up through pos + K - 1. The
-        body of :class:`_DecodeProgram`."""
+                  bt: Optional[torch.Tensor] = None,
+                  key: Optional[torch.Tensor] = None):
+        """K decode steps: ([B] token, [B] pos) → ([B, K] tokens, [B, K]
+        logprobs, last token, advanced pos), all on the device; on the
+        paged engine against the arena through the block tables ``bt [B,
+        MB]``, which the loop has topped up through pos + K - 1. Sampled,
+        step j of lane r draws the token at position ``pos[r] + 1 + j``
+        with lane r's key ``key [B]``: the K uniforms of every lane come
+        from one Philox call. The body of :class:`_DecodeProgram`."""
+        u = None
+        if not self._sample.greedy:
+            ctr = pos[:, None] + 1 + torch.arange(self.K, device=pos.device)
+            u = philox_uniforms(torch.stack(
+                [key[:, None].expand_as(ctr), ctr], dim=-1))   # [B, K]
         toks, lps = [], []
-        for _ in range(self.K):
+        for j in range(self.K):
             if self.paged:
                 logits, _ = self._paged_decode(self.params, token,
                                                self._pool.arena, bt, pos)
             else:
                 logits, _ = self._decode(self.params, token, self._cache,
                                          pos)
-            token, _, lp = self._sample(logits)
+            token, lp = self._sample.draw(logits,
+                                          None if u is None else u[:, j])
             toks.append(token)
             lps.append(lp)
             pos = pos + 1
@@ -1032,13 +1067,23 @@ class ContinuousBatchingEngine:
                 return
             req.stream._finish(f"error: {e}")
 
+    def _sample_first(self, req: _PendingRequest, logits):
+        """The first token of an admission (position n, the prompt's
+        length) and its logprob, on the device, drawn with the stream's
+        key."""
+        keys = None if self._sample.greedy else self._upload(np.asarray(
+            [[sampling_key(self.seed, req.stream.stream_id),
+              req.prompt.size]], np.int64))
+        first_d, _, lp_d = self._sample(logits, keys)
+        return first_d, lp_d
+
     def _activate_begin(self, req: _PendingRequest, slot: int, logits,
                         cache1):
         """Device half of an activation: sample the first token, write the
         prompt's KV into the slot (the whole slot, in place: the captured
         program reads the cache where it is), and CLAIM the slot. Returns
         ``(req, slot, first_d, lp_d)``."""
-        first_d, _, lp_d = self._sample(logits)
+        first_d, lp_d = self._sample_first(req, logits)
         self._cache.map(lambda t: t[:, :, slot]).copy_(
             cache1.map(lambda t: t[:, :, 0]))
         if self._spec is not None:
@@ -1066,6 +1111,7 @@ class ContinuousBatchingEngine:
         self.stats["prefills"] += 1
         self._pos[slot] = n
         self._last[slot] = first
+        self._key[slot] = sampling_key(self.seed, req.stream.stream_id)
         # cap generation so cache writes stay inside the slot's S window
         # (a speculative verify chunk writes through pos + γ, hence the
         # margin; zero when speculation is off)
@@ -1589,7 +1635,7 @@ class ContinuousBatchingEngine:
         lane is claimed (EDF binds lanes a dispatch), except under
         speculation, where the slot-structured draft cache pins a stream
         to its lane for life."""
-        first_d, _, lp_d = self._sample(logits)
+        first_d, lp_d = self._sample_first(req, logits)
         stream = req.stream
         sid = stream.stream_id
         n = req.prompt.size
@@ -1746,9 +1792,14 @@ class ContinuousBatchingEngine:
         for st in run:
             last[st["slot"]] = st["last"]
             pos[st["slot"]] = st["pos"]
+        key = None  # a greedy engine's dispatch never reads the keys
+        if not self._sample.greedy:
+            key = np.zeros(self.B, np.int64)
+            for st in run:
+                key[st["slot"]] = sampling_key(self.seed, st["sid"])
         t0 = _time.monotonic()
         prog = self._ensure_program(warm=False)
-        prog.load(last, pos, self._bt)
+        prog.load(last, pos, self._bt, key)
         prog.run()
         if prog.graph is not None:
             self.graph_stats["replays"] += 1
@@ -1951,7 +2002,8 @@ class ContinuousBatchingEngine:
                 t0 = _time.monotonic()
                 prog = self._ensure_program(warm=False)
                 if self._reload:
-                    prog.load(self._last, self._pos)
+                    prog.load(self._last, self._pos, key=None
+                              if self._sample.greedy else self._key)
                     self._reload = False
                 prog.run()
                 if prog.graph is not None:

@@ -335,6 +335,35 @@ def test_stop_returns_every_block():
     assert (eng._bt == eng._pool.SENTINEL).all()
 
 
+# -- sampled decoding on the paged cache (ROADMAP A.13.5) ----------------------
+@pytest.fixture(scope="module")
+def sampled_monolithic():
+    # imported here: tests/test_torch_serving.py reads the JAX test's
+    # configuration, which the card's test runner stubs
+    from tests.test_torch_serving import _sampled_run
+
+    return _sampled_run
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"steps_per_dispatch": 1}, {"prefill_chunk": 8},
+    {"prefix_cache": 4}, {"max_streams": 2}],
+    ids=["K4", "K1", "chunked", "prefix", "lanes2"])
+def test_sampled_paged_tokens_equal_the_monolithic_engines(
+        sampled_monolithic, kw):
+    """The sampled engine's tokens on the paged cache equal the
+    monolithic engine's for the same (seed, stream ids): at K = 4 and 1,
+    with chunked prefill, with the prefix cache sharing blocks, and with
+    five streams time-sharing two lanes (each lane's key loaded a
+    dispatch)."""
+    want, _ = sampled_monolithic()
+    got, stats = sampled_monolithic(block_tokens=T, **kw)
+    assert got == want
+    if "prefix_cache" in kw:
+        assert stats["prefix_hits"] >= 2
+    if kw.get("max_streams") == 2:
+        assert stats["concurrent_streams_max"] > 2
+
 # -- on the card ---------------------------------------------------------------
 def _card():
     if not torch.cuda.is_available():
@@ -386,3 +415,40 @@ def test_paged_equals_monolithic_on_the_card():
     finally:
         eng.stop()
     assert got == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_sampled_dispatch_graph_on_the_card(paged):
+    """Sampled (temperature 0.8, top_k 8, min_p 0.05, seed 7): one
+    capture at K, a replay a dispatch, the eager program's tokens; the
+    paged engine's equal the monolithic one's."""
+    _card()
+    sampling = dict(temperature=0.8, top_k=8, min_p=0.05, seed=7)
+    prompts = [PROMPTS[i % len(PROMPTS)] for i in range(7)]
+    kw = _kw(sampling) if paged else dict(max_streams=3,
+                                          steps_per_dispatch=4, **sampling)
+    eager = ContinuousBatchingEngine(CFG, PARAMS, device="cuda", **kw)
+    eager._eager_dispatch = True
+    eager.start()
+    try:
+        ref, _ = _serve(eager, prompts, 11)
+    finally:
+        eager.stop()
+    eng = ContinuousBatchingEngine(CFG, PARAMS, device="cuda", **kw).start()
+    try:
+        got, _ = _serve(eng, prompts, 11)
+    finally:
+        eng.stop()
+    assert got == ref
+    assert eng.graph_stats["captures"] == [4]
+    assert eng.graph_stats["replays"] == eng.stats["dispatches"] > 0
+    if paged:
+        mono = ContinuousBatchingEngine(CFG, PARAMS, device="cuda",
+                                        max_streams=3, steps_per_dispatch=4,
+                                        **sampling).start()
+        try:
+            want, _ = _serve(mono, prompts, 11)
+        finally:
+            mono.stop()
+        assert got == want

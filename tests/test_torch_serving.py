@@ -270,8 +270,27 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ({"min_p": 0.1}, "A.13.5"),
 ])
 def test_unported_options_raise_with_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        _engine(**kw)
+    """``mesh`` still raises naming A.24. The sampling options raised
+    naming A.13.5 until sampled decoding was ported; each engine now
+    serves: at temperature 0 the JAX engine's greedy tokens whatever
+    top_k and min_p say (ROADMAP C.5; with speculation too), sampled the
+    step-by-step draws of its (seed, stream id)."""
+    if item == "A.24":
+        with pytest.raises(NotImplementedError, match=r"A\.24"):
+            _engine(**kw)
+        return
+    prompt = [5, 11, 23, 42, 7]
+    eng = _engine(max_streams=2, **kw).start()
+    try:
+        got = eng.generate(prompt, max_new_tokens=7, timeout=120)
+    finally:
+        eng.stop()
+    if kw.get("temperature", 0.0) > 0:
+        sampling = {k: kw[k] for k in ("temperature", "top_k", "min_p")
+                    if k in kw}
+        assert got == sampled_reference(prompt, 7, 0, 0, **sampling)
+    else:
+        assert got == reference_greedy(prompt, 7)
 
 
 @pytest.mark.parametrize("kw", [{"prefill_chunk": 8}, {"prefix_cache": 2},
@@ -337,6 +356,185 @@ def test_engine_thread_runs_in_inference_mode(engine):
 def test_bucket_sizes(engine):
     assert [engine._bucket(n) for n in (1, 16, 17, 33, 63)] == \
         [16, 16, 32, 64, 64]
+
+
+# -- sampled decoding (ROADMAP A.13.5) ----------------------------------------
+#: the JAX package's sampled-engine case (tests/test_serving.py:121-131)
+#: with min_p beside it
+SAMPLING = dict(temperature=0.8, top_k=8, min_p=0.05)
+SAMPLED_SEED = 7
+#: the sampled engines' prompts, submitted in this order (a stream's id is
+#: its place in it): shared preambles and an exact repeat for the prefix
+#: cache, lengths across a prefill bucket and a chunk boundary
+SAMPLED_PROMPTS = [[5, 11, 23, 42, 7, 9, 14, 27], [16, 23],
+                   [5, 11, 23, 42, 7, 9, 14, 27, 3, 8, 40, 2, 6, 1, 12, 30,
+                    55],
+                   [42, 7, 9, 1], [5, 11, 23, 42, 7, 9, 14, 27]]
+SAMPLED_NEW = 9
+
+
+def sampled_reference(prompt, n, stream_id, seed, params=PARAMS, cfg=CFG,
+                      **sampling):
+    """A sampled stream drawn one token at a time: the exact-length
+    prefill, then decode steps, each token drawn by the port's sampler
+    with the stream's key at the token's position — what the engine must
+    emit for that stream id, whatever its batch, K or admission path."""
+    params = ttr.prepare_params(params, cfg)
+    sample = ttr.make_sampler(cfg.vocab, **sampling)
+    logits, cache = ttr.build_prefill(cfg)(
+        params, torch.tensor([prompt], dtype=torch.int32))
+    decode = ttr.build_decode_step(cfg)
+    pos = len(prompt)
+    tok, _ = sample(logits, ttr.sampling_keys(seed, [stream_id], pos))
+    out = [int(tok[0])]
+    for _ in range(n - 1):
+        logits, cache = decode(params, tok, cache, pos)
+        pos += 1
+        tok, _ = sample(logits, ttr.sampling_keys(seed, [stream_id], pos))
+        out.append(int(tok[0]))
+    return out
+
+
+def _sampled_run(prompts=SAMPLED_PROMPTS, new=SAMPLED_NEW, **kw):
+    """Every prompt submitted at once (ids in list order) to a fresh
+    sampled engine; its tokens and stats."""
+    kw.setdefault("max_streams", 3)
+    eng = _engine(seed=SAMPLED_SEED, **SAMPLING, **kw).start()
+    try:
+        streams = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        toks = [s.result(timeout=120) for s in streams]
+    finally:
+        eng.stop()
+    return toks, dict(eng.stats)
+
+
+@pytest.fixture(scope="module")
+def sampled_tokens():
+    toks, _ = _sampled_run()
+    return toks
+
+
+def test_sampled_engine_draws_each_streams_reference(sampled_tokens):
+    """Five streams over three slots: each stream's tokens are its
+    step-by-step draws under (seed, its id)."""
+    for sid, (p, got) in enumerate(zip(SAMPLED_PROMPTS, sampled_tokens)):
+        assert got == sampled_reference(p, SAMPLED_NEW, sid, SAMPLED_SEED,
+                                        **SAMPLING), sid
+    assert len({tuple(t) for t in sampled_tokens}) > 1
+
+
+def test_sampled_streams_are_deterministic_per_stream_id():
+    """tests/test_serving.py's case: the same seed and stream ids draw the
+    same tokens; another seed other ones."""
+    def run(seed):
+        eng = _engine(max_streams=2, temperature=0.8, top_k=8,
+                      seed=seed).start()
+        try:
+            a = eng.submit([5, 6, 7], max_new_tokens=8)
+            b = eng.submit([9, 10], max_new_tokens=8)
+            return a.result(timeout=120), b.result(timeout=120)
+        finally:
+            eng.stop()
+
+    r1, r2 = run(7), run(7)
+    assert r1 == r2
+    assert all(0 <= t < CFG.vocab for t in r1[0] + r1[1])
+    assert run(8) != r1
+
+
+def test_min_p_one_is_greedy():
+    """tests/test_serving.py::test_min_p_sampling's engine half: min_p=1.0
+    at temperature 1 keeps only the top token, the JAX engine's greedy
+    tokens."""
+    eng = _engine(max_streams=1, temperature=1.0, min_p=1.0).start()
+    try:
+        got = eng.generate([5, 11, 23], max_new_tokens=6, timeout=120)
+    finally:
+        eng.stop()
+    assert got == reference_greedy([5, 11, 23], 6)
+
+
+def test_sampled_stream_alone_equals_co_batched(sampled_tokens):
+    """A stream's tokens do not depend on the streams beside it: the
+    first prompt served alone (stream 0, one slot) gives the tokens it
+    got beside four others."""
+    alone, _ = _sampled_run(SAMPLED_PROMPTS[:1], max_streams=1)
+    assert alone[0] == sampled_tokens[0]
+
+
+@pytest.mark.parametrize("kw", [
+    {"steps_per_dispatch": 1}, {"steps_per_dispatch": 3},
+    {"prefill_chunk": 8}, {"prefix_cache": 4},
+    {"prefix_cache": 4, "prefill_chunk": 8}, {"kv_quant": None,
+                                              "max_streams": 5}],
+    ids=["K1", "K3", "chunked", "prefix", "prefix_chunked", "B5"])
+def test_sampled_tokens_identical_across_engines(sampled_tokens, kw):
+    """The sampled tokens of K = 4 on three slots, again at K = 1 and 3,
+    with chunked prefill, the prefix cache (hits counted) and both, and on
+    five slots."""
+    toks, stats = _sampled_run(**kw)
+    assert toks == sampled_tokens
+    if "prefix_cache" in kw:
+        assert stats["prefix_hits"] >= 2
+    if "prefill_chunk" in kw:
+        assert stats["prefill_chunks"] > 0
+
+
+def test_sampled_engine_behind_lm_serve_in_process_and_over_query():
+    """The element takes its sampling from the engine: a fresh sampled
+    engine behind tensor_lm_serve gives the same tokens in process and
+    behind the query pair (one client, so the stream ids follow the push
+    order), and both are the engine's own."""
+    import nnstreamer_tpu_torch as tnt
+
+    def responses(desc_of, server=None):
+        pipe = tnt.parse_launch(desc_of)
+        got = []
+        pipe.get("out").connect(got.append)
+        pipe.start()
+        try:
+            src = pipe.get("src")
+            for i, p in enumerate(SAMPLED_PROMPTS):
+                src.push([np.asarray(p, np.int32)], pts=i)
+            src.end_of_stream()
+            msg = pipe.wait(timeout=120)
+            assert msg is not None and msg.kind == "eos", msg
+        finally:
+            pipe.stop()
+        return [np.asarray(b.tensors[0]).tolist() for b in got]
+
+    tnt.set_device("cpu")
+    out = {}
+    try:
+        for where in ("local", "query"):
+            eng = _engine(seed=SAMPLED_SEED, **SAMPLING).start()
+            register_engine("lm_s", eng)
+            serve = f"tensor_lm_serve engine=lm_s max-new-tokens={SAMPLED_NEW}"
+            server = None
+            try:
+                if where == "local":
+                    out[where] = responses(
+                        f"appsrc name=src ! {serve} ! tensor_sink name=out")
+                else:
+                    server = tnt.parse_launch(
+                        "tensor_query_serversrc name=ss port=0 id=62 ! "
+                        f"{serve} ! tensor_query_serversink id=62")
+                    server.start()
+                    port = server.get("ss").port
+                    out[where] = responses(
+                        "appsrc name=src ! tensor_query_client "
+                        f"dest-host=127.0.0.1 dest-port={port} timeout=60 ! "
+                        "tensor_sink name=out")
+            finally:
+                if server is not None:
+                    server.stop()
+                eng.stop()
+                unregister_engine("lm_s")
+    finally:
+        tnt.set_device(None)
+    assert out["local"] == out["query"]
+    assert out["local"][:1] == [sampled_reference(
+        SAMPLED_PROMPTS[0], SAMPLED_NEW, 0, SAMPLED_SEED, **SAMPLING)]
 
 
 # -- chunked prefill and the prefix cache, against the JAX engine ------------

@@ -202,7 +202,7 @@ def test_bf16_model_runs_in_bf16():
     (lambda: ttr.make_sampler(97, temperature=0.0, top_k=5), "A.13.5"),
     (lambda: ttr.make_sampler(97, temperature=0.0, min_p=0.1), "A.13.5"),
     # the paged builders and codec methods (A.13.3) are ported and held to
-    # the JAX package in tests/test_torch_kvpool.py; these still raise
+    # the JAX package in tests/test_torch_kvpool.py
     (lambda: ttr.make_sampler(97, temperature=0.5, top_k=3), "A.13.5"),
     (lambda: ttr.make_sampler(97, temperature=0.5, min_p=0.2,
                               with_logprobs=True), "A.13.5"),
@@ -212,8 +212,50 @@ def test_bf16_model_runs_in_bf16():
     (lambda: ttr.build_sample_stream_step(TCFG), "A.13.6"),
 ])
 def test_unported_parts_raise_with_their_item(call, item):
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        call()
+    """These calls raised ``NotImplementedError`` naming their ROADMAP item
+    until sampled decoding (A.13.5) and the repo-loop stream steps
+    (A.13.6) were ported. Each now builds its part, and the part runs: a
+    greedy sampler (top_k and min_p set at temperature 0, ROADMAP C.5)
+    is the JAX sampler's argmax, a sampled one draws inside its filter,
+    and a stream step advances the state tuple.
+    tests/test_torch_sampling.py and tests/test_torch_stream_step.py hold
+    them to the JAX package."""
+    part = call()
+    logits = torch.from_numpy(np.random.default_rng(14).normal(
+        0, 2, (4, TCFG.vocab)).astype(np.float32))
+    if item == "A.13.5":
+        keys = ttr.sampling_keys(1, range(4), 9)
+        out = part(logits, keys)
+        toks = out[0]
+        assert toks.dtype == torch.int32 and tuple(toks.shape) == (4,)
+        if part.greedy:
+            jtoks, _ = jtr.make_sampler(97, 0.0, part.k)(
+                jnp.asarray(logits.numpy()), jnp.zeros((4, 2), jnp.uint32))
+            assert toks.tolist() == np.asarray(jtoks).tolist()
+            assert out[1] is keys
+        else:
+            kept = part.filter(logits) > -1e30
+            assert bool(kept[torch.arange(4), toks.long()].all())
+            assert torch.equal(out[1][:, 1], keys[:, 1] + 1)
+        if part.with_logprobs:
+            assert bool((out[2] <= 0).all() and torch.isfinite(out[2]).all())
+        return
+    tp = ttr.init_params(TCFG, seed=14)
+    state = [torch.tensor([5], dtype=torch.int32),
+             ttr.init_cache(TCFG, 1).values,
+             torch.tensor(3, dtype=torch.int32)]
+    sampled = "build_sample_stream_step" in part.__qualname__
+    if sampled:
+        state.append(ttr.sampling_keys(0, [0], 4)[0])
+    out = part(tp, *state)
+    steps = 4 if len(out) == 4 and not sampled else 1
+    assert out[0].dtype == torch.int32 and tuple(out[0].shape) == (1,)
+    assert int(out[2]) == 3 + steps
+    assert bool(out[1][:, :, 0, 3:3 + steps].any())  # the steps' k/v
+    if sampled:
+        assert out[3].tolist() == [state[3][0].item(), 5]
+    elif steps > 1:
+        assert tuple(out[3].shape) == (4,) and out[3][-1] == out[0][0]
 
 
 @pytest.mark.parametrize("codec", [None, "int8"])
