@@ -334,6 +334,17 @@ SEG_CLASSES = 21
 SEG_BASE = 32
 SEG_PARITY_FRAMES = 32
 SEG_FRAMES = 240
+# device memory and serving continuity (memory, continuity, lm_memory)
+MEM_FRAMES = 64            # the two-model run under the budget: 8 windows
+MEM_BUDGET_SHARE = 0.75    # the budget, as a share of the summed weights
+MEM_OOM_FRAMES = 160       # the OOM-ladder run: 20 windows
+MEM_OOM_FAULT = "filter.invoke:nth=9,kind=oom"
+CONT_FRAMES = 800          # the swap run, cut over at half
+CONT_DISTINCT = 64         # distinct frames it cycles through
+CONT_LSTM_STEPS = 400      # lstm steps before and after the checkpoint
+CONT_SWAP_SLACK = 128      # frames a running swap may cut over past 400
+LM_MEM_PROMPTS = 8
+LM_MEM_NEW = 32
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -349,8 +360,25 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: (phase, time.monotonic()) at each phase's line: a phase's seconds run
+#: from the line before it to its own
+_phase_marks = [("start", time.monotonic())]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        _phase_marks.append((obj["phase"], time.monotonic()))
     print(json.dumps(obj), flush=True)
+
+
+def phase_seconds() -> dict:
+    """Seconds each phase took, in the order they ran (a phase that prints
+    twice adds up), and the run's total so far."""
+    out: dict = {}
+    for (_, t0), (name, t1) in zip(_phase_marks, _phase_marks[1:]):
+        out[name] = out.get(name, 0.0) + (t1 - t0)
+    return {"phase_seconds": out,
+            "total_s": time.monotonic() - _phase_marks[0][1]}
 
 
 def gpu_name_and_power_limit() -> str:
@@ -415,6 +443,19 @@ def sass_op_counts(path, ops) -> dict:
     text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+
+
+def arm_compile_cache() -> str:
+    """The kernels build into a compile cache of this run (cold: 3
+    misses), ``smoke_out/compile-cache`` of the checkout; every process
+    this script starts finds them there (``NNSTPU_COMPILE_CACHE``), and
+    the continuity phase's second boot builds none."""
+    from nnstreamer_tpu_torch.pipeline import continuity
+
+    cache = os.path.join(HERE, "smoke_out", "compile-cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ[continuity.CACHE_ENV] = cache
+    return continuity.enable_compile_cache(cache)
 
 
 def phase_build():
@@ -5093,6 +5134,566 @@ def profile_pipeline(pipe, frames: int = PROFILED_FRAMES) -> dict:
             1 for t, _ in calls if t >= graphs[0]) / len(graphs)
     return out
 
+# -- device memory and serving continuity (ROADMAP A.19, A.20) ----------------
+def _labels_file(tag: str) -> str:
+    tmp = tempfile.mkdtemp(prefix=f"nns_smoke_{tag}_")
+    path = os.path.join(tmp, "labels.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+    return path
+
+
+def _mem_desc(n, labels, models, staging=""):
+    """The batch-8 flagship string; two models behind a ``tee`` (one
+    fused region a branch, both run by the staging queue's thread).
+    ``staging`` adds properties to the staging queue."""
+    src = (f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} "
+           "pattern=gradient ! tensor_converter ! queue max-size-buffers=16 "
+           "! tensor_aggregator frames-in=1 frames-out=8 frames-flush=8 "
+           "frames-dim=3 concat=true ! queue max-size-buffers=8 "
+           f"prefetch-device=true {staging}! ")
+
+    def branch(i, model):
+        return ("tensor_transform mode=arithmetic "
+                "option=typecast:float32,add:-127.5,div:127.5 ! "
+                f"tensor_filter framework=jax model={model} name=f{i} ! "
+                f"tensor_decoder mode=image_labeling option1={labels} "
+                "option2=batched ! queue max-size-buffers=64 "
+                f"materialize-host=true ! tensor_sink name=out{i} to-host=true")
+
+    if len(models) == 1:
+        return src + branch(0, models[0])
+    return src + "tee name=t " + " ".join(
+        f"t. ! {branch(i, m)}" for i, m in enumerate(models))
+
+
+def _mem_run(desc, name, n_out, policy=None, env=None):
+    """One run with ``env`` set around it; the labelled frames of each
+    sink, the regions' counts, the B1 launches, the accountant's snapshot
+    (None without one) and the pipeline."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline import faults
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors import memory
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(
+            name=name, error_policy=policy))
+        metas = {i: [] for i in range(n_out)}
+        for i in metas:
+            pipe.get(f"out{i}").connect(
+                lambda buf, i=i: metas[i].append(buf.meta))
+        pp.reset_launches()
+        t0 = time.monotonic()
+        msg = pipe.run(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        check(msg is not None and msg.kind == "eos", f"{name}: {msg}")
+        acct = memory.ACTIVE
+        snap = acct.snapshot() if acct is not None else None
+        fi = faults.ACTIVE
+        fired = fi.injected("filter.invoke") if fi is not None else 0
+    finally:
+        memory.deactivate()
+        faults.deactivate()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    regions = pipe.metrics_snapshot().get("regions", {})
+    return {"frames": {i: labelled_frames(m) for i, m in metas.items()},
+            "launches": pp.LAUNCHES["normalize_chain"], "memory": snap,
+            "regions": {k: {f: r.get(f) for f in ("captures", "replays",
+                                                  "eager_frames", "rebinds",
+                                                  "unspliced")}
+                        for k, r in regions.items()},
+            "wall_s": wall, "fired": fired, "pipe": pipe}
+
+
+def phase_memory(power: str) -> dict:
+    """The HBM accountant on the batch-8 flagship (ROADMAP A.19). Two
+    MobileNetV2 filters (bf16, 1001 classes, seeds 1 and 2) behind a tee
+    run under ``NNSTPU_HBM_BUDGET`` at 3/4 of their summed weights: each
+    window evicts the other model and loads its own into new storage, so
+    each region drops its graph and captures again (the price of
+    time-sharing). Labels, indices and f32 scores are bit-identical to the
+    same string with no budget; evictions > 0; B1 once a window a region.
+    Then ``NNSTPU_FAULTS=filter.invoke:nth=9,kind=oom`` under ``degrade``
+    on one model: it recovers at the ``evict`` rung, loses no frame, puts
+    no element on the CPU. Reported beside the accountant's figures: the
+    allocator's, and the reserved bytes a live graph's private pool keeps
+    through ``torch.cuda.empty_cache()``."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import get_registry
+    from nnstreamer_tpu_torch.tensors import memory
+
+    nt.set_device(None)
+    names = ("mem_a", "mem_b")
+    weights = {}
+    for seed, name in enumerate(names, start=1):
+        module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                    dtype=torch.bfloat16, seed=seed)
+        register_torch_model(name, module)
+        weights[name] = memory.nbytes_of(module)
+    labels = _labels_file("mem")
+    budget = int(MEM_BUDGET_SHARE * sum(weights.values()))
+    windows = MEM_FRAMES // BATCH
+
+    def rung(r):
+        m = get_registry().get("nns_mem_pressure_events_total", rung=r)
+        return 0 if m is None else int(m.value)
+
+    try:
+        two = _mem_desc(MEM_FRAMES, labels, names)
+        base = _mem_run(two, "mem_base", 2)
+        shared = _mem_run(two, "mem_budget", 2,
+                          env={"NNSTPU_HBM_BUDGET": str(budget)})
+        # the graphs of the last windows are live: their private pool
+        # keeps its blocks through empty_cache until the regions drop them
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved_with_graphs = torch.cuda.memory_reserved()
+        for r in shared["pipe"]._regions or ():
+            r.invalidate()
+        torch.cuda.empty_cache()
+        reserved_without = torch.cuda.memory_reserved()
+        # one window a hand-off: a failed drained list would re-chain its
+        # failing window once before any policy (as in the JAX package),
+        # and a transient fault would never reach the ladder
+        one = _mem_desc(MEM_OOM_FRAMES, labels, names[:1], "drain-batch=1 ")
+        oom_base = _mem_run(one, "mem_oom_base", 1)
+        before = {r: rung(r) for r in memory.PRESSURE_RUNGS}
+        oom = _mem_run(one, "mem_oom", 1, policy="degrade", env={
+            "NNSTPU_HBM_BUDGET": str(4 * sum(weights.values())),
+            "NNSTPU_FAULTS": MEM_OOM_FAULT})
+        rungs = {r: rung(r) - before[r] for r in memory.PRESSURE_RUNGS}
+        accel = oom["pipe"].get("f0").get_property("accelerator")
+    finally:
+        for name in names:
+            unregister_torch_model(name)
+    snap = shared["memory"]
+    for i in range(2):
+        check(len(base["frames"][i]) == MEM_FRAMES and
+              shared["frames"][i] == base["frames"][i],
+              f"memory: branch {i} under the budget differs from the "
+              "unbudgeted run")
+    check(snap is not None and snap["budget_bytes"] == budget,
+          f"memory: the accountant did not take NNSTPU_HBM_BUDGET={budget}")
+    check(snap["evictions"] > 0 and snap["prefetches"] > 0,
+          f"memory: no time-sharing ({snap['evictions']} evictions)")
+    captures = sum(r["captures"] for r in shared["regions"].values())
+    rebinds = sum(r["rebinds"] for r in shared["regions"].values())
+    check(len(shared["regions"]) == 2 and not any(
+        r["unspliced"] for r in shared["regions"].values()),
+        f"memory: regions {shared['regions']}")
+    check(shared["launches"] == 2 * windows,
+          f"memory: B1 {shared['launches']} for {windows} windows in two "
+          "regions")
+    check(oom["fired"] == 1, f"memory: the OOM fault fired {oom['fired']}")
+    check(oom["frames"][0] == oom_base["frames"][0] and
+          len(oom["frames"][0]) == MEM_OOM_FRAMES,
+          f"memory: the OOM run delivered {len(oom['frames'][0])} of "
+          f"{MEM_OOM_FRAMES} frames, or other labels")
+    check(rungs == {"evict": 1, "pool": 0, "shed": 0} and not accel,
+          f"memory: the ladder took {rungs}, accelerator {accel!r}")
+    result = {
+        "weights_bytes": weights, "budget_bytes": budget,
+        "frames": MEM_FRAMES, "windows": windows,
+        "evictions": snap["evictions"], "prefetches": snap["prefetches"],
+        "pressure_events": snap["pressure_events"],
+        "high_water_bytes": snap["high_water_bytes"],
+        "allocator": snap.get("allocator"),
+        "captures": captures, "rebinds": rebinds,
+        "captures_unbudgeted": sum(r["captures"]
+                                   for r in base["regions"].values()),
+        "b1_launches": shared["launches"],
+        "wall_s": shared["wall_s"], "wall_s_unbudgeted": base["wall_s"],
+        "labels_bit_identical": True,
+        "graph_pool_reserved_bytes": reserved_with_graphs - reserved_without,
+        "reserved_bytes_with_graphs": reserved_with_graphs,
+        "oom": {"frames": MEM_OOM_FRAMES, "fault": MEM_OOM_FAULT,
+                "rungs": rungs, "frames_lost": 0,
+                "b1_launches": oom["launches"],
+                "captures": sum(r["captures"]
+                                for r in oom["regions"].values())},
+        "gpu": power}
+    emit({"phase": "memory", **result})
+    return result
+
+
+def _cont_desc(labels, model, extra=""):
+    return ("appsrc name=src ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model} name=filter {extra}! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! "
+            "queue max-size-buffers=64 materialize-host=true ! "
+            "tensor_sink name=out to-host=true")
+
+
+def _cont_run(desc, name, frames, swap_to=None, flowing=False):
+    """Push ``frames`` through ``desc``; with ``swap_to`` (a state dict)
+    the weights are swapped once half of them reached the sink. The
+    source holds the second half back until the swap returns, unless
+    ``flowing``: then a thread pushes every frame (``appsrc`` blocks
+    while its queue is full) and the stream runs on through the swap."""
+    import threading
+
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
+    metas = []
+    pipe.get("out").connect(lambda buf: metas.append(buf.meta))
+    src = pipe.get("src")
+    half = len(frames) // 2
+    report = captures_at_swap = arrived_at_swap = swap_s = None
+    held = swap_to is not None and not flowing
+    pp.reset_launches()
+    pipe.start()
+    pusher = threading.Thread(
+        target=lambda: [src.push([f]) for f in frames], daemon=True)
+    try:
+        if flowing:
+            pusher.start()
+        else:
+            for f in frames[:half] if held else frames:
+                src.push([f])
+        if swap_to is not None:
+            deadline = time.monotonic() + 300
+            while len(metas) < half:
+                check(time.monotonic() < deadline,
+                      f"{name}: {len(metas)} of {half} frames before the "
+                      "swap")
+                time.sleep(0.002)
+            (region,) = pipe._regions
+            captures_at_swap = region.captures
+            t_swap = time.monotonic()
+            report = pipe.swap_model("filter", weights=swap_to)
+            swap_s = time.monotonic() - t_swap
+            arrived_at_swap = len(metas)
+            for f in frames[half:] if held else ():
+                src.push([f])
+        if flowing:
+            pusher.join(timeout=300)
+            check(not pusher.is_alive(), f"{name}: the source is stuck")
+        src.end_of_stream()
+        msg = pipe.wait(timeout=600)
+        check(msg is not None and msg.kind == "eos", f"{name}: {msg}")
+        torch.cuda.synchronize()
+    finally:
+        pipe.stop()
+    (region,) = pipe._regions
+    return {"frames": labelled_frames(metas), "captures": region.captures,
+            "replays": region.replays, "captures_at_swap": captures_at_swap,
+            "arrived_at_swap": arrived_at_swap, "swap_s": swap_s,
+            "report": report, "launches": pp.LAUNCHES["normalize_chain"]}
+
+
+def phase_continuity(power: str) -> dict:
+    """Serving continuity (ROADMAP A.20). A weights-only ``swap_model``
+    halfway through 800 frames of the fused batch-1 flagship
+    (``is-updatable=true``): the frames before the cutover equal the old
+    weights' run bit for bit, those after it the new weights' run, and
+    the swap adds no capture (the new values are copied into the
+    parameters the graph reads). Then ``checkpoint``/``restore`` of
+    bench.py's ``lstm`` loop: 400 steps, a checkpoint, the slot dropped,
+    a new pipeline restored from it (the state back on the card) and 400
+    more steps: the state equals 800 uninterrupted eager steps bit for
+    bit. Last, a second process armed on this run's compile cache builds
+    no kernel (hits 3, misses 0)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.lstm import lstm_cell
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.pipeline import continuity
+
+    nt.set_device(None)
+    mods = {}
+    for name, seed in (("cont_a", 3), ("cont_b", 4)):
+        mods[name], _, _ = mobilenet_v2(num_classes=CLASSES,
+                                        image_size=IMAGE,
+                                        dtype=torch.bfloat16, seed=seed)
+        register_torch_model(name, mods[name])
+    labels = _labels_file("cont")
+    rng = np.random.default_rng(0)
+    distinct = [rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8)
+                for _ in range(CONT_DISTINCT)]
+    frames = [distinct[i % CONT_DISTINCT] for i in range(CONT_FRAMES)]
+    half = CONT_FRAMES // 2
+    try:
+        ref_a = _cont_run(_cont_desc(labels, "cont_a"), "cont_ref_a",
+                          frames)
+        ref_b = _cont_run(_cont_desc(labels, "cont_b"), "cont_ref_b",
+                          frames)
+        swapped = _cont_run(
+            _cont_desc(labels, "cont_a", "is-updatable=true "), "cont_swap",
+            frames, swap_to=mods["cont_b"].state_dict())
+        flowing = _cont_run(
+            _cont_desc(labels, "cont_a", "is-updatable=true "),
+            "cont_swap_flowing", frames, swap_to=mods["cont_b"].state_dict(),
+            flowing=True)
+    finally:
+        for name in mods:
+            unregister_torch_model(name)
+    got = swapped["frames"]
+    check(len(got) == CONT_FRAMES, f"continuity: {len(got)} of "
+                                   f"{CONT_FRAMES} frames")
+    before = [i for i in range(half) if got[i] != ref_a["frames"][i]]
+    after = [i for i in range(half, CONT_FRAMES)
+             if got[i] != ref_b["frames"][i]]
+    check(not before and not after,
+          f"continuity: frames {before[:5]} before and {after[:5]} after "
+          "the cutover differ from the old and new weights' runs")
+    check(ref_a["frames"][:half] != ref_b["frames"][:half],
+          "continuity: the two weight sets label the frames alike")
+    rep = swapped["report"]
+    check(swapped["captures"] == swapped["captures_at_swap"] == 1 and
+          rep["rebound"] == 0 and rep["invalidations"] == 1,
+          f"continuity: {swapped['captures']} captures "
+          f"({swapped['captures_at_swap']} at the swap), report {rep}")
+    check(swapped["launches"] == CONT_FRAMES,
+          f"continuity: B1 {swapped['launches']} for {CONT_FRAMES} frames")
+    # the swap with the stream running on: one cutover, wherever the swap
+    # took the dispatch lock; every frame before it is the old run's and
+    # every frame from it the new run's, bit for bit (a frame that read a
+    # half-installed set would match neither)
+    got = flowing["frames"]
+    check(len(got) == CONT_FRAMES, f"continuity: flowing swap {len(got)} "
+                                   f"of {CONT_FRAMES} frames")
+    cut = next((i for i in range(CONT_FRAMES)
+                if got[i] != ref_a["frames"][i]), CONT_FRAMES)
+    mixed = [i for i in range(cut, CONT_FRAMES)
+             if got[i] != ref_b["frames"][i]]
+    check(half <= cut < CONT_FRAMES and not mixed,
+          f"continuity: flowing swap cut over at frame {cut}, frames "
+          f"{mixed[:5]} after it differ from the new weights' run")
+    # the swap goes ahead of the next dispatch: it cuts over past frame
+    # 400 by no more than the frames between the region and the sink (a
+    # queue of 64, the window) and the poll's slack
+    check(cut - half <= CONT_SWAP_SLACK,
+          f"continuity: the flowing swap waited {cut - half} frames")
+    check(flowing["captures"] == 1 and flowing["report"]["rebound"] == 0,
+          f"continuity: flowing swap {flowing['captures']} captures, "
+          f"report {flowing['report']}")
+
+    # checkpoint / restore of the lstm loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, _, _ = lstm_cell(input_dim=LSTM_HIDDEN, hidden=LSTM_HIDDEN,
+                           batch=1, seed=0)
+    step = _lstm_step(cell)
+    register_torch_model("lstm_ck", step)
+    ckpt = tempfile.mkdtemp(prefix="nns_smoke_ckpt_")
+    slot = "lstm_ck"
+    first = (f"tensor_reposrc slot={slot} num-buffers={CONT_LSTM_STEPS} "
+             f"initial-dim={2 * LSTM_HIDDEN} initial-type=float32 "
+             "initial-value=0.01 timeout=30 ! tensor_filter framework=jax "
+             "model=lstm_ck name=filter ! tee name=t  t. ! "
+             f"tensor_reposink slot={slot}  t. ! tensor_sink name=sink "
+             "to-host=false")
+    rest = (f"tensor_reposrc slot={slot} num-buffers={CONT_LSTM_STEPS} "
+            "timeout=30 ! tensor_filter framework=jax model=lstm_ck "
+            f"name=filter input={2 * LSTM_HIDDEN} inputtype=float32 ! "
+            f"tee name=t  t. ! tensor_reposink slot={slot}  t. ! "
+            "tensor_sink name=sink to-host=false")
+    try:
+        GLOBAL_REPO.remove(slot)
+        pipe = nt.parse_launch(first)
+        check(pipe.run(timeout=300).kind == "eos", "continuity: lstm run 1")
+        path = pipe.checkpoint(ckpt)
+        GLOBAL_REPO.remove(slot)
+        resumed = nt.parse_launch(rest)
+        resumed.checkpoint_dir = ckpt
+        resumed.start()  # restores the slot before its source runs
+        msg = resumed.wait(timeout=300)
+        resumed.stop()
+        check(msg is not None and msg.kind == "eos",
+              f"continuity: lstm run 2: {msg}")
+        check(resumed._continuity_restored, "continuity: no restore")
+        final = GLOBAL_REPO.get(slot).tensors[0]
+        GLOBAL_REPO.remove(slot)
+        state = torch.full((2 * LSTM_HIDDEN,), 0.01, device="cuda")
+        with torch.inference_mode():
+            for _ in range(2 * CONT_LSTM_STEPS):
+                state = step(state)
+    finally:
+        unregister_torch_model("lstm_ck")
+    with open(path, "rb") as f:
+        import pickle
+
+        saved = pickle.load(f)
+    check(all(isinstance(a, np.ndarray) for a in saved["repo"][slot]),
+          "continuity: the checkpoint holds a device tensor")
+    check(final.device.type == "cuda",
+          f"continuity: the restored state is on {final.device}")
+    check(torch.equal(final, state),
+          "continuity: the restored loop differs from uninterrupted steps")
+
+    # a second process on this run's compile cache
+    cache = continuity.compile_cache_dir()
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from nnstreamer_tpu_torch.pipeline import continuity as c; "
+            "c.enable_compile_cache(sys.argv[2]); "
+            "from nnstreamer_tpu_torch.ops import _build; "
+            "_build.build_all(); print(json.dumps(c.cache_stats()))")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code, HERE, cache],
+                          capture_output=True, text=True, timeout=600)
+    boot_s = time.monotonic() - t0
+    check(proc.returncode == 0, f"continuity: second boot: {proc.stderr}")
+    second = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(second == {"hits": 3, "misses": 0},
+          f"continuity: the second boot built kernels: {second}")
+    result = {"swap": {"frames": CONT_FRAMES, "cutover": half,
+                       "captures": swapped["captures"],
+                       "replays": swapped["replays"],
+                       "b1_launches": swapped["launches"],
+                       "rebound": rep["rebound"],
+                       "invalidations": rep["invalidations"],
+                       "bit_identical_each_side": True},
+              "swap_flowing": {"frames": CONT_FRAMES, "cutover": cut,
+                               "arrived_at_swap": flowing["arrived_at_swap"],
+                               "swap_s": flowing["swap_s"],
+                               "captures": flowing["captures"],
+                               "bit_identical_each_side": True},
+              "lstm": {"steps": 2 * CONT_LSTM_STEPS,
+                       "checkpoint_at": CONT_LSTM_STEPS,
+                       "bit_identical_to_uninterrupted": True},
+              "compile_cache": {"first_boot": continuity.cache_stats(),
+                                "second_boot": second,
+                                "second_boot_s": boot_s},
+              "gpu": power}
+    emit({"phase": "continuity", **result})
+    return result
+
+
+def phase_lm_memory(power: str) -> dict:
+    """The LM engine under the HBM accountant (ROADMAP A.19), bench.py's
+    LM configuration in bf16: the paged engine (block_tokens 16) registers
+    exactly ``BlockPool.nbytes`` under ``kvcache`` and serves the tokens
+    of the same engine with no accountant (B2 = layers × cold prefills);
+    a prefix-cache engine's entries register as droppable units and its
+    account nets to zero after ``close()``; a starved pool counts each
+    shed on ``nns_mem_pressure_events_total{rung="shed"}``."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from nnstreamer_tpu_torch.obs import get_registry
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine
+    from nnstreamer_tpu_torch.tensors import memory
+
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist()
+               for n in rng.integers(8, 48, LM_MEM_PROMPTS)]
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(cfg, params, max_streams=LM_SLOTS,
+                                        steps_per_dispatch=8, **kw).start()
+
+    def serve(eng, new=LM_MEM_NEW, load=prompts):
+        streams = [eng.submit(p, max_new_tokens=new) for p in load]
+        return [s.result(timeout=600) for s in streams]
+
+    def shed_count():
+        m = get_registry().get("nns_mem_pressure_events_total", rung="shed")
+        return 0 if m is None else int(m.value)
+
+    plain = engine(block_tokens=LM_PAGED_BLOCK)
+    try:
+        want = serve(plain)
+    finally:
+        plain.close()
+    acct = memory.activate(1 << 40)  # accounting only: nothing evicts
+    try:
+        eng = engine(block_tokens=LM_PAGED_BLOCK)
+        try:
+            arena = eng._pool.nbytes
+            registered = acct.snapshot()["used_by_category"]
+            stats0 = dict(eng.stats)
+            reset_launches()
+            got = serve(eng)
+            torch.cuda.synchronize()
+            flash = LAUNCHES["flash_attention"]
+            b2 = _b2_prefills(eng, stats0)
+        finally:
+            eng.close()
+        after_paged = acct.used_bytes()
+        preamble = rng.integers(1, cfg.vocab, LM_PREAMBLE).tolist()
+        eng = engine(prefix_cache=LM_PREFIX_ENTRIES)
+        try:
+            for p in prompts[:4]:
+                eng.generate(preamble + p, max_new_tokens=8, timeout=600)
+            prefix_bytes = acct.snapshot()["used_by_category"].get(
+                "kvcache", 0)
+            entries = len(eng._prefix_acct)
+        finally:
+            eng.close()
+        after_prefix = acct.used_bytes()
+        shed0 = shed_count()
+        eng = engine(block_tokens=LM_PAGED_BLOCK,
+                     kv_blocks=LM_STARVED_BLOCKS)
+        try:
+            serve(eng, LM_PAGED_NEW,
+                  [rng.integers(1, cfg.vocab, n).tolist()
+                   for n in rng.integers(8, 48, LM_PAGED_STREAMS // 2)])
+            sheds = eng.stats["kv_sheds"]
+        finally:
+            eng.close()
+        shed_events = shed_count() - shed0
+        high_water = acct.high_water
+    finally:
+        memory.deactivate()
+    check(registered == {"kvcache": arena},
+          f"lm_memory: registered {registered}, the arena is {arena}")
+    check(got == want, "lm_memory: tokens differ from the engine with no "
+                       "accountant")
+    check(flash == cfg.n_layers * b2 and b2 > 0,
+          f"lm_memory: flash kernel {flash} for {b2} cold prefills")
+    check(after_paged == 0 and after_prefix == 0,
+          f"lm_memory: {after_paged} / {after_prefix} bytes left after "
+          "close()")
+    check(entries > 0 and prefix_bytes > 0,
+          f"lm_memory: {entries} prefix entries, {prefix_bytes} bytes")
+    check(sheds > 0 and shed_events == sheds,
+          f"lm_memory: {sheds} sheds, {shed_events} shed rungs counted")
+    result = {"kvcache_bytes": arena, "tokens_identical": True,
+              "flash_launches": flash, "b2_prefills": b2,
+              "prefix_entries": entries, "prefix_kvcache_bytes": prefix_bytes,
+              "net_after_close": 0, "starved_sheds": sheds,
+              "shed_rung_events": shed_events, "high_water_bytes": high_water,
+              "gpu": power}
+    emit({"phase": "lm_memory", **result})
+    return result
+
 
 def main() -> int:
     import torch
@@ -5118,6 +5719,7 @@ def main() -> int:
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": power,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    arm_compile_cache()
     phase_build()
     b1, timed_b1 = phase_normalize()
     b2, timed_b2 = phase_flash_attention()
@@ -5135,6 +5737,7 @@ def main() -> int:
     lm_sampled = phase_lm_sampled(power, lm["K"])
     phase_lm_decode(power)
     phase_beam(power)
+    lm_mem = phase_lm_memory(power)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
     uncut = phase_pipeline_uncut(power)
@@ -5146,6 +5749,8 @@ def main() -> int:
     pose4, pose4_pipe = phase_pose4(power)
     phase_lstm(power)
     seg, seg_pipe = phase_segment(power)
+    mem = phase_memory(power)
+    cont = phase_continuity(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine, lm_eager)
@@ -5167,6 +5772,7 @@ def main() -> int:
     phase_cli(power)
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
+    emit(phase_seconds())
     prefill_tag = "x".join(str(n) for n in FLASH_TIMED[0])
     prefill = b2["timed_bf16_causal"][prefill_tag]
     frame_q = b3["timed_f32"][frame_tag]
@@ -5190,6 +5796,11 @@ def main() -> int:
         "launches_ssd": ssd["launches"],
         "launches_segment": seg["launches"],
         "launches_yolo": yolo["launches"],
+        # the two models time-sharing under the HBM budget (once a window
+        # a region), the OOM ladder's run, and the weights-only swap
+        "launches_memory": mem["b1_launches"],
+        "launches_memory_oom": mem["oom"]["b1_launches"],
+        "launches_continuity": cont["swap"]["b1_launches"],
         # B1 at the ssd frame (one 300x300x3 uint8 frame -> float32)
         "ssd_ms": b1["ssd_ms"],
         "ssd_plain_ms": b1["ssd_plain_ms"],
@@ -5223,6 +5834,8 @@ def main() -> int:
         # 8 × the cold prefills of the two measured sampled runs (the
         # warm-up prompts come before the counts are reset)
         "launches_lm_sampled": lm_sampled["flash_launches"],
+        # the paged engine under the HBM accountant: layers × cold prefills
+        "launches_lm_memory": lm_mem["flash_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
         "device_ms": dev_b2[f"{prefill_tag}_device_ms"],

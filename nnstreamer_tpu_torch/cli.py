@@ -24,12 +24,22 @@ Options, as the JAX CLI's:
   --metrics-port, --trace-out, --flight-dir, --slo-budget-ms, --lanes,
   --inflight, --error-policy, --watchdog-s
                    as in the JAX CLI
+  --export MODEL OUT
+                   export a model (a ``.pt``/``.pth`` file or a registered
+                   name) to a ``torch.export`` ``.pt2`` artifact
+                   (``filters/artifact.py``); ``--input``/``--inputtype``
+                   give or override its input shapes, ``--custom`` is
+                   accepted for the JAX CLI's sake
+  --checkpoint-dir DIR
+                   checkpoint the serving state at stop and restore it at
+                   start (``pipeline/continuity.py``)
+  --compile-cache DIR
+                   keep the kernel libraries in DIR/kernels, so a later
+                   run on the same checkout builds none
 
 Flags whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP item: ``--fleet`` (26b), ``--export``, ``--custom``,
-``--input``, ``--inputtype``, ``--checkpoint-dir`` and
-``--compile-cache`` (A.20), ``--scaffold`` (26g, with the external
-subplugin search).
+their ROADMAP item: ``--fleet`` (26b), ``--scaffold`` (26g, with the
+external subplugin search).
 """
 
 from __future__ import annotations
@@ -37,8 +47,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-_CONTINUITY = "A.20 serving continuity and model artifacts"
 
 
 def device_line() -> str:
@@ -127,17 +135,19 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet", default=None, metavar="ENDPOINTS",
                     help="not ported (ROADMAP 26b)")
     ap.add_argument("--export", nargs=2, metavar=("MODEL", "OUT"),
-                    help="not ported (ROADMAP A.20)")
+                    help="export a model (.pt/.pth file or registered "
+                         "name) to a torch.export .pt2 artifact and exit")
     ap.add_argument("--platforms", default=None,
                     help="'cpu' runs the package on the CPU "
                          "(set_device('cpu')); 'cuda' (the default) on "
                          "cuda:0")
     ap.add_argument("--custom", default=None,
-                    help="not ported (--export, ROADMAP A.20)")
+                    help="custom options for --export")
     ap.add_argument("--input", default=None,
-                    help="not ported (--export, ROADMAP A.20)")
+                    help="input dims for --export (caps grammar, e.g. "
+                         "3:224:224:1)")
     ap.add_argument("--inputtype", default=None,
-                    help="not ported (--export, ROADMAP A.20)")
+                    help="input types for --export (e.g. uint8)")
     ap.add_argument("--inflight", type=int, default=None, metavar="K",
                     help="override the dispatch-window depth on every "
                          "element that has an 'inflight' property "
@@ -159,9 +169,14 @@ def main(argv=None) -> int:
                          "no flag — NNSTPU_FLIGHT=DIR does the same, "
                          "NNSTPU_FLIGHT=0 turns recording off")
     ap.add_argument("--checkpoint-dir", metavar="DIR", default=None,
-                    help="not ported (ROADMAP A.20)")
+                    help="write the serving state (repo slots, scheduler "
+                         "estimates, residency order, flight quantiles) "
+                         "to DIR at stop and restore it at start; "
+                         "NNSTPU_CHECKPOINT=DIR does the same")
     ap.add_argument("--compile-cache", metavar="DIR", default=None,
-                    help="not ported (ROADMAP A.20)")
+                    help="build and find the CUDA kernel libraries in "
+                         "DIR/kernels: a second run builds none; "
+                         "NNSTPU_COMPILE_CACHE=DIR does the same")
     ap.add_argument("--slo-budget-ms", type=float, default=None,
                     metavar="MS",
                     help="pipeline-wide SLO latency budget: deadline "
@@ -183,10 +198,29 @@ def main(argv=None) -> int:
         raise _not_ported("--fleet", "26b fleet balancing")
     if args.scaffold:
         raise _not_ported("--scaffold", "26g analysis and tooling")
-    for flag in ("export", "custom", "input", "inputtype",
-                 "checkpoint_dir", "compile_cache"):
-        if getattr(args, flag):
-            raise _not_ported(f"--{flag.replace('_', '-')}", _CONTINUITY)
+    if not args.export and (args.custom or args.input or args.inputtype):
+        ap.error("--custom/--input/--inputtype only apply with --export "
+                 "(in a pipeline description, set them as element "
+                 "properties instead)")
+    if args.export:
+        from nnstreamer_tpu_torch.filters.artifact import export_model
+
+        model, out = args.export
+        try:
+            out_info = export_model(model, out, custom=args.custom,
+                                    input_dims=args.input,
+                                    input_types=args.inputtype)
+        except Exception as e:  # noqa: BLE001 — the CLI reports any failure
+            print(f"nns-launch: export failed: {e}", file=sys.stderr)
+            return 1
+        print(f"Exported {model} -> {out} (outputs: {out_info})")
+        return 0
+    if args.compile_cache is not None:
+        from nnstreamer_tpu_torch.pipeline.continuity import (
+            enable_compile_cache,
+        )
+
+        enable_compile_cache(args.compile_cache)
     if args.platforms is not None:
         plat = args.platforms.strip().lower()
         if plat == "cpu":
@@ -242,6 +276,8 @@ def main(argv=None) -> int:
         pipe.watchdog_s = max(0.0, args.watchdog_s)
     if args.flight_dir is not None:
         pipe.flight_dir = args.flight_dir
+    if args.checkpoint_dir is not None:
+        pipe.checkpoint_dir = args.checkpoint_dir
 
     if args.verbose:
         for el in pipe.elements:

@@ -27,7 +27,16 @@ DEFAULT_CONF_PATHS = (
 DEFAULT_EXT_PRIORITY: Dict[str, List[str]] = {
     ".pt": ["torch"],
     ".pth": ["torch"],
+    # torch.export artifacts (filters/artifact.py)
+    ".pt2": ["torch"],
+    # the JAX package's StableHLO artifacts and TF models: the torch
+    # backend names ROADMAP A.23 for them
+    **{ext: ["torch"] for ext in (".jaxexp", ".stablehlo", ".mlir",
+                                  ".mlirbc", ".pb")},
 }
+
+#: model files the torch backend recognises and refuses (A.23)
+FOREIGN_MODEL_EXTS = (".jaxexp", ".stablehlo", ".mlir", ".mlirbc", ".pb")
 
 
 class Conf:

@@ -34,17 +34,31 @@ model's kernels, not their run time. The ``filter.open`` and
 is not fusible, and a QoS interval that reaches a fused region makes the
 region run its members eagerly (``pipeline/fuse.py``). In a pipeline with
 an SLO budget each invoke's time feeds the scheduler's service estimate
-(``serving/scheduler.py``). Model sharing, hot reload and mesh sharding
-of the JAX package are not ported yet.
+(``serving/scheduler.py``).
+
+``shared-tensor-filter-key``: filters with one key share one opened
+backend, so the weights sit on the device once (the last filter to stop
+closes it). ``is-updatable=true`` lets a ``reload_model`` custom event (or
+:meth:`TensorFilter.reload_model`) reopen the backend on a new model
+(``nns_tensor_filter_reloads_total``); a fused region over the filter is
+invalidated and captures anew. ``Pipeline.swap_model`` builds on it
+(``pipeline/continuity.py``). Mesh sharding of the JAX package is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time as _time
 from typing import List, Optional
 
 from nnstreamer_tpu_torch.config import get_conf
-from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
+from nnstreamer_tpu_torch.filters.api import (
+    FilterFramework,
+    FilterProperties,
+    shared_backend_acquire,
+    shared_backend_release,
+)
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline import faults as _faults
@@ -54,6 +68,7 @@ from nnstreamer_tpu_torch.pipeline.dispatch import (
     release_shed_payload,
 )
 from nnstreamer_tpu_torch.pipeline.element import (
+    CustomEvent,
     Element,
     QosEvent,
     peer_device_capable,
@@ -67,7 +82,6 @@ from nnstreamer_tpu_torch.tensors.buffer import (
 from nnstreamer_tpu_torch.tensors.types import TensorsConfig, TensorsInfo
 
 _MULTI = "A.24 multi-GPU serving"
-_CONTINUITY = "A.20 serving continuity"
 
 
 def detect_framework(model: str) -> Optional[str]:
@@ -117,12 +131,12 @@ class TensorFilter(Element):
         # max device batches outstanding past this filter before the
         # streaming thread fences the oldest; 0 fences every batch
         "inflight": 2,
+        "is_updatable": False,    # reload_model allowed
+        "shared_tensor_filter_key": None,
     }
     UNPORTED_PROPERTIES = {
         "mesh": _MULTI,
         "shard": _MULTI,
-        "is_updatable": _CONTINUITY,
-        "shared_tensor_filter_key": _CONTINUITY,
     }
 
     def __init__(self, name=None, **props):
@@ -136,6 +150,8 @@ class TensorFilter(Element):
         self._comb_cache: dict = {}
         self._m_invoke = None  # created lazily: labels need pipeline name
         self._m_qos = None
+        self._m_reloads = None
+        self._shared_key: Optional[str] = None
         self._last_invoke_t = 0.0
         self._window = DispatchWindow(self)
 
@@ -150,6 +166,14 @@ class TensorFilter(Element):
                 pipeline=getattr(self.pipeline, "name", "") or "",
                 element=self.name)
         return self._m_invoke
+
+    def _obs_reloads(self):
+        """``nns_tensor_filter_reloads_total``: hot model reloads."""
+        if self._m_reloads is None:
+            self._m_reloads = get_registry().counter(
+                "nns_tensor_filter_reloads_total",
+                "Hot model reloads (RELOAD_MODEL)", **self._obs_labels())
+        return self._m_reloads
 
     def _obs_qos(self):
         """``nns_tensor_filter_qos_drops_total``: invokes skipped by the
@@ -199,20 +223,43 @@ class TensorFilter(Element):
         factory = get_subplugin(FILTER, fw_name)
         if factory is None:
             raise ValueError(f"{self.name}: no filter backend {fw_name!r}")
-        fw = factory()
         fi = _faults.ACTIVE
         if fi is not None:
             # chaos hook: an injected open / weight-load failure
             fi.check("filter.open")
-        fw.open(FilterProperties(
+        shared_key = self.get_property("shared_tensor_filter_key")
+        props = FilterProperties(
             model=model,
             custom=self.get_property("custom"),
             accelerator=self.get_property("accelerator"),
             input_info=self._forced_info("input", "inputtype"),
             output_info=self._forced_info("output", "outputtype"),
-        ))
-        self.fw = fw
-        return fw
+            is_updatable=bool(self.get_property("is_updatable")),
+            shared_key=shared_key,
+        )
+
+        def open_backend():
+            fw = factory()
+            fw.open(props)
+            return fw
+
+        if shared_key:
+            self.fw = shared_backend_acquire(str(shared_key), open_backend)
+            self._shared_key = str(shared_key)
+        else:
+            self.fw = open_backend()
+        return self.fw
+
+    def _close_fw(self) -> None:
+        """Close (or, when shared, let go of) the backend."""
+        fw, self.fw = self.fw, None
+        if fw is None:
+            return
+        key, self._shared_key = self._shared_key, None
+        if key is not None:
+            shared_backend_release(key, fw)
+        else:
+            fw.close()
 
     def _forced_info(self, dim_key: str, type_key: str
                      ) -> Optional[TensorsInfo]:
@@ -228,9 +275,7 @@ class TensorFilter(Element):
 
     def stop(self):
         self._window.drain(on_error="log")
-        if self.fw is not None:
-            self.fw.close()
-            self.fw = None
+        self._close_fw()
         super().stop()
 
     def handle_eos(self):
@@ -273,6 +318,32 @@ class TensorFilter(Element):
         return TensorsInfo([out_info[idx] if kind == "o" else in_info[idx]
                             for kind, idx in comb])
 
+    # -- hot reload (reference RELOAD_MODEL) ---------------------------------
+    def sink_event(self, pad, event):
+        if isinstance(event, CustomEvent) and event.name == "reload_model":
+            if self.fw is not None:
+                self.reload_model((event.data or {}).get("model"))
+            return  # consumed
+        super().sink_event(pad, event)
+
+    def reload_model(self, model: Optional[str] = None) -> None:
+        """Hot reload (reference RELOAD_MODEL): reopen the backend, on
+        ``model`` when given (the backend raises unless
+        ``is-updatable=true``), count it and invalidate a fused region
+        over the filter, which captures anew."""
+        if model:
+            self._props["model"] = model
+        if self.fw is None:
+            return
+        self._window.drain()
+        self.fw.handle_event("reload_model", {"model": model} if model
+                             else {})
+        self._obs_reloads().inc()
+        self.log.info("model reloaded")
+        region = getattr(self, "_fused_region", None)
+        if region is not None:
+            region.invalidate()
+
     def src_event(self, pad, event):
         """Throttle QoS from downstream (``tensor_rate throttle=true``):
         adopt the target interval and consume the event — the filter is
@@ -310,48 +381,53 @@ class TensorFilter(Element):
             # chaos hook, BEFORE the stash pop: a retrying error policy
             # re-enters chain with the buffer's meta intact
             fi.check("filter.invoke", seq=seq)
-        stash = buf.meta.pop(POOL_STASH_META, None)
-        t0 = _time.monotonic()
-        try:
-            outputs = fw.invoke(model_inputs)
-        except Exception:
-            if stash:
-                # a retrying error policy (or the next consumer) must
-                # still release the staging arrays at a fence
-                buf.meta[POOL_STASH_META] = stash
-            raise
-        t1 = _time.monotonic()
-        self._obs_invoke().observe(t1 - t0)
-        sched = getattr(self.pipeline, "_slo_scheduler", None)
-        if sched is not None:
-            # the scheduler's service-rate EWMA; the leading dim of a
-            # batched input is its frame count. On the card this is the
-            # enqueue time, and the scheduler takes the slower of it and
-            # the sink's completion spacing
-            shape = getattr(model_inputs[0], "shape", None) \
-                if model_inputs else None
-            sched.observe_service(t1 - t0,
-                                  frames=int(shape[0]) if shape else 1)
-        tl = _timeline.ACTIVE
-        if tl is not None and seq is not None:
-            # from the sender's hand-off: the unfused preprocessing ahead
-            # of the filter is device work too
-            tl.span("device", seq,
-                    buf.meta.pop(_timeline.HANDOFF_META, None) or t0, t1,
-                    track=self.name)
-        else:
-            t1 = None
+        # a swap or reload of the weights (Pipeline.swap_model) waits for
+        # this dispatch and its admission, and fences this window itself
+        lock = getattr(fw, "dispatch_lock", None)
+        with lock.dispatch() if lock is not None else \
+                contextlib.nullcontext():
+            stash = buf.meta.pop(POOL_STASH_META, None)
+            t0 = _time.monotonic()
+            try:
+                outputs = fw.invoke(model_inputs)
+            except Exception:
+                if stash:
+                    # a retrying error policy (or the next consumer) must
+                    # still release the staging arrays at a fence
+                    buf.meta[POOL_STASH_META] = stash
+                raise
+            t1 = _time.monotonic()
+            self._obs_invoke().observe(t1 - t0)
+            sched = getattr(self.pipeline, "_slo_scheduler", None)
+            if sched is not None:
+                # the scheduler's service-rate EWMA; the leading dim of a
+                # batched input is its frame count. On the card this is the
+                # enqueue time, and the scheduler takes the slower of it and
+                # the sink's completion spacing
+                shape = getattr(model_inputs[0], "shape", None) \
+                    if model_inputs else None
+                sched.observe_service(t1 - t0,
+                                      frames=int(shape[0]) if shape else 1)
+            tl = _timeline.ACTIVE
+            if tl is not None and seq is not None:
+                # from the sender's hand-off: the unfused preprocessing ahead
+                # of the filter is device work too
+                tl.span("device", seq,
+                        buf.meta.pop(_timeline.HANDOFF_META, None) or t0, t1,
+                        track=self.name)
+            else:
+                t1 = None
 
-        out_comb = self._combination("output_combination")
-        if out_comb is not None:
-            final = [outputs[i] if k == "o" else buf.tensors[i]
-                     for k, i in out_comb]
-        else:
-            final = list(outputs)
-        # bounded asynchronous dispatch: the oldest outstanding batch
-        # fences only when more than `inflight` are in flight, and the
-        # staging arrays this dispatch read recycle at that fence
-        self._window.admit(final, stash, frame=seq)
+            out_comb = self._combination("output_combination")
+            if out_comb is not None:
+                final = [outputs[i] if k == "o" else buf.tensors[i]
+                         for k, i in out_comb]
+            else:
+                final = list(outputs)
+            # bounded asynchronous dispatch: the oldest outstanding batch
+            # fences only when more than `inflight` are in flight, and the
+            # staging arrays this dispatch read recycle at that fence
+            self._window.admit(final, stash, frame=seq)
         out_buf = buf.with_tensors(final)
         if t1 is not None:
             out_buf.meta[_timeline.HANDOFF_META] = t1
@@ -395,4 +471,5 @@ class TensorFilter(Element):
             tuple(in_comb or ()), tuple(out_comb or ()),
         )
         return DeviceStage(consts=backend_stage.consts, fn=fn, key=key,
-                           device=backend_stage.device)
+                           device=backend_stage.device,
+                           hold=backend_stage.hold)

@@ -29,7 +29,7 @@ import numpy as np
 from nnstreamer_tpu_torch.pipeline.element import Element, FlowError, FlowReturn
 from nnstreamer_tpu_torch.pipeline.pipeline import SourceElement
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
-from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer, host_array
+from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer, as_torch, host_array
 from nnstreamer_tpu_torch.tensors.types import (
     TensorInfo,
     TensorsConfig,
@@ -90,7 +90,12 @@ class TensorRepo:
             items = list(self._slots.items())
         return {k: [host_array(t) for t in v.tensors] for k, v in items}
 
-    def restore(self, state: Dict[str, list]) -> None:
+    def restore(self, state: Dict[str, list], device=None) -> None:
+        """Put a :meth:`snapshot` back: host arrays, or tensors on
+        ``device`` (a checkpoint restored onto the package device)."""
+        if device is not None:
+            state = {k: [as_torch(a, device) for a in arrays]
+                     for k, arrays in state.items()}
         with self._cv:
             for k, arrays in state.items():
                 self._slots[k] = TensorBuffer(list(arrays))

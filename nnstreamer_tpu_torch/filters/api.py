@@ -152,3 +152,36 @@ def shared_model_insert(key: str, model: Any) -> Any:
 def shared_model_remove(key: str) -> bool:
     with _shared_lock:
         return _shared.pop(key, None) is not None
+
+
+# Backends shared by ``shared-tensor-filter-key``: filters with one key use
+# one opened backend, so its weights sit on the device (and in the HBM
+# accountant) once. Reference-counted: the last filter to let go closes it.
+_shared_backends: Dict[str, list] = {}
+
+
+def shared_backend_acquire(key: str, open_backend) -> "FilterFramework":
+    """The backend shared under ``key``, opened by ``open_backend()`` for
+    the first filter that names it."""
+    with _shared_lock:
+        entry = _shared_backends.get(key)
+        if entry is None:
+            entry = _shared_backends[key] = [open_backend(), 0]
+        entry[1] += 1
+        return entry[0]
+
+
+def shared_backend_release(key: str, fw: "FilterFramework") -> None:
+    """One filter lets go of the backend shared under ``key``; the last
+    one closes it."""
+    with _shared_lock:
+        entry = _shared_backends.get(key)
+        if entry is None or entry[0] is not fw:
+            last = True  # not (or no longer) shared: close it alone
+        else:
+            entry[1] -= 1
+            last = entry[1] <= 0
+            if last:
+                del _shared_backends[key]
+    if last:
+        fw.close()

@@ -1,0 +1,152 @@
+"""Compiled-model artifacts for the torch filter backend.
+
+Port of ``nnstreamer_tpu/filters/artifact.py``: the reference's core use
+case — "load an opaque model *file* and run it on the accelerator" — with
+``torch.export`` ``.pt2`` files in place of ``jax.export``'s serialized
+StableHLO. A ``.pt2`` holds the traced program and its weights, and
+carries its input and output shapes and types, so ``tensor_filter
+model=x.pt2`` needs no ``input``/``output`` properties.
+
+- :func:`save_artifact` traces a module on example inputs (or zeros of
+  ``in_info``) and writes the ``.pt2``;
+- :func:`load_artifact` reads it (``torch.export.load``);
+- :func:`artifact_entry` is the backend's entry for a ``.pt2`` file: the
+  exported program's module on the requested device, with its info;
+- :func:`export_model` exports a registered model or a ``.pt``/``.pth``
+  file (the CLI's ``--export``).
+
+A model whose forward reaches a hand-written kernel's wrapper (a ``ctypes``
+call, ``ops/_counts.refuse_export``) cannot be traced: the export raises a
+``ValueError`` naming the kernel and never exports the plain version in
+its place. The flagship's MobileNetV2 reaches none (B1 runs in
+``tensor_transform``). Raw StableHLO, StableHLO portable artifacts and
+TensorFlow models stay with the JAX package: the torch backend raises
+naming ROADMAP A.23 for them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from nnstreamer_tpu_torch.tensors.types import TensorInfo, TensorsInfo, TensorType
+
+
+def _example_inputs(in_info: Optional[TensorsInfo],
+                    example_inputs: Optional[Sequence[Any]]) -> tuple:
+    if example_inputs is not None:
+        return tuple(torch.as_tensor(x) for x in example_inputs)
+    if in_info is None:
+        raise ValueError("save_artifact: need in_info or example_inputs")
+    return tuple(torch.zeros(i.shape, dtype=i.type.torch_dtype)
+                 for i in in_info)
+
+
+def save_artifact(path: str, module: torch.nn.Module,
+                  in_info: Optional[TensorsInfo] = None,
+                  example_inputs: Optional[Sequence[Any]] = None):
+    """Trace ``module`` (on the CPU, in eval mode, with its weights) with
+    ``torch.export`` and write the program to ``path``. Input specs come
+    from ``in_info`` (caps dims, reversed order) or ``example_inputs``.
+    Returns the ``ExportedProgram``."""
+    args = _example_inputs(in_info, example_inputs)
+    module = module.eval()
+    with torch.no_grad():
+        ep = torch.export.export(module, args)
+    torch.export.save(ep, path)
+    return ep
+
+
+def load_artifact(path: str):
+    """Read a ``.pt2`` written by :func:`save_artifact` (or any
+    ``torch.export.save``) → ``ExportedProgram``."""
+    try:
+        return torch.export.load(path)
+    except Exception as e:
+        raise ValueError(
+            f"cannot load model artifact {path!r}: torch.export.load "
+            f"failed: {e}") from e
+
+
+def _info_of(vals) -> TensorsInfo:
+    return TensorsInfo([
+        TensorInfo(dim=tuple(reversed(tuple(int(d) for d in v.shape))) or
+                   (1,), type=TensorType.from_any(v.dtype))
+        for v in vals
+    ])
+
+
+def artifact_tensors_info(ep) -> Tuple[TensorsInfo, TensorsInfo]:
+    """(in_info, out_info) caps from an ``ExportedProgram``'s user inputs
+    and outputs (artifacts are self-describing)."""
+    nodes = {n.name: n for n in ep.graph.nodes}
+    sig = ep.graph_signature
+    ins = [nodes[name].meta["val"] for name in sig.user_inputs]
+    out_node = next(n for n in ep.graph.nodes if n.op == "output")
+    outs_all = out_node.args[0]
+    outs_all = outs_all if isinstance(outs_all, (list, tuple)) \
+        else [outs_all]
+    user_outs = set(sig.user_outputs)
+    outs = [o.meta["val"] for o in outs_all
+            if getattr(o, "name", None) in user_outs]
+    return _info_of(ins), _info_of(outs)
+
+
+def artifact_entry(path: str, device: torch.device) -> dict:
+    """Backend entry (module/in_info/out_info) for a ``.pt2`` file: the
+    exported program as a module on ``device``."""
+    ep = load_artifact(path)
+    in_info, out_info = artifact_tensors_info(ep)
+    module = ep.module().to(device)
+    return dict(module=module, in_info=in_info, out_info=out_info,
+                exported=ep)
+
+
+def export_model(model: str, out_path: str, custom: Optional[str] = None,
+                 input_dims: Optional[str] = None,
+                 input_types: Optional[str] = None) -> TensorsInfo:
+    """Export a model the torch backend loads (a registered name, a
+    ``.pt``/``.pth`` file) to a ``.pt2`` at ``out_path`` — the producer
+    half of the opaque-file story (CLI: ``--export``). ``input_dims``
+    overrides the model's declared input info (e.g. to re-specialize the
+    batch). Returns the artifact's output info. ``custom`` is accepted
+    for the JAX CLI's sake; the torch backend reads no custom options."""
+    from nnstreamer_tpu_torch.filters import torch_backend as tb
+
+    del custom
+    name = model.split(":", 1)[1] if model.startswith("registered:") \
+        else model
+    with tb._reg_lock:
+        entry = dict(tb._registered[name]) if name in tb._registered \
+            else None
+    if entry is None:
+        entry = tb._load_file(model, torch.device("cpu"))
+    module = entry["module"]
+    if isinstance(module, torch.jit.ScriptModule):
+        raise ValueError(f"export: {model!r} is TorchScript, which "
+                         "torch.export does not trace")
+    in_info = entry.get("in_info")
+    if input_dims:
+        if input_types is None and in_info is not None:
+            # dims-only override: keep the model's declared types
+            input_types = ",".join(t.type.value for t in in_info)
+        in_info = TensorsInfo.from_str(input_dims, input_types or "float32")
+    if in_info is None:
+        raise ValueError(
+            "export: model has no input info; pass input_dims/input_types "
+            "(caps grammar, e.g. '3:224:224:1' 'float32')")
+    cpu = _cpu_copy(module)
+    ep = save_artifact(out_path, cpu, in_info=in_info)
+    return artifact_tensors_info(ep)[1]
+
+
+def _cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with its weights on the CPU (a copy when they are on a
+    card, so a module other pipelines serve is not moved)."""
+    if all(t.device.type == "cpu" for t in
+           list(module.parameters()) + list(module.buffers())):
+        return module
+    import copy
+
+    return copy.deepcopy(module).to("cpu")

@@ -8,6 +8,22 @@ unchanged.
 
 - **Weights live on the device once.** ``open()`` moves the module to its
   device; every invoke reuses it.
+- **Under an HBM budget** (``tensors/memory.py``) the weights are an
+  evictable residency unit, one a backend (filters that share a
+  ``shared-tensor-filter-key`` share the backend): the backend serves a
+  private copy of the module whose parameters and buffers are loaded from
+  a host copy of the state dict and, when evicted, swapped for meta
+  tensors so their device storage is freed. Every dispatch holds the unit
+  (``ResidencyManager.hold``): an evicted model loads back on its next
+  frame, and a fused region that sees the load count change drops its
+  CUDA graphs, which read the old storage, and captures again.
+- **Weights-only swaps** (:meth:`TorchFilter.install_weights`, for
+  ``Pipeline.swap_model``) copy the new values into the existing
+  parameters when shapes and dtypes match, so a region's graphs replay
+  the new weights with no capture. The weights swapped are the filter's
+  own: an ``is-updatable=true`` filter serves a copy of the registered
+  module from ``open()``; any other filter copies the module at its first
+  swap (new storage: its region captures once).
 - **Device tensors in, device tensors out.** Inputs move to the module's
   device (a no-op for tensors already there); outputs stay there, computed
   under ``torch.inference_mode()``. CUDA launches are asynchronous, so
@@ -19,13 +35,16 @@ unchanged.
   one CUDA graph with the elements around it.
 
 Model forms accepted (``model`` property): a name registered with
-:func:`register_torch_model`, or a ``.pt``/``.pth`` file holding TorchScript
-or a pickled ``nn.Module`` (reference ``tensor_filter_pytorch.cc``), loaded
-onto the chosen device.
+:func:`register_torch_model`, a ``.pt``/``.pth`` file holding TorchScript
+or a pickled ``nn.Module`` (reference ``tensor_filter_pytorch.cc``), or a
+``.pt2`` ``torch.export`` artifact (``filters/artifact.py``), loaded onto
+the chosen device. The JAX package's StableHLO artifacts and TensorFlow
+models raise naming ROADMAP A.23.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import threading
@@ -34,9 +53,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from nnstreamer_tpu_torch.config import FOREIGN_MODEL_EXTS
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
 from nnstreamer_tpu_torch.registry import FILTER, register_subplugin, subplugin
+from nnstreamer_tpu_torch.tensors import memory as _memory
 from nnstreamer_tpu_torch.tensors.buffer import as_torch
 from nnstreamer_tpu_torch.tensors.types import TensorInfo, TensorsInfo, TensorType
 
@@ -60,7 +81,28 @@ def unregister_torch_model(name: str) -> bool:
         return _registered.pop(name, None) is not None
 
 
-def _load_file(path: str, device: torch.device) -> torch.nn.Module:
+def _load_file(path: str, device: torch.device) -> dict:
+    """A backend entry (module, in_info, out_info) for a model file."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in FOREIGN_MODEL_EXTS or os.path.isfile(
+            os.path.join(path, "saved_model.pb")):
+        raise ValueError(
+            f"torch: {path!r} is a StableHLO artifact or a TensorFlow "
+            "model, which the torch backend does not load (ROADMAP.md, "
+            "A.23 the other filter backends); export the model to a .pt2 "
+            "file")
+    if ext == ".pt2":
+        from nnstreamer_tpu_torch.filters.artifact import artifact_entry
+
+        return artifact_entry(path, device)
+    if not os.path.isfile(path):
+        raise ValueError(f"torch: cannot load model {path!r} (not "
+                         "registered, not a .pt/.pth/.pt2 file)")
+    return dict(module=_load_module(path, device), in_info=None,
+                out_info=None)
+
+
+def _load_module(path: str, device: torch.device) -> torch.nn.Module:
     try:
         return torch.jit.load(path, map_location=device)
     except (RuntimeError, ValueError):  # not TorchScript
@@ -93,6 +135,93 @@ def _meta_twin(module: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(module, memo)
 
 
+def _eval(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` in inference mode; an exported program's module (a
+    ``.pt2``) is traced in that mode already and refuses ``eval()``."""
+    if isinstance(module, torch.fx.GraphModule):
+        return module
+    return module.eval()
+
+
+def _named_tensors(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter and buffer of ``module`` by name (a tied tensor
+    once): what a graph over the module reads."""
+    out = dict(module.named_parameters())
+    out.update(module.named_buffers())
+    return out
+
+
+def _rebind(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]
+            ) -> None:
+    """Point each named parameter and buffer of ``module`` at the tensor
+    of the same name (a ``.data`` swap: the objects the module and its
+    graphs hold stay the same)."""
+    with torch.no_grad():
+        for name, t in _named_tensors(module).items():
+            t.data = tensors[name]
+
+
+class DispatchLock:
+    """The lock between a backend's dispatches, which read its weights,
+    and a swap or reload, which writes them. Re-entrant. A dispatch takes
+    it with :meth:`dispatch`; a writer with ``with lock:``. A writer that
+    waits goes ahead of the dispatches that come after it: a stream at
+    full rate releases and takes a plain lock back frame after frame, and
+    a swap could wait out the whole stream."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._mutex = threading.Lock()
+        self._no_writer = threading.Event()
+        self._no_writer.set()
+        self._writers = 0
+        self._owner: Optional[int] = None
+        self._depth = 0
+
+    def _acquire(self) -> None:
+        self._lock.acquire()
+        self._owner = threading.get_ident()
+        self._depth += 1
+
+    def _release(self) -> None:
+        self._depth -= 1
+        if not self._depth:
+            self._owner = None
+        self._lock.release()
+
+    @contextlib.contextmanager
+    def dispatch(self):
+        if self._owner != threading.get_ident():
+            # the owner's own nested dispatch must not wait for itself
+            self._no_writer.wait()
+        self._acquire()
+        try:
+            yield
+        finally:
+            self._release()
+
+    def _writer_done(self) -> None:
+        with self._mutex:
+            self._writers -= 1
+            if not self._writers:
+                self._no_writer.set()
+
+    def __enter__(self) -> "DispatchLock":
+        with self._mutex:
+            self._writers += 1
+            self._no_writer.clear()
+        try:
+            self._acquire()
+        except BaseException:
+            self._writer_done()
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._release()
+        self._writer_done()
+
+
 @subplugin(FILTER, "torch")
 class TorchFilter(FilterFramework):
     NAME = "torch"
@@ -104,6 +233,16 @@ class TorchFilter(FilterFramework):
         self._device: Optional[torch.device] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
+        #: the weights' residency unit under an HBM budget, else None
+        self._resident = None
+        #: the (possibly shared) module ``open()`` loaded, when it serves
+        #: that object itself
+        self._opened_from = None
+        #: held by every dispatch that reads the weights (:meth:`_hold`)
+        #: and by a swap or reload that writes them, so no frame reads a
+        #: half-installed set; ``Pipeline.swap_model`` holds it across
+        #: the install and the region's rebuild
+        self.dispatch_lock = DispatchLock()
 
     # -- lifecycle -----------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -117,16 +256,152 @@ class TorchFilter(FilterFramework):
         with _reg_lock:
             entry = dict(_registered[name]) if name in _registered else None
         if entry is None:
-            if not os.path.isfile(model):
-                raise ValueError(f"torch: cannot load model {model!r} (not "
-                                 "registered, not a .pt/.pth file)")
-            entry = dict(module=_load_file(model, self._device),
-                         in_info=None, out_info=None)
-        self._module = entry["module"].to(self._device).eval()
+            entry = _load_file(model, self._device)
+        acct = _memory.ACTIVE
+        self._opened_from = None
+        if acct is not None and not isinstance(entry["module"],
+                                                torch.jit.ScriptModule):
+            self._module = self._register_resident(
+                acct, entry["module"], f"torch:{id(self)}", str(model))
+        else:
+            self._module = self._opened_from = _eval(
+                entry["module"].to(self._device))
+            if props.is_updatable:
+                # swaps write into the weights this filter serves: an
+                # updatable filter serves its own copy from the start,
+                # so a swap reaches no other user of the module and the
+                # graphs captured over the copy stay valid
+                self._module = copy.deepcopy(self._module)
         self._in_info = props.input_info or entry["in_info"]
         self._out_info = props.output_info or entry["out_info"]
 
+    # -- HBM residency (tensors/memory.py) -----------------------------------
+    def _register_resident(self, acct, module: torch.nn.Module, key: str,
+                           label: str, state: Optional[dict] = None
+                           ) -> torch.nn.Module:
+        """Make the weights an evictable residency unit and return the
+        private module the backend serves: a twin of ``module`` whose
+        tensors the unit's loader points at device copies of the host
+        staging (``state``, default ``module``'s own tensors) and whose
+        eviction points at empty tensors, freeing the storage. The unit
+        loads now, under the budget."""
+        device = self._device
+
+        def empty(t):
+            return torch.empty(0, dtype=t.dtype, device=device)
+
+        if state is None:
+            served = _eval(_meta_twin(module))
+            served._apply(empty)  # on the device, holding nothing yet
+        else:
+            served = self._module
+        src = state if state is not None else _named_tensors(module)
+        host = {n: t.detach().to("cpu", copy=True) for n, t in src.items()}
+
+        def load(staged, _m=served):
+            _rebind(_m, {n: t.to(device) for n, t in staged.items()})
+            return _m
+
+        def evict(_m=served):
+            if self._resident is not None and self._resident.key != key:
+                return  # a retired epoch's unit: the module is the new one's
+            _rebind(_m, {n: empty(t) for n, t in _named_tensors(_m).items()})
+
+        self._resident = acct.residency.register(
+            key=key, host_value=host, nbytes=_memory.nbytes_of(host),
+            loader=load, label=label, on_evict=evict)
+        self._resident.value()
+        return served
+
+    @contextlib.contextmanager
+    def _hold(self):
+        """The weights, resident and unchanged for one dispatch (a swap
+        waits for the dispatch lock); yields the unit's load count (0 with
+        no budget)."""
+        with self.dispatch_lock.dispatch():
+            unit = self._resident
+            acct = _memory.ACTIVE
+            if unit is None or acct is None:
+                yield 0
+                return
+            with acct.residency.hold(unit) as loads:
+                yield loads
+
+    def install_weights(self, state_dict: Dict[str, Any], epoch: int = 0
+                        ) -> Dict[str, Any]:
+        """Weights-only swap for ``Pipeline.swap_model``: the model is
+        unchanged, so a fused region's stage key is too. The caller has
+        drained the dispatch window (the cutover fence). The install runs
+        under the dispatch lock, so no dispatch reads a half-installed
+        set, and on the card it ends with the stream synchronised, so the
+        next replay, on whatever stream, reads the new set whole. Each
+        tensor whose shape and dtype match is copied into the existing
+        parameter on the current stream (``copy_`` under ``no_grad``), so
+        captured graphs replay the new weights; a tensor that changes
+        shape or dtype is rebound, and the region's storage pin then
+        captures anew, once.
+
+        Under an HBM budget the new weights register as a NEW residency
+        unit keyed by the swap epoch and the old epoch's unit retires
+        first, so ``used_bytes`` nets out."""
+        with self.dispatch_lock:
+            out = self._install_weights(state_dict, epoch)
+            if self._device is not None and self._device.type == "cuda":
+                torch.cuda.current_stream(self._device).synchronize()
+        return out
+
+    def _install_weights(self, state_dict: Dict[str, Any], epoch: int
+                         ) -> Dict[str, Any]:
+        if self._module is None:
+            raise RuntimeError("torch: install_weights before open()")
+        current = _named_tensors(self._module)
+        new = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(v))
+               for k, v in state_dict.items()}
+        missing = sorted(set(current) - set(new))
+        extra = sorted(set(new) - set(current))
+        if missing or extra:
+            raise ValueError(f"torch: install_weights: state dict does not "
+                             f"match the model (missing {missing[:4]}, "
+                             f"unexpected {extra[:4]})")
+        out: Dict[str, Any] = {"residency": None, "retired": None,
+                               "rebound": 0}
+        if self._resident is None and not self.props.is_updatable and \
+                self._module is self._opened_from:
+            # the module is the registered one, which other filters may
+            # serve: swap a copy (new storage, so the region captures once)
+            self._module = copy.deepcopy(self._module)
+            current = _named_tensors(self._module)
+        acct = _memory.ACTIVE
+        if self._resident is not None and acct is not None:
+            old = self._resident
+            acct.residency.unregister(old.key)
+            out["retired"] = old.key
+            new_key = f"torch:{id(self)}:e{int(epoch)}"
+            self._register_resident(acct, None, new_key,
+                                    f"{self.props.model}@e{int(epoch)}",
+                                    state=new)
+            out["residency"] = new_key
+            return out
+        with torch.no_grad():
+            for name, t in current.items():
+                v = new[name]
+                if v.shape == t.shape and v.dtype == t.dtype:
+                    t.copy_(v.to(t.device, non_blocking=True))
+                else:
+                    t.data = v.to(t.device)
+                    out["rebound"] += 1
+        return out
+
+    def reload(self) -> None:
+        with self.dispatch_lock:  # no dispatch meets a half-reopened model
+            super().reload()
+
     def close(self) -> None:
+        if self._resident is not None:
+            acct = _memory.ACTIVE
+            if acct is not None:
+                acct.residency.unregister(self._resident.key)
+            self._resident = None
         self._module = None
         super().close()
 
@@ -139,6 +414,10 @@ class TorchFilter(FilterFramework):
         a TorchScript module, which cannot run on meta tensors, is probed
         with one zero forward pass on its device."""
         self._in_info = in_info
+        with self._hold():  # an evicted module's tensors hold nothing
+            return self._set_input_info(in_info)
+
+    def _set_input_info(self, in_info: TensorsInfo) -> TensorsInfo:
         if isinstance(self._module, torch.jit.ScriptModule):
             dev = self._device
         else:
@@ -175,7 +454,13 @@ class TorchFilter(FilterFramework):
     def device_stage(self):
         """The module as a fused-region stage: its consts are the module
         (the weights live in it), its key names the module object, and it
-        computes on the backend's device."""
+        computes on the backend's device. It waits for a swap or reload in
+        progress (the dispatch lock), so a region never builds over a
+        half-installed model."""
+        with self.dispatch_lock.dispatch():
+            return self._device_stage()
+
+    def _device_stage(self):
         if self._module is None:
             return None
         from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
@@ -189,12 +474,14 @@ class TorchFilter(FilterFramework):
             return [out] if isinstance(out, torch.Tensor) else list(out)
 
         return DeviceStage(consts=self._module, fn=fn,
-                           key=("torch", self._module), device=device)
+                           key=("torch", self._module), device=device,
+                           hold=self._hold)
 
     # -- hot path ------------------------------------------------------------
     def invoke(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
         xs = [as_torch(x, self._device, non_blocking=True) for x in inputs]
-        with self.global_stats().measure(), torch.inference_mode():
+        with self._hold(), self.global_stats().measure(), \
+                torch.inference_mode():
             out = self._module(*xs)
         return [out] if isinstance(out, torch.Tensor) else list(out)
 

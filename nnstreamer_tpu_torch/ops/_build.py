@@ -8,6 +8,16 @@ edited source rebuilds and an unchanged one loads from the build
 directory. A file lock makes concurrent first uses build once. Nothing is
 downloaded: only the sources in the package are compiled.
 
+The build directory is the compile cache of ``pipeline/continuity.py``,
+and :func:`build_dir` alone decides it: a directory a caller set
+(:func:`set_build_dir`; ``enable_compile_cache(dir)`` and the CLI's
+``--compile-cache`` set ``<dir>/kernels``), else
+``$NNSTPU_COMPILE_CACHE/kernels``, else the package's ``_build/``. So a
+second process on the same cache loads every library and builds none,
+whether or not it starts a pipeline. The first time a process needs a
+library it counts ``nns_compile_cache_hits_total`` (found built) or
+``nns_compile_cache_misses_total`` (built anew).
+
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds (if needed) and loads one library.
 ``call_on_stream`` calls a loaded entry point on a device's current stream,
@@ -32,7 +42,10 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
+#: the default build directory (ignored by git)
 BUILD_DIR = PKG_DIR / "_build"
+#: names a compile-cache directory; the libraries go in its ``kernels/``
+CACHE_ENV = "NNSTPU_COMPILE_CACHE"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,9 +55,60 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: the build directory a caller set (set_build_dir), else None
+_override: Optional[Path] = None
+#: libraries already counted as a cache hit or miss in this process
+_counted: set = set()
+_cache_metrics: Optional[Dict[str, object]] = None
 #: per-library build record: seconds spent compiling (0.0 when the
 #: library came from the build directory) and nvcc's output (ptxas -v)
 build_log: Dict[str, Dict[str, object]] = {}
+
+
+def set_build_dir(path) -> Optional[Path]:
+    """Build (and look for) the libraries in ``path`` from now on; None
+    goes back to what :func:`build_dir` finds without one."""
+    global _override
+    _override = None if path is None else Path(path).resolve()
+    return _override
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: the directory a caller set, else
+    ``$NNSTPU_COMPILE_CACHE/kernels``, else the package's ``_build/``."""
+    if _override is not None:
+        return _override
+    env = os.environ.get(CACHE_ENV, "").strip()
+    if env:
+        return Path(env).resolve() / "kernels"
+    return BUILD_DIR
+
+
+def cache_metrics() -> Dict[str, object]:
+    """The compile cache's hit and miss counters (one per library a
+    process needed: found built, or built anew)."""
+    global _cache_metrics
+    if _cache_metrics is None:
+        from nnstreamer_tpu_torch.obs import get_registry
+
+        reg = get_registry()
+        _cache_metrics = {
+            "hits": reg.counter(
+                "nns_compile_cache_hits_total",
+                "Kernel libraries found built in the build directory (a "
+                "warm boot: no nvcc ran)"),
+            "misses": reg.counter(
+                "nns_compile_cache_misses_total",
+                "Kernel libraries built anew by nvcc"),
+        }
+    return _cache_metrics
+
+
+def _count(name: str, hit: bool) -> None:
+    if name in _counted:
+        return
+    _counted.add(name)
+    cache_metrics()["hits" if hit else "misses"].inc()
 
 
 def find_nvcc() -> str:
@@ -79,7 +143,7 @@ def _digest(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+    return build_dir() / f"lib{name}-{_digest(name)}.so"
 
 
 def _start(name: str, nvcc: str):
@@ -96,14 +160,16 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     ``nvcc`` process per source, all started together. Raises with the
     compiler's output when a build fails."""
     names = sources() if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lk:
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         try:
             todo = [n for n in names if not library_path(n).exists()]
             for n in names:
                 if n not in todo:
                     build_log.setdefault(n, {"seconds": 0.0, "output": ""})
+                    _count(n, hit=True)
             if todo:
                 nvcc = find_nvcc()
                 t0 = time.monotonic()
@@ -118,6 +184,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
                         tmp.unlink(missing_ok=True)
                     else:
                         os.replace(tmp, out)
+                        _count(n, hit=False)
                 if failed:
                     raise RuntimeError(
                         "nnstreamer_tpu_torch: kernel build failed:\n"

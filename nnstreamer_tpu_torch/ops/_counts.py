@@ -44,6 +44,30 @@ def _stream_capturing() -> bool:
 capturing = _stream_capturing
 
 
+#: the TPU kernel each wrapper stands for, as ``torch.export`` errors
+#: name it
+KERNEL_NAMES = {
+    "normalize_chain": "B1 normalize (csrc/normalize.cu)",
+    "flash_attention": "B2 flash attention (csrc/flash_attention.cu)",
+    "quantize_int8": "B3 int8 quantize (csrc/quantize.cu)",
+}
+
+
+def refuse_export(name: str) -> None:
+    """Raise while ``torch.export`` traces a model through this wrapper:
+    the kernel is a ``ctypes`` call the exported program cannot hold, and
+    exporting the plain version in its place would hide the kernel
+    (``filters/artifact.py``; ``torch.library.custom_op`` registration
+    is later work, ROADMAP)."""
+    exporting = getattr(torch.compiler, "is_exporting", None)
+    if exporting is not None and exporting():
+        raise ValueError(
+            f"torch.export cannot trace kernel {KERNEL_NAMES[name]}: the "
+            f"model reaches the hand-written kernel's wrapper ({name}), "
+            "which is not an exportable op; the plain version is not "
+            "exported in its place")
+
+
 def count_launch(name: str) -> None:
     if capturing():
         tally = getattr(_local, "tally", None)

@@ -31,7 +31,7 @@ import functools
 import torch
 
 from nnstreamer_tpu_torch.ops import _build
-from nnstreamer_tpu_torch.ops._counts import count_launch
+from nnstreamer_tpu_torch.ops._counts import count_launch, refuse_export
 
 #: scores below this act as -inf without producing exp() NaNs in fully
 #: masked rows
@@ -163,6 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention on ``[batch, seq, heads, dim]`` tensors: the plain version
     for a CPU tensor, the kernel for a CUDA tensor its shape rule takes,
     and an error for any other."""
+    refuse_export("flash_attention")
     _check(q, k, v)
     if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v, causal=causal)

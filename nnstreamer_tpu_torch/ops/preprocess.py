@@ -29,6 +29,7 @@ from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401 (re-exported)
     LAUNCHES,
     count_launch,
+    refuse_export,
     reset_launches,
 )
 
@@ -164,6 +165,7 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
     converts it, result ``out_dtype`` (float32, bfloat16 or float16) of the
     same shape. CPU tensors take the plain version; CUDA tensors the
     kernel. The chain struct is built once per ``ops`` and cached."""
+    refuse_export("normalize_chain")
     device = x.device
     if device.type == "cpu":
         return normalize_chain_reference(x, ops, out_dtype)

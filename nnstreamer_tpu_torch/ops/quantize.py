@@ -46,7 +46,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nnstreamer_tpu_torch.ops import _build
-from nnstreamer_tpu_torch.ops._counts import count_launch
+from nnstreamer_tpu_torch.ops._counts import count_launch, refuse_export
 
 #: dtype codes shared with csrc/quantize.cu
 IN_CODES = {
@@ -291,6 +291,7 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
     if force not in FORCES:
         raise ValueError(f"quantize_int8: force must be one of {FORCES}, "
                          f"got {force!r}")
+    refuse_export("quantize_int8")
     dither = force == "dither" or (force is None and x.device.type == "cuda")
     device = x.device
     if device.type == "cpu":

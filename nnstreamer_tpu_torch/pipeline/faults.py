@@ -38,9 +38,9 @@ Per-site keys:
   supervision treats it as a restart, everything else like ``raise``),
   ``stall`` (sleep ``ms`` milliseconds — watchdog bait), ``oom``
   (simulated device-memory exhaustion — raises :class:`InjectedOom`;
-  under ``error-policy=degrade`` the port halts on it, naming ROADMAP
-  A.19, whose HBM accountant the JAX package's memory-pressure ladder
-  needs), or one of the
+  under ``error-policy=degrade`` it takes the memory-pressure ladder of
+  ``pipeline/supervise.py``, as a ``torch.cuda.OutOfMemoryError`` does),
+  or one of the
   transport kinds ``drop`` (the bytes silently vanish), ``disconnect``
   (the connection dies mid-operation), ``corrupt`` (the bytes arrive
   mangled). Transport kinds are interpreted by :meth:`FaultInjector.
@@ -144,9 +144,9 @@ class InjectedCrash(InjectedFault):
 class InjectedOom(InjectedFault):
     """``kind=oom``: simulated device-memory exhaustion (the shape of a
     real ``torch.cuda.OutOfMemoryError``). Under ``error-policy=degrade``
-    the supervision layer halts on it, naming ROADMAP A.19 (the JAX
-    package's memory-pressure ladder needs the HBM accountant);
-    everywhere else it behaves like :class:`InjectedFault`."""
+    the supervision layer climbs the memory-pressure ladder (evict →
+    pool → shed → cpu); everywhere else it behaves like
+    :class:`InjectedFault`."""
 
     def __init__(self, site: str, n: int):
         super().__init__(site, n, kind="oom")

@@ -55,6 +55,18 @@ fusible mid-stream (a filter's ``throttle`` set above 0) makes the next
 frame unsplice the region: from then on the members run eagerly, the
 transform launching B1 itself, and no captured graph is replayed.
 
+A torch backend's stage hands the region a ``hold``, its dispatch lock:
+a weights swap or a reload waits for the dispatch that reads the weights,
+and a dispatch that waited for a swap re-pulls the stages the swap
+rebuilt. Under an HBM budget (``tensors/memory.py``) the hold also keeps
+the stage's residency unit resident for the compute (downstream runs
+after the hold is released) and reads the unit's load count. When the
+count changed, the weights were evicted and loaded into new storage, so
+the region drops its graphs (``rebinds``) and the frame captures anew. The JAX region is not
+used under a budget (the JAX filter is not fusible then); the port keeps
+the region and pays a capture per reload. A region that holds two weight
+units needs both resident at once.
+
 What the JAX module has and this one does not: donation of the input slab
 (``NNSTPU_DONATE``) has no counterpart, since the graph reads static input
 buffers into which each frame is copied; a mesh-sharded stage raises
@@ -66,6 +78,7 @@ Disable globally with ``NNSTPU_FUSE=0`` or per pipeline with
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -131,6 +144,13 @@ class DeviceStage:
     device: Optional[torch.device] = None
     #: the JAX stage's serving-mesh spec: not ported
     mesh: Optional[str] = None
+    #: ``hold() -> context manager`` keeping the consts' device storage
+    #: in place and unchanged for one dispatch (the torch backend's
+    #: dispatch lock and, under a budget, its weights' HBM residency
+    #: unit, ``tensors/memory.py``); it yields a generation that changes
+    #: whenever that storage was made anew (an evicted unit reloaded),
+    #: which drops the region's graphs
+    hold: Optional[Callable[[], Any]] = None
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -160,6 +180,16 @@ def _storage_pin(consts) -> Optional[tuple]:
         return None if any(v is None for _, v in items) \
             else ("dict",) + items
     return None
+
+
+class _Pushed:
+    """A frame the member chain already took (a region's fallback), with
+    the chain's return value."""
+
+    __slots__ = ("ret",)
+
+    def __init__(self, ret):
+        self.ret = ret
 
 
 def fusion_enabled() -> bool:
@@ -265,9 +295,13 @@ class FusedRegion(Element):
         if member_inflight:
             self._props["inflight"] = max(member_inflight)
         self._window = DispatchWindow(self)
-        #: (consts_list, composed fn, finalize, device) — swapped
+        #: (consts_list, composed fn, finalize, device, holds) — swapped
         #: atomically; readers take one local reference
         self._compiled = None
+        #: the stages' storage generations the graphs were captured at
+        self._generation: Optional[tuple] = None
+        #: graph sets dropped because a stage's storage was made anew
+        self.rebinds = 0
         #: stage keys of the last build; the CPU's signatures seen and
         #: the card's graphs belong to them
         self._keys: Optional[list] = None
@@ -319,8 +353,9 @@ class FusedRegion(Element):
                 tensors = f(c, list(tensors))
             return list(tensors)
 
+        holds = [st.hold for st in stages if st.hold is not None]
         compiled = ([st.consts for st in stages], composed,
-                    stages[-1].finalize, device)
+                    stages[-1].finalize, device, holds)
         self._compiled = compiled
         if self._m_whole is None:
             ref = weakref.ref(self)
@@ -355,7 +390,8 @@ class FusedRegion(Element):
     def obs_snapshot(self):
         out = super().obs_snapshot()
         out.update(eager_frames=self.eager_frames, replays=self.replays,
-                   captures=self.captures, qos_drops=self.qos_drops)
+                   captures=self.captures, qos_drops=self.qos_drops,
+                   rebinds=self.rebinds)
         out.update(self._window.snapshot())
         if self._m_retrace is not None:
             out["retraces"] = int(self._m_retrace.value)
@@ -369,6 +405,14 @@ class FusedRegion(Element):
             if torch.cuda.is_initialized():
                 torch.cuda.synchronize()
             self._graphs = {}
+
+    def rebuild(self) -> None:
+        """Re-pull the member stages at the next frame, keeping the
+        graphs when every stage key and storage pin is unchanged (a
+        weights-only swap copied in place); a rebound weight captures
+        anew. ``Pipeline.swap_model`` comes here."""
+        self._compiled = None
+        self._window.drain()
 
     def invalidate(self) -> None:
         """Drop the built stages and the captured graphs; the next frame
@@ -436,15 +480,45 @@ class FusedRegion(Element):
             # does not run while fused), before the stash pop and any
             # copy or replay: a retry re-enters with the buffer intact
             fi.check("filter.invoke", seq=seq)
-        compiled = self._compiled
-        if compiled is None:
-            try:
-                compiled = self._build()
-            except FlowError:
-                # a member stopped being fusible mid-stream — the unfused
-                # pipeline's behavior resumes seamlessly
-                return self._fallback(buf)
-        consts, fn, finalize, device = compiled
+        while True:
+            compiled = self._compiled
+            if compiled is None:
+                try:
+                    compiled = self._build()
+                except FlowError:
+                    # a member stopped being fusible mid-stream — the
+                    # unfused pipeline's behavior resumes seamlessly
+                    return self._fallback(buf)
+            holds = compiled[4]
+            if not holds:
+                out = self._dispatch(buf, compiled, seq, t_dev0, tl)
+                break
+            with contextlib.ExitStack() as held:
+                gen = tuple(held.enter_context(h()) for h in holds)
+                if self._compiled is not compiled:
+                    # a swap rebuilt the stages while this frame waited
+                    # for the hold: dispatch on what it installed
+                    continue
+                if gen != self._generation:
+                    if self._generation is not None and self._graphs:
+                        # an evicted stage's storage was made anew: the
+                        # graphs read the old addresses
+                        self._drop_graphs()
+                        self.rebinds += 1
+                    self._generation = gen
+                out = self._dispatch(buf, compiled, seq, t_dev0, tl)
+            break
+        # downstream runs outside the hold: a region further down the same
+        # thread may need this region's weights evicted to load its own
+        if isinstance(out, _Pushed):
+            return out.ret
+        return self.srcpad.push(out)
+
+    def _dispatch(self, buf, compiled, seq, t_dev0, tl):
+        """One frame through the replayed graph, or the composed stages
+        (and a capture) for a new signature: the buffer to push, or
+        :class:`_Pushed` when the member chain took the frame."""
+        consts, fn, finalize, device, _holds = compiled
         stash = buf.meta.pop(POOL_STASH_META, None)
         tensors = list(buf.tensors)
         sig = _signature(tensors)
@@ -471,7 +545,7 @@ class FusedRegion(Element):
                             "member chain", self.name, e)
                 if stash:
                     buf.meta[POOL_STASH_META] = stash
-                return self._fallback(buf)
+                return _Pushed(self._fallback(buf))
         # bounded asynchronous dispatch: the event follows the output
         # copies on this stream; the oldest batch fences only when more
         # than `inflight` are outstanding, and this frame's staging
@@ -489,7 +563,7 @@ class FusedRegion(Element):
         if peer_device_capable(self.srcpad):
             # downstream forwards resident buffers — keep them resident
             out_buf = as_device_buffer(out_buf)
-        return self.srcpad.push(out_buf)
+        return out_buf
 
     def _first_frame(self, consts, fn, device, sig, tensors, on_card):
         """The first frame of a new signature: through the composed stages

@@ -30,8 +30,13 @@ installs the always-on flight recorder (``obs/flight.py``; off with
 by ``NNSTPU_FLIGHT``). ``slo_budget_ms`` (or a queue's
 ``slo-budget-ms``) attaches the SLO scheduler (``serving/scheduler.py``)
 to the admission-point queues. ``NNSTPU_DUMP_DOT_DIR`` writes the started
-graph as Graphviz dot (``pipeline/dot.py``). The JAX package's serving
-continuity (A.20) is not ported yet.
+graph as Graphviz dot (``pipeline/dot.py``). ``NNSTPU_HBM_BUDGET``
+installs the HBM accountant at ``start()`` (``tensors/memory.py``;
+``metrics_snapshot()["memory"]``). Serving continuity
+(``pipeline/continuity.py``): :meth:`Pipeline.swap_model`,
+:meth:`Pipeline.checkpoint` / :meth:`Pipeline.restore`, and the
+``checkpoint_dir`` / ``NNSTPU_CHECKPOINT`` and ``NNSTPU_COMPILE_CACHE``
+hooks at start and stop.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline import faults as _faults
+from nnstreamer_tpu_torch.tensors import memory as _memory
 from nnstreamer_tpu_torch.pipeline.dispatch import (
     POOL_STASH_META,
     release_shed_payload,
@@ -812,6 +818,11 @@ class Pipeline:
         #: itself is always on unless NNSTPU_FLIGHT=0
         self.flight_dir: Optional[str] = None
         self._flight = None
+        #: serving-continuity checkpoint directory
+        #: (pipeline/continuity.py); None defers to NNSTPU_CHECKPOINT.
+        #: Unset, the continuity layer never runs
+        self.checkpoint_dir: Optional[str] = None
+        self._continuity_restored = False
 
     # -- construction ---------------------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":
@@ -874,6 +885,8 @@ class Pipeline:
                               for r in self._regions}
         if self._slo_scheduler is not None:
             out["scheduler"] = self._slo_scheduler.snapshot()
+        if _memory.ACTIVE is not None:
+            out["memory"] = _memory.ACTIVE.snapshot()
         if self._flight is not None:
             # the always-on flight recorder: streaming stage/e2e
             # quantiles and burn rates, the continuous variance
@@ -882,6 +895,34 @@ class Pipeline:
             out["attribution"] = self._flight.attribution()
             out["quantiles"] = self._flight.quantile_states()
         return out
+
+    # -- serving continuity (pipeline/continuity.py) ---------------------------
+    def swap_model(self, filter_name: str, model: Optional[str] = None,
+                   weights: Any = None) -> Dict[str, Any]:
+        """Zero-downtime versioned model swap on a running pipeline: drain
+        the owning dispatch window (the cutover fence), install the new
+        model or weights (a state dict) under a bumped epoch, touch the
+        owning fused region once. No frames are dropped."""
+        from nnstreamer_tpu_torch.pipeline import continuity as _continuity
+
+        return _continuity.swap_model(self, filter_name, model=model,
+                                      weights=weights)
+
+    def checkpoint(self, directory: Optional[str] = None) -> str:
+        """Serialize the durable serving state (repo slots, scheduler
+        EWMAs and knobs, residency LRU order, flight-recorder quantiles)
+        into ``directory`` — defaults to ``checkpoint_dir`` /
+        ``NNSTPU_CHECKPOINT``."""
+        from nnstreamer_tpu_torch.pipeline import continuity as _continuity
+
+        return _continuity.checkpoint(self, directory)
+
+    def restore(self, directory: Optional[str] = None) -> Dict[str, Any]:
+        """Re-arm the warm serving state from a checkpoint written by
+        :meth:`checkpoint` (typically in a previous process)."""
+        from nnstreamer_tpu_torch.pipeline import continuity as _continuity
+
+        return _continuity.restore(self, directory)
 
     # -- state ----------------------------------------------------------------
     def start(self) -> "Pipeline":
@@ -896,6 +937,13 @@ class Pipeline:
         # unset, both stay None and every site is one attribute read
         _timeline.maybe_activate_env()
         _faults.maybe_activate_env()
+        # the HBM accountant (NNSTPU_HBM_BUDGET) before any backend opens,
+        # and the kernels' compile cache before any kernel builds; unset,
+        # both are env reads
+        _memory.maybe_activate_env()
+        from nnstreamer_tpu_torch.pipeline import continuity as _continuity
+
+        _continuity.maybe_default_compile_cache(self)
         sources = [e for e in self.elements if isinstance(e, SourceElement)]
         others = [e for e in self.elements
                   if not isinstance(e, SourceElement)]
@@ -948,6 +996,9 @@ class Pipeline:
             for ex in self._lane_execs:
                 ex.start()
                 started.append(ex)
+            # the warm serving state, after the scheduler, the flight
+            # recorder and the residency units exist and before any frame
+            _continuity.maybe_restore_env(self)
             for el in sources:
                 el.start()
                 started.append(el)
@@ -1024,6 +1075,11 @@ class Pipeline:
         # lane arenas)
         release_all_pools()
         self.state = State.NULL
+        # every element is stopped and every window drained: a consistent
+        # checkpoint when armed (one env read otherwise)
+        from nnstreamer_tpu_torch.pipeline import continuity as _continuity
+
+        _continuity.maybe_checkpoint_on_stop(self)
         # retire the flight recorder before the env-owned export check: a
         # pending tail dump near EOS flushes here, and the recorder stays
         # on self._flight for the caller to read

@@ -21,10 +21,14 @@ pipeline. Robustness here is the per-element ``error-policy`` property
   mark.
 
   A *memory-pressure* failure (an injected ``kind=oom`` or a
-  ``torch.cuda.OutOfMemoryError``) under ``degrade`` halts with a
-  ``FlowError`` naming ROADMAP A.19: the JAX package's memory-pressure
-  ladder (evict → pool → shed → cpu) needs the HBM accountant (A.19),
-  and a partial ladder is not run.
+  ``torch.cuda.OutOfMemoryError``) under ``degrade`` takes the
+  memory-pressure ladder instead (:func:`_pressure_ladder`): ``evict``
+  (every resident weight unit of the HBM accountant, ``tensors/memory.py``,
+  to host staging), ``pool`` (drain the window, free the staging arenas,
+  ``torch.cuda.empty_cache()``), ``shed`` (the SLO scheduler sheds at
+  admission), then halt. It has no ``cpu`` rung: memory pressure never
+  moves a kernel's work to the host (ROADMAP C.29). Each rung counts
+  ``nns_mem_pressure_events_total{rung}`` when an accountant is active.
 
 The wall time burnt on retries (failed attempts and backoff) is reported
 to the pipeline's SLO scheduler (:meth:`SloScheduler.note_retry`), so
@@ -266,15 +270,11 @@ def _degrade(el, pad, buf, exc: BaseException) -> FlowReturn:
     transient; (2) reopen with ``accelerator=cpu`` and retry — the
     accelerator is presumed sick, serve degraded rather than die;
     (3) halt. Elements without a backend get ``retry`` semantics.
-    OOM-class failures halt naming ROADMAP A.19 — the accelerator isn't
-    sick, it's FULL, a reload would re-lose the same allocation race, and
-    the JAX package's memory-pressure ladder needs the HBM accountant."""
+    OOM-class failures take :func:`_pressure_ladder` instead — the
+    accelerator isn't sick, it's FULL, and a reload would re-lose the
+    same allocation race."""
     if _is_memory_pressure(exc):
-        raise FlowError(
-            f"{el.name}: error-policy=degrade met memory pressure ({exc}); "
-            "the memory-pressure ladder is not ported to "
-            "nnstreamer_tpu_torch yet (ROADMAP.md, A.19 the HBM "
-            "accountant)") from exc
+        return _pressure_ladder(el, pad, buf, exc)
     if not hasattr(el, "_open_fw"):
         log.warning("%s: error-policy=degrade on a non-filter element — "
                     "applying retry semantics", el.name)
@@ -309,6 +309,118 @@ def _degrade(el, pad, buf, exc: BaseException) -> FlowReturn:
         f"(reload + CPU fallback both failed): {last}") from last
 
 
+def _pressure_ladder(el, pad, buf, exc: BaseException) -> FlowReturn:
+    """The memory-pressure rungs, in escalation order (see
+    ``tensors/memory.py`` PRESSURE_RUNGS and docs/robustness.md):
+
+    1. ``evict`` — drop every resident weight unit to host staging; the
+       one this frame needs prefetches back in on the retry.
+    2. ``pool``  — drain the element's dispatch window (outstanding
+       batches release their staging stashes), free every pool arena's
+       free-listed slabs, and return the CUDA caching allocator's free
+       blocks (``torch.cuda.empty_cache()``). A live CUDA graph's private
+       pool is not freed that way: its blocks stay reserved until the
+       region drops the graph.
+    3. ``shed``  — tell the SLO scheduler to shed at admission for a
+       while (memory-backlog term) so retried work isn't racing fresh
+       arrivals for the same headroom; reclaim again.
+
+    Then the ladder halts with a FlowError naming the rungs tried. The
+    JAX ladder has a fourth rung, ``cpu``, that reopens the filter on the
+    host; the port has none, because a kernel's work never moves to its
+    plain version on the CPU (ROADMAP C.29).
+
+    Every rung counts ``nns_fault_degraded_total`` and
+    ``nns_mem_pressure_events_total{rung=...}`` and marks the ledger, so
+    a recovery is attributable to the rung that made room. On a fused
+    region the retry replays the region: an evicted weight unit loads
+    back into new storage, and the region, seeing the unit's load count
+    change, drops its graphs and captures anew (``pipeline/fuse.py``)."""
+    m = _metrics(el)
+    last = exc
+    from nnstreamer_tpu_torch.tensors.memory import PRESSURE_RUNGS
+
+    for rung in PRESSURE_RUNGS:
+        m["degraded"].inc()
+        _mark("fault_degrade", buf, element=el.name, stage=rung)
+        _count_pressure_rung(rung)
+        try:
+            _apply_pressure_rung(el, rung)
+        except Exception as e:  # noqa: BLE001 — a failed rung is just a
+            # failed rung; escalation continues and halt is below
+            el.log.warning("%s: pressure rung %r failed: %s",
+                           el.name, rung, e)
+            last = e
+            continue
+        m["retries"].inc()
+        try:
+            ret = el.chain(pad, buf)
+        except Exception as e:  # noqa: BLE001 — next rung or halt below
+            last = e
+            continue
+        m["recovered"].inc()
+        el.log.warning("%s: recovered from memory pressure at rung %r "
+                       "(first failure: %s)", el.name, rung, exc)
+        return FlowReturn.OK if ret is None else ret
+    raise FlowError(
+        f"{el.name}: memory-pressure ladder exhausted "
+        f"({' → '.join(PRESSURE_RUNGS)} all failed; the port has no CPU "
+        f"rung): {last}") from last
+
+
+def _count_pressure_rung(rung: str) -> None:
+    import sys
+
+    mem = sys.modules.get("nnstreamer_tpu_torch.tensors.memory")
+    if mem is not None and mem.ACTIVE is not None:
+        mem.ACTIVE.pressure_events += 1
+        mem.ACTIVE.count_pressure(rung)
+
+
+def _apply_pressure_rung(el, rung: str) -> None:
+    """The reclamation action for one rung (no retry here — the caller
+    owns the retry loop)."""
+    import sys
+
+    mem = sys.modules.get("nnstreamer_tpu_torch.tensors.memory")
+    acct = mem.ACTIVE if mem is not None else None
+    if rung == "evict":
+        if acct is not None:
+            acct.residency.evict_all()
+        return
+    if rung == "pool":
+        from nnstreamer_tpu_torch.tensors.pool import release_all_pools
+
+        window = getattr(el, "_window", None)
+        if window is not None:
+            window.drain(on_error="log")
+        release_all_pools()
+        _empty_cache()
+        return
+    if rung == "shed":
+        sched = getattr(el.pipeline, "_slo_scheduler", None)
+        if sched is not None:
+            sched.note_memory_pressure()
+        # shedding only relieves FUTURE admissions; this frame still
+        # needs room now, so run the reclamation rungs again too
+        if acct is not None:
+            acct.residency.evict_all()
+        from nnstreamer_tpu_torch.tensors.pool import release_all_pools
+
+        release_all_pools()
+        _empty_cache()
+
+
+def _empty_cache() -> None:
+    """Give the caching allocator's free blocks back to the device.
+    Blocks a captured CUDA graph still owns (its private pool) stay
+    reserved."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
 def _reopen_backend(el, force_cpu: bool) -> None:
     """Close and reopen a tensor_filter's backend, optionally pinned to
     the CPU. Outstanding dispatches read the old backend's params, so
@@ -325,7 +437,7 @@ def _reopen_backend(el, force_cpu: bool) -> None:
     release_all_pools()
     if el.fw is not None:
         try:
-            el.fw.close()
+            el._close_fw()
         except Exception as e:  # noqa: BLE001 — a dying backend failing
             # to close cleanly must not block its own replacement
             el.log.warning("%s: backend close during degrade failed: %s",

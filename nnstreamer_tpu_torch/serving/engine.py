@@ -34,9 +34,9 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
 - **Prefix cache** (``prefix_cache``): the KV of the last N admitted
   prompts stays on the card; a prompt that shares a prefix with one of
   them prefills only the remainder through the chunk program, and an
-  exact repeat none. Registering the entries with the HBM accountant as
-  droppable units waits for ``tensors/memory.py`` (A.19): without an
-  accountant the JAX engine does not register them either.
+  exact repeat none. Under the HBM accountant (``tensors/memory.py``)
+  each monolithic entry is a droppable ``kvcache`` unit: the evict rung
+  revokes it and the engine thread drops it (:meth:`_reap_condemned`).
 - **The paged KV cache** (``block_tokens`` > 0, ``serving/kvpool.py``):
   the cache becomes fixed-size blocks of one preallocated arena with a
   block table per stream, and admission is bounded by free blocks, not
@@ -76,8 +76,11 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
   engine's streams carry its budget as their deadline.
 
 The option of the JAX engine that is not ported yet raises with its
-ROADMAP item: ``mesh`` (A.24). The pool's registration with the HBM
-accountant and its pressure counters wait for A.19.
+ROADMAP item: ``mesh`` (A.24). Under the HBM accountant the paged pool
+registers its arena under ``kvcache``, a dropped paged prefix entry
+counts ``nns_mem_pressure_events_total{rung="evict"}`` and a shed stream
+``{rung="shed"}``. :meth:`ContinuousBatchingEngine.close` stops the
+engine and unregisters every byte it registered.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ import itertools
 import queue as _queue
 import threading
 import time as _time
+import weakref
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -562,6 +566,13 @@ class ContinuousBatchingEngine:
         #: — LRU, engine thread only; the trie mirrors the key set
         self._prefix: "collections.OrderedDict" = collections.OrderedDict()
         self._prefix_trie = _PrefixTrie()
+        #: prefix key → (accountant unit key, bytes) under an HBM budget;
+        #: keys whose units the accountant revoked wait in _condemned for
+        #: the engine thread (:meth:`_reap_condemned`)
+        self._prefix_acct: Dict[tuple, tuple] = {}
+        self._prefix_seq = itertools.count()
+        self._condemned: set = set()
+        self._condemned_lock = threading.Lock()
 
         # paged mode never allocates the monolithic cache: the pool's
         # arena (made below, after obs_name) is the only KV storage
@@ -806,6 +817,16 @@ class ContinuousBatchingEngine:
         self._thread.start()
         return self
 
+    def close(self) -> None:
+        """Stop the engine and unregister every byte it registered with
+        the HBM accountant (prefix entries, the paged arena): after
+        close() the engine's account nets to zero."""
+        self.stop()
+        for key in list(self._prefix_acct):
+            self._prefix_unaccount(key)
+        if self.paged:
+            self._pool.close()
+
     def stop(self):
         self._stop_evt.set()
         self._wake.set()
@@ -947,11 +968,67 @@ class ContinuousBatchingEngine:
         kv = cache1.map(lambda a: a[:, :, :, :n].clone())
         if key not in self._prefix:
             self._prefix_trie.insert(key)
+        else:
+            self._prefix_unaccount(key)  # re-stored: bytes change
         self._prefix[key] = (kv, logits)
         self._prefix.move_to_end(key)
+        self._prefix_account(key, kv)
         while len(self._prefix) > self.prefix_cache:
             evicted, _ = self._prefix.popitem(last=False)
             self._prefix_trie.remove(evicted)
+            self._prefix_unaccount(evicted)
+
+    # -- prefix-cache HBM accounting (tensors/memory.py, "kvcache") ----------
+    def _prefix_account(self, key: tuple, kv) -> None:
+        """Register one monolithic prefix entry's device bytes with the
+        HBM accountant as a DROPPABLE unit: under pressure the accountant
+        revokes it (``on_drop`` condemns the key; the engine thread
+        reaps), so cached prefixes ride the evict rung of the pressure
+        ladder instead of being invisible device memory."""
+        from nnstreamer_tpu_torch.tensors import memory as _memory
+
+        acct = _memory.ACTIVE
+        if acct is None:
+            return
+        nbytes = _memory.nbytes_of(list(kv.leaves()))
+        acct_key = f"{self.obs_name}:prefix:{next(self._prefix_seq)}"
+        ref = weakref.ref(self)
+
+        def on_drop(_k, key=key):
+            eng = ref()
+            if eng is not None:
+                with eng._condemned_lock:
+                    eng._condemned.add(key)
+
+        acct.residency.register_droppable(
+            acct_key, nbytes, on_drop, label=f"{self.obs_name}:prefix")
+        self._prefix_acct[key] = (acct_key, nbytes)
+
+    def _prefix_unaccount(self, key: tuple) -> None:
+        rec = self._prefix_acct.pop(key, None)
+        if rec is None:
+            return
+        from nnstreamer_tpu_torch.tensors import memory as _memory
+
+        acct = _memory.ACTIVE
+        if acct is not None:
+            acct.residency.unregister(rec[0])
+
+    def _reap_condemned(self) -> None:
+        """Engine-thread half of droppable prefix eviction: drop the
+        entries whose accounting units the pressure ladder revoked
+        (their bytes are already unregistered; only the engine's
+        references remain to release)."""
+        if not self._condemned:
+            return
+        with self._condemned_lock:
+            keys = list(self._condemned)
+            self._condemned.clear()
+        for key in keys:
+            self._prefix_acct.pop(key, None)
+            if key in self._prefix:
+                del self._prefix[key]
+                self._prefix_trie.remove(key)
 
     @staticmethod
     def _place_prefix_kv(cache1, kv):
@@ -1472,8 +1549,8 @@ class ContinuousBatchingEngine:
     def _alloc_blocks(self, k: int):
         """Pool alloc with the evict rung of the pressure ladder: LRU paged
         prefix entries are dropped until the allocation fits (or nothing
-        is left to drop: the caller then defers or sheds). The JAX
-        engine's ``count_pressure("evict")`` waits for A.19."""
+        is left to drop: the caller then defers or sheds); each drop
+        counts the accountant's ``evict`` rung."""
         ids = self._pool.alloc(k)
         while ids is None and self._evict_prefix_paged():
             ids = self._pool.alloc(k)
@@ -1482,9 +1559,14 @@ class ContinuousBatchingEngine:
     def _evict_prefix_paged(self) -> bool:
         if not self._prefix:
             return False
+        from nnstreamer_tpu_torch.tensors import memory as _memory
+
         evicted, (ids, _logits) = self._prefix.popitem(last=False)
         self._prefix_trie.remove(evicted)
         self._pool.release(list(ids))
+        acct = _memory.ACTIVE
+        if acct is not None:
+            acct.count_pressure("evict")
         return True
 
     def _prefix_lookup_paged(self, prompt: np.ndarray):
@@ -1703,9 +1785,11 @@ class ContinuousBatchingEngine:
     def _shed_one(self, keep_sid: int) -> bool:
         """Decode-time block exhaustion: revoke the admitted stream with
         the earliest deadline (the most late), with the SLO scheduler's
-        shed accounting and finish reason "shed" (the JAX engine's
-        ``count_pressure("shed")`` waits for A.19). False = the only
-        candidate was ``keep_sid`` itself, which the caller gives up."""
+        shed accounting, the accountant's ``shed`` rung and finish reason
+        "shed". False = the only candidate was ``keep_sid`` itself, which
+        the caller gives up."""
+        from nnstreamer_tpu_torch.tensors import memory as _memory
+
         cands = [st for st in self._sstate.values()
                  if st["sid"] != keep_sid]
         self_shed = not cands
@@ -1717,6 +1801,9 @@ class ContinuousBatchingEngine:
             victim = min(cands, key=lambda st: st["deadline_t"])
         now = _time.monotonic()
         late = victim["deadline_t"] <= now
+        acct = _memory.ACTIVE
+        if acct is not None:
+            acct.count_pressure("shed")
         if self._slo is not None:
             self._slo.note_shed_request(now, late)
         self.stats["kv_sheds"] += 1
@@ -1833,6 +1920,7 @@ class ContinuousBatchingEngine:
         host state it loads a block is a few hundred integers), which keeps
         lane parking and EDF preemption a host-side concern."""
         while not self._stop_evt.is_set():
+            self._reap_condemned()
             for state in list(self._sstate.values()):
                 if state["stream"].cancelled:
                     self._finish_paged(state, "cancelled")
@@ -1916,6 +2004,7 @@ class ContinuousBatchingEngine:
 
     def _loop_mono(self):
         while not self._stop_evt.is_set():
+            self._reap_condemned()
             # honor cancellations first: active slots free at this block
             # boundary; a half-ingested prompt stops mid-prefill
             for slot in range(self.B):

@@ -26,10 +26,11 @@ serving cache gives every one of ``max_streams`` batch slots the full
   free list when its last owner releases it. Allocation is
   all-or-nothing.
 
-Registering the arena's bytes with the HBM accountant under the
-``kvcache`` category (the JAX pool's ``acct.register``) waits for
-``tensors/memory.py`` (ROADMAP A.19); :attr:`BlockPool.nbytes` is the
-figure it will register. A mesh-placed arena waits for A.24.
+Under the HBM accountant (``tensors/memory.py``) the arena's bytes,
+:attr:`BlockPool.nbytes`, register under the ``kvcache`` category when
+the pool is made and unregister at :meth:`BlockPool.close` (or when the
+pool is collected), against the accountant that registered them. A
+mesh-placed arena waits for A.24.
 
 Kill switch: ``NNSTPU_PAGED_KV=0`` (or ``block_tokens=0`` on the engine)
 keeps the engine on its monolithic cache.
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -46,6 +48,7 @@ import torch
 
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.pipeline.element import not_ported
+from nnstreamer_tpu_torch.tensors import memory as _memory
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -94,9 +97,21 @@ class BlockPool:
         self.arena = self._codec.paged_init(
             cfg.n_layers, self.ntot, self.block_tokens, cfg.n_heads,
             cfg.head_dim, device=self.device)
-        #: the arena's device bytes (trash block included): what A.19's
-        #: accountant will register under "kvcache"
+        #: the arena's device bytes (trash block included), registered
+        #: with the HBM accountant under "kvcache"
         self.nbytes = int(self.arena.nbytes)
+        acct = _memory.ACTIVE
+        if acct is not None:
+            acct.register(self.nbytes, "kvcache")
+            self._acct_finalizer = weakref.finalize(
+                self, _unregister_arena, weakref.ref(acct), self.nbytes)
+        else:
+            self._acct_finalizer = None
+
+    def close(self) -> None:
+        """Unregister the arena's bytes (idempotent)."""
+        if self._acct_finalizer is not None:
+            self._acct_finalizer()
 
     # -- host-side bookkeeping ----------------------------------------
 
@@ -187,3 +202,9 @@ class BlockPool:
                 "live_blocks": int(np.count_nonzero(self._ref)),
                 "nbytes": self.nbytes,
             }
+
+
+def _unregister_arena(acct_ref, nbytes: int) -> None:
+    acct = acct_ref()
+    if acct is not None:
+        acct.unregister(nbytes, "kvcache")

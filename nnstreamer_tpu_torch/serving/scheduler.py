@@ -47,9 +47,9 @@ the request population between ingress and device dispatch instead:
   recommendation as the ``nns_sched_lanes_hint`` gauge for the next
   launch.
 
-Not ported: the serving mesh's admission quantum (:meth:`note_mesh`
-raises naming ROADMAP A.24), and the HBM accountant's overage term in
-:meth:`_memory_backlog` (A.19; the supervision ladder's hold is kept).
+Under an HBM budget (``tensors/memory.py``) :meth:`_memory_backlog` adds
+the accountant's overage in frames. Not ported: the serving mesh's
+admission quantum (:meth:`note_mesh` raises naming ROADMAP A.24).
 
 Exported series: ``nns_sched_admitted_total``, ``nns_sched_rejected_total``,
 ``nns_sched_shed_total{reason}``, ``nns_sched_deadline_slack_seconds``,
@@ -60,6 +60,7 @@ Exported series: ``nns_sched_admitted_total``, ``nns_sched_rejected_total``,
 
 from __future__ import annotations
 
+import sys
 import threading
 from collections import deque
 from typing import Any, Dict, Optional
@@ -396,15 +397,20 @@ class SloScheduler:
         return slack >= 0.0, deadline_t, slack
 
     def _memory_backlog(self) -> int:
-        """The admission-side memory-pressure term: the decaying hold the
-        supervision ladder's shed rung requested. Pure state reads — no
-        waits, no clock. The JAX package adds the HBM accountant's
-        overage in frames; that reading waits for the port's accountant
-        (ROADMAP A.19)."""
+        """The admission-side memory-pressure term: the HBM budget
+        accountant's current overage expressed in frames
+        (``tensors/memory.py``), plus the decaying hold the supervision
+        ladder's shed rung requested. Pure state reads — no waits, no
+        clock; zero with no accountant and no pressure (one dict
+        lookup)."""
+        extra = 0
+        mem = sys.modules.get("nnstreamer_tpu_torch.tensors.memory")
+        if mem is not None and mem.ACTIVE is not None:
+            extra = mem.ACTIVE.admission_backlog()
         hold = self._mem_hold
         if hold > 0:
             self._mem_hold = hold - 1  # one unit per admission decision
-        return hold
+        return extra + hold
 
     def note_memory_pressure(self, frames: int = 8) -> None:
         """The pressure ladder's shed rung: hold admission down for the

@@ -166,6 +166,17 @@ def note_h2d(arr, device: torch.device) -> None:
     note_copy(arr, event)
 
 
+def _mem_note_h2d(nbytes: int, owner) -> None:
+    """Register an H2D transfer's bytes with the HBM budget accountant
+    (``tensors/memory.py``) under ``frames``; ``owner`` is the buffer
+    wrapper whose death releases the device payload. No accountant: one
+    dict lookup."""
+    mem = sys.modules.get("nnstreamer_tpu_torch.tensors.memory")
+    if mem is None or mem.ACTIVE is None:
+        return
+    mem.ACTIVE.note_h2d(nbytes, owner)
+
+
 def tensor_nbytes(t) -> int:
     if isinstance(t, torch.Tensor):
         return t.numel() * t.element_size()
@@ -386,10 +397,12 @@ class TensorBuffer:
         out = [upload_tensor(t, device) for t in self.tensors]
         if moved and device.type != "cpu":
             _tally(h2d_bytes=moved, h2d_events=1)
+        buf = self.replace(tensors=out)
         if moved:
             _fault_check("transfer.h2d", self.meta)
             _tl_xfer_span("h2d", (self.meta,), t0, nbytes=moved)
-        return self.replace(tensors=out)
+            _mem_note_h2d(moved, buf)
+        return buf
 
     def pad_rows_device(self) -> "TensorBuffer":
         """Apply a deferred partial-window pad (aggregator ``pad-device``):
@@ -564,7 +577,11 @@ def upload_many(bufs: List[TensorBuffer], device: torch.device
         nb = b.with_tensors([d[i] for d in devs])
         nb.meta[H2D_EXCLUSIVE_META] = True
         # the pre-upload host arrays become the zero-copy host view
-        out.append(as_device_buffer(nb, host_view=list(b.tensors)))
+        wrapped = as_device_buffer(nb, host_view=list(b.tensors))
+        # each frame's share of the window: the frames category tracks
+        # the live working set as the wrappers die
+        _mem_note_h2d(moved // k, wrapped)
+        out.append(wrapped)
     return out, slabs
 
 

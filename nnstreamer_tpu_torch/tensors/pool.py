@@ -17,7 +17,17 @@ reference's ``tensor_allocator`` and GStreamer's ``GstBufferPool`` do:
   CPU device, or with no card at all, a slab is a plain numpy array.
 - **Safe recycling.** ``acquire`` registers a GC finalizer on the view it
   hands out: a buffer that flows to the end of a pipeline and is dropped
-  returns its slab to the free list when its last reference dies.
+  returns its slab to the free list when its last reference dies. The
+  finalizer never takes the pool's lock: the cyclic GC can run it on a
+  thread that is inside one of the pool's locked blocks (any allocation
+  there may start a collection), and a plain ``Lock`` would then wait on
+  itself forever. It appends ``(token, seq)`` to a ``deque`` (``append``
+  is atomic), and every locked block drains those tokens first
+  (:meth:`BufferPool._drain_locked`). An ``RLock`` would also end the
+  hang, but the finalizer would then change ``_out``/``_free``/``_pinned``
+  in the middle of the outer block; draining at the top of a block keeps
+  every block's view of them whole. ``seq`` tells a dead view's token
+  from a live view that reuses its ``id()``.
   ``release`` is the explicit fast path for owners that know the array is
   dead (the dispatch window fencing the batch that read a staging
   buffer); it detaches the finalizer so a recycled id can never
@@ -57,13 +67,17 @@ copy event; a CUDA-graph capture on another thread in ``thread_local``
 mode (``pipeline/fuse.py``) permits both.
 
 The ``pool.alloc`` fault hook (``_alloc_fault_check``) fires on the
-slab-growth path only. Not ported: the HBM accountant's pool category
-(``_mem_account``, ROADMAP A.19).
+slab-growth path only. Under an HBM budget (``tensors/memory.py``) every
+slab the pool holds counts under the accountant's ``pool`` category
+(:func:`_mem_account`): registered when it is made, unregistered when it
+leaves the pool.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import itertools
 import os
 import sys
 import threading
@@ -109,6 +123,21 @@ def _alloc_fault_check() -> None:
     fi = faults.ACTIVE
     if fi is not None:
         fi.check("pool.alloc")
+
+
+def _mem_account(nbytes: int, grow: bool) -> None:
+    """Register (``grow``) or unregister slab bytes with the HBM budget
+    accountant under its ``pool`` category, so the pressure ladder's
+    ``pool`` rung has a number to reclaim. Resolved through
+    ``sys.modules``: with no accountant this is one dict lookup."""
+    mem = sys.modules.get("nnstreamer_tpu_torch.tensors.memory")
+    acct = mem.ACTIVE if mem is not None else None
+    if acct is None:
+        return
+    if grow:
+        acct.register(nbytes, "pool")
+    else:
+        acct.unregister(nbytes, "pool")
 
 
 def _new_slab(nbytes: int, pinned: bool) -> np.ndarray:
@@ -175,6 +204,10 @@ class BufferPool:
         self._pinned: Dict[int, int] = {}
         #: ids of the slabs this pool holds (free or behind a view)
         self._slab_ids: set = set()
+        #: (token, seq) of views whose finalizer ran; drained under the
+        #: lock by every locked block (finalizers never take the lock)
+        self._pending: "collections.deque" = collections.deque()
+        self._seq = itertools.count()
         #: id(slab) → event recorded after the last copy that reads it
         self._copy_events: Dict[int, Any] = {}
         self.hits = 0
@@ -220,7 +253,9 @@ class BufferPool:
 
     def _forget(self, slab: np.ndarray) -> None:
         """The slab leaves the pool (caller holds the lock)."""
-        self._slab_ids.discard(id(slab))
+        if id(slab) in self._slab_ids:
+            self._slab_ids.discard(id(slab))
+            _mem_account(slab.nbytes, grow=False)
         self._copy_events.pop(id(slab), None)
 
     def _pop_ready(self, cls: int) -> Optional[np.ndarray]:
@@ -251,24 +286,29 @@ class BufferPool:
         cls = _size_class(nbytes)
         obs = self._obs()
         with self._lock:
+            self._drain_locked()
             slab = self._pop_ready(cls)
-        if slab is None:
+        grown = slab is None
+        if grown:
             self.misses += 1
             self.grows += 1
             obs["misses"].inc()
             obs["grows"].inc()
             _alloc_fault_check()
             slab = _new_slab(cls + self.align, _pin_slabs())
+            _mem_account(slab.nbytes, grow=True)
         else:
             self.hits += 1
             obs["hits"].inc()
         off = (-slab.ctypes.data) % self.align
         view = slab[off:off + nbytes].view(dt).reshape(shape)
-        token = id(view)
-        fin = weakref.finalize(view, self._expire, token)
+        token, seq = id(view), next(self._seq)
+        fin = weakref.finalize(view, self._pending.append, (token, seq))
         with self._lock:
+            # a dead view whose id ``view`` reuses leaves ``_out`` first
+            self._drain_locked()
             self._slab_ids.add(id(slab))
-            self._out[token] = (cls, slab, fin)
+            self._out[token] = (cls, slab, fin, seq)
         return view
 
     def _recycle(self, cls: int, slab: np.ndarray) -> None:
@@ -280,30 +320,35 @@ class BufferPool:
         else:
             self._forget(slab)
 
-    def _expire(self, token: int) -> None:
-        """GC fallback: the view died without an explicit release. The
-        slab is recycled ONLY when nothing else references it — a derived
-        view (``frame[None]``, a slice) may still read it."""
-        with self._lock:
+    def _drain_locked(self) -> None:
+        """Take back the slabs of views that died without an explicit
+        release (caller holds the lock). A slab is recycled ONLY when
+        nothing else references it: a derived view (``frame[None]``, a
+        slice) may still read it."""
+        while self._pending:
+            token, seq = self._pending.popleft()
+            entry = self._out.get(token)
+            if entry is None or entry[3] != seq:
+                continue  # released explicitly, or the id was reused
+            del self._out[token]
             # the view is dead, so any pin on it is moot
             self._pinned.pop(token, None)
-            entry = self._out.pop(token, None)
-            if entry is None:
-                return
             cls, slab = entry[0], entry[1]
             del entry
-            # refs now: local `slab` + getrefcount's argument + the DYING
-            # view's .base (weakref callbacks fire before the instance
-            # drops its own references) == 3
-            if sys.getrefcount(slab) > 3:
-                self._forget(slab)  # a derived view is still live
-                return
+            # refs now: local `slab` + getrefcount's argument == 2; more
+            # means a derived view is still live (or the dying view has
+            # not dropped its .base yet on another thread: the slab is
+            # then dropped, never aliased)
+            if sys.getrefcount(slab) > 2:
+                self._forget(slab)
+                continue
             self._recycle(cls, slab)
 
     def owns(self, arr) -> bool:
         """True if ``arr`` is a view this pool handed out (not a derived
         view — those pin the slab out of circulation until they die)."""
         with self._lock:
+            self._drain_locked()
             return id(arr) in self._out
 
     def pin(self, arr) -> bool:
@@ -312,6 +357,7 @@ class BufferPool:
         only through the GC fallback once the view truly dies. Returns
         False (no-op) for arrays this pool does not own."""
         with self._lock:
+            self._drain_locked()
             token = id(arr)
             if token not in self._out:
                 return False
@@ -333,12 +379,13 @@ class BufferPool:
         flight is waited out by ``acquire``). Unknown arrays are ignored
         (False); pinned arrays are refused."""
         with self._lock:
+            self._drain_locked()
             if id(arr) in self._pinned:
                 return False
             entry = self._out.pop(id(arr), None)
             if entry is None:
                 return False
-            cls, slab, fin = entry
+            cls, slab, fin = entry[:3]
             del entry
             fin.detach()  # a future acquire may reuse this id
             # refs now: local `slab` + getrefcount arg + `arr.base` == 3;
@@ -377,10 +424,10 @@ class BufferPool:
 
     def bytes_held(self) -> int:
         with self._lock:
+            self._drain_locked()
             free_b = sum((cls + self.align) * len(v)
                          for cls, v in self._free.items())
-            out_b = sum(cls + self.align for cls, _s, _f in
-                        self._out.values())
+            out_b = sum(e[0] + self.align for e in self._out.values())
         return int(free_b + out_b)
 
     # -- introspection ------------------------------------------------------
@@ -390,6 +437,7 @@ class BufferPool:
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
+            self._drain_locked()
             free = sum(len(v) for v in self._free.values())
             out = len(self._out)
             pinned = len(self._pinned)
@@ -406,6 +454,7 @@ class BufferPool:
         slab's memory stays with the caching host allocator until the
         copies it recorded are done."""
         with self._lock:
+            self._drain_locked()
             for slabs in self._free.values():
                 for slab in slabs:
                     self._forget(slab)

@@ -110,16 +110,47 @@ def test_check_parses_without_running(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--fleet", "127.0.0.1:9000"], "26b"),
-    (["--export", "m.py", "out.pt2"], "A.20"),
-    (["--checkpoint-dir", "/nonexistent"], "A.20"),
-    (["--compile-cache", "/nonexistent"], "A.20"),
-    (["--custom", "x"], "A.20"),
-    (["--input", "3:4:4:1"], "A.20"),
     (["--scaffold", "filter", "mine"], "26g"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         main(argv + [DESC])
+
+
+@pytest.fixture
+def kernel_build_dir(monkeypatch):
+    from nnstreamer_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "_override", None)
+
+
+@pytest.mark.parametrize("flag", ["export", "checkpoint-dir",
+                                  "compile-cache", "custom", "input"])
+def test_continuity_flags_are_ported(flag, tmp_path, capsys,
+                                     kernel_build_dir):
+    """The serving-continuity flags (ROADMAP A.20): ``--export`` writes a
+    ``.pt2`` (a missing model fails with rc 1), ``--checkpoint-dir``
+    checkpoints at stop, ``--compile-cache`` moves the kernels' build
+    directory, and ``--custom``/``--input`` belong to ``--export``."""
+    from nnstreamer_tpu_torch.ops import _build
+    from nnstreamer_tpu_torch.pipeline import continuity
+
+    if flag == "export":
+        assert main(["--export", str(tmp_path / "none.pt"),
+                     str(tmp_path / "out.pt2")]) == 1
+        assert "export failed" in capsys.readouterr().err
+    elif flag == "checkpoint-dir":
+        assert main(["--platforms", "cpu", "-q", "--checkpoint-dir",
+                     str(tmp_path), DESC]) == 0
+        assert (tmp_path / continuity.STATE_FILE).is_file()
+    elif flag == "compile-cache":
+        assert main(["--platforms", "cpu", "-q", "--compile-cache",
+                     str(tmp_path), DESC]) == 0
+        assert _build.build_dir() == (tmp_path / "kernels").resolve()
+    else:
+        with pytest.raises(SystemExit):
+            main([f"--{flag}", "3:4:4:1", DESC])
+        assert "only apply with --export" in capsys.readouterr().err
 
 
 def test_bad_platform_is_a_usage_error():

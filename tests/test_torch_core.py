@@ -130,12 +130,12 @@ def test_queue_properties_run(queue_props):
 @pytest.mark.parametrize("desc,item", [
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m shard=dp2 ! tensor_sink", "A.24"),
-    ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
-     "model=m shared-tensor-filter-key=k ! tensor_sink", "A.20"),
+    ("videotestsrc ! tensor_converter input-dim=3:4:4:1 ! tensor_filter "
+     "framework=jax model=m ! tensor_sink", "A.17"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
-    ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
-     "model=m is-updatable=true ! tensor_sink", "A.20"),
+    ("videotestsrc ! tensor_converter mode=custom-code:f ! tensor_filter "
+     "framework=jax model=m ! tensor_sink", "A.17"),
 ])
 def test_unported_properties_raise_naming_the_roadmap(desc, item):
     with pytest.raises(NotImplementedError, match=item):

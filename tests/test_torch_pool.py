@@ -13,6 +13,8 @@ through.
 """
 
 import gc
+import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -298,3 +300,85 @@ def test_metrics_snapshot_and_stop_clear_the_pool(monkeypatch):
 
     monkeypatch.setattr(pipeline_mod, "pool_enabled", lambda: False)
     assert "pool" not in pipe.metrics_snapshot()
+
+
+class _Cycle:
+    """A pooled view held only through a reference cycle, so only the
+    cyclic GC frees it (and runs its finalizer)."""
+
+    def __init__(self, view):
+        self.me = self
+        self.view = view
+
+
+def _acquire_with_gc_inside_the_lock(pool, state):
+    """``pool.acquire`` on a thread, where adding the new slab's id (under
+    the pool's lock) first drops the cycle in ``state`` and runs
+    ``gc.collect()``: the dead view's finalizer then runs on the thread
+    that holds the lock. Returns the acquired view; fails if the thread is
+    still stuck after a few seconds."""
+
+    class _CollectingSet(set):
+        def add(self, item):
+            if state.pop("armed", False):
+                state.pop("cycle")
+                gc.collect()
+            super().add(item)
+
+    pool._slab_ids = _CollectingSet(pool._slab_ids)
+    state["armed"] = True
+    got = {}
+    thread = threading.Thread(
+        target=lambda: got.update(view=pool.acquire((100,), np.uint8)),
+        daemon=True)
+    thread.start()
+    thread.join(5.0)
+    if thread.is_alive():
+        # the stuck thread holds the lock: keep the pool's other
+        # finalizers (the view being acquired has one already) off it,
+        # so the failure does not hang the process at exit
+        for fin, info in list(weakref.finalize._registry.items()):
+            if getattr(info.func, "__self__", None) is pool:
+                fin.detach()
+    assert not thread.is_alive(), \
+        "a finalizer run by the GC inside the pool's lock deadlocked"
+    return got["view"]
+
+
+def test_finalizer_run_by_gc_under_the_pool_lock_does_not_deadlock():
+    """The hang this pins: a GC pass inside one of the pool's locked blocks
+    ran a dead view's finalizer, which waited on the same plain lock.
+    The finalizer now only queues its token; the next locked block takes
+    the slab back, and the accounting equals an explicit release's."""
+    pool = BufferPool(name="gc-under-lock")
+    state = {"cycle": _Cycle(pool.acquire((100,), np.uint8))}
+    first_slab = id(state["cycle"].view.base)  # no reference kept
+    held = _acquire_with_gc_inside_the_lock(pool, state)
+
+    ref = BufferPool(name="gc-under-lock-ref")
+    a = ref.acquire((100,), np.uint8)
+    ref_held = ref.acquire((100,), np.uint8)
+    assert ref.release(a)
+    del a
+
+    assert pool.snapshot() == ref.snapshot()
+    assert pool.snapshot()["free"] == 1 and pool.misses == 2
+    again = pool.acquire((100,), np.uint8)
+    ref_again = ref.acquire((100,), np.uint8)
+    assert id(again.base) == first_slab  # the dead view's slab came back
+    assert (pool.hits, pool.misses, pool.grows) == \
+        (ref.hits, ref.misses, ref.grows) == (1, 2, 2)
+    assert id(held.base) != first_slab and ref_held is not ref_again
+
+
+def test_pending_token_of_a_dead_view_never_frees_a_live_view():
+    """A view that dies leaves only ``(id, seq)`` behind; a new view with
+    the same ``id()`` has another ``seq``, so draining the old token
+    leaves the new view's slab out."""
+    pool = BufferPool(name="id-reuse")
+    v = pool.acquire((64,), np.uint8)
+    token = id(v)
+    entry = pool._out[token]
+    pool._pending.append((token, entry[3] + 1000))  # a stale token
+    assert pool.snapshot()["outstanding"] == 1
+    assert pool.owns(v) and pool.release(v)

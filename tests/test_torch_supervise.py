@@ -535,27 +535,70 @@ def test_degrade_reopens_on_the_cpu(cpu_model, monkeypatch):
     assert opened[-1] == "true:cpu"
 
 
-@pytest.mark.parametrize("how", ["injected", "torch"])
-def test_degrade_halts_on_memory_pressure_naming_a19(cpu_model, how,
-                                                     monkeypatch):
+@pytest.mark.parametrize("how,fuse", [("injected", False), ("injected", True),
+                                      ("torch", False), ("exhausted", False)])
+def test_degrade_climbs_the_pressure_ladder(cpu_model, how, fuse,
+                                            monkeypatch):
+    """Memory pressure under ``degrade`` (an injected ``kind=oom``, or a
+    ``torch.cuda.OutOfMemoryError``) takes the ladder: the ``evict`` rung
+    drops the weights to host staging, the retry loads them back and the
+    frame goes through. No frame is lost (ROADMAP C.12, closed). When
+    every retry fails too (``exhausted``) the ladder halts after
+    ``shed``, each rung counted once, and the filter is never reopened on
+    the CPU: the port has no ``cpu`` rung (ROADMAP C.29)."""
+    from nnstreamer_tpu_torch.filters.torch_backend import TorchFilter
+    from nnstreamer_tpu_torch.tensors import memory
+
+    base = tnt.parse_launch(DEGRADE.format(m=cpu_model),
+                            pipeline=tpipeline.Pipeline(fuse=fuse))
+    want = []
+    base.get("out").connect(lambda b: want.append(np.asarray(b[0])))
+    assert base.run(timeout=60).kind == "eos"
     if how == "injected":
         faults.activate("filter.invoke:nth=2,kind=oom")
     else:
-        def oom(self, inputs):
-            raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried")
+        real, calls = TorchFilter.invoke, itertools.count(1)
 
-        from nnstreamer_tpu_torch.filters.torch_backend import TorchFilter
+        def oom(self, inputs):
+            n = next(calls)
+            if n == 2 or (how == "exhausted" and n > 2):
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried")
+            return real(self, inputs)
 
         monkeypatch.setattr(TorchFilter, "invoke", oom)
-    pipe = tnt.parse_launch(DEGRADE.format(m=cpu_model),
-                            pipeline=tpipeline.Pipeline(fuse=False),
-                            error_policy="degrade")
-    d0 = _degraded(pipe.get("filter"))
-    with pytest.raises(FlowError, match=r"memory pressure.*A\.19"):
-        pipe.run(timeout=60)
-    el = pipe.get("filter")
-    assert el.get_property("accelerator") is None  # no partial ladder
-    assert _degraded(el) == d0
+    acct = memory.activate(1 << 30)
+    try:
+        rungs0 = {r: _cval("nns_mem_pressure_events_total", rung=r)
+                  for r in ("evict", "pool", "shed", "cpu")}
+        pipe = tnt.parse_launch(DEGRADE.format(m=cpu_model),
+                                pipeline=tpipeline.Pipeline(fuse=fuse),
+                                error_policy="degrade")
+        got = []
+        pipe.get("out").connect(lambda b: got.append(np.asarray(b[0])))
+        if how == "exhausted":
+            with pytest.raises(FlowError,
+                               match="evict → pool → shed all failed"):
+                pipe.run(timeout=60)
+        else:
+            assert pipe.run(timeout=60).kind == "eos"
+        taken = {r: _cval("nns_mem_pressure_events_total", rung=r) - v
+                 for r, v in rungs0.items()}
+        assert taken == ({"evict": 1, "pool": 1, "shed": 1, "cpu": 0}
+                         if how == "exhausted" else
+                         {"evict": 1, "pool": 0, "shed": 0, "cpu": 0})
+        assert acct.snapshot()["evictions"] >= 1
+        assert pipe.get("filter").get_property("accelerator") is None
+    finally:
+        memory.deactivate()
+    if how == "exhausted":
+        # the halt may stop the queue before it hands on the first frame
+        assert len(got) <= 1
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        return
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_non_filter_degrade_is_retry():
