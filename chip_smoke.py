@@ -103,13 +103,30 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   segmenter with ``image_segment`` (``segment``) and YOLO with
   ``bounding_boxes option1=yolov5`` (``yolo``): each fused against
   unfused, the card's NMS against the CPU's on the same model outputs,
-  and, after every timed run, a profiled restart of the ssd, pose4 and
-  segment pipelines (``*_profile``).
+  and, after every timed run, a profiled restart of the ssd, pose4,
+  segment and audio pipelines (``*_profile``).
+
+- Keyword spotting, file I/O and the stream algebra (``audio``: 80 s
+  of a 16 kHz tone from ``audiotestsrc`` in 100 ms chunks through
+  ``tensor_aggregator`` into 159 one-second windows with a 0.5 s hop,
+  each held byte for byte to the source's samples, B1 on int16 and a 1-D
+  conv classifier (width 64, 12 classes, bf16) in one fused region,
+  fused = unfused bit for bit, the logits against the fp32 model on the
+  CPU; ``files``: the flagship fed ``ball`` frames by ``multifilesrc``
+  and by ``filesrc`` with frames straddling its blocks, labels
+  bit-identical frame by frame to ``videotestsrc``'s, the logits through
+  ``octet_stream`` and the frames through ``direct_video`` into
+  ``filesink``, byte-exact;
+  ``algebra``: a ``tensor_if`` gate before the fused flagship, SSD's
+  outputs through ``tensor_demux`` and pose4's batch through
+  ``tensor_split`` with no copy to the host before the sinks,
+  ``tensor_crop`` by a ``custom-easy`` filter's regions, and ``join`` of
+  the gate's branches).
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
 numeric input type (at the flagship's, the ssd's, YOLO's and the
-segmenter's frames among others). Kernel B3
+segmenter's frames and the audio path's int16 window among others). Kernel B3
 (int8 quantize, nearest and dithered) is held bit for bit against its
 plain versions, for every input type, on misaligned views, on both sides
 of 64 KB and of what its cooperative grid keeps on chip, and for
@@ -192,6 +209,8 @@ LOGIT_FRAMES = 4      # frames whose logits are held to the fp32 CPU model
 REL_L2_MAX = 2e-2     # bf16 on the card vs fp32 on the CPU, 53 layers
 TRANSFORM_CHAIN = [("add", -127.5), ("div", 127.5)]
 NORMALIZE_U8_CHAIN = [("sub", 127.5), ("mul", 1.0 / 127.5)]
+#: the audio path's transform, ``typecast:float32,div:32768``, as B1's chain
+KWS_CHAIN = [("div", 32768.0)]
 
 # -- kernel B2 and LM serving ------------------------------------------------
 #: (q shape, k shape) [b, s, h, d] held against the plain version: the LM
@@ -345,6 +364,26 @@ CONT_LSTM_STEPS = 400      # lstm steps before and after the checkpoint
 CONT_SWAP_SLACK = 128      # frames a running swap may cut over past 400
 LM_MEM_PROMPTS = 8
 LM_MEM_NEW = 32
+# audio keyword spotting, file I/O and the stream algebra (audio, files,
+# algebra): 80 s of 16 kHz audio in 100 ms chunks, 1 s windows, 0.5 s hop
+KWS_SAMPLES = 16000
+KWS_HOP = 8000
+KWS_CHUNK = 1600
+KWS_BUFFERS = 800
+KWS_RATE = 16000
+KWS_CLASSES = 12
+# the tone: a 0.5 s hop is 221.618 cycles (a fractional part near the
+# golden ratio's), so every window starts at another phase and no two of
+# the 159 windows hold the same samples
+KWS_FREQ = 443.236
+KWS_WINDOWS = (KWS_BUFFERS * KWS_CHUNK - KWS_SAMPLES) // KWS_HOP + 1  # 159
+FILES_FRAMES = 240
+FILES_BLOCK = 65536        # filesrc blocks: a 150,528 B frame straddles them
+GATE_FRAMES = 64           # tensor_if gate and join, appsrc frames
+GATE_THRESHOLD = 64        # frame mean; dark frames are scaled to 1/10
+DEMUX_FRAMES = 32          # SSD frames through tensor_demux
+SPLIT_SETS = 16            # pose4 sets through tensor_split
+CROP_FRAMES = 32           # 300x300 frames through tensor_crop
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -582,6 +621,23 @@ def phase_normalize():
                               f"err {err})")
                         cases += 1
 
+    # the audio path's window: int16 [16000, 1] through its chain, on
+    # aligned and misaligned views
+    for offset in (0, 1, 3):
+        base = torch.randint(-2 ** 15, 2 ** 15, (KWS_SAMPLES + offset,),
+                             generator=gen, dtype=torch.int16)
+        x = base.to(dev)[offset:].view(KWS_SAMPLES, 1)
+        for out_dtype in outs:
+            y = pp.normalize_chain(x, KWS_CHAIN, out_dtype)
+            ref = pp.normalize_chain_reference(x, KWS_CHAIN, out_dtype)
+            err = (y.float() - ref.float()).abs().max().item()
+            max_abs_err = max(max_abs_err, err)
+            check(torch.equal(_bits(y), _bits(ref)),
+                  f"normalize_chain kws int16 [{KWS_SAMPLES}, 1] offset "
+                  f"{offset} -> {out_dtype}: not bit-identical to the plain "
+                  f"version (max abs err {err})")
+            cases += 1
+
     # signed zeros: 0.0 and -0.0 are equal keys to Python, but x / -0.0 is
     # -inf where x / 0.0 is +inf (x > 0 here, so no NaN)
     x = torch.randint(1, 256, (IMAGE, IMAGE, 3), generator=gen,
@@ -596,31 +652,36 @@ def phase_normalize():
         cases += 1
 
     # times at the main path's shape (one 224x224x3 uint8 frame -> float32),
-    # at 8 frames and at 10**6 + 3 elements
-    timed_shapes = {"": (1, IMAGE, IMAGE, 3), "batch8_": (8, IMAGE, IMAGE, 3),
-                    "big_": (10 ** 6 + 3,),
-                    "ssd_": (1, SSD_IMAGE, SSD_IMAGE, 3),
-                    "segment_": (1, SEG_IMAGE, SEG_IMAGE, 3)}
+    # at 8 frames and at 10**6 + 3 elements, at the other paths' frames,
+    # and at the audio path's int16 window: tag -> (shape, dtype, chain)
+    u8 = (torch.uint8, TRANSFORM_CHAIN)
+    timed_shapes = {"": ((1, IMAGE, IMAGE, 3), *u8),
+                    "batch8_": ((8, IMAGE, IMAGE, 3), *u8),
+                    "big_": ((10 ** 6 + 3,), *u8),
+                    "ssd_": ((1, SSD_IMAGE, SSD_IMAGE, 3), *u8),
+                    "segment_": ((1, SEG_IMAGE, SEG_IMAGE, 3), *u8),
+                    "kws_": ((KWS_SAMPLES, 1), torch.int16, KWS_CHAIN)}
     times = {}
     timed = {}
-    for tag, shape in timed_shapes.items():
-        xin = torch.randint(0, 256, shape, generator=gen,
-                            dtype=torch.uint8).to(dev)
+    for tag, (shape, in_dtype, chain) in timed_shapes.items():
+        info = torch.iinfo(in_dtype)
+        xin = torch.randint(info.min, info.max + 1, shape, generator=gen,
+                            dtype=in_dtype).to(dev)
 
-        def kernel(xin=xin):
-            return pp.normalize_chain(xin, TRANSFORM_CHAIN, torch.float32)
+        def kernel(xin=xin, chain=chain):
+            return pp.normalize_chain(xin, chain, torch.float32)
 
-        def plain(xin=xin):
-            return pp.normalize_chain_reference(xin, TRANSFORM_CHAIN,
-                                                torch.float32)
+        def plain(xin=xin, chain=chain):
+            return pp.normalize_chain_reference(xin, chain, torch.float32)
 
         # calls back to back, by CUDA events: what a caller of the wrapper
         # gets, host overhead included
         times[f"{tag}ms"] = cuda_time_ms(kernel)
         times[f"{tag}plain_ms"] = cuda_time_ms(plain)
         n = xin.numel()
-        bytes_ms = n * (1 + 4) / HBM_BYTES_PER_S * 1e3  # u8 in, f32 out
-        ops_ms = n * len(TRANSFORM_CHAIN) / FP32_FLOPS * 1e3
+        # each input read once, the f32 output written once
+        bytes_ms = n * (xin.element_size() + 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = n * len(chain) / FP32_FLOPS * 1e3
         times[f"{tag}bound_ms"] = max(bytes_ms, ops_ms)
         times[f"{tag}bound_by"] = "bytes" if bytes_ms >= ops_ms \
             else "operations"
@@ -5033,29 +5094,37 @@ def phase_segment(power: str) -> dict:
 
 
 def profile_restarted(name: str, pipe, model: str, frames_per_source: int,
-                      fps: float, power: str) -> None:
+                      fps: float, power: str, units: int = 0) -> None:
     """Restart a measured pipeline (its region keeps its graph, A.8b) with
-    ``frames_per_source`` frames from each source under ``torch.profiler``:
-    the device's busy time a frame and the kernels that take it, and the
-    idle share at the timed run's ``fps``. Emits ``<name>_profile`` and
-    unregisters ``model``."""
+    ``frames_per_source`` buffers from each source under ``torch.profiler``:
+    the device's busy time a frame (``units`` sink buffers, else one a
+    source buffer) and the kernels that take it, and the idle share at the
+    timed run's ``fps``. Emits ``<name>_profile`` and unregisters
+    ``model``."""
     from nnstreamer_tpu_torch.filters.torch_backend import (
         unregister_torch_model,
     )
 
     sources = [el for el in pipe.elements
-               if el.ELEMENT_NAME == "videotestsrc"]
+               if el.ELEMENT_NAME in ("videotestsrc", "audiotestsrc")]
     for el in sources:
-        el.set_property("num_buffers", frames_per_source)
+        # audiotestsrc does not rewind on a restart, as in the JAX
+        # package: it plays on from its last chunk
+        done = el.i if el.ELEMENT_NAME == "audiotestsrc" else 0
+        el.set_property("num_buffers", done + frames_per_source)
     pipe.get("sink").buffers.clear()
     (region,) = pipe._regions
     captures = region.captures
-    frames = frames_per_source * len(sources)
+    frames = units or frames_per_source * len(sources)
     try:
         out = profile_pipeline(pipe, frames)
     finally:
         unregister_torch_model(model)
     check(region.captures == captures, f"{name}: the restart captured")
+    if units:
+        check(len(pipe.get("sink").buffers) == units,
+              f"{name}: the restart delivered "
+              f"{len(pipe.get('sink').buffers)} of {units}")
     if out["device_kernels_per_frame"] > 0:
         out["device_idle_share_at_timed_rate"] = \
             1.0 - out["device_busy_ms_per_frame"] * fps / 1e3
@@ -5695,6 +5764,560 @@ def phase_lm_memory(power: str) -> dict:
     return result
 
 
+# -- audio keyword spotting, file I/O and the stream algebra (ROADMAP A.17,
+#    A.18, A.27) ---------------------------------------------------------------
+KWS_HEAD = (f"audiotestsrc num-buffers={KWS_BUFFERS} freq={KWS_FREQ} "
+            f"samplesperbuffer={KWS_CHUNK} rate={KWS_RATE} format=S16LE ! "
+            "tensor_converter ! tensor_aggregator name=agg "
+            f"frames-in={KWS_CHUNK} frames-out={KWS_SAMPLES} "
+            f"frames-flush={KWS_HOP} frames-dim=1 concat=true")
+
+
+def kws_desc(model, tail="tensor_decoder mode=image_labeling ! "):
+    """The keyword-spotting string: 100 ms chunks of 16 kHz S16LE audio
+    into 1 s windows with a 0.5 s hop, B1's int16 chain, the classifier,
+    then ``tail`` (the decoder, or for the logits a sink that leaves them
+    on the card: it then records no latency for the window's 16,000
+    sample stamps)."""
+    sink = "tensor_sink name=sink" + ("" if tail else " to-host=false")
+    return (f"{KWS_HEAD} ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,div:32768 ! "
+            f"tensor_filter framework=jax model={model} name=filter ! "
+            f"{tail}{sink}")
+
+
+def kws_windows():
+    """The windows as the aggregator should cut them: the source's own
+    int16 samples, 1 s every 0.5 s. [KWS_WINDOWS, KWS_SAMPLES, 1]."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.elements.source import AudioTestSrc
+
+    src = AudioTestSrc(num_buffers=KWS_BUFFERS, samplesperbuffer=KWS_CHUNK,
+                       rate=KWS_RATE, format="S16LE", freq=KWS_FREQ)
+    samples = np.concatenate([src.create()[0] for _ in range(KWS_BUFFERS)])
+    return np.stack([samples[k * KWS_HOP:k * KWS_HOP + KWS_SAMPLES]
+                     for k in range(KWS_WINDOWS)])
+
+
+def kws_windows_check(windows) -> dict:
+    """The aggregator's windows (``KWS_HEAD ! tensor_sink``) against
+    :func:`kws_windows`, byte for byte and in order: a wrong hop, a
+    window out of order or one repeated shows, since the tone makes every
+    window differ."""
+    import numpy as np
+
+    got = [np.asarray(w) for w in windows]
+    want = kws_windows()
+    check(len({w.tobytes() for w in want}) == KWS_WINDOWS,
+          "audio: two of the expected windows are equal")
+    check(len(got) == KWS_WINDOWS,
+          f"audio: the aggregator cut {len(got)} windows of "
+          f"{KWS_WINDOWS}")
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if a.dtype != b.dtype or a.shape != b.shape or
+              a.tobytes() != b.tobytes()]
+    check(not differ, f"audio: windows {differ[:10]} differ from the "
+                      "source's samples cut every 0.5 s")
+    return {"windows_byte_identical": KWS_WINDOWS - len(differ),
+            "windows_distinct": len({w.tobytes() for w in got})}
+
+
+def phase_audio(power: str) -> dict:
+    """Keyword spotting at the model's full width (16000 samples, width
+    64, 12 classes, bf16, seed 0): 800 chunks of 1,600 samples through
+    ``tensor_aggregator`` into 159 windows, the fused region transform (B1
+    on int16) ! filter ! image_labeling. Checks: the aggregator's windows
+    = the source's samples cut every 0.5 s, byte for byte and in order
+    (the tone makes every window differ); fused = unfused bit for bit
+    (labels, indices, scores; the f32 logits of the string without a
+    decoder), B1 once a window, 1 capture; the bf16 logits against the
+    port's fp32 model on the CPU, relative L2 ≤ 2e-2. Reported: windows a
+    second, a window's latency from its last sample's capture, the
+    per-sample stamps the aggregator carries and what the aggregator and
+    the sink spend a window on the host. Returns (result, the fused
+    pipeline, its model still registered for the profiled restart)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.audio_classifier import audio_classifier
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    module, in_info, out_info = audio_classifier(
+        samples=KWS_SAMPLES, num_classes=KWS_CLASSES, dtype=torch.bfloat16,
+        seed=0)
+    register_torch_model("kws", module, in_info, out_info)
+    window_lat = []
+    stamps = []
+
+    def on_window(buf):
+        ts = buf.create_stamps()
+        stamps.append(len(ts))
+        if ts:
+            window_lat.append(time.monotonic() - max(ts))
+
+    def labels(rows):
+        return [(m["label_index"], m["label"], m["score"]) for _, m in rows]
+
+    try:
+        pipe = nt.parse_launch(kws_desc("kws"), pipeline=Pipeline(name="kws"))
+        pipe.get("sink").connect(on_window)
+        arrivals, t0, eos, launches = _collect_arrivals(pipe)
+        region = _region_of(pipe, ["tensor_transform", "tensor_filter",
+                                   "tensor_decoder"])
+        fused = labels(_sink_rows(pipe))
+        sample_lat = pipe.get("sink").latency_percentiles(50.0, 99.0)
+        snap = pipe.metrics_snapshot()["elements"]
+        host = {el: {k: snap[el].get(k) for k in ("chain_p50_ms",
+                                                   "chain_p99_ms")}
+                for el in ("agg", "sink")}
+        lpipe = nt.parse_launch(kws_desc("kws", tail=""),
+                                pipeline=Pipeline(name="kws_logits"))
+        _, _, _, logit_launches = _collect_arrivals(lpipe)
+        lregion = _region_of(lpipe, ["tensor_transform", "tensor_filter"])
+        logits = [b[0].cpu().numpy() for b in lpipe.get("sink").buffers]
+        # unfused, the labels and the logits of one run
+        upipe = nt.parse_launch(kws_desc("kws", tail=(
+            "tee name=t  t. ! tensor_sink name=logits to-host=false  "
+            "t. ! tensor_decoder mode=image_labeling ! ")),
+            pipeline=Pipeline(name="kws_unfused", fuse=False))
+        check(upipe.run(timeout=180).kind == "eos", "audio: unfused run")
+        unfused = labels(_sink_rows(upipe))
+        logits_unfused = [b[0].cpu().numpy()
+                          for b in upipe.get("logits").buffers]
+    except BaseException:
+        unregister_torch_model("kws")
+        raise
+    # the aggregator's windows themselves, on the host
+    wpipe = nt.parse_launch(f"{KWS_HEAD} ! tensor_sink name=sink",
+                            pipeline=Pipeline(name="kws_windows"))
+    check(wpipe.run(timeout=180).kind == "eos", "audio: windows run")
+    windows = kws_windows_check(b[0] for b in wpipe.get("sink").buffers)
+    check(len(fused) == len(unfused) == KWS_WINDOWS,
+          f"audio: {len(fused)} fused and {len(unfused)} unfused windows "
+          f"of {KWS_WINDOWS}")
+    differ = [i for i, (a, b) in enumerate(zip(fused, unfused)) if a != b]
+    check(not differ, f"audio: fused labels of windows {differ[:10]} differ "
+                      "from the unfused run's")
+    check(len(logits) == len(logits_unfused) == KWS_WINDOWS and
+          all(a.dtype == np.float32 and a.shape == (1, KWS_CLASSES)
+              for a in logits),
+          "audio: the logits are not one [1, 12] float32 row a window")
+    differ = [i for i, (a, b) in enumerate(zip(logits, logits_unfused))
+              if a.tobytes() != b.tobytes()]
+    check(not differ, f"audio: fused logits of windows {differ[:10]} differ "
+                      "from the unfused run's")
+    check([(int(np.argmax(a)), float(a.max())) for a in logits] ==
+          [(i, s) for i, _, s in fused],
+          "audio: the decoder's labels and scores are not the logits' "
+          "argmax and max")
+    check(launches == logit_launches == KWS_WINDOWS,
+          f"audio: B1 launched {launches} and {logit_launches} times for "
+          f"{KWS_WINDOWS} windows")
+    check(region.captures == 1 and lregion.captures == 1,
+          f"audio: {region.captures} and {lregion.captures} captures")
+    # the card's bf16 logits against the port's fp32 model on the CPU
+    ref, _, _ = audio_classifier(samples=KWS_SAMPLES, num_classes=KWS_CLASSES,
+                                 dtype=torch.float32, seed=0)
+    with torch.inference_mode():
+        want = ref(torch.from_numpy(
+            kws_windows().astype(np.float32) / np.float32(32768.0))).numpy()
+    got = np.concatenate(logits)
+    rel_l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    check(rel_l2 <= REL_L2_MAX,
+          f"audio: bf16 logits vs fp32 on the CPU, relative L2 {rel_l2} > "
+          f"{REL_L2_MAX}")
+    result = {"windows": len(fused), "launches": launches,
+              "windows_per_s": steady_fps(arrivals, eos),
+              "first_window_s": arrivals[0] - t0,
+              "window_latency_p50_ms":
+                  float(np.percentile(window_lat, 50)) * 1e3,
+              "window_latency_p99_ms":
+                  float(np.percentile(window_lat, 99)) * 1e3,
+              "sample_latency_p50_ms": sample_lat[0],
+              "sample_latency_p99_ms": sample_lat[1],
+              "stamps_per_window": statistics.median(stamps),
+              "host_chain_ms": host,
+              "captures": region.captures, "replays": region.replays,
+              "fused_unfused_bit_identical": KWS_WINDOWS, **windows,
+              "rel_l2_bf16_vs_fp32_cpu": rel_l2,
+              "labels": sorted(set(i for i, _, _ in fused)), "gpu": power}
+    emit({"phase": "audio", **result})
+    return result, pipe
+
+
+def _flagship_tail(model, labels, sink="tensor_sink name=sink"):
+    return ("tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model} name=filter ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! {sink}")
+
+
+def _label_rows(pipe, sink="sink"):
+    return [(b.meta["label_index"], b.meta["label"], b.meta["score"])
+            for b in pipe.get(sink).buffers]
+
+
+def phase_files(power: str) -> dict:
+    """The flagship at full width (MobileNetV2 1.0, 224×224×3, 1001
+    classes, bf16, batch 1, fused) from files: 240 ``ball`` frames, byte
+    for byte as ``videotestsrc`` makes them (the ball moves, so a frame
+    read out of order, twice or cut at the wrong offset shows), as
+    ``f_%04d.raw`` and as one file. Runs: (i) ``multifilesrc``, (ii)
+    ``filesrc blocksize=65536`` (frames straddle the blocks), each through
+    ``tensor_converter input-dim=3:224:224:1 input-type=uint8``, against
+    ``videotestsrc`` feeding the same string; (iii) the logits through
+    ``tensor_decoder mode=octet_stream ! filesink``; (iv) each file source
+    ``! tensor_converter ! tensor_decoder mode=direct_video ! filesink``.
+    Checks: (i) and (ii) bit-identical to ``videotestsrc`` frame by frame
+    (labels, indices, f32 scores), (i)'s pts the file index, B1 240 times
+    and 1 capture each; (iii)'s file = the logits a sink beside it
+    received, whose argmax and max are (i)'s; (iv)'s files = the frames'
+    file."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    nt.set_device(None)
+    _, labels = _flagship_model("files")
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_files_")
+    ball = (f"videotestsrc num-buffers={FILES_FRAMES} width={IMAGE} "
+            f"height={IMAGE} pattern=ball")
+    conv = f"tensor_converter input-dim=3:{IMAGE}:{IMAGE}:1 input-type=uint8"
+    result = {}
+    try:
+        one = nt.parse_launch(f"{ball} ! tensor_converter ! "
+                              "tensor_sink name=sink")
+        frames = []
+        one.get("sink").connect(
+            lambda b: frames.append(np.asarray(b[0]).tobytes()))
+        one.run(timeout=60)
+        check(len(frames) == FILES_FRAMES and
+              all(len(f) == IMAGE * IMAGE * 3 for f in frames),
+              "files: frame count or size")
+        # the ball steps (7, 5) pixels a frame modulo the side, so at a
+        # square side its path repeats after that many frames
+        check(len(set(frames)) == min(FILES_FRAMES, IMAGE),
+              f"files: {len(set(frames))} distinct frames")
+        for i, frame in enumerate(frames):
+            with open(os.path.join(tmp, f"f_{i:04d}.raw"), "wb") as f:
+                f.write(frame)
+        with open(os.path.join(tmp, "all.raw"), "wb") as f:
+            f.write(b"".join(frames))
+        tail = _flagship_tail("files", labels)
+        runs = {"videotestsrc": f"{ball} ! tensor_converter ! {tail}",
+                "multifilesrc": f"multifilesrc location={tmp}/f_%04d.raw ! "
+                                f"{conv} ! {tail}",
+                "filesrc": f"filesrc location={tmp}/all.raw "
+                           f"blocksize={FILES_BLOCK} ! {conv} ! {tail}"}
+        rows = {}
+        for name, desc in runs.items():
+            pipe = nt.parse_launch(desc, pipeline=Pipeline(
+                name=f"files_{name}"))
+            arrivals, t0, eos, launches = _collect_arrivals(pipe)
+            region = _region_of(pipe, ["tensor_transform", "tensor_filter",
+                                       "tensor_decoder"])
+            rows[name] = _label_rows(pipe)
+            if name == "multifilesrc":
+                pts = [b.pts for b in pipe.get("sink").buffers]
+                check(pts == list(range(FILES_FRAMES)),
+                      "files: multifilesrc's pts are not the file indices")
+            result[name] = {"frames": len(rows[name]), "launches": launches,
+                            "captures": region.captures,
+                            "fps": steady_fps(arrivals, eos)}
+            check(len(rows[name]) == FILES_FRAMES,
+                  f"files: {name} labelled {len(rows[name])} of "
+                  f"{FILES_FRAMES} frames")
+            check(launches == FILES_FRAMES and region.captures == 1,
+                  f"files: {name}: B1 {launches} times, "
+                  f"{region.captures} captures")
+        for name in ("multifilesrc", "filesrc"):
+            differ = [i for i, (a, b) in enumerate(zip(
+                rows[name], rows["videotestsrc"])) if a != b]
+            check(not differ, f"files: {name}'s labels of frames "
+                              f"{differ[:10]} differ from videotestsrc's")
+        result["distinct_label_rows"] = len(set(rows["videotestsrc"]))
+        # (iii) the logits as raw bytes, a sink beside the file
+        pipe = nt.parse_launch(
+            f"multifilesrc location={tmp}/f_%04d.raw ! {conv} ! "
+            "tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=files ! tee name=t  "
+            "t. ! tensor_decoder mode=octet_stream ! "
+            f"filesink location={tmp}/logits.raw  t. ! tensor_sink name=sink",
+            pipeline=Pipeline(name="files_octet"))
+        msg = pipe.run(timeout=180)
+        check(msg is not None and msg.kind == "eos", f"files: octet ({msg})")
+        logits = [np.asarray(b[0]) for b in pipe.get("sink").buffers]
+        with open(os.path.join(tmp, "logits.raw"), "rb") as f:
+            dump = f.read()
+        check(len(logits) == FILES_FRAMES and
+              dump == b"".join(a.tobytes() for a in logits),
+              "files: the octet_stream file is not the logits' bytes")
+        check([(int(np.argmax(a)), float(a.max())) for a in logits] ==
+              [(i, s) for i, _, s in rows["multifilesrc"]],
+              "files: the logits' argmax and max are not (i)'s labels")
+        # (iv) the frames back through direct_video, from each file source
+        for name, src in (("multifilesrc",
+                           f"multifilesrc location={tmp}/f_%04d.raw"),
+                          ("filesrc", f"filesrc location={tmp}/all.raw "
+                                      f"blocksize={FILES_BLOCK}")):
+            pipe = nt.parse_launch(
+                f"{src} ! {conv} ! tensor_decoder mode=direct_video ! "
+                f"filesink location={tmp}/video.raw",
+                pipeline=Pipeline(name=f"files_video_{name}"))
+            msg = pipe.run(timeout=180)
+            check(msg is not None and msg.kind == "eos",
+                  f"files: video from {name} ({msg})")
+            with open(os.path.join(tmp, "video.raw"), "rb") as f:
+                video = f.read()
+            check(video == b"".join(frames),
+                  f"files: the direct_video file from {name} is not the "
+                  "frames' file")
+        result.update(octet_bytes=len(dump), video_bytes=len(video))
+    finally:
+        unregister_torch_model("files")
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "files", **result, "gpu": power})
+    return result
+
+
+def _pushed_run(name, desc, frames, fuse=True):
+    """``desc`` (an ``appsrc name=src``) fed ``frames`` with pts = index,
+    run to EOS. Returns (pipeline, B1 launches)."""
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name, fuse=fuse))
+    src = pipe.get("src")
+    for i, f in enumerate(frames):
+        src.push([f], pts=i)
+    src.end_of_stream()
+    pp.reset_launches()
+    msg = pipe.run(timeout=180)
+    check(msg is not None and msg.kind == "eos", f"{name}: no EOS ({msg})")
+    return pipe, pp.LAUNCHES.get("normalize_chain", 0)
+
+
+def _d2h(x0, x1) -> dict:
+    return {k: x1[k] - x0[k] for k in ("d2h_events", "d2h_bytes",
+                                       "d2h_syncs")}
+
+
+def phase_algebra(power: str) -> dict:
+    """The stream algebra on device buffers, 64 frames or fewer each:
+    (a) a ``tensor_if`` gate (``TENSOR_AVERAGE_VALUE``) before the batch-1
+    fused flagship, half of the appsrc frames darkened below it, the else
+    branch to a ``fakesink``; (b) SSD (300×300, 91 classes) with
+    ``tensor_demux tensorpick=0,1`` after the filter; (c) ``tensor_split``
+    of pose4's batch-4 output into 4 streams; (d) ``tensor_crop`` of
+    300×300 frames uploaded to the card, by regions a ``custom-easy``
+    filter computes; (e) ``join`` of (a)'s two branches into one sink.
+    Checks: (a) B1 = frames passed, each label = the ungated run's; (b)
+    and (c) no D2H before the sinks (sinks with ``to-host=false``), every
+    tensor bit-identical to the model's output and its slice; (d) the
+    crops = numpy slices of the frames; (e) every frame, in order."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters import register_custom_easy
+    from nnstreamer_tpu_torch.filters.custom import unregister_custom_easy
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.posenet import posenet
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import ssd_mobilenet
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors.buffer import transfer_snapshot
+    from nnstreamer_tpu_torch.tensors.types import TensorsInfo
+
+    nt.set_device(None)
+    rng = np.random.default_rng(0)
+    result = {"gpu": power}
+    # (a) and (e): the gate and the join
+    frames = []
+    for i in range(GATE_FRAMES):
+        f = rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8)
+        frames.append(f // 10 if i % 2 else f)
+    bright = [i for i, f in enumerate(frames) if f.mean() > GATE_THRESHOLD]
+    check(len(bright) == GATE_FRAMES // 2, "algebra: the darkened frames")
+    _, labels = _flagship_model("gate")
+    tail = _flagship_tail("gate", labels, sink="")
+    src = f"appsrc name=src max-buffers={GATE_FRAMES + 1}"
+    gate = ("tensor_if name=g compared-value=TENSOR_AVERAGE_VALUE "
+            "compared-value-option=0 operator=gt "
+            f"supplied-value={GATE_THRESHOLD} then=PASSTHROUGH "
+            "else=PASSTHROUGH")
+    try:
+        ungated, _ = _pushed_run(
+            "gate_ref", f"{src} ! {tail} tensor_sink name=sink", frames)
+        ref = {b.pts: (b.meta["label_index"], b.meta["score"])
+               for b in ungated.get("sink").buffers}
+        gated, b1_gate = _pushed_run(
+            "gate", f"{src} ! {gate}  g.src_true ! {tail} tensor_sink "
+            "name=sink  g.src_false ! fakesink name=dark", frames)
+        region = _region_of(gated, ["tensor_transform", "tensor_filter",
+                                    "tensor_decoder"])
+        passed = [(b.pts, (b.meta["label_index"], b.meta["score"]))
+                  for b in gated.get("sink").buffers]
+        joined, b1_join = _pushed_run(
+            "gate_join", f"{src} ! {gate}  g.src_true ! {tail} j.  "
+            "g.src_false ! j.  join name=j ! tensor_sink name=sink", frames)
+        jbufs = list(joined.get("sink").buffers)
+    finally:
+        unregister_torch_model("gate")
+    check(len(ref) == GATE_FRAMES, f"algebra: ungated {len(ref)} frames")
+    check([p for p, _ in passed] == bright,
+          "algebra: the gate passed other frames than the bright ones")
+    check(all(ref[p] == row for p, row in passed),
+          "algebra: a gated frame's label differs from the ungated run's")
+    check(b1_gate == len(bright) and region.captures == 1,
+          f"algebra: B1 {b1_gate} times for {len(bright)} frames passed, "
+          f"{region.captures} captures")
+    check(gated.get("dark").count == GATE_FRAMES - len(bright),
+          f"algebra: the fakesink got {gated.get('dark').count} frames")
+    check([b.pts for b in jbufs] == list(range(GATE_FRAMES)),
+          "algebra: the join's sink did not get every frame in order")
+    check(all((b.meta["label_index"], b.meta["score"]) == ref[b.pts]
+              if b.pts in bright else
+              np.array_equal(np.asarray(b[0]), frames[b.pts])
+              for b in jbufs),
+          "algebra: a joined frame is neither its label nor its frame")
+    check(b1_join == len(bright), f"algebra: join: B1 {b1_join} times")
+    result["gate"] = {"frames": GATE_FRAMES, "passed": len(passed),
+                      "b1_launches": b1_gate, "captures": region.captures,
+                      "dark": gated.get("dark").count}
+    result["join"] = {"frames": len(jbufs), "b1_launches": b1_join}
+
+    # (b) SSD's two outputs through tensor_demux, left on the card
+    ssd, _, _ = ssd_mobilenet(num_classes=SSD_CLASSES, image_size=SSD_IMAGE,
+                              dtype=torch.bfloat16, seed=0)
+    register_torch_model("ssd_demux", ssd)
+    pre = (f"videotestsrc num-buffers={DEMUX_FRAMES} width={SSD_IMAGE} "
+           f"height={SSD_IMAGE} pattern=ball ! tensor_converter ! "
+           "tensor_transform mode=arithmetic "
+           "option=typecast:float32,add:-127.5,div:127.5 ! "
+           "tensor_filter framework=jax model=ssd_demux ! ")
+    try:
+        plain = nt.parse_launch(pre + "tensor_sink name=sink to-host=false",
+                                pipeline=Pipeline(name="demux_ref"))
+        check(plain.run(timeout=180).kind == "eos", "algebra: demux ref")
+        ref_out = [b.tensors for b in plain.get("sink").buffers]
+        pipe = nt.parse_launch(
+            pre + "tensor_demux name=d tensorpick=0,1  "
+            "d.src_0 ! tensor_sink name=boxes to-host=false  "
+            "d.src_1 ! tensor_sink name=scores to-host=false",
+            pipeline=Pipeline(name="demux"))
+        x0 = transfer_snapshot()
+        check(pipe.run(timeout=180).kind == "eos", "algebra: demux")
+        x1 = transfer_snapshot()
+        dregion = _region_of(pipe, ["tensor_transform", "tensor_filter"])
+    finally:
+        unregister_torch_model("ssd_demux")
+    boxes = [b.tensors for b in pipe.get("boxes").buffers]
+    scores = [b.tensors for b in pipe.get("scores").buffers]
+    d2h = _d2h(x0, x1)
+    check(len(boxes) == len(scores) == len(ref_out) == DEMUX_FRAMES,
+          "algebra: demux frame counts")
+    check(all(len(b) == len(s) == 1 and b[0].is_cuda and s[0].is_cuda
+              for b, s in zip(boxes, scores)),
+          "algebra: a demuxed tensor left the card")
+    check(all(torch.equal(b[0], r[0]) and torch.equal(s[0], r[1])
+              for b, s, r in zip(boxes, scores, ref_out)),
+          "algebra: a demuxed tensor differs from the model's output")
+    check(d2h["d2h_events"] == 0 and d2h["d2h_bytes"] == 0,
+          f"algebra: demux: {d2h} before the sinks")
+    result["demux"] = {"frames": DEMUX_FRAMES, **d2h,
+                       "captures": dregion.captures}
+
+    # (c) pose4's batched heatmaps split back into 4 streams on the card
+    net, _, _ = posenet(image_size=POSE_IMAGE, batch=4, dtype=torch.bfloat16,
+                        seed=1)
+    register_torch_model("pose4_split", _batched4(net))
+    srcs = " ".join(
+        f"videotestsrc num-buffers={SPLIT_SETS} width={POSE_IMAGE} "
+        f"height={POSE_IMAGE} pattern={p} ! tensor_converter ! mux. "
+        for p in ("gradient", "black", "ball", "smpte"))
+    sinks = "  ".join(f"s.src_{i} ! tensor_sink name=p{i} to-host=false"
+                      for i in range(4))
+    try:
+        pipe = nt.parse_launch(
+            "tensor_mux name=mux sync-mode=slowest ! "
+            "tensor_filter framework=jax model=pose4_split ! tee name=t  "
+            "t. ! tensor_split name=s tensorseg=1,1,1,1 dimension=3  "
+            f"{sinks}  t. ! tensor_sink name=full to-host=false  {srcs}",
+            pipeline=Pipeline(name="split"))
+        x0 = transfer_snapshot()
+        check(pipe.run(timeout=180).kind == "eos", "algebra: split")
+        x1 = transfer_snapshot()
+    finally:
+        unregister_torch_model("pose4_split")
+    full = [b[0] for b in pipe.get("full").buffers]
+    parts = [[b[0] for b in pipe.get(f"p{i}").buffers] for i in range(4)]
+    d2h = _d2h(x0, x1)
+    check(len(full) == SPLIT_SETS and
+          all(len(p) == SPLIT_SETS for p in parts),
+          "algebra: split set counts")
+    check(all(p[j].is_cuda and torch.equal(p[j], full[j][i:i + 1]) and
+              p[j].untyped_storage().data_ptr() ==
+              full[j].untyped_storage().data_ptr()
+              for i, p in enumerate(parts) for j in range(SPLIT_SETS)),
+          "algebra: a split stream is not a view of its slice on the card")
+    check(d2h["d2h_events"] == 0 and d2h["d2h_bytes"] == 0,
+          f"algebra: split: {d2h} before the sinks")
+    result["split"] = {"sets": SPLIT_SETS, "streams": 4, **d2h}
+
+    # (d) tensor_crop of card frames by a custom-easy filter's regions
+    def regions(ins):
+        f = ins[0]  # the filter hands a host backend numpy arrays
+        x, y = int(f[0, 0, 0, 0]) % 200, int(f[0, 0, 1, 0]) % 200
+        w, h = 32 + int(f[0, 0, 2, 0]) % 64, 24 + int(f[0, 0, 3, 0]) % 64
+        return [np.array([[x, y, w, h], [y, x, h, w]], np.int32)]
+
+    register_custom_easy(
+        "crop_regions", regions,
+        TensorsInfo.from_str(f"3:{SSD_IMAGE}:{SSD_IMAGE}:1", "uint8"),
+        TensorsInfo.from_str("4:2", "int32"))
+    crops_in = [rng.integers(0, 256, (1, SSD_IMAGE, SSD_IMAGE, 3),
+                             dtype=np.uint8) for _ in range(CROP_FRAMES)]
+    try:
+        x0 = transfer_snapshot()
+        pipe, _ = _pushed_run(
+            "crop", f"appsrc name=src max-buffers={CROP_FRAMES + 1} ! "
+            "tee name=t  t. ! c.raw  t. ! tensor_filter "
+            "framework=custom-easy model=crop_regions ! c.info  "
+            "tensor_crop name=c ! tensor_sink name=sink",
+            [torch.from_numpy(f).cuda() for f in crops_in])
+        x1 = transfer_snapshot()
+    finally:
+        unregister_custom_easy("crop_regions")
+    bufs = list(pipe.get("sink").buffers)
+    check([b.pts for b in bufs] == list(range(CROP_FRAMES)),
+          f"algebra: crop: {len(bufs)} of {CROP_FRAMES} frames")
+    for b in bufs:
+        f = crops_in[b.pts]
+        want = [f[0, y:y + h, x:x + w] for x, y, w, h in regions([f])[0]]
+        check(len(b.tensors) == 2 and all(
+            np.array_equal(np.asarray(c), w) for c, w in zip(b.tensors, want)),
+            f"algebra: the crops of frame {b.pts} are not its slices")
+    result["crop"] = {"frames": CROP_FRAMES, **_d2h(x0, x1)}
+    emit({"phase": "algebra", **result})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5749,6 +6372,9 @@ def main() -> int:
     pose4, pose4_pipe = phase_pose4(power)
     phase_lstm(power)
     seg, seg_pipe = phase_segment(power)
+    audio, audio_pipe = phase_audio(power)
+    files = phase_files(power)
+    algebra = phase_algebra(power)
     mem = phase_memory(power)
     cont = phase_continuity(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
@@ -5760,6 +6386,12 @@ def main() -> int:
                       pose4["fps"], power)
     profile_restarted("segment", seg_pipe, "seg", PROFILED_FRAMES,
                       seg["fps"], power)
+    # the aggregator starts empty: 10 chunks for the first window, then 5
+    # (a 0.5 s hop) for each further one
+    profile_restarted("audio", audio_pipe, "kws",
+                      (KWS_SAMPLES + (PROFILED_FRAMES - 1) * KWS_HOP) //
+                      KWS_CHUNK,
+                      audio["windows_per_s"], power, units=PROFILED_FRAMES)
     dev_b1 = phase_device_times("normalize_chain", {
         tag: {"": kernel, "plain_": plain}
         for tag, (kernel, plain) in timed_b1.items()})
@@ -5801,6 +6433,20 @@ def main() -> int:
         "launches_memory": mem["b1_launches"],
         "launches_memory_oom": mem["oom"]["b1_launches"],
         "launches_continuity": cont["swap"]["b1_launches"],
+        # the audio path (once a window, 159 windows), the file sources
+        # (once a frame, 240 frames each) and the tensor_if gate (once a
+        # frame it passed)
+        "launches_audio": audio["launches"],
+        "launches_files": [files[k]["launches"]
+                           for k in ("multifilesrc", "filesrc")],
+        "launches_gate": algebra["gate"]["b1_launches"],
+        # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
+        "kws_ms": b1["kws_ms"],
+        "kws_device_ms": dev_b1["kws_device_ms"],
+        "kws_plain_ms": b1["kws_plain_ms"],
+        "kws_plain_device_ms": dev_b1["kws_plain_device_ms"],
+        "kws_bound_ms": b1["kws_bound_ms"],
+        "kws_bound_by": b1["kws_bound_by"],
         # B1 at the ssd frame (one 300x300x3 uint8 frame -> float32)
         "ssd_ms": b1["ssd_ms"],
         "ssd_plain_ms": b1["ssd_plain_ms"],

@@ -3,8 +3,8 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-other elements (demux, split, crop, tensor_if, ...) wait for later slices
-of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
+other elements (``tensor_sparse_*``, the pub/sub and gRPC elements) wait
+for later slices of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
 imports no model code until its engine is looked up.
 """
 
@@ -26,3 +26,8 @@ from nnstreamer_tpu_torch.elements import tee  # noqa: F401
 from nnstreamer_tpu_torch.elements import mux  # noqa: F401
 from nnstreamer_tpu_torch.elements import merge  # noqa: F401
 from nnstreamer_tpu_torch.elements import repo  # noqa: F401
+from nnstreamer_tpu_torch.elements import demux  # noqa: F401
+from nnstreamer_tpu_torch.elements import split  # noqa: F401
+from nnstreamer_tpu_torch.elements import join  # noqa: F401
+from nnstreamer_tpu_torch.elements import cond  # noqa: F401
+from nnstreamer_tpu_torch.elements import crop  # noqa: F401

@@ -75,9 +75,9 @@ from nnstreamer_tpu_torch.pipeline.element import (
 )
 from nnstreamer_tpu_torch.registry import ELEMENT, FILTER, get_subplugin, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import (
-    DeviceBuffer,
     as_device_buffer,
     host_array,
+    is_device_array,
 )
 from nnstreamer_tpu_torch.tensors.types import TensorsConfig, TensorsInfo
 
@@ -363,9 +363,10 @@ class TensorFilter(Element):
             release_shed_payload(buf)
             return None
         fw = self.fw or self._open_fw()
-        if not fw.KEEP_ON_DEVICE and isinstance(buf, DeviceBuffer):
-            # host-only backend consuming a resident buffer: one cached
-            # materialization up front
+        if not fw.KEEP_ON_DEVICE and any(is_device_array(t)
+                                         for t in buf.tensors):
+            # host-only backend consuming a device payload: one counted
+            # materialization up front (cached on a resident buffer)
             buf = buf.to_host()
         in_comb = self._combination("input_combination")
         if in_comb is not None:

@@ -1,4 +1,4 @@
-"""tensor_sink — the application callback sink.
+"""Sink elements: the application callback sink, file sink, fakesink.
 
 Reference: ``tensor_sink`` (gst/nnstreamer/elements/gsttensorsink.c)
 emits a ``new-data`` signal per buffer to the app. Here :meth:`connect`
@@ -19,6 +19,11 @@ base="admitted")``, and in a pipeline with an SLO budget the scheduler's
 completion feed (``serving/scheduler.py``). With a timeline active (the
 flight recorder, by default) the sink records each frame's ``sink`` span,
 carrying its end-to-end time for the ledger's reconciliation.
+
+``filesink`` and ``fakesink`` are gst core's, used throughout the
+reference's SSAT golden tests (dump, then byte-compare). Both take device
+buffers as they come: ``filesink`` fetches a device payload through the
+buffer's own ``to_host`` (its one D2H), ``fakesink`` never fetches one.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from collections import deque
 from typing import Callable, List
 
 import numpy as np
+import torch
 
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.obs import timeline as _timeline
@@ -204,3 +210,74 @@ class TensorSink(Element):
                 if left <= 0 or not self._cv.wait(timeout=left):
                     break
             return list(self.buffers)
+
+
+def tensor_bytes(t) -> bytes:
+    """The raw bytes of a host tensor in row-major order (a ``bfloat16``
+    CPU tensor included)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().contiguous().view(-1).view(torch.uint8) \
+            .numpy().tobytes()
+    return np.ascontiguousarray(t).tobytes()
+
+
+@subplugin(ELEMENT, "filesink")
+class FileSink(Element):
+    """Dump raw tensor bytes to a file (gst filesink) — the SSAT
+    golden-output pattern: run pipeline, byte-compare the dump."""
+
+    ELEMENT_NAME = "filesink"
+    DEVICE_PASSTHROUGH = True  # chain's own to_host is the fetch point
+    PROPERTIES = {**Element.PROPERTIES, "location": None, "append": False}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.add_sink_pad("sink")
+        self._fh = None
+
+    def start(self):
+        super().start()
+        loc = self.get_property("location")
+        if loc is None:
+            raise ValueError("filesink: location not set")
+        mode = "ab" if self.get_property("append") else "wb"
+        self._fh = open(loc, mode)
+
+    def chain(self, pad, buf):
+        stash = buf.meta.pop(POOL_STASH_META, None)
+        buf = buf.to_host()
+        if stash:
+            get_pool().release_many(stash)
+        for t in buf.tensors:
+            self._fh.write(tensor_bytes(t))
+        return FlowReturn.OK
+
+    def handle_eos(self):
+        if self._fh:
+            self._fh.flush()
+
+    def stop(self):
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+        super().stop()
+
+
+@subplugin(ELEMENT, "fakesink")
+class FakeSink(Element):
+    """Discard buffers (gst fakesink); counts them for tests."""
+
+    HANDLES_DEFERRED = True  # discards buffers; never forces the D2H
+    DEVICE_PASSTHROUGH = True  # ditto for resident payloads
+
+    ELEMENT_NAME = "fakesink"
+    PROPERTIES = {**Element.PROPERTIES, "sync": False}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.add_sink_pad("sink")
+        self.count = 0
+
+    def chain(self, pad, buf):
+        self.count += 1
+        return FlowReturn.OK

@@ -7,3 +7,4 @@ from nnstreamer_tpu_torch.filters.api import (  # noqa: F401
     shared_model_insert,
     shared_model_remove,
 )
+from nnstreamer_tpu_torch.filters.custom import register_custom_easy  # noqa: F401

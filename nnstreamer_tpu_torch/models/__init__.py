@@ -16,4 +16,5 @@ from nnstreamer_tpu_torch.models.posenet import posenet  # noqa: F401
 from nnstreamer_tpu_torch.models.lstm import lstm_cell  # noqa: F401
 from nnstreamer_tpu_torch.models.yolo import yolo_detector  # noqa: F401
 from nnstreamer_tpu_torch.models.segmenter import segmenter  # noqa: F401
+from nnstreamer_tpu_torch.models.audio_classifier import audio_classifier  # noqa: F401
 from nnstreamer_tpu_torch.models.beam import BeamSearcher  # noqa: F401

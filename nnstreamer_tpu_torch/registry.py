@@ -35,14 +35,21 @@ _BUILTIN_PROVIDERS: Dict[str, Dict[str, str]] = {
         # reference launch strings name framework=jax; the port serves
         # them with its torch backend
         "jax": "nnstreamer_tpu_torch.filters.torch_backend",
+        "custom": "nnstreamer_tpu_torch.filters.custom",
+        "custom-easy": "nnstreamer_tpu_torch.filters.custom",
     },
     DECODER: {
         "image_labeling": "nnstreamer_tpu_torch.decoders.image_labeling",
         "bounding_boxes": "nnstreamer_tpu_torch.decoders.bounding_boxes",
         "pose_estimation": "nnstreamer_tpu_torch.decoders.pose_estimation",
         "image_segment": "nnstreamer_tpu_torch.decoders.image_segment",
+        "direct_video": "nnstreamer_tpu_torch.decoders.direct_video",
+        "octet_stream": "nnstreamer_tpu_torch.decoders.octet_stream",
+        "python3": "nnstreamer_tpu_torch.decoders.python3",
     },
-    CONVERTER: {},
+    CONVERTER: {
+        "python3": "nnstreamer_tpu_torch.converters.python3",
+    },
     ELEMENT: {},  # populated by nnstreamer_tpu_torch.elements at import
 }
 

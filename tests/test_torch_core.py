@@ -130,12 +130,14 @@ def test_queue_properties_run(queue_props):
 @pytest.mark.parametrize("desc,item", [
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m shard=dp2 ! tensor_sink", "A.24"),
-    ("videotestsrc ! tensor_converter input-dim=3:4:4:1 ! tensor_filter "
-     "framework=jax model=m ! tensor_sink", "A.17"),
+    # the converter's other media are ported (ROADMAP A.17); the
+    # query client's reference wire and resilient transport are not
+    ("videotestsrc ! tensor_converter ! tensor_query_client "
+     "wire=nnstreamer ! tensor_sink", "26d"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
-    ("videotestsrc ! tensor_converter mode=custom-code:f ! tensor_filter "
-     "framework=jax model=m ! tensor_sink", "A.17"),
+    ("videotestsrc ! tensor_converter ! tensor_query_client "
+     "reliable=true ! tensor_sink", "26a"),
 ])
 def test_unported_properties_raise_naming_the_roadmap(desc, item):
     with pytest.raises(NotImplementedError, match=item):
