@@ -122,6 +122,20 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   ``tensor_split`` with no copy to the host before the sinks,
   ``tensor_crop`` by a ``custom-easy`` filter's regions, and ``join`` of
   the gate's branches).
+- The reference two-port wire, the sparse codec, ``SingleShot`` and the
+  pipeline filter (``refwire``): the flagship behind
+  ``tensor_query_serversrc wire=nnstreamer caps=...`` serving an
+  appsrc-fed ``tensor_query_client wire=nnstreamer``, 240 ``ball``
+  frames one in flight, the logits bit-identical in order to an
+  in-process run, B1 once a frame on the server, a client with other caps
+  DENYed; ``tensor_sparse_enc ! tensor_sparse_dec`` before the flagship
+  (labels bit-identical) and after its filter in both layouts (the
+  logits' bytes, one D2H a buffer); ``SingleShot`` on the card
+  bit-identical to the unfused filter; ``tensor_filter
+  framework=pipeline`` around the flagship's transform ! filter (labels
+  as the flat string's, B1 once a frame). The flexbuf, protobuf and
+  flatbuf codecs and the TFLite backend need packages this machine lacks
+  and are held to the JAX package by the CPU tests only.
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -384,6 +398,15 @@ GATE_THRESHOLD = 64        # frame mean; dark frames are scaled to 1/10
 DEMUX_FRAMES = 32          # SSD frames through tensor_demux
 SPLIT_SETS = 16            # pose4 sets through tensor_split
 CROP_FRAMES = 32           # 300x300 frames through tensor_crop
+# the reference wire, the sparse codec, SingleShot and the pipeline filter
+# (refwire): ball frames through the wire (and the sparse pair before the
+# flagship), warm-up frames before them, logits through each sparse
+# layout, SingleShot invokes, frames through the pipeline filter
+REFWIRE_FRAMES = 240
+REFWIRE_WARMUP = 8
+REFWIRE_SPARSE_FRAMES = 64
+REFWIRE_SINGLE_FRAMES = 16
+REFWIRE_NESTED_FRAMES = 64
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -6318,6 +6341,315 @@ def phase_algebra(power: str) -> dict:
     return result
 
 
+def _wait_for(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _params_on(module) -> set:
+    return {str(p.device) for p in module.parameters()}
+
+
+def _logit_bytes(pipe, sink="sink"):
+    import numpy as np
+
+    return [np.ascontiguousarray(np.asarray(b[0])).tobytes()
+            for b in pipe.get(sink).buffers]
+
+
+def phase_refwire(power: str) -> dict:
+    """The reference two-port wire, the sparse codec, ``SingleShot`` and
+    the pipeline filter on card paths, with the flagship at full width
+    (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed 0) and
+    ``videotestsrc pattern=ball`` frames (224 distinct, so an ordering
+    fault shows).
+
+    (a) ``tensor_query_serversrc wire=nnstreamer caps=<uint8 frame> !
+    transform ! filter ! tensor_query_serversink`` serving an appsrc-fed
+    ``tensor_query_client wire=nnstreamer``, one frame in flight: 240 of
+    240 float32 logits back in order, bit-identical to an in-process
+    ``appsrc ! transform ! filter`` with the same fused region, B1 240
+    times on the server, the parameters on cuda:0, a client with other
+    caps DENYed; frames a second, round-trip p50/p99 and bytes sent a
+    frame. (b1) ``tensor_sparse_enc ! tensor_sparse_dec`` before the
+    flagship against the same string without them: labels, indices and
+    f32 scores bit-identical; the encoded over the dense bytes. (b2) the
+    filter's device logits through ``tensor_sparse_enc layout=reference``
+    and ``layout=native`` into ``tensor_sparse_dec``: the logits' bytes
+    back, one D2H a buffer. (c) ``SingleShot(framework="jax")`` on the
+    card: 16 invokes bit-identical to the unfused filter's logits, no B1.
+    (d) ``tensor_filter framework=pipeline`` around transform ! filter:
+    labels equal to the flat string's, B1 once a frame.
+
+    ``flatbuffers``, ``protobuf`` and ``tensorflow`` are not installed on
+    the card's machine, so the flexbuf, protobuf and flatbuf codecs and
+    the TFLite backend are held to the JAX package by the CPU tests only
+    (``tests/test_torch_codecs.py``, ``tests/test_torch_filter_backends.py``)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.ops import preprocess as pp
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.query import refwire as R
+    from nnstreamer_tpu_torch.single import SingleShot
+    from nnstreamer_tpu_torch.tensors.buffer import transfer_snapshot
+
+    print("refwire: the flexbuf, protobuf and flatbuf codecs and the TFLite "
+          "backend are held to the JAX package by the CPU tests only "
+          "(no flatbuffers, protobuf or tensorflow on this machine)",
+          flush=True)
+    nt.set_device(None)
+    t0 = time.monotonic()
+    module, labels = _flagship_model("refwire")
+    frames = _ball_frames(REFWIRE_FRAMES, IMAGE)
+    check(len({f.tobytes() for f in frames}) == min(REFWIRE_FRAMES, IMAGE),
+          "refwire: the ball frames are not 224 distinct ones")
+    caps = (f"other/tensors,format=static,num_tensors=1,"
+            f"dimensions=3:{IMAGE}:{IMAGE}:1,types=uint8")
+    body = ("tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=refwire name=filter")
+    appsrc = f"appsrc name=src caps={caps} max-buffers={REFWIRE_FRAMES + 1}"
+    result = {"gpu": power}
+    try:
+        # (a) the flagship behind the reference wire
+        server = nt.parse_launch(
+            f"tensor_query_serversrc name=ss host=127.0.0.1 port=0 "
+            f"wire=nnstreamer caps={caps} ! {body} ! "
+            "tensor_query_serversink name=sk",
+            pipeline=Pipeline(name="refwire_server"))
+        server.start()
+        try:
+            _wait_for(lambda: server.get("sk").sinkpad.caps is not None,
+                      "the server's output caps")
+            ss = server.get("ss")
+
+            def serve(n, name):
+                client = nt.parse_launch(
+                    f"{appsrc} ! tensor_query_client name=c wire=nnstreamer "
+                    f"host=127.0.0.1 port={ss.port} "
+                    f"sink-port={ss.result_port} ! tensor_sink name=sink",
+                    pipeline=Pipeline(name=name))
+                src, sink = client.get("src"), client.get("sink")
+                arrivals = []
+
+                def next_frame(buf):  # one frame in flight
+                    arrivals.append(time.monotonic())
+                    if len(arrivals) < n:
+                        src.push([frames[len(arrivals)]], pts=len(arrivals))
+                    else:
+                        src.end_of_stream()
+
+                sink.connect(next_frame)
+                src.push([frames[0]], pts=0)
+                msg = client.run(timeout=300)
+                torch.cuda.synchronize()
+                check(msg is not None and msg.kind == "eos",
+                      f"refwire: {name}: no EOS ({msg})")
+                return client, arrivals
+
+            serve(REFWIRE_WARMUP, "refwire_warm")
+            pp.reset_launches()
+            client, arrivals = serve(REFWIRE_FRAMES, "refwire_client")
+            launches = pp.LAUNCHES.get("normalize_chain", 0)
+            got = list(client.get("sink").buffers)
+            sent = client.get("c").obs_snapshot()["sent_bytes"]
+            lat_ms = sorted(x * 1e3 for x in client.get("sink").latencies)
+            server_region = _region_of(server, ["tensor_transform",
+                                                "tensor_filter"])
+            placed = _params_on(server.get("filter").fw._module)
+            denied = None
+            try:
+                R.RefWireClient("127.0.0.1", ss.port,
+                                sink_port=ss.result_port,
+                                in_caps=caps.replace(f"{IMAGE}:{IMAGE}",
+                                                     "112:112"))
+            except R.RefWireError as e:
+                denied = str(e)
+        finally:
+            server.stop()
+        local = nt.parse_launch(f"{appsrc} ! {body} ! tensor_sink name=sink",
+                                pipeline=Pipeline(name="refwire_local"))
+        src = local.get("src")
+        for i, f in enumerate(frames):
+            src.push([f], pts=i)
+        src.end_of_stream()
+        msg = local.run(timeout=300)
+        check(msg is not None and msg.kind == "eos",
+              f"refwire: the in-process run ({msg})")
+        _region_of(local, ["tensor_transform", "tensor_filter"])
+        want = _logit_bytes(local)
+        check(len(got) == REFWIRE_FRAMES,
+              f"refwire: {len(got)} of {REFWIRE_FRAMES} results came back")
+        check([b.pts for b in got] == list(range(REFWIRE_FRAMES)),
+              "refwire: the results came back out of order")
+        check(all(np.asarray(b[0]).dtype == np.float32 and
+                  np.asarray(b[0]).shape == (1, CLASSES) for b in got),
+              "refwire: the results are not float32 [1, 1001] logits")
+        differ = [i for i, (a, b) in enumerate(zip(_logit_bytes(client),
+                                                   want)) if a != b]
+        check(not differ, f"refwire: the logits of frames {differ[:10]} "
+                          "differ from the in-process run's")
+        check(launches == REFWIRE_FRAMES,
+              f"refwire: B1 {launches} times on the server for "
+              f"{REFWIRE_FRAMES} frames")
+        check(placed == {"cuda:0"}, f"refwire: the parameters on {placed}")
+        check(denied is not None and "denied" in denied,
+              "refwire: a client with other caps was not DENYed")
+        result["wire"] = {
+            "frames": len(got), "b1_launches": launches,
+            "captures": server_region.captures,
+            "fps": steady_fps(arrivals, arrivals[-1]),
+            "p50_ms": lat_ms[len(lat_ms) // 2],
+            "p99_ms": lat_ms[min(len(lat_ms) - 1,
+                                 int(0.99 * len(lat_ms)))],
+            "sent_bytes_per_frame": sent / REFWIRE_FRAMES,
+            "frame_bytes": IMAGE * IMAGE * 3, "params_on": sorted(placed),
+            "denied": denied}
+        # (b1) the sparse pair before the flagship, from videotestsrc
+        ball = (f"videotestsrc num-buffers={REFWIRE_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=ball ! tensor_converter")
+        tail = _flagship_tail("refwire", labels)
+        rows = {}
+        for name, desc in (
+                ("dense", f"{ball} ! {tail}"),
+                ("sparse", f"{ball} ! tensor_sparse_enc ! tee name=e  "
+                           "e. ! tensor_sink name=blobs  "
+                           f"e. ! tensor_sparse_dec ! {tail}")):
+            pipe = nt.parse_launch(desc, pipeline=Pipeline(
+                name=f"refwire_{name}"))
+            msg = pipe.run(timeout=300)
+            check(msg is not None and msg.kind == "eos",
+                  f"refwire: {name} ({msg})")
+            rows[name] = labelled_frames(
+                [b.meta for b in pipe.get("sink").buffers])
+            if name == "sparse":
+                encoded = sum(np.asarray(b[0]).nbytes
+                              for b in pipe.get("blobs").buffers)
+        check(len(rows["dense"]) == REFWIRE_FRAMES and
+              rows["sparse"] == rows["dense"],
+              "refwire: labels through the sparse pair differ from the "
+              "dense run's")
+        result["sparse_pair"] = {
+            "frames": len(rows["sparse"]),
+            "encoded_over_dense": encoded / (REFWIRE_FRAMES * IMAGE * IMAGE
+                                             * 3)}
+        # (b2) the device logits through both layouts
+        sparse = {}
+        for layout in ("reference", "native"):
+            pipe = nt.parse_launch(
+                f"{appsrc} ! {body} ! tensor_sparse_enc layout={layout} ! "
+                "tensor_sparse_dec ! tensor_sink name=sink",
+                pipeline=Pipeline(name=f"refwire_sparse_{layout}"))
+            src = pipe.get("src")
+            for i, f in enumerate(frames[:REFWIRE_SPARSE_FRAMES]):
+                src.push([f], pts=i)
+            src.end_of_stream()
+            x0 = transfer_snapshot()
+            msg = pipe.run(timeout=300)
+            d2h = _d2h(x0, transfer_snapshot())
+            check(msg is not None and msg.kind == "eos",
+                  f"refwire: sparse {layout} ({msg})")
+            back = _logit_bytes(pipe)
+            check(back == want[:REFWIRE_SPARSE_FRAMES],
+                  f"refwire: the logits through layout={layout} are not "
+                  "the logits' bytes")
+            check(d2h["d2h_events"] == REFWIRE_SPARSE_FRAMES,
+                  f"refwire: layout={layout}: {d2h['d2h_events']} D2H "
+                  f"events for {REFWIRE_SPARSE_FRAMES} buffers")
+            sparse[layout] = {"frames": len(back), **d2h}
+        result["sparse_logits"] = sparse
+        # (c) SingleShot on the card against the unfused filter
+        n = REFWIRE_SINGLE_FRAMES
+        unfused = nt.parse_launch(
+            f"{appsrc} ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! tee name=t  "
+            "t. ! tensor_sink name=x  "
+            "t. ! tensor_filter framework=jax model=refwire ! "
+            "tensor_sink name=sink",
+            pipeline=Pipeline(name="refwire_unfused", fuse=False))
+        src = unfused.get("src")
+        for i, f in enumerate(frames[:n]):
+            src.push([f], pts=i)
+        src.end_of_stream()
+        msg = unfused.run(timeout=300)
+        check(msg is not None and msg.kind == "eos",
+              f"refwire: the unfused filter ({msg})")
+        inputs = [np.asarray(b[0]) for b in unfused.get("x").buffers]
+        with SingleShot(framework="jax", model="refwire") as single:
+            pp.reset_launches()
+            outs = [single.invoke([x])[0] for x in inputs]
+            torch.cuda.synchronize()
+            single_b1 = pp.LAUNCHES.get("normalize_chain", 0)
+            single_placed = _params_on(single.fw._module)
+        check(all(isinstance(o, torch.Tensor) and o.is_cuda for o in outs),
+              "refwire: SingleShot's outputs are not on the card")
+        single_bytes = [o.detach().float().cpu().numpy().tobytes()
+                        for o in outs]
+        check(single_bytes == _logit_bytes(unfused),
+              "refwire: SingleShot's logits differ from the unfused "
+              "filter's")
+        check(single_placed == {"cuda:0"} and single_b1 == 0,
+              f"refwire: SingleShot on {single_placed}, B1 {single_b1}")
+        result["single"] = {"invokes": len(outs), "b1_launches": single_b1,
+                            "params_on": sorted(single_placed)}
+        # (d) the pipeline filter around transform ! filter
+        n = REFWIRE_NESTED_FRAMES
+        inner = (f"appsrc name=in ! {body} ! tensor_sink name=out")
+        flat, _ = _pushed_run("refwire_flat", f"{appsrc} ! {tail}",
+                              frames[:n])
+        nested = nt.parse_launch(
+            f'{appsrc} ! tensor_filter framework=pipeline model="{inner}" '
+            f"name=outer ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ! tensor_sink name=sink",
+            pipeline=Pipeline(name="refwire_nested"))
+        nested.start()
+        try:
+            # caps come from the appsrc at start: the outer filter probes
+            # the inner pipeline with one zero frame (one B1) before the
+            # counts are reset
+            _wait_for(lambda: getattr(nested.get("outer"), "_out_model_info",
+                                      None) is not None,
+                      "the pipeline filter's negotiation")
+            pp.reset_launches()
+            src = nested.get("src")
+            for i, f in enumerate(frames[:n]):
+                src.push([f], pts=i)
+            src.end_of_stream()
+            msg = nested.wait(timeout=300)
+            torch.cuda.synchronize()
+            nested_b1 = pp.LAUNCHES.get("normalize_chain", 0)
+        finally:
+            nested.stop()
+        check(msg is not None and msg.kind == "eos",
+              f"refwire: the pipeline filter ({msg})")
+        flat_rows = labelled_frames([b.meta for b in flat.get("sink").buffers])
+        nested_rows = labelled_frames(
+            [b.meta for b in nested.get("sink").buffers])
+        check(len(nested_rows) == n and
+              [r[:2] for r in nested_rows] == [r[:2] for r in flat_rows],
+              "refwire: the pipeline filter's labels differ from the flat "
+              "string's")
+        check(nested_b1 == n,
+              f"refwire: the pipeline filter ran B1 {nested_b1} times for "
+              f"{n} frames")
+        result["nested"] = {
+            "frames": len(nested_rows), "b1_launches": nested_b1,
+            "scores_equal": sum(a == b for a, b in zip(nested_rows,
+                                                       flat_rows))}
+    finally:
+        unregister_torch_model("refwire")
+    result["seconds"] = time.monotonic() - t0
+    emit({"phase": "refwire", **result})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6375,6 +6707,7 @@ def main() -> int:
     audio, audio_pipe = phase_audio(power)
     files = phase_files(power)
     algebra = phase_algebra(power)
+    refwire = phase_refwire(power)
     mem = phase_memory(power)
     cont = phase_continuity(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
@@ -6440,6 +6773,10 @@ def main() -> int:
         "launches_files": [files[k]["launches"]
                            for k in ("multifilesrc", "filesrc")],
         "launches_gate": algebra["gate"]["b1_launches"],
+        # the flagship behind the reference wire (once a frame on the
+        # server, 240 frames) and inside the pipeline filter (64 frames)
+        "launches_refwire": refwire["wire"]["b1_launches"],
+        "launches_refwire_nested": refwire["nested"]["b1_launches"],
         # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
         "kws_ms": b1["kws_ms"],
         "kws_device_ms": dev_b1["kws_device_ms"],

@@ -33,6 +33,9 @@ DEFAULT_EXT_PRIORITY: Dict[str, List[str]] = {
     # backend names ROADMAP A.23 for them
     **{ext: ["torch"] for ext in (".jaxexp", ".stablehlo", ".mlir",
                                   ".mlirbc", ".pb")},
+    ".tflite": ["tflite"],
+    ".py": ["python"],
+    ".so": ["native", "custom"],
 }
 
 #: model files the torch backend recognises and refuses (A.23)

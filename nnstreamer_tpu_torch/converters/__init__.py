@@ -3,4 +3,7 @@ parse other media into tensor streams for ``tensor_converter
 mode=custom-code:<name>``. Protocol (duck-typed):
 ``get_out_config(caps) -> TensorsConfig | None`` and
 ``convert(buf, in_caps) -> TensorBuffer``. The port has the ``python3``
-converter; the flexbuf and protobuf codecs wait for ROADMAP 26d."""
+converter and the reference serialization codecs: ``flexbuf`` and
+``nnstpu-flex`` (``converters/flexbuf.py``), ``protobuf``
+(``converters/protobuf_codec.py``) and ``flatbuf``, whose converter lives
+with its decoder in ``decoders/flatbuf_codec.py``."""

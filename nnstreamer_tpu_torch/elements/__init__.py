@@ -3,9 +3,9 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-other elements (``tensor_sparse_*``, the pub/sub and gRPC elements) wait
-for later slices of the port (ROADMAP.md, queue A). ``tensor_lm_serve``
-imports no model code until its engine is looked up.
+pub/sub and gRPC elements wait for later slices of the port (ROADMAP.md,
+queue A). ``tensor_lm_serve`` imports no model code until its engine is
+looked up.
 """
 
 from nnstreamer_tpu_torch.pipeline.pipeline import Queue  # noqa: F401 (registers "queue")
@@ -31,3 +31,4 @@ from nnstreamer_tpu_torch.elements import split  # noqa: F401
 from nnstreamer_tpu_torch.elements import join  # noqa: F401
 from nnstreamer_tpu_torch.elements import cond  # noqa: F401
 from nnstreamer_tpu_torch.elements import crop  # noqa: F401
+from nnstreamer_tpu_torch.elements import sparse  # noqa: F401

@@ -8,11 +8,14 @@ serversrc (receives client buffers) and serversink (routes each result back
 to its client by client-id meta). Client failover walks a server list
 (``_client_retry_connection``:465).
 
-The port of the JAX package's classic path, wire-compatible with it in both
-directions. Properties of the JAX elements whose features are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item when set
-away from their defaults: the resilient transport (26a), fleet balancing
-(26b), broker discovery (26c) and the reference's two-port wire (26d).
+The port of the JAX package's classic path and of its reference wire
+(``wire=nnstreamer``: the reference's raw-struct query protocol on two
+ports, ``query/refwire.py``), each wire-compatible with the JAX package in
+both directions. Properties of the JAX elements whose features are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md item when
+set away from their defaults: the resilient transport (26a), fleet
+balancing (26b) and broker discovery (26c). ``reliable`` and ``balance``
+need the classic wire in the JAX package too.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.pipeline.element import (
+    CapsEvent,
     Element,
     FlowError,
     FlowReturn,
@@ -29,14 +35,15 @@ from nnstreamer_tpu_torch.pipeline.element import (
 )
 from nnstreamer_tpu_torch.pipeline.pipeline import SourceElement
 from nnstreamer_tpu_torch.query import protocol as P
+from nnstreamer_tpu_torch.query import refwire as R
 from nnstreamer_tpu_torch.query.server import QueryServer
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
+from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensors.types import TensorFormat, TensorsConfig
 
 _RESILIENT = P.RESILIENT_ITEM
 _FLEET = "26b fleet balancing"
 _DISCOVERY = "26c broker discovery"
-_REFWIRE = "26d reference two-port wire"
 
 
 class _DefaultOnly:
@@ -61,8 +68,6 @@ class TensorQueryClient(_DefaultOnly, Element):
         "operation": (None, _DISCOVERY),
         "broker_host": ("127.0.0.1", _DISCOVERY),
         "broker_port": (1883, _DISCOVERY),
-        "wire": ("nnstpu", _REFWIRE),
-        "sink_port": (0, _REFWIRE),
         "reliable": (False, _RESILIENT),
         "propagate_deadline": (False, _RESILIENT),
         "breaker_failures": (5, _RESILIENT),
@@ -91,6 +96,13 @@ class TensorQueryClient(_DefaultOnly, Element):
         # read-only counter: frames lost to connection failures while in
         # flight (max_in_flight>1)
         "frames_dropped": 0,
+        # "nnstpu" = NTQ1 framing; "nnstreamer" = the reference's
+        # raw-struct wire (query/refwire.py) — offload to an unmodified
+        # reference tensor_query_serversrc/serversink pair
+        "wire": "nnstpu",
+        # refwire result connection (reference server-sink port);
+        # 0 → src port + 1 (the reference's usual pairing)
+        "sink_port": 0,
         **{k: v for k, (v, _) in DEFAULT_ONLY.items()},
     }
 
@@ -98,7 +110,13 @@ class TensorQueryClient(_DefaultOnly, Element):
         super().__init__(name, **props)
         self.add_sink_pad("sink")
         self.add_src_pad("src")
+        #: the classic wire's socket; with wire=nnstreamer the refwire
+        #: client, so "is connected" reads the same on both wires
         self._sock = None
+        self._refclient: Optional[R.RefWireClient] = None
+        #: refwire: the server's APPROVE caps as a TensorsConfig, which
+        #: rebuilds typed results from raw memories (None: results u8)
+        self._server_config = None
         self._server_idx = 0
         self._lock = threading.Lock()
         #: (pts, meta) of requests sent but not yet answered (in order)
@@ -147,8 +165,14 @@ class TensorQueryClient(_DefaultOnly, Element):
         port = int(self.get_property("dest_port") or self.get_property("port"))
         return [(host, port)]
 
+    def _refwire(self) -> bool:
+        return str(self.get_property("wire")) == "nnstreamer"
+
     def _connect_one(self, host: str, port: int) -> None:
-        """Classic-wire connect + handshake."""
+        """Connect + handshake on the configured wire."""
+        if self._refwire():
+            self._connect_refwire(host, port)
+            return
         caps_repr = repr(self.sinkpad.caps) if self.sinkpad.caps else ""
         timeout = float(self.get_property("timeout"))
         sock = P.connect(host, port, timeout=timeout)
@@ -164,6 +188,29 @@ class TensorQueryClient(_DefaultOnly, Element):
             sock.close()
             raise
         self._sock = sock
+
+    def _connect_refwire(self, host: str, port: int) -> None:
+        """Reference-wire connect: the caps handshake on the server's src
+        port, then the result connection on its sink port."""
+        in_caps = (R.fixated_caps_string(self.sinkpad.caps)
+                   if self.sinkpad.caps else "")
+        sink_port = int(self.get_property("sink_port") or 0) or None
+        rc = R.RefWireClient(host, port, sink_port=sink_port,
+                             in_caps=in_caps,
+                             timeout=float(self.get_property("timeout")))
+        self._server_config = None
+        if rc.server_caps:
+            try:
+                from nnstreamer_tpu_torch.pipeline.parse import (
+                    parse_caps_string,
+                )
+
+                self._server_config = TensorsConfig.from_caps(
+                    parse_caps_string(rc.server_caps))
+            except Exception:  # noqa: BLE001 — results stay u8
+                self.log.info("server caps %r not parseable; results "
+                              "surface as u8", rc.server_caps)
+        self._refclient = self._sock = rc
 
     def _connect(self):
         """Connect with failover across the server list (reference
@@ -186,6 +233,7 @@ class TensorQueryClient(_DefaultOnly, Element):
 
     def _disconnect_locked(self):
         sock, self._sock = self._sock, None
+        self._refclient = None
         if sock is not None:
             try:
                 sock.close()
@@ -194,7 +242,7 @@ class TensorQueryClient(_DefaultOnly, Element):
 
     def stop(self):
         with self._lock:
-            if self._sock is not None:
+            if self._sock is not None and self._refclient is None:
                 try:
                     P.send_msg(self._sock, P.Cmd.BYE)
                 except OSError:
@@ -209,9 +257,21 @@ class TensorQueryClient(_DefaultOnly, Element):
         return None  # output caps come from the first result buffer
 
     def _send_buf(self, buf):
-        self._obs_sent().inc(P.send_buffer(self._sock, buf))
+        if self._refclient is not None:
+            sent = self._refclient.send(R.buffer_to_mems(buf.to_host()),
+                                        pts=buf.pts)
+        else:
+            sent = P.send_buffer(self._sock, buf)
+        self._obs_sent().inc(sent)
 
     def _recv_result(self):
+        if self._refclient is not None:
+            info, mems = self._refclient.recv_result()
+            if self._server_config is not None:
+                return R.mems_to_buffer(mems, self._server_config, info)
+            return TensorBuffer(
+                [np.frombuffer(m, dtype=np.uint8) for m in mems],
+                pts=info.get("pts"))
         cmd, payload = P.recv_msg(self._sock)
         if cmd is not P.Cmd.RESULT:
             raise P.QueryProtocolError(f"expected RESULT, got {cmd}")
@@ -325,9 +385,6 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         "broker_host": ("127.0.0.1", _DISCOVERY),
         "broker_port": (1883, _DISCOVERY),
         "advertise_host": ("127.0.0.1", _DISCOVERY),
-        "wire": ("nnstpu", _REFWIRE),
-        "sink_port": (0, _REFWIRE),
-        "caps": (None, _REFWIRE),
         "reliable": (False, _RESILIENT),
         "metrics_port": (0, _FLEET),
         "advertise_interval_s": (0.0, _FLEET),
@@ -338,6 +395,16 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         "port": 3000,
         "id": 0,  # pairs serversrc/serversink (reference `id` property)
         "num_buffers": -1,
+        # "nnstreamer" speaks the reference's raw-struct query wire on
+        # TWO ports (src=port, sink=sink-port) so unmodified reference
+        # clients can offload to this server (query/refwire.py)
+        "wire": "nnstpu",
+        "sink_port": 0,
+        # refwire carries no per-tensor meta: a caps string here (e.g.
+        # "other/tensors,num_tensors=1,dimensions=3:4,types=float32")
+        # reconstructs typed tensors from the raw mems and is announced
+        # to clients in the APPROVE reply
+        "caps": None,
         **{k: v for k, (v, _) in DEFAULT_ONLY.items()},
     }
 
@@ -354,6 +421,9 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         self.server = QueryServer(
             host=self.get_property("host"),
             port=int(self.get_property("port")),
+            caps_str=str(self.get_property("caps") or ""),
+            wire=str(self.get_property("wire")),
+            sink_port=int(self.get_property("sink_port") or 0),
         ).start()
         with self._SERVERS_LOCK:
             self._SERVERS[int(self.get_property("id"))] = self.server
@@ -377,7 +447,19 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         return self.server.port if self.server else \
             int(self.get_property("port"))
 
+    @property
+    def result_port(self) -> int:
+        """Refwire sink (result) port once bound."""
+        return self.server.sink_port if self.server else \
+            int(self.get_property("sink_port"))
+
     def negotiate(self):
+        caps_prop = self.get_property("caps")
+        if caps_prop:
+            from nnstreamer_tpu_torch.pipeline.parse import parse_caps_string
+
+            self.srcpad.set_caps(parse_caps_string(str(caps_prop)))
+            return
         self.srcpad.set_caps(
             TensorsConfig(format=TensorFormat.FLEXIBLE).to_caps()
         )
@@ -409,6 +491,15 @@ class TensorQueryServerSink(Element):
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.add_sink_pad("sink")
+
+    def sink_event(self, pad, event):
+        if isinstance(event, CapsEvent):
+            # the reference wire announces the pipeline's output caps
+            server = TensorQueryServerSrc.get_server(
+                int(self.get_property("id")))
+            if server is not None:
+                server.set_sink_caps(event.caps)
+        super().sink_event(pad, event)
 
     def chain(self, pad, buf):
         server = TensorQueryServerSrc.get_server(int(self.get_property("id")))

@@ -28,6 +28,7 @@ buffer's own ``to_host`` (its one D2H), ``fakesink`` never fetches one.
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from collections import deque
@@ -43,6 +44,46 @@ from nnstreamer_tpu_torch.pipeline.element import Element, EosEvent, FlowReturn
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensors.pool import get_pool
+
+
+class LatencyReservoir:
+    """Bounded latency sample population with exact percentiles up to
+    ``cap`` and uniform reservoir sampling (Vitter's algorithm R) beyond.
+
+    A ``deque(maxlen=N)`` is a sliding window: past N its percentiles
+    describe only the most recent frames. A reservoir keeps every sample
+    equally likely to be in the population whatever the stream's length,
+    and below the cap the population is complete, so its percentiles are
+    exact. The RNG is seeded, so a deterministic pipeline reports the same
+    stats run after run. ``count`` is the number of samples offered;
+    ``len()`` the number retained."""
+
+    __slots__ = ("cap", "count", "_vals", "_rng")
+
+    def __init__(self, cap: int = 65_536, seed: int = 0x5EED):
+        self.cap = int(cap)
+        self.count = 0
+        self._vals: List[float] = []
+        self._rng = random.Random(seed)
+
+    def append(self, v: float) -> None:
+        self.count += 1
+        if len(self._vals) < self.cap:
+            self._vals.append(v)
+            return
+        j = self._rng.randrange(self.count)
+        if j < self.cap:
+            self._vals[j] = v
+
+    def __len__(self) -> int:
+        return len(self._vals)
+
+    def __iter__(self):
+        return iter(self._vals)
+
+    def clear(self) -> None:
+        self.count = 0
+        self._vals.clear()
 
 
 @subplugin(ELEMENT, "tensor_sink")
@@ -69,8 +110,9 @@ class TensorSink(Element):
         #: ring-bounded so long-lived pipelines don't grow forever
         self.latencies: deque = deque(maxlen=100_000)
         #: admission-stamp → chain latencies of frames a stamp-admission
-        #: queue accepted (the served population), same bound
-        self.admitted_latencies: deque = deque(maxlen=100_000)
+        #: queue accepted (the served population): a reservoir, so a long
+        #: run keeps a uniform sample of the whole stream
+        self.admitted_latencies = LatencyReservoir()
         self._m_e2e = None  # lazy: labels need the owning pipeline's name
 
     def _obs_e2e(self):

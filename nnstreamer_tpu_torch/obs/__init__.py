@@ -4,7 +4,8 @@ The counters, gauges and histograms of the JAX package's ``obs`` package
 (``nns_<element>_<metric>{pipeline=..., element=...}``), carried over as
 they are. ``quantiles.P2Quantile``, ``flight.LMTokenStats`` and
 ``collectors.register_engine_collector`` carry the serving engine's
-metrics. ``timeline`` is the frame ledger (per-frame spans across lanes,
+metrics; ``collectors.register_pipeline_collector`` (registered by every
+``Pipeline``) the per-element latency, throughput and invoke series. ``timeline`` is the frame ledger (per-frame spans across lanes,
 queues, the dispatch window and transfers; ``NNSTPU_TRACE``);
 ``flight.FlightRecorder`` is the always-on recorder every pipeline
 installs on that ledger (``NNSTPU_FLIGHT``); ``server.MetricsServer``

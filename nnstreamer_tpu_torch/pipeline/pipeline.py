@@ -47,6 +47,7 @@ import os
 import queue as _queue
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -55,6 +56,7 @@ import torch
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs.collectors import register_pipeline_collector
 from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.tensors import memory as _memory
@@ -234,6 +236,8 @@ class Queue(Element):
     #: worker wake token in scheduler mode: data rides the EDF heap, the
     #: FIFO carries only ordering (tokens, events, EOS)
     _TOKEN = object()
+    #: at most one leaky-drop warning per this many seconds
+    DROP_WARN_INTERVAL_S = 5.0
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -244,7 +248,10 @@ class Queue(Element):
         self._stop_evt = threading.Event()
         self._eos_done = threading.Event()
         self._m_drops = None
+        self._m_blocked = None    # cumulative blocked-put seconds
         self._m_drain = None
+        self._last_drop_warn_t = 0.0
+        self._drops_since_warn = 0
         self._m_admitted = None       # stamp-admission accept counter
         self._m_adm_revoked = None    # admitted-then-dropped counter
         #: data buffers the worker popped but has not handed downstream
@@ -280,6 +287,7 @@ class Queue(Element):
         out["depth"] = self._depth()
         if self._m_drops is not None:
             out["drops"] = int(self._m_drops.value)
+            out["blocked_s"] = round(self._m_blocked.value, 4)
             if self.get_property("stamp_admission"):
                 out["admitted"] = int(self._m_admitted.value)
                 out["admitted_revoked"] = int(self._m_adm_revoked.value)
@@ -322,6 +330,14 @@ class Queue(Element):
                 "nns_queue_drops_total",
                 "Buffers discarded by leaky=downstream backpressure",
                 **labels)
+            self._m_blocked = reg.counter(
+                "nns_queue_blocked_seconds_total",
+                "Cumulative producer time spent blocked on a full queue",
+                **labels)
+            ref = weakref.ref(self)
+            reg.gauge("nns_queue_depth", "Buffers currently queued",
+                      fn=lambda: (ref()._depth() if ref() is not None
+                                  else 0), **labels)
             self._m_drain = reg.histogram(
                 "nns_queue_drain_size",
                 "Data buffers the worker drained per wake (backlog "
@@ -406,13 +422,28 @@ class Queue(Element):
                 seq, t0, now, track=self.name)
         buf.meta[_timeline.HANDOFF_META] = now
 
+    def _count_drop(self) -> None:
+        """Count a leaky drop, with one rate-limited warning, so a live
+        operator sees the loss without a log line per frame."""
+        self._m_drops.inc()
+        self._drops_since_warn += 1
+        now = time.monotonic()
+        if now - self._last_drop_warn_t >= self.DROP_WARN_INTERVAL_S:
+            self.log.warning(
+                "%s: leaky=downstream dropped %d buffer(s) since last "
+                "report (downstream slower than producer; total %d)",
+                self.name, self._drops_since_warn,
+                int(self._m_drops.value))
+            self._last_drop_warn_t = now
+            self._drops_since_warn = 0
+
     def _drop_oldest(self) -> None:
         """leaky=downstream: drop the oldest queued buffer to make room."""
         try:
             dropped = self._q.get_nowait()
         except _queue.Empty:
             return
-        self._m_drops.inc()
+        self._count_drop()
         if dropped is self._EOS or isinstance(dropped, Event):
             return
         # a frame dropped AFTER stamp-admission leaves the admitted
@@ -460,12 +491,16 @@ class Queue(Element):
                     return FlowReturn.OK
                 except _queue.Full:
                     self._drop_oldest()
+        t0 = None
         while not self._stop_evt.is_set():
             try:
                 self._q.put(buf, timeout=0.1)
+                if t0 is not None:
+                    self._m_blocked.inc(time.monotonic() - t0)
                 return FlowReturn.OK
             except _queue.Full:
-                continue
+                if t0 is None:
+                    t0 = time.monotonic()
         return FlowReturn.EOS
 
     def sink_event(self, pad, event):
@@ -663,7 +698,7 @@ class Queue(Element):
                            budget_ms=self._budget_ms):
             # rejected at the door, never admitted: nothing staged for it
             # reaches a fence
-            self._m_drops.inc()
+            self._count_drop()
             release_shed_payload(buf)
             return FlowReturn.OK
         self._m_admitted.inc()
@@ -678,7 +713,7 @@ class Queue(Element):
         if shed is not None:
             sched.note_shed(shed, now)
             self._m_adm_revoked.inc()
-            self._m_drops.inc()
+            self._count_drop()
         self._q.put_nowait(self._TOKEN)  # wake the worker (unbounded)
         return FlowReturn.OK
 
@@ -735,7 +770,7 @@ class Queue(Element):
         for buf in shed:
             self._sched.note_shed(buf, time.monotonic())
             self._m_adm_revoked.inc()
-            self._m_drops.inc()
+            self._count_drop()
 
     def _drain_sched(self):
         """Scheduler-mode worker: wake tokens pop EDF runs capped by the
@@ -823,6 +858,9 @@ class Pipeline:
         #: Unset, the continuity layer never runs
         self.checkpoint_dir: Optional[str] = None
         self._continuity_restored = False
+        # export per-element latency/throughput gauges at scrape time
+        # (weakref-bound: a collected pipeline unregisters itself)
+        register_pipeline_collector(self)
 
     # -- construction ---------------------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":

@@ -6,9 +6,11 @@ Reference: ``tensor_query_server.c`` (262 LoC) + the server halves of
 (serversink routes by the GstMetaQuery client-id, tensor_meta.c).
 
 The port of the JAX package's pure-Python transport: a thread per client
-speaking the classic commands. Not ported yet: the native epoll core
-(ROADMAP.md item 26e), the reference's two-port wire (26d) and the
-resilient protocol with its dedup windows and checkpoints (26a).
+speaking the classic commands, or with ``wire="nnstreamer"`` the
+reference's two-port raw-struct wire (``query/refwire.py``), whose
+memories are rebuilt into tensors from ``caps_str``. Not ported yet: the
+native epoll core (ROADMAP.md item 26e) and the resilient protocol with
+its dedup windows and checkpoints (26a).
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ import socket
 import threading
 from typing import Dict, Optional
 
+import numpy as np
+
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.query import protocol as P
+from nnstreamer_tpu_torch.query import refwire as R
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 
 log = get_logger("query.server")
@@ -32,9 +37,20 @@ MAX_QUEUE = 64
 class QueryServer:
     """Accepts query clients; exposes a queue of (client_id, buffer)."""
 
-    def __init__(self, host: str = "0.0.0.0", port: int = 3000):
+    def __init__(self, host: str = "0.0.0.0", port: int = 3000,
+                 caps_str: str = "", wire: str = "nnstpu",
+                 sink_port: int = 0):
         self.host = host
         self.port = port
+        self.caps_str = caps_str
+        #: "nnstpu" = NTQ1 framing (self-describing tensors); "nnstreamer"
+        #: = the reference's raw-struct wire on TWO ports (src=port,
+        #: sink=sink_port) so reference edge peers can offload to us
+        self.wire = wire
+        self.sink_port = sink_port
+        self._refwire: Optional[R.RefWireQueryServer] = None
+        #: refwire: the TensorsConfig the raw memories are rebuilt with
+        self._config = None
         self.incoming: _queue.Queue = _queue.Queue(maxsize=MAX_QUEUE)
         self._clients: Dict[int, socket.socket] = {}
         self._clients_lock = threading.Lock()
@@ -48,13 +64,32 @@ class QueryServer:
         reg = get_registry()
         self._m_requests = reg.counter(
             "nns_query_requests_total",
-            "Buffers received from query clients", wire="nnstpu")
+            "Buffers received from query clients", wire=self.wire)
         self._m_errors = reg.counter(
             "nns_query_errors_total",
-            "Malformed / undeliverable query frames", wire="nnstpu")
+            "Malformed / undeliverable query frames", wire=self.wire)
+        if caps_str and wire == "nnstreamer":
+            try:
+                from nnstreamer_tpu_torch.pipeline.parse import (
+                    parse_caps_string,
+                )
+                from nnstreamer_tpu_torch.tensors.types import TensorsConfig
+
+                self._config = TensorsConfig.from_caps(
+                    parse_caps_string(caps_str))
+            except Exception as e:  # noqa: BLE001 — caps stay advisory
+                log.info("refwire caps %r not parseable (%s); "
+                         "mems surface as u8", caps_str, e)
 
     def start(self) -> "QueryServer":
         self._stop.clear()
+        if self.wire == "nnstreamer":
+            self._refwire = R.RefWireQueryServer(
+                host=self.host, src_port=self.port, sink_port=self.sink_port,
+                caps_str=self.caps_str, max_queue=MAX_QUEUE).start()
+            self.port = self._refwire.src_port
+            self.sink_port = self._refwire.sink_port
+            return self
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listener.bind((self.host, self.port))
@@ -69,6 +104,9 @@ class QueryServer:
 
     def stop(self) -> None:
         self._stop.set()
+        if self._refwire is not None:
+            self._refwire.stop()
+            self._refwire = None
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=5)
             self._accept_thread = None
@@ -148,8 +186,43 @@ class QueryServer:
             except OSError:
                 pass
 
+    def set_sink_caps(self, caps) -> None:
+        """The server pipeline's output caps, from its serversink: the
+        reference wire's APPROVE announces them to later clients."""
+        refsrv = self._refwire
+        if refsrv is not None and caps is not None:
+            refsrv.sink_caps_str = caps.to_string()
+
+    # -- reference-wire reconstruction --------------------------------------
+    def _refwire_buf(self, client_id: int, info: dict,
+                     mems) -> Optional[TensorBuffer]:
+        """None on a mem/caps mismatch: the serving loop survives one
+        client's malformed buffer (the frame drops, not the pipeline)."""
+        try:
+            if self._config is not None:
+                buf = R.mems_to_buffer(mems, self._config, info)
+            else:
+                buf = TensorBuffer(
+                    [np.frombuffer(m, dtype=np.uint8) for m in mems],
+                    pts=info.get("pts"), dts=info.get("dts"),
+                    duration=info.get("duration"))
+        except ValueError as e:
+            self._m_errors.inc()
+            log.warning("refwire buffer from client %d does not match "
+                        "the configured caps (%s); dropping it",
+                        client_id, e)
+            return None
+        buf.meta["query_client_id"] = client_id
+        return buf
+
     # -- results -------------------------------------------------------------
     def send_result(self, client_id: int, buf: TensorBuffer) -> bool:
+        refsrv = self._refwire  # capture once: stop() nulls the attribute
+        if self.wire == "nnstreamer":
+            if refsrv is None:
+                return False
+            return refsrv.send_result(
+                client_id, R.buffer_to_mems(buf.to_host()), pts=buf.pts)
         with self._clients_lock:
             conn = self._clients.get(client_id)
         if conn is None:
@@ -166,10 +239,16 @@ class QueryServer:
 
     def get_buffer(self, timeout: Optional[float] = None
                    ) -> Optional[TensorBuffer]:
-        try:
-            buf = self.incoming.get(timeout=timeout)
-        except _queue.Empty:
-            return None
+        if self.wire == "nnstreamer":
+            refsrv = self._refwire
+            got = refsrv.get(timeout=timeout) if refsrv is not None \
+                else None
+            buf = None if got is None else self._refwire_buf(*got)
+        else:
+            try:
+                buf = self.incoming.get(timeout=timeout)
+            except _queue.Empty:
+                return None
         if buf is not None:
             self._m_requests.inc()
         return buf

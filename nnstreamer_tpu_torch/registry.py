@@ -37,6 +37,11 @@ _BUILTIN_PROVIDERS: Dict[str, Dict[str, str]] = {
         "jax": "nnstreamer_tpu_torch.filters.torch_backend",
         "custom": "nnstreamer_tpu_torch.filters.custom",
         "custom-easy": "nnstreamer_tpu_torch.filters.custom",
+        "python": "nnstreamer_tpu_torch.filters.python_class",
+        "tflite": "nnstreamer_tpu_torch.filters.tflite_backend",
+        "tensorflow-lite": "nnstreamer_tpu_torch.filters.tflite_backend",
+        "native": "nnstreamer_tpu_torch.filters.native_filter",
+        "pipeline": "nnstreamer_tpu_torch.filters.pipeline_filter",
     },
     DECODER: {
         "image_labeling": "nnstreamer_tpu_torch.decoders.image_labeling",
@@ -45,9 +50,17 @@ _BUILTIN_PROVIDERS: Dict[str, Dict[str, str]] = {
         "image_segment": "nnstreamer_tpu_torch.decoders.image_segment",
         "direct_video": "nnstreamer_tpu_torch.decoders.direct_video",
         "octet_stream": "nnstreamer_tpu_torch.decoders.octet_stream",
+        "flexbuf": "nnstreamer_tpu_torch.decoders.flexbuf",
+        "nnstpu-flex": "nnstreamer_tpu_torch.decoders.flexbuf",
+        "protobuf": "nnstreamer_tpu_torch.decoders.protobuf_codec",
+        "flatbuf": "nnstreamer_tpu_torch.decoders.flatbuf_codec",
         "python3": "nnstreamer_tpu_torch.decoders.python3",
     },
     CONVERTER: {
+        "flexbuf": "nnstreamer_tpu_torch.converters.flexbuf",
+        "nnstpu-flex": "nnstreamer_tpu_torch.converters.flexbuf",
+        "protobuf": "nnstreamer_tpu_torch.converters.protobuf_codec",
+        "flatbuf": "nnstreamer_tpu_torch.decoders.flatbuf_codec",
         "python3": "nnstreamer_tpu_torch.converters.python3",
     },
     ELEMENT: {},  # populated by nnstreamer_tpu_torch.elements at import

@@ -12,8 +12,10 @@ little-endian layout (struct-packed), used by:
 - sparse encode/decode (``elements.sparse``);
 - the distributed query protocol's tensor framing (``query.protocol``).
 
-The layout ("TMI1", little-endian, 96 bytes) is the framework's own
-framing, used by the query protocol and mode=nnstpu-flex; it supports
+Two selectable wire layouts:
+
+**native** ("TMI1", little-endian, 96 bytes) — the framework's own
+framing, used by the query protocol and mode=nnstpu-flex; supports
 rank>4 and fp16/bf16::
 
   u32 magic      0x544D4931 ("TMI1")
@@ -24,12 +26,27 @@ rank>4 and fp16/bf16::
   u64 media_type reserved (0)
   u64 sparse_nnz nonzero count for sparse payloads, else 0
 
-A copy of the JAX package's module without its reference
-``GstTensorMetaInfo`` layout (ROADMAP 26d): the TMI1 header is
-byte-identical to the JAX package's. :func:`pack_tensor` also takes a
-torch tensor (a CUDA tensor is copied to the host once), and
-:func:`unpack_tensor` returns a CPU ``torch.Tensor`` for ``bfloat16``,
-which numpy cannot hold.
+**reference** — the byte-exact ``GstTensorMetaInfo`` v1 header
+(tensor_typedef.h:283-297, packed/parsed by tensor_common.c:1669-1723):
+128 bytes of little-endian u32s, interoperable with reference
+flexible/sparse pipelines::
+
+  u32 version    0xDE001000  (GST_TENSOR_META_MAKE_VERSION(1,0))
+  u32 type       reference tensor_type enum (no fp16/bf16)
+  u32 dim[16]    innermost-first, rank-terminated by 0
+  u32 format     static=0 / flexible=1 / sparse=2
+  u32 media_type _NNS_TENSOR = 4
+  u32 nnz        sparse non-zero count (union member; 0 otherwise)
+  ...zero-padded to 128 bytes (gst_tensor_meta_info_get_header_size)
+
+``parse_header`` sniffs which layout a buffer carries (the reference
+version word always has the 0xDE magic in its top byte; TMI1's magic
+differs), so decode paths accept both.
+
+A copy of the JAX package's module; both layouts are byte-identical to
+the JAX package's. :func:`pack_tensor` also takes a torch tensor (a CUDA
+tensor is copied to the host once), and :func:`unpack_tensor` returns a
+CPU ``torch.Tensor`` for ``bfloat16``, which numpy cannot hold.
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ import dataclasses
 import struct
 from typing import Tuple
 
+from nnstreamer_tpu_torch.tensors import wire
 from nnstreamer_tpu_torch.tensors.types import (
     NNS_TENSOR_RANK_LIMIT,
     TensorFormat,
@@ -51,6 +69,14 @@ _FORMAT_ORDER = list(TensorFormat)
 _STRUCT = struct.Struct("<IIII8QQQ")
 
 HEADER_SIZE = _STRUCT.size
+
+#: reference GstTensorMetaInfo v1 constants (tensor_common.c:1510-1525)
+REF_META_VERSION = 0xDE001000  # GST_TENSOR_META_MAKE_VERSION(1, 0)
+REF_META_VERSION_MASK = 0xDE000000
+REF_META_RANK_LIMIT = 16  # NNS_TENSOR_META_RANK_LIMIT (tensor_typedef.h:44)
+REF_HEADER_SIZE = 128  # gst_tensor_meta_info_get_header_size, v1
+_REF_MEDIA_TENSOR = 4  # _NNS_TENSOR (tensor_typedef.h:185)
+_REF_STRUCT = struct.Struct("<21I")  # version,type,dim[16],format,media,nnz
 
 
 @dataclasses.dataclass
@@ -112,15 +138,83 @@ class TensorMetaInfo:
             sparse_nnz=int(fields[13]),
         )
 
+    # -- reference GstTensorMetaInfo wire format ----------------------------
+    def pack_ref(self) -> bytes:
+        """Byte-exact ``GstTensorMetaInfo`` v1 header (128 B) the way
+        gst_tensor_meta_info_update_header (tensor_common.c:1669-1684)
+        memcpys the struct: version, type, dim[16] rank-terminated by
+        zero, format, media_type, nnz, zero-padded."""
+        type_idx = wire.ref_type_index(self.to_info(), "meta",
+                                       "the native TMI1 layout")
+        if len(self.dim) > REF_META_RANK_LIMIT:
+            raise ValueError(f"meta: rank {len(self.dim)} exceeds the "
+                             f"reference limit {REF_META_RANK_LIMIT}")
+        if any(d <= 0 for d in self.dim):
+            raise ValueError(f"meta: invalid dimension {self.dim}")
+        dims = list(self.dim) + [0] * (REF_META_RANK_LIMIT - len(self.dim))
+        hdr = _REF_STRUCT.pack(
+            REF_META_VERSION,
+            type_idx,
+            *dims,
+            wire.ref_format_index(self.format),
+            _REF_MEDIA_TENSOR,
+            self.sparse_nnz,
+        )
+        return hdr + b"\x00" * (REF_HEADER_SIZE - len(hdr))
+
+    @classmethod
+    def unpack_ref(cls, data: bytes) -> "TensorMetaInfo":
+        """Parse a reference v1 header the way
+        gst_tensor_meta_info_parse_header (tensor_common.c:1691-1723)
+        does, with its validate() checks."""
+        if len(data) < REF_HEADER_SIZE:
+            raise ValueError(
+                f"header too short: {len(data)} < {REF_HEADER_SIZE}")
+        fields = _REF_STRUCT.unpack_from(data)
+        version = fields[0]
+        if (version & REF_META_VERSION_MASK) != REF_META_VERSION_MASK:
+            raise ValueError(f"bad GstTensorMetaInfo version {version:#x}")
+        ttype = wire.ref_type_from_index(fields[1], "meta")
+        dims = []
+        for d in fields[2:2 + REF_META_RANK_LIMIT]:
+            if d == 0:
+                break
+            dims.append(int(d))
+        if not dims:
+            raise ValueError("GstTensorMetaInfo header with empty dimension")
+        if len(dims) > NNS_TENSOR_RANK_LIMIT:
+            raise ValueError(
+                f"GstTensorMetaInfo header with rank {len(dims)}: the "
+                f"reference wire allows up to {REF_META_RANK_LIMIT} but "
+                f"this framework handles rank ≤ {NNS_TENSOR_RANK_LIMIT}")
+        fmt = wire.ref_format_from_index(fields[18], "meta")
+        if fields[19] > _REF_MEDIA_TENSOR:
+            raise ValueError(f"bad media_type {fields[19]}")
+        nnz = fields[20] if fmt is TensorFormat.SPARSE else 0
+        return cls(type=ttype, dim=tuple(dims), format=fmt, sparse_nnz=nnz)
+
     @property
     def data_size(self) -> int:
         """Byte size of the dense payload this header describes."""
         return self.to_info().size
 
 
+def is_ref_header(data: bytes, offset: int = 0) -> bool:
+    """True when ``data[offset:]`` starts with a reference
+    ``GstTensorMetaInfo`` header (0xDE version magic in the first word;
+    the native TMI1 magic never matches it)."""
+    if len(data) < offset + 4:
+        return False
+    (word,) = struct.unpack_from("<I", data, offset)
+    return (word & REF_META_VERSION_MASK) == REF_META_VERSION_MASK
+
+
 def parse_header(data: bytes, offset: int = 0):
-    """Parse the TMI1 header at ``offset``; returns
+    """Sniff the header layout at ``offset``; returns
     ``(TensorMetaInfo, header_size)``."""
+    if is_ref_header(data, offset):
+        return (TensorMetaInfo.unpack_ref(
+            data[offset:offset + REF_HEADER_SIZE]), REF_HEADER_SIZE)
     return (TensorMetaInfo.unpack(data[offset:offset + HEADER_SIZE]),
             HEADER_SIZE)
 
@@ -139,15 +233,23 @@ def _host_bytes(arr) -> Tuple[TensorInfo, bytes]:
     return TensorInfo.from_array(arr), arr.tobytes()
 
 
-def pack_tensor(arr, format=TensorFormat.FLEXIBLE) -> bytes:
-    """Serialize one tensor as TMI1 header + raw bytes (host-side)."""
+def pack_tensor(arr, format=TensorFormat.FLEXIBLE,
+                layout: str = "native") -> bytes:
+    """Serialize one tensor as header + raw bytes (host-side).
+    ``layout="reference"`` emits the ``GstTensorMetaInfo`` byte layout a
+    reference flexible-stream peer parses; ``"native"`` the TMI1 one."""
+    if layout not in ("reference", "native"):
+        raise ValueError(f"pack_tensor: unknown layout {layout!r} "
+                         "(reference|native)")
     info, raw = _host_bytes(arr)
-    return TensorMetaInfo.from_info(info, format=format).pack() + raw
+    meta = TensorMetaInfo.from_info(info, format=format)
+    return (meta.pack_ref() if layout == "reference" else meta.pack()) + raw
 
 
 def unpack_tensor(data: bytes, offset: int = 0):
     """Parse header + payload at ``offset``; returns (array, next_offset).
-    A ``bfloat16`` payload comes back as a CPU torch tensor."""
+    Accepts both the native and the reference header layouts. A
+    ``bfloat16`` payload comes back as a CPU torch tensor."""
     import numpy as np
 
     meta, hsize = parse_header(data, offset)

@@ -130,10 +130,10 @@ def test_queue_properties_run(queue_props):
 @pytest.mark.parametrize("desc,item", [
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m shard=dp2 ! tensor_sink", "A.24"),
-    # the converter's other media are ported (ROADMAP A.17); the
-    # query client's reference wire and resilient transport are not
+    # the converter's other media (ROADMAP A.17) and the query client's
+    # reference wire (26d) are ported; its fleet balancing is not
     ("videotestsrc ! tensor_converter ! tensor_query_client "
-     "wire=nnstreamer ! tensor_sink", "26d"),
+     "balance=shortest-slack ! tensor_sink", "26b"),
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
     ("videotestsrc ! tensor_converter ! tensor_query_client "

@@ -1,8 +1,8 @@
 """The SSAT-style golden pipelines of ``tests/test_golden_pipelines.py`` on
 the port: each launch string ends in ``filesink``, runs through both
 packages on the CPU, and the two dumps must be byte-identical and equal
-to the numpy golden. The sparse round trip waits for ROADMAP 26d
-(``tensor_sparse_enc``/``dec``).
+to the numpy golden: all nineteen, the sparse round trip
+(``tensor_sparse_enc``/``dec``) among them.
 """
 
 import numpy as np
@@ -101,6 +101,12 @@ CASES = {
         lambda d: b"".join(np.concatenate(
             _src_frames(8, 8, 8)[i:i + 4], axis=0).tobytes()
             for i in (0, 4))),
+    "sparse_roundtrip": (
+        "videotestsrc num-buffers=4 width=8 height=8 pattern=ball ! "
+        "tensor_converter ! tensor_sparse_enc ! tensor_sparse_dec ! "
+        "filesink location={out}",
+        lambda d: b"".join(f.tobytes()
+                           for f in _src_frames(4, 8, 8, "ball"))),
     "demux_pick": (
         "tensor_mux name=m sync-mode=nosync ! tensor_demux tensorpick=1 ! "
         "filesink location={out} "

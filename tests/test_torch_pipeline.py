@@ -191,7 +191,12 @@ def test_import_leaves_jax_out():
         "'elements.crop', 'filters.custom', 'tensors.data', "
         "'decoders.octet_stream', 'decoders.direct_video', "
         "'decoders.python3', 'converters.python3', "
-        "'models.audio_classifier'):\n"
+        "'models.audio_classifier', 'tensors.wire', 'elements.sparse', "
+        "'decoders.flexbuf', 'converters.flexbuf', "
+        "'decoders.protobuf_codec', 'converters.protobuf_codec', "
+        "'decoders.flatbuf_codec', 'query.refwire', 'single', "
+        "'filters.pipeline_filter', 'filters.python_class', "
+        "'filters.native_filter', 'filters.tflite_backend'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -338,15 +338,21 @@ UNPORTED = [
     (TensorQueryClient, "operation", "detect", "26c"),
     (TensorQueryClient, "broker-host", "10.0.0.1", "26c"),
     (TensorQueryClient, "broker-port", "1884", "26c"),
-    (TensorQueryClient, "wire", "nnstreamer", "26d"),
-    (TensorQueryClient, "sink-port", "3001", "26d"),
     (TensorQueryServerSrc, "reliable", "true", "26a"),
     (TensorQueryServerSrc, "metrics-port", "9090", "26b"),
     (TensorQueryServerSrc, "advertise-interval-s", "1", "26b"),
     (TensorQueryServerSrc, "operation", "detect", "26c"),
     (TensorQueryServerSrc, "broker-port", "1884", "26c"),
-    (TensorQueryServerSrc, "wire", "nnstreamer", "26d"),
-    (TensorQueryServerSrc, "caps", "other/tensors", "26d"),
+    (TensorQueryServerSrc, "broker-host", "10.0.0.1", "26c"),
+    (TensorQueryServerSrc, "advertise-host", "10.0.0.2", "26c"),
+]
+
+#: the reference wire's properties, ported with it (ROADMAP 26d)
+REFWIRE_PROPS = [
+    (TensorQueryClient, "wire", "nnstreamer"),
+    (TensorQueryClient, "sink-port", 3001),
+    (TensorQueryServerSrc, "wire", "nnstreamer"),
+    (TensorQueryServerSrc, "caps", "other/tensors"),
 ]
 
 
@@ -357,6 +363,15 @@ def test_unported_properties_raise_with_their_item(cls, prop, value, item):
     with pytest.raises(NotImplementedError, match=item):
         cls(**{prop: value})
     cls(**{prop: cls.DEFAULT_ONLY[prop.replace("-", "_")][0]})  # the default
+
+
+@pytest.mark.parametrize("cls,prop,value", REFWIRE_PROPS,
+                         ids=[f"{c.ELEMENT_NAME}-{p}" for c, p, _ in
+                              REFWIRE_PROPS])
+def test_reference_wire_properties_are_settable(cls, prop, value):
+    el = cls(**{prop: value})
+    assert el.get_property(prop) == value
+    assert prop.replace("-", "_") not in cls.DEFAULT_ONLY
 
 
 def test_serversink_needs_the_client_id_and_a_paired_source():

@@ -492,9 +492,8 @@ def test_admitted_population_counted_through_aggregator(pkg):
         "frames-dim=3 concat=true ! tensor_sink name=sink to-host=true")
     assert pipe.run(timeout=60).kind == "eos"
     sink = pipe.get("sink")
-    n = (sink.admitted_latencies.count if pkg == "jax"
-         else len(sink.admitted_latencies))
-    assert n == 16
+    assert sink.admitted_latencies.count == 16
+    assert len(sink.admitted_latencies) == 16
     assert sink.latency_percentiles(99.0, base="admitted") is not None
 
 
