@@ -136,6 +136,16 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   as the flat string's, B1 once a frame). The flexbuf, protobuf and
   flatbuf codecs and the TFLite backend need packages this machine lacks
   and are held to the JAX package by the CPU tests only.
+- Broker discovery and MQTT tensor streams (``pubsub``): the flagship
+  behind ``tensor_query_serversrc operation=classify`` found through an
+  in-process MQTT broker (and the shim broker) by ``tensor_query_client
+  operation=classify``, past a ghost ad naming a closed port, its logits
+  bit-identical to an in-process run, B1 once a frame on the server; an
+  int8 camera stream (``tensor_quant_enc``, B3 on the card, into
+  ``mqttsink``) served by ``mqttsrc ! tensor_quant_dec ! flagship``, its
+  labels bit-identical to the codec in one process, each payload a
+  reference ``GstMQTTMessageHdr``, the pts rebased by the base epochs;
+  the same with both sides SNTP-corrected by a loopback server 3 s ahead.
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -407,6 +417,18 @@ REFWIRE_WARMUP = 8
 REFWIRE_SPARSE_FRAMES = 64
 REFWIRE_SINGLE_FRAMES = 16
 REFWIRE_NESTED_FRAMES = 64
+# broker discovery and MQTT tensor streams (pubsub): ball frames behind
+# operation= over MQTT (and over the shim broker), frames of the int8
+# camera stream, frames whose logits go into mqttsink, frames of the
+# NTP-corrected stream, the mock SNTP server's offset and the bound on the
+# measured one (tests/test_mqtt.py:317)
+PUBSUB_FRAMES = 240
+PUBSUB_WARMUP = 8
+PUBSUB_SHIM_FRAMES = 32
+PUBSUB_DEVICE_FRAMES = 16
+PUBSUB_NTP_FRAMES = 16
+PUBSUB_NTP_OFFSET_NS = 3_000_000_000
+PUBSUB_NTP_TOL_NS = 200_000_000
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -2846,9 +2868,11 @@ def phase_pipeline_uncut(power: str) -> dict:
 
 # -- the SLO scheduler, the flight recorder, QoS, the CLI (ROADMAP A.11b,
 # A.12) ------------------------------------------------------------------------
-def _flagship_model(name):
+def _flagship_model(name, declare_io=False):
     """MobileNetV2 width 1.0, 224×224×3, 1001 classes, bf16, seed 0,
-    registered under ``name``; and a labels file."""
+    registered under ``name`` (with its input and output infos when
+    ``declare_io``, for a stream whose caps carry no shapes); and a labels
+    file."""
     import torch
 
     from nnstreamer_tpu_torch.filters.torch_backend import (
@@ -2856,9 +2880,12 @@ def _flagship_model(name):
     )
     from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
 
-    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
-                                dtype=torch.bfloat16, seed=0)
-    register_torch_model(name, module)
+    module, in_info, out_info = mobilenet_v2(
+        num_classes=CLASSES, image_size=IMAGE, dtype=torch.bfloat16, seed=0)
+    if declare_io:
+        register_torch_model(name, module, in_info, out_info)
+    else:
+        register_torch_model(name, module)
     labels = os.path.join(tempfile.mkdtemp(prefix="nns_smoke_slo_"),
                           "labels.txt")
     with open(labels, "w") as f:
@@ -6650,6 +6677,412 @@ def phase_refwire(power: str) -> dict:
     return result
 
 
+def _closed_port() -> int:
+    """A loopback port with nothing listening on it."""
+    import socket
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+class _MockSntp:
+    """A loopback SNTP server whose clock runs ``offset_ns`` ahead of the
+    host's; it answers every request until :meth:`close`."""
+
+    def __init__(self, offset_ns: int):
+        import socket
+        import threading
+
+        self.offset_ns = offset_ns
+        self.requests = 0
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self._sock.bind(("127.0.0.1", 0))
+        self._sock.settimeout(0.2)
+        self.port = self._sock.getsockname()[1]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import socket
+        import struct
+
+        from nnstreamer_tpu_torch.query.ntp import _to_ntp
+
+        while not self._stop.is_set():
+            try:
+                data, addr = self._sock.recvfrom(512)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            recv = _to_ntp(time.time_ns() + self.offset_ns)
+            xmit = _to_ntp(time.time_ns() + self.offset_ns)
+            self.requests += 1
+            # LI=0 VN=4 Mode=4 (server); the originate field echoes the
+            # client's transmit stamp
+            self._sock.sendto(struct.pack(
+                ">B3x11I", 0x24, 0, 0, 0, 0, 0,
+                *struct.unpack_from(">2I", data, 40), *recv, *xmit), addr)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sock.close()
+
+
+def _quantiles_ms(values_ms):
+    s = sorted(values_ms)
+    return s[len(s) // 2], s[min(len(s) - 1, int(0.99 * len(s)))]
+
+
+def phase_pubsub(power: str) -> dict:
+    """Broker discovery and MQTT tensor streams with the flagship at full
+    width (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed 0) on
+    ``videotestsrc pattern=ball`` frames.
+
+    (a) ``tensor_query_serversrc operation=classify broker-host=
+    mqtt://127.0.0.1 ... ! transform ! filter ! tensor_query_serversink``
+    advertises itself through an in-process ``MqttBroker`` after a ghost
+    ad that names a closed port; an appsrc-fed ``tensor_query_client
+    operation=classify`` finds both, walks past the ghost and gets 240 of
+    240 float32 logits back in order, one frame in flight, bit-identical to
+    an in-process run with the same fused region; B1 240 times on the
+    server, the parameters on cuda:0. Again over the shim ``Broker`` with
+    32 frames. (b) an int8 camera stream: ``videotestsrc ! tensor_converter
+    ! queue prefetch-device=true ! tensor_quant_enc ! mqttsink`` (B3 on the
+    card) into ``mqttsrc ! tensor_quant_dec ! transform ! filter !
+    image_labeling`` (B1), subscribed first: 240 labels, indices and f32
+    scores bit-identical to ``tensor_quant_enc ! tensor_quant_dec`` in one
+    process, B3 240 and B1 240, each payload (read by a plain
+    ``MqttClient``) a reference ``GstMQTTMessageHdr`` with one memory of
+    the blob's length and a caps string, the subscriber's pts the
+    publisher's shifted by the difference of the base epochs; frames a
+    second, one-way latency from the header's send stamp, bytes a frame;
+    the flagship's logits of 16 frames, on the card, into ``mqttsink``:
+    fetched once a buffer and published byte for byte. (c) both elements with ``ntp-server=`` on a loopback SNTP server 3 s
+    ahead, 16 frames: the offset measured within 200 ms of 3 s, not fallen
+    back to the local clock, the pts rebased by (b)'s rule."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.query import mqtt as M
+    from nnstreamer_tpu_torch.query import ntp
+    from nnstreamer_tpu_torch.query.discovery import (
+        ServerAdvertiser,
+        ServerDiscovery,
+    )
+    from nnstreamer_tpu_torch.query.pubsub import Broker
+    from nnstreamer_tpu_torch.tensors.buffer import transfer_snapshot
+    from nnstreamer_tpu_torch.tensors.meta import HEADER_SIZE
+
+    nt.set_device(None)
+    t0 = time.monotonic()
+    # the classic serversrc's caps carry no shapes: the model declares them
+    _, labels = _flagship_model("pubsub", declare_io=True)
+    frames = _ball_frames(PUBSUB_FRAMES, IMAGE)
+    caps = (f"other/tensors,format=static,num_tensors=1,"
+            f"dimensions=3:{IMAGE}:{IMAGE}:1,types=uint8")
+    body = ("tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=pubsub name=filter")
+    appsrc = f"appsrc name=src caps={caps} max-buffers={PUBSUB_FRAMES + 1}"
+    mqtt = M.MqttBroker()
+    shim = Broker(port=0).start()
+    result = {"gpu": power}
+    try:
+        local = nt.parse_launch(f"{appsrc} ! {body} ! tensor_sink name=sink",
+                                pipeline=Pipeline(name="pubsub_local"))
+        src = local.get("src")
+        for i, f in enumerate(frames):
+            src.push([f], pts=i)
+        src.end_of_stream()
+        msg = local.run(timeout=300)
+        check(msg is not None and msg.kind == "eos",
+              f"pubsub: the in-process run ({msg})")
+        _region_of(local, ["tensor_transform", "tensor_filter"])
+        want = _logit_bytes(local)
+
+        def discovered(broker_host, broker_port, n, name, warm):
+            """(a): the flagship found by operation= through a broker."""
+            ghost_port = _closed_port()
+            ghost = ServerAdvertiser(broker_host, broker_port, "classify",
+                                     "127.0.0.1", ghost_port)
+            ghost.publish()
+            server = nt.parse_launch(
+                "tensor_query_serversrc name=ss host=127.0.0.1 port=0 "
+                f"operation=classify broker-host={broker_host} "
+                f"broker-port={broker_port} ! {body} ! "
+                "tensor_query_serversink name=sk",
+                pipeline=Pipeline(name=f"{name}_server"))
+            server.start()
+            try:
+                disco = ServerDiscovery(broker_host, broker_port, "classify")
+                found = disco.wait_servers(timeout=10)
+                disco.close()
+
+                def serve(count, cname):
+                    client = nt.parse_launch(
+                        f"{appsrc} ! tensor_query_client name=c "
+                        f"operation=classify broker-host={broker_host} "
+                        f"broker-port={broker_port} timeout=30 max-retry=2 "
+                        "! tensor_sink name=sink",
+                        pipeline=Pipeline(name=cname))
+                    src, sink = client.get("src"), client.get("sink")
+                    arrivals = []
+
+                    def next_frame(buf):  # one frame in flight
+                        arrivals.append(time.monotonic())
+                        if len(arrivals) < count:
+                            src.push([frames[len(arrivals)]],
+                                     pts=len(arrivals))
+                        else:
+                            src.end_of_stream()
+
+                    sink.connect(next_frame)
+                    src.push([frames[0]], pts=0)
+                    msg = client.run(timeout=300)
+                    torch.cuda.synchronize()
+                    check(msg is not None and msg.kind == "eos",
+                          f"pubsub: {cname}: no EOS ({msg})")
+                    return client, arrivals
+
+                if warm:
+                    serve(warm, f"{name}_warm")
+                reset_launches()
+                client, arrivals = serve(n, f"{name}_client")
+                b1 = LAUNCHES.get("normalize_chain", 0)
+                got = list(client.get("sink").buffers)
+                lat_ms = [x * 1e3 for x in client.get("sink").latencies]
+                region = _region_of(server, ["tensor_transform",
+                                             "tensor_filter"])
+                placed = _params_on(server.get("filter").fw._module)
+                live = ("127.0.0.1", server.get("ss").port)
+            finally:
+                server.stop()
+                ghost.retract()
+            check(sorted(found) == sorted([("127.0.0.1", ghost_port), live]),
+                  f"pubsub: {name}: discovered {found}")
+            check(client.get("c")._server_idx == 1,
+                  f"pubsub: {name}: the client did not walk past the ghost "
+                  f"ad (server index {client.get('c')._server_idx})")
+            check(len(got) == n,
+                  f"pubsub: {name}: {len(got)} of {n} results came back")
+            check([b.pts for b in got] == list(range(n)),
+                  f"pubsub: {name}: the results came back out of order")
+            check(all(np.asarray(b[0]).dtype == np.float32 and
+                      np.asarray(b[0]).shape == (1, CLASSES) for b in got),
+                  f"pubsub: {name}: the results are not float32 [1, 1001] "
+                  "logits")
+            differ = [i for i, (a, b) in enumerate(zip(_logit_bytes(client),
+                                                       want)) if a != b]
+            check(not differ, f"pubsub: {name}: the logits of frames "
+                              f"{differ[:10]} differ from the in-process "
+                              "run's")
+            check(b1 == n, f"pubsub: {name}: B1 {b1} times on the server "
+                           f"for {n} frames")
+            check(placed == {"cuda:0"},
+                  f"pubsub: {name}: the parameters on {placed}")
+            p50, p99 = _quantiles_ms(lat_ms)
+            return {"frames": len(got), "b1_launches": b1,
+                    "captures": region.captures, "discovered": len(found),
+                    "ghost_skipped": True,
+                    "fps": steady_fps(arrivals, arrivals[-1]),
+                    "p50_ms": p50, "p99_ms": p99,
+                    "params_on": sorted(placed)}
+
+        result["discovery_mqtt"] = discovered(
+            "mqtt://127.0.0.1", mqtt.port, PUBSUB_FRAMES, "pubsub_mqtt",
+            PUBSUB_WARMUP)
+        result["discovery_shim"] = discovered(
+            "127.0.0.1", shim.port, PUBSUB_SHIM_FRAMES, "pubsub_shim", 0)
+
+        def stream(topic, n, name, ntp_server=None):
+            """(b): the int8 camera stream through the MQTT broker, with a
+            plain client tapping the topic; with ``ntp_server`` (c), both
+            elements SNTP-corrected by it."""
+            ntp_opt = f"ntp-server={ntp_server}" if ntp_server else ""
+            tap_rx = []
+            tap = M.MqttClient(port=mqtt.port)
+            tap.subscribe(topic, lambda t, p: tap_rx.append(
+                (time.time_ns(), p)))
+            sub = nt.parse_launch(
+                f"mqttsrc name=src broker=mqtt://127.0.0.1:{mqtt.port} "
+                f"sub-topic={topic} num-buffers={n} {ntp_opt} ! "
+                f"tensor_quant_dec ! {_flagship_tail('pubsub', labels)}",
+                pipeline=Pipeline(name=f"{name}_sub"))
+            sink_rx = []
+            sub.get("sink").connect(lambda b: sink_rx.append(time.time_ns()))
+            started_ns = time.time_ns()
+            sub.start()  # subscribed (SUBACK) before the publisher plays
+            try:
+                pub = nt.parse_launch(
+                    f"videotestsrc num-buffers={n} width={IMAGE} "
+                    f"height={IMAGE} pattern=ball ! tensor_converter ! "
+                    "queue prefetch-device=true ! tensor_quant_enc ! "
+                    f"mqttsink name=snk broker=mqtt://127.0.0.1:{mqtt.port} "
+                    f"pub-topic={topic} {ntp_opt}",
+                    pipeline=Pipeline(name=f"{name}_pub"))
+                reset_launches()
+                msg = pub.run(timeout=300)
+                check(msg is not None and msg.kind == "eos",
+                      f"pubsub: {name}: the publisher ({msg})")
+                msg = sub.wait(timeout=300)
+                torch.cuda.synchronize()
+                launches = dict(LAUNCHES)
+                check(msg is not None and msg.kind == "eos",
+                      f"pubsub: {name}: the subscriber ({msg})")
+                _wait_for(lambda: len(tap_rx) >= n, f"{name}'s tap", 30)
+            finally:
+                sub.stop()
+                tap.close()
+            rows = labelled_frames([b.meta for b in sub.get("sink").buffers])
+            headers = [M.parse_gst_mqtt_message(p) for _, p in tap_rx]
+            check(len(rows) == n and len(headers) == n,
+                  f"pubsub: {name}: {len(rows)} labels and {len(headers)} "
+                  f"payloads for {n} frames")
+            for (_, p), h in zip(tap_rx, headers):
+                (num_mems,) = struct.unpack_from("<I", p, 0)
+                (size0,) = struct.unpack_from("<Q", p, 8)
+                check(num_mems == 1 and len(h["mems"]) == 1 and
+                      size0 == len(p) - M.GST_MQTT_LEN_MSG_HDR and
+                      h["caps_str"] and
+                      h["mems"][0][HEADER_SIZE:HEADER_SIZE + 4] == b"NQT1",
+                      f"pubsub: {name}: a payload is not one NQT1 blob "
+                      "behind a GstMQTTMessageHdr")
+            diff = sub.get("src")._base_epoch - pub.get("snk")._base_epoch
+            sub_pts = [b.pts for b in sub.get("sink").buffers]
+            check(sub_pts == [h["pts"] - diff for h in headers],
+                  f"pubsub: {name}: the subscriber's pts are not the "
+                  "publisher's shifted by the difference of the base "
+                  "epochs")
+            check(launches.get("quantize_int8", 0) == n and
+                  launches.get("normalize_chain", 0) == n,
+                  f"pubsub: {name}: launches {launches} for {n} frames")
+            # the send stamps are on the corrected clock: read the arrivals
+            # on it too
+            clock = 0
+            if ntp_server:
+                host, _, port = ntp_server.partition(":")
+                clock = ntp._cache.get(((host, int(port)),))
+                check(isinstance(clock, int),
+                      f"pubsub: {name}: corrected_epoch_ns fell back to "
+                      "the local clock")
+            hop_ms = [(rx + clock - h["sent_time_epoch"]) / 1e6
+                      for (rx, _), h in zip(tap_rx, headers)]
+            e2e_ms = [(rx + clock - h["sent_time_epoch"]) / 1e6
+                      for rx, h in zip(sink_rx, headers)]
+            span_s = (sink_rx[-1] - sink_rx[0]) / 1e9
+            return {
+                "rows": rows, "started_ns": started_ns,
+                "src_base": sub.get("src")._base_epoch,
+                "sink_base": pub.get("snk")._base_epoch,
+                "out": {
+                    "frames": len(rows),
+                    "b3_launches": launches.get("quantize_int8", 0),
+                    "b1_launches": launches.get("normalize_chain", 0),
+                    "fps": (n - 1) / span_s if span_s > 0 else None,
+                    "hop_p50_ms": _quantiles_ms(hop_ms)[0],
+                    "hop_p99_ms": _quantiles_ms(hop_ms)[1],
+                    "e2e_p50_ms": _quantiles_ms(e2e_ms)[0],
+                    "e2e_p99_ms": _quantiles_ms(e2e_ms)[1],
+                    "payload_bytes": statistics.mean(len(p)
+                                                     for _, p in tap_rx),
+                    "blob_bytes": len(headers[0]["mems"][0]),
+                    "f32_frame_bytes": IMAGE * IMAGE * 3 * 4,
+                    "caps_str": headers[0]["caps_str"],
+                    "base_epoch_diff_ns": diff}}
+
+        ref = nt.parse_launch(
+            f"videotestsrc num-buffers={PUBSUB_FRAMES} width={IMAGE} "
+            f"height={IMAGE} pattern=ball ! tensor_converter ! "
+            "queue prefetch-device=true ! tensor_quant_enc ! "
+            f"tensor_quant_dec ! {_flagship_tail('pubsub', labels)}",
+            pipeline=Pipeline(name="pubsub_codec"))
+        msg = ref.run(timeout=300)
+        check(msg is not None and msg.kind == "eos",
+              f"pubsub: the in-process codec run ({msg})")
+        want_rows = labelled_frames([b.meta for b in ref.get("sink").buffers])
+        cam = stream("cam0", PUBSUB_FRAMES, "pubsub_cam")
+        check(len(want_rows) == PUBSUB_FRAMES and cam["rows"] == want_rows,
+              "pubsub: the camera stream's labels differ from the "
+              "in-process encode/decode's")
+        result["stream"] = cam["out"]
+        # the flagship's logits, computed on the card, into mqttsink: one
+        # fetch a buffer (an uploaded frame would be fetched from its host
+        # view, with no copy)
+        n = PUBSUB_DEVICE_FRAMES
+        dev_rx = []
+        tap = M.MqttClient(port=mqtt.port)
+        tap.subscribe("dev0", lambda t, p: dev_rx.append(p))
+        dev = nt.parse_launch(
+            f"{appsrc} ! {body} ! mqttsink "
+            f"broker=mqtt://127.0.0.1:{mqtt.port} pub-topic=dev0",
+            pipeline=Pipeline(name="pubsub_device"))
+        src = dev.get("src")
+        for i, f in enumerate(frames[:n]):
+            src.push([f], pts=i)
+        src.end_of_stream()
+        x0 = transfer_snapshot()
+        msg = dev.run(timeout=300)
+        d2h = _d2h(x0, transfer_snapshot())
+        try:
+            check(msg is not None and msg.kind == "eos",
+                  f"pubsub: the logits into mqttsink ({msg})")
+            _wait_for(lambda: len(dev_rx) >= n, "the logits' tap", 30)
+        finally:
+            tap.close()
+        dev_headers = [M.parse_gst_mqtt_message(p) for p in dev_rx]
+        check([h["mems"] for h in dev_headers] == [[w] for w in want[:n]]
+              and [h["pts"] for h in dev_headers] == list(range(n)),
+              "pubsub: mqttsink did not publish the logits' bytes")
+        check(d2h["d2h_events"] == n,
+              f"pubsub: mqttsink: {d2h['d2h_events']} D2H events for {n} "
+              "buffers of logits on the card")
+        result["device_sink"] = {"frames": n, **d2h}
+        # (c) both sides SNTP-corrected by a server 3 s ahead
+        ntp.reset_offset_cache()
+        sntp = _MockSntp(PUBSUB_NTP_OFFSET_NS)
+        try:
+            ntp_cam = stream("cam1", PUBSUB_NTP_FRAMES, "pubsub_ntp",
+                             f"127.0.0.1:{sntp.port}")
+        finally:
+            sntp.close()
+        offset = ntp._cache.get((("127.0.0.1", sntp.port),))
+        check(offset is not None and offset is not ntp._FAILED,
+              "pubsub: ntp: corrected_epoch_ns fell back to the local clock")
+        check(abs(offset - PUBSUB_NTP_OFFSET_NS) < PUBSUB_NTP_TOL_NS,
+              f"pubsub: ntp: measured offset {offset} ns")
+        base_vs_local = ntp_cam["src_base"] - ntp_cam["started_ns"]
+        check(abs(base_vs_local - PUBSUB_NTP_OFFSET_NS) < PUBSUB_NTP_TOL_NS,
+              f"pubsub: ntp: the subscriber's base epoch is {base_vs_local} "
+              "ns ahead of the local clock")
+        check(ntp_cam["rows"] == want_rows[:PUBSUB_NTP_FRAMES],
+              "pubsub: ntp: the labels differ from the in-process run's")
+        ntp.reset_offset_cache()
+        result["ntp"] = {"offset_ns": offset, "requests": sntp.requests,
+                         "src_base_vs_local_ns": base_vs_local,
+                         **ntp_cam["out"]}
+    finally:
+        shim.stop()
+        mqtt.close()
+        unregister_torch_model("pubsub")
+    result["seconds"] = time.monotonic() - t0
+    emit({"phase": "pubsub", **result})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6708,6 +7141,7 @@ def main() -> int:
     files = phase_files(power)
     algebra = phase_algebra(power)
     refwire = phase_refwire(power)
+    pubsub = phase_pubsub(power)
     mem = phase_memory(power)
     cont = phase_continuity(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
@@ -6777,6 +7211,11 @@ def main() -> int:
         # server, 240 frames) and inside the pipeline filter (64 frames)
         "launches_refwire": refwire["wire"]["b1_launches"],
         "launches_refwire_nested": refwire["nested"]["b1_launches"],
+        # the flagship found by operation= over MQTT (once a frame on the
+        # server, 240 frames) and the subscriber of the int8 camera stream
+        # over MQTT (once a frame, 240 frames)
+        "launches_pubsub_discovery": pubsub["discovery_mqtt"]["b1_launches"],
+        "launches_pubsub_stream": pubsub["stream"]["b1_launches"],
         # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
         "kws_ms": b1["kws_ms"],
         "kws_device_ms": dev_b1["kws_device_ms"],
@@ -6836,6 +7275,8 @@ def main() -> int:
         # time dither mode, the counterpart of the TPU kernel bodies
         "mode": "nearest",
         "launches": offload["launches"]["quantize_int8"],
+        # the publisher of the int8 camera stream over MQTT (once a frame)
+        "launches_pubsub": pubsub["stream"]["b3_launches"],
         "max_abs_err": b3["max_abs_err"],
         "ms": frame_q["ms"],
         "device_ms": dev_b3[f"{frame_tag}_device_ms"],

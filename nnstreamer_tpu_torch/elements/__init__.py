@@ -3,9 +3,8 @@
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
 ``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-pub/sub and gRPC elements wait for later slices of the port (ROADMAP.md,
-queue A). ``tensor_lm_serve`` imports no model code until its engine is
-looked up.
+gRPC elements wait for a later slice of the port (ROADMAP.md, queue A).
+``tensor_lm_serve`` imports no model code until its engine is looked up.
 """
 
 from nnstreamer_tpu_torch.pipeline.pipeline import Queue  # noqa: F401 (registers "queue")
@@ -21,6 +20,7 @@ from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
 from nnstreamer_tpu_torch.elements import lm_serve  # noqa: F401
 from nnstreamer_tpu_torch.elements import quant  # noqa: F401
 from nnstreamer_tpu_torch.elements import query  # noqa: F401
+from nnstreamer_tpu_torch.elements import pubsub  # noqa: F401 (+ mqttsink/mqttsrc)
 from nnstreamer_tpu_torch.elements import rate  # noqa: F401
 from nnstreamer_tpu_torch.elements import tee  # noqa: F401
 from nnstreamer_tpu_torch.elements import mux  # noqa: F401

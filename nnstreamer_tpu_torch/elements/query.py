@@ -11,11 +11,15 @@ to its client by client-id meta). Client failover walks a server list
 The port of the JAX package's classic path and of its reference wire
 (``wire=nnstreamer``: the reference's raw-struct query protocol on two
 ports, ``query/refwire.py``), each wire-compatible with the JAX package in
-both directions. Properties of the JAX elements whose features are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item when
-set away from their defaults: the resilient transport (26a), fleet
-balancing (26b) and broker discovery (26c). ``reliable`` and ``balance``
-need the classic wire in the JAX package too.
+both directions, and of its broker discovery (reference
+``tensor_query_hybrid``): a serversrc with ``operation=`` advertises its
+endpoint through a broker (``query/discovery.py``; a plain host speaks
+the shim protocol, ``mqtt://host`` MQTT 3.1.1) and a client with
+``operation=`` walks the servers it finds there. Properties of the JAX
+elements whose features are not ported yet raise ``NotImplementedError``
+naming their ROADMAP.md item when set away from their defaults: the
+resilient transport (26a) and fleet balancing (26b). ``reliable`` and
+``balance`` need the classic wire in the JAX package too.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ from nnstreamer_tpu_torch.tensors.types import TensorFormat, TensorsConfig
 
 _RESILIENT = P.RESILIENT_ITEM
 _FLEET = "26b fleet balancing"
-_DISCOVERY = "26c broker discovery"
 
 
 class _DefaultOnly:
@@ -65,9 +68,6 @@ class _DefaultOnly:
 class TensorQueryClient(_DefaultOnly, Element):
     ELEMENT_NAME = "tensor_query_client"
     DEFAULT_ONLY = {
-        "operation": (None, _DISCOVERY),
-        "broker_host": ("127.0.0.1", _DISCOVERY),
-        "broker_port": (1883, _DISCOVERY),
         "reliable": (False, _RESILIENT),
         "propagate_deadline": (False, _RESILIENT),
         "breaker_failures": (5, _RESILIENT),
@@ -93,6 +93,11 @@ class TensorQueryClient(_DefaultOnly, Element):
         # resend-on-reconnect); >1 drops in-flight frames on a connection
         # error (streaming frame-drop semantics, tensor_filter.c:699-705).
         "max_in_flight": 1,
+        # broker discovery (reference query-hybrid): find servers by
+        # operation name instead of static host/port
+        "operation": None,
+        "broker_host": "127.0.0.1",
+        "broker_port": 1883,
         # read-only counter: frames lost to connection failures while in
         # flight (max_in_flight>1)
         "frames_dropped": 0,
@@ -154,6 +159,23 @@ class TensorQueryClient(_DefaultOnly, Element):
         return n
 
     def _server_list(self) -> List[Tuple[str, int]]:
+        operation = self.get_property("operation")
+        if operation:
+            from nnstreamer_tpu_torch.query.discovery import ServerDiscovery
+
+            disco = ServerDiscovery(self.get_property("broker_host"),
+                                    int(self.get_property("broker_port")),
+                                    str(operation))
+            try:
+                found = disco.wait_servers(
+                    timeout=float(self.get_property("timeout")))
+            finally:
+                disco.close()
+            if not found:
+                raise P.QueryProtocolError(
+                    f"no servers advertise operation {operation!r}"
+                )
+            return found
         servers = self.get_property("servers")
         if servers:
             out = []
@@ -381,10 +403,6 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
 
     ELEMENT_NAME = "tensor_query_serversrc"
     DEFAULT_ONLY = {
-        "operation": (None, _DISCOVERY),
-        "broker_host": ("127.0.0.1", _DISCOVERY),
-        "broker_port": (1883, _DISCOVERY),
-        "advertise_host": ("127.0.0.1", _DISCOVERY),
         "reliable": (False, _RESILIENT),
         "metrics_port": (0, _FLEET),
         "advertise_interval_s": (0.0, _FLEET),
@@ -405,6 +423,12 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         # reconstructs typed tensors from the raw mems and is announced
         # to clients in the APPROVE reply
         "caps": None,
+        # broker discovery (reference query-hybrid): publish this server's
+        # endpoint under its operation name
+        "operation": None,
+        "broker_host": "127.0.0.1",
+        "broker_port": 1883,
+        "advertise_host": "127.0.0.1",
         **{k: v for k, (v, _) in DEFAULT_ONLY.items()},
     }
 
@@ -415,6 +439,7 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         super().__init__(name, **props)
         self.server: Optional[QueryServer] = None
         self.i = 0
+        self._advertiser = None
 
     def start(self):
         super().start()
@@ -427,8 +452,26 @@ class TensorQueryServerSrc(_DefaultOnly, SourceElement):
         ).start()
         with self._SERVERS_LOCK:
             self._SERVERS[int(self.get_property("id"))] = self.server
+        operation = self.get_property("operation")
+        if operation:
+            from nnstreamer_tpu_torch.query.discovery import ServerAdvertiser
+
+            self._advertiser = ServerAdvertiser(
+                self.get_property("broker_host"),
+                int(self.get_property("broker_port")),
+                str(operation),
+                self.get_property("advertise_host"),
+                self.server.port,
+            )
+            self._advertiser.publish()
 
     def stop(self):
+        if self._advertiser is not None:
+            try:
+                self._advertiser.retract()
+            except OSError:
+                pass
+            self._advertiser = None
         if self.server is not None:
             self.server.stop()
             with self._SERVERS_LOCK:

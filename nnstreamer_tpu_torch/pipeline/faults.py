@@ -16,10 +16,13 @@ injector with hooks at the places the async substrate can fail:
 - ``lane.worker``     — per-frame lane worker loop (``pipeline/lanes.py``)
 - ``queue.push``      — queue ingress (``pipeline/pipeline.py``)
 - ``dispatch.fence``  — dispatch-window fence (``pipeline/dispatch.py``)
+- ``mqtt.publish``    — MQTT client publish (``query/mqtt.py``): ``drop``
+  swallows the send, ``disconnect`` severs the broker link, ``corrupt``
+  writes a reserved packet type; a dropped QoS1 copy recovers by DUP
 
 The JAX package also hooks the transport sites ``query.send`` and
-``query.recv`` (ROADMAP 26a), ``grpc.call`` (26f) and ``mqtt.publish``
-(26c). The grammar still parses them, but :func:`activate` raises
+``query.recv`` (ROADMAP 26a) and ``grpc.call`` (26f). The grammar still
+parses them, but :func:`activate` raises
 ``NotImplementedError`` naming the item for a spec that names one: a
 rule no hook can fire would report "the system survives faults"
 vacuously.
@@ -106,7 +109,6 @@ UNPORTED_SITES: Dict[str, str] = {
     "query.send": "26a resilient transport",
     "query.recv": "26a resilient transport",
     "grpc.call": "26f gRPC",
-    "mqtt.publish": "26c broker discovery",
 }
 
 KINDS: Tuple[str, ...] = ("raise", "crash", "stall", "oom",

@@ -8,9 +8,14 @@ held to the JAX package's injector.
   ``nns_fault_injected_total{site,kind}`` counter and the ledger mark
   are the JAX module's.
 - Every compute-site hook of the port fires in a pipeline and halts it
-  as the JAX package's does; the transport sites the port has no hook for
-  raise at ``activate()``, naming their ROADMAP items (26a, 26c, 26f).
+  as the JAX package's does; the MQTT client's ``mqtt.publish`` hook
+  drops, disconnects and corrupts as the JAX client's does; the transport
+  sites the port has no hook for raise at ``activate()``, naming their
+  ROADMAP items (26a, 26f).
 """
+
+import time
+
 
 import numpy as np
 import pytest
@@ -136,7 +141,6 @@ def test_check_kinds_raise_the_jax_classes(kind, cls):
 
 @pytest.mark.parametrize("site,item", [
     ("query.send", "26a"), ("query.recv", "26a"), ("grpc.call", "26f"),
-    ("mqtt.publish", "26c"),
 ])
 def test_sites_without_a_hook_raise_naming_their_item(site, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
@@ -158,9 +162,70 @@ def test_env_activation(monkeypatch):
     monkeypatch.setenv("NNSTPU_FAULTS_SEED", "x")
     assert faults.maybe_activate_env().seed == 0
     faults.deactivate()
-    monkeypatch.setenv("NNSTPU_FAULTS", "mqtt.publish:rate=0.5")
-    with pytest.raises(NotImplementedError, match="26c"):
+    monkeypatch.setenv("NNSTPU_FAULTS", "mqtt.publish:rate=0.5,kind=drop")
+    inj = faults.maybe_activate_env()
+    assert inj is faults.ACTIVE and list(inj._rules) == ["mqtt.publish"]
+    faults.deactivate()
+    monkeypatch.setenv("NNSTPU_FAULTS", "grpc.call:rate=0.5")
+    with pytest.raises(NotImplementedError, match="26f"):
         faults.maybe_activate_env()
+
+
+def _publish_under_fault(mod, fmod, spec, qos):
+    """Six payloads published by ``mod``'s MqttClient under ``spec`` to a
+    subscriber on the port's broker: (payloads received in order, the
+    injector's fired list, the publisher's reconnects)."""
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker, MqttClient
+
+    broker = MqttBroker()
+    got = []
+    sub = MqttClient(port=broker.port)
+    sub.subscribe("f/t", lambda t, p: got.append(p), qos=qos)
+    pub = mod.MqttClient(port=broker.port, keepalive=2)
+    inj = fmod.activate(spec, seed=4)
+    try:
+        for i in range(6):
+            if i == 2 and "disconnect" in spec:
+                # the link went down at the second publish: wait for the
+                # reader's reconnect before the next one
+                deadline = time.monotonic() + 15
+                while pub.reconnects == 0 and time.monotonic() < deadline:
+                    time.sleep(0.02)
+            if qos:
+                pub.publish("f/t", b"m%d" % i, qos=1, timeout=10.0)
+            else:
+                pub.publish("f/t", b"m%d" % i)
+        deadline = time.monotonic() + 5
+        want = 6 if qos else 5
+        while len(got) < want and time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.2)  # nothing more may arrive
+        return list(got), list(inj.fired), pub.reconnects
+    finally:
+        fmod.deactivate()
+        pub.close()
+        sub.close()
+        broker.close()
+
+
+@pytest.mark.parametrize("kind,qos", [("drop", 0), ("disconnect", 0),
+                                      ("corrupt", 0), ("drop", 1)])
+def test_mqtt_publish_fires_as_jax(kind, qos):
+    """``mqtt.publish`` at its second occurrence: a QoS0 payload is lost
+    (dropped, sent into a severed link, or replaced by a reserved packet
+    the broker ignores), the others arrive in order; a dropped QoS1 first
+    copy arrives by its DUP retransmission. The JAX client loses the same
+    payload and fires the same occurrence."""
+    from nnstreamer_tpu.query import mqtt as jmqtt
+    from nnstreamer_tpu_torch.query import mqtt as tmqtt
+
+    spec = f"mqtt.publish:nth=2,kind={kind}"
+    port = _publish_under_fault(tmqtt, faults, spec, qos)
+    jax = _publish_under_fault(jmqtt, jfaults, spec, qos)
+    want = [b"m%d" % i for i in range(6) if qos or i != 1]
+    assert port[0] == jax[0] == want
+    assert port[1] == jax[1] == [("mqtt.publish", 2, kind)]
+    assert port[2] == jax[2] == (1 if kind == "disconnect" else 0)
 
 
 def test_metric_and_mark_count_each_fire():

@@ -335,16 +335,9 @@ UNPORTED = [
     (TensorQueryClient, "reconnect-backoff-ms", "9", "26a"),
     (TensorQueryClient, "balance", "shortest-slack", "26b"),
     (TensorQueryClient, "discovery-stale-s", "2", "26b"),
-    (TensorQueryClient, "operation", "detect", "26c"),
-    (TensorQueryClient, "broker-host", "10.0.0.1", "26c"),
-    (TensorQueryClient, "broker-port", "1884", "26c"),
     (TensorQueryServerSrc, "reliable", "true", "26a"),
     (TensorQueryServerSrc, "metrics-port", "9090", "26b"),
     (TensorQueryServerSrc, "advertise-interval-s", "1", "26b"),
-    (TensorQueryServerSrc, "operation", "detect", "26c"),
-    (TensorQueryServerSrc, "broker-port", "1884", "26c"),
-    (TensorQueryServerSrc, "broker-host", "10.0.0.1", "26c"),
-    (TensorQueryServerSrc, "advertise-host", "10.0.0.2", "26c"),
 ]
 
 #: the reference wire's properties, ported with it (ROADMAP 26d)
@@ -353,6 +346,18 @@ REFWIRE_PROPS = [
     (TensorQueryClient, "sink-port", 3001),
     (TensorQueryServerSrc, "wire", "nnstreamer"),
     (TensorQueryServerSrc, "caps", "other/tensors"),
+]
+
+
+#: broker discovery's properties, ported with it (ROADMAP 26c)
+DISCOVERY_PROPS = [
+    (TensorQueryClient, "operation", "detect"),
+    (TensorQueryClient, "broker-host", "10.0.0.1"),
+    (TensorQueryClient, "broker-port", 1884),
+    (TensorQueryServerSrc, "operation", "detect"),
+    (TensorQueryServerSrc, "broker-port", 1884),
+    (TensorQueryServerSrc, "broker-host", "10.0.0.1"),
+    (TensorQueryServerSrc, "advertise-host", "10.0.0.2"),
 ]
 
 
@@ -369,6 +374,15 @@ def test_unported_properties_raise_with_their_item(cls, prop, value, item):
                          ids=[f"{c.ELEMENT_NAME}-{p}" for c, p, _ in
                               REFWIRE_PROPS])
 def test_reference_wire_properties_are_settable(cls, prop, value):
+    el = cls(**{prop: value})
+    assert el.get_property(prop) == value
+    assert prop.replace("-", "_") not in cls.DEFAULT_ONLY
+
+
+@pytest.mark.parametrize("cls,prop,value", DISCOVERY_PROPS,
+                         ids=[f"{c.ELEMENT_NAME}-{p}" for c, p, _ in
+                              DISCOVERY_PROPS])
+def test_discovery_properties_are_settable(cls, prop, value):
     el = cls(**{prop: value})
     assert el.get_property(prop) == value
     assert prop.replace("-", "_") not in cls.DEFAULT_ONLY
