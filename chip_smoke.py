@@ -146,6 +146,20 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   labels bit-identical to the codec in one process, each payload a
   reference ``GstMQTTMessageHdr``, the pts rebased by the base epochs;
   the same with both sides SNTP-corrected by a loopback server 3 s ahead.
+- The flagship served by a balanced, exactly-once fleet (``fleet``): two
+  replica processes (``FleetLauncher(desc=...)``, each ``python -m
+  nnstreamer_tpu_torch.cli`` serving ``tensor_query_serversrc
+  reliable=true ! tensor_quant_dec ! flagship ! tensor_query_serversink``
+  on the card) behind ``tensor_query_client reliable=true
+  balance=shortest-slack``, fed int8 frames by ``tensor_quant_enc`` (B3):
+  240 logits bit-identical in order to the codec and region in one
+  process, both replicas routed to, B1 once a frame the replicas served
+  (their metrics, federated); the same stream under injected disconnects
+  and dropped results, with no frame lost or invoked twice; the echo
+  fleet's rolling restart while a client streams, exactly once; bench.py's
+  ``measure_fleet`` at its defaults; ``/fleet/metrics.json`` and
+  ``nns-launch --fleet``; the remote stages spliced into the client's
+  ledger. It runs last: it starts processes that use the card.
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -429,6 +443,31 @@ PUBSUB_DEVICE_FRAMES = 16
 PUBSUB_NTP_FRAMES = 16
 PUBSUB_NTP_OFFSET_NS = 3_000_000_000
 PUBSUB_NTP_TOL_NS = 200_000_000
+# the balanced fleet (fleet): the flagship's replicas and the operation
+# they advertise, the stream, its warm-up (run until each replica has
+# taken FLEET_WARM_ROUTES frames, at most FLEET_WARM_ROUNDS times), the
+# frames in flight, the chaos spec and seed of the JAX package's loopback
+# (tests/test_resilience.py), the echo fleet and its restart stream, and
+# bench.py's measure_fleet at its defaults (bench.py:1303-1377), run on
+# the restarted echo replicas
+FLEET_OP = "fleet-mnv2"
+FLEET_REPLICAS = 2
+FLEET_FRAMES = 240
+FLEET_WARMUP = 32
+FLEET_WARM_ROUTES = 4
+FLEET_WARM_ROUNDS = 3
+FLEET_WINDOW = 8
+FLEET_CHAOS = ("query.send:rate=0.05,kind=disconnect;"
+               "query.recv:rate=0.05,kind=drop")
+FLEET_CHAOS_SEED = 11
+FLEET_ECHO_REPLICAS = 3
+FLEET_ECHO_MIN_FRAMES = 120
+FLEET_ECHO_PACE_S = 0.02
+FLEET_BOOT_S = 120.0
+BENCH_FLEET_N = FLEET_ECHO_REPLICAS
+BENCH_FLEET_SPIN_MS = 20.0
+BENCH_FLEET_FRAMES = 120
+BENCH_FLEET_WARMUP = 8
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -7083,6 +7122,571 @@ def phase_pubsub(power: str) -> dict:
     return result
 
 
+def _free_ports(n: int) -> int:
+    """The first of ``n`` consecutive TCP ports nothing listens on now."""
+    import socket
+
+    for _ in range(64):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            base = probe.getsockname()[1]
+        if base + n > 65535:
+            continue
+        free = True
+        for p in range(base + 1, base + n):
+            with socket.socket() as probe:
+                try:
+                    probe.bind(("127.0.0.1", p))
+                except OSError:
+                    free = False
+                    break
+        if free:
+            return base
+    raise SmokeFailure(f"no {n} consecutive free ports")
+
+
+def _fleet_counters(view: dict, name: str, **labels) -> float:
+    """A counter of the federated view, summed over the replicas and over
+    every series whose labels include ``labels``."""
+    return sum(c["value"] for c in view["counters"]
+               if c["name"] == name and
+               all(c["labels"].get(k) == v for k, v in labels.items()))
+
+
+def _splice_check(tl) -> dict:
+    """The remote stages the client spliced into its ledger (RESULT_EX2),
+    by ``tests/test_distributed.py:107-124``'s rule: the five
+    DIST_STAGES tile each frame's round trip (hop_send starts at the send,
+    hop_recv ends at the result), and the wire time splits by the wall
+    stamps when they land inside the window (symmetric halves otherwise)."""
+    from nnstreamer_tpu_torch.obs import timeline as TL
+
+    frames: dict = {}
+    for _, kind, seq, t0, t1, _, _ in tl._snapshot():
+        if seq is None or t1 is None or kind not in TL.DIST_STAGES:
+            continue
+        f = frames.setdefault(seq, {"t0": t0, "t1": t1})
+        f[kind] = f.get(kind, 0.0) + (t1 - t0)
+        f["t0"], f["t1"] = min(f["t0"], t0), max(f["t1"], t1)
+    worst = 0.0
+    wall_split = remote_device = 0
+    for f in frames.values():
+        window = f["t1"] - f["t0"]
+        worst = max(worst, abs(sum(f.get(k, 0.0) for k in TL.DIST_STAGES)
+                               - window))
+        wall_split += abs(f.get("hop_send", 0.0) -
+                          f.get("hop_recv", 0.0)) > 1e-7 * max(window, 1e-9)
+        remote_device += f.get("remote_device", 0.0) > 0.0
+    return {"frames": len(frames), "max_tile_error_s": worst,
+            "wall_split_frames": wall_split,
+            "remote_device_frames": remote_device}
+
+
+def _stage_p50_ms(tl) -> dict:
+    """The median over the frames that reached the sink of each stage's
+    time in a frame (ms), from the ledger of ``TL.tracing()``; ``e2e``
+    the sink's create → arrival."""
+    done = [d for d in tl.frame_ledger().values() if "e2e" in d]
+    kinds = sorted({k for d in done for k in d})
+    return {k: statistics.median(d.get(k, 0.0) for d in done) * 1e3
+            for k in kinds}
+
+
+def phase_fleet(power: str) -> dict:
+    """The flagship (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed
+    0) served by a balanced, exactly-once fleet of replica processes.
+
+    (a) ``FleetLauncher(desc=...)`` starts two replicas, each ``python -m
+    nnstreamer_tpu_torch.cli`` on the card running ``tensor_query_serversrc
+    reliable=true advertise-interval-s=0.25 metrics-port={metrics_port} !
+    tensor_quant_dec ! tensor_transform ! tensor_filter model=<.pt> !
+    tensor_query_serversink`` behind an in-process shim broker; the
+    kernels come from this run's compile cache. ``videotestsrc
+    pattern=ball ! tensor_converter ! queue prefetch-device=true !
+    tensor_quant_enc ! tensor_query_client reliable=true
+    balance=shortest-slack max-in-flight=8 ! tensor_sink``, after a
+    warm-up that reaches both replicas (each replica's first frame runs
+    eagerly and then captures), gets 240 float32 [1, 1001] logits back in
+    order, bit-identical to ``tensor_quant_enc ! tensor_quant_dec !`` the
+    same region in this process; both replicas routed to
+    (``nns_lb_route_total``); B3 240 here; B1's launches, counted in each
+    replica and summed, = the frames the replicas served = their fused
+    regions' dispatches (each replica's ``launches`` and ``regions``
+    sections of its ``/metrics.json``, scraped through the federation);
+    each replica's own output names cuda:0. (b) The same stream under
+    ``query.send`` disconnects and ``query.recv`` drops at 5 % each
+    (seed 11): 240 of 240 bit-identical in order, retries > 0, dedup hits
+    over the replicas > 0, the model's invocations over the replicas (its
+    regions' dispatches) = 240. (c) Three echo replicas (``--replica``,
+    20 ms spin) through ``rolling_restart()`` while a balanced client
+    streams: every frame once, in order, the invoke logs without a
+    duplicate; then bench.py's ``measure_fleet`` at its defaults (N =
+    1..3, 20 ms spin, 120 frames) on the first k of the restarted
+    replicas, reported, not gated. (d)
+    ``/fleet/metrics.json`` of a ``MetricsServer(federation=)`` found
+    through the broker lists both flagship replicas; ``python -m
+    nnstreamer_tpu_torch.cli --fleet op=...`` exits 0; (a)'s ledger holds
+    the spliced remote stages, tiling each round trip."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import timeline as TL
+    from nnstreamer_tpu_torch.obs.distributed import FederatedMetrics
+    from nnstreamer_tpu_torch.obs.server import MetricsServer
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.pipeline import continuity, faults
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.query import resilience
+    from nnstreamer_tpu_torch.query.pubsub import Broker
+    from nnstreamer_tpu_torch.registry import ELEMENT, get_subplugin
+    from nnstreamer_tpu_torch.serving.fleet import FleetLauncher
+    from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+
+    nt.set_device(None)
+    t_start = time.monotonic()
+    kind = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_fleet_")
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    model = os.path.join(tmp, "mnv2.pt")
+    torch.save(module, model)
+    body = ("tensor_quant_dec ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            f"tensor_filter framework=jax model={model}")
+    broker = Broker(port=0).start()
+    desc = (f"tensor_query_serversrc host=127.0.0.1 port=0 "
+            f"operation={FLEET_OP} broker-host=127.0.0.1 "
+            f"broker-port={broker.port} reliable=true "
+            "advertise-interval-s=0.25 metrics-port={metrics_port} ! "
+            f"{body} ! tensor_query_serversink")
+    # the replicas load the kernels this run built (no nvcc in them)
+    # (and print unbuffered, so their device line is readable while they
+    # run)
+    cache = {continuity.CACHE_ENV: os.environ[continuity.CACHE_ENV],
+             "PYTHONUNBUFFERED": "1"}
+    flagship = FleetLauncher(
+        replicas=FLEET_REPLICAS, operation=FLEET_OP,
+        broker_port=broker.port, desc=desc, metrics=True, env=cache,
+        state_dir=os.path.join(tmp, "flagship"))
+    # bench.py's fleet replicas (20 ms spin): the rolling restart's, and
+    # then measure_fleet's fleets of 1..3
+    echo = FleetLauncher(
+        replicas=FLEET_ECHO_REPLICAS, operation="fleet-echo",
+        broker_port=broker.port, spin_ms=BENCH_FLEET_SPIN_MS,
+        base_port=_free_ports(FLEET_ECHO_REPLICAS), log_invokes=True,
+        state_dir=os.path.join(tmp, "echo"))
+    cli = None
+    result = {"gpu": power}
+    # seconds from the phase's start at which each step ended
+    marks = result["marks_s"] = {}
+
+    def mark(step):
+        marks[step] = time.monotonic() - t_start
+
+    try:
+        # both fleets boot at once (a fresh interpreter each), while this
+        # process runs the in-process reference
+        flagship.start()
+        echo.start()
+
+        def stream(n, name, extra=""):
+            """Run the client pipeline over ``n`` ball frames; returns it
+            and the sink's arrival times."""
+            pipe = nt.parse_launch(
+                f"videotestsrc num-buffers={n} pattern=ball ! "
+                "tensor_converter ! queue prefetch-device=true ! "
+                "tensor_quant_enc ! tensor_query_client name=c "
+                f"operation={FLEET_OP} broker-host=127.0.0.1 "
+                f"broker-port={broker.port} reliable=true "
+                f"balance=shortest-slack max-in-flight={FLEET_WINDOW} "
+                f"{extra} ! tensor_sink name=sink",
+                pipeline=Pipeline(name=name))
+            arrivals = []
+            pipe.get("sink").connect(
+                lambda buf: arrivals.append(time.monotonic()))
+            msg = pipe.run(timeout=600)
+            torch.cuda.synchronize()
+            check(msg is not None and msg.kind == "eos",
+                  f"fleet: {name}: no EOS ({msg})")
+            return pipe, arrivals
+
+        def rolling_restart():
+            """(c): the echo fleet's rolling restart while a balanced
+            client streams a frame every FLEET_ECHO_PACE_S."""
+            check(len(echo.endpoints(timeout=FLEET_BOOT_S)) ==
+                  FLEET_ECHO_REPLICAS,
+                  "fleet: the echo replicas did not all advertise")
+            mark("echo_up")
+            cl = get_subplugin(ELEMENT, "tensor_query_client")(
+                operation="fleet-echo", broker_port=broker.port,
+                reliable=True, balance="shortest-slack", max_in_flight=4,
+                timeout=10.0, max_retry=10, reconnect_backoff_ms=100.0,
+                discovery_stale_s=5.0)
+            outs: list = []
+            cl.srcpad.push = lambda b: outs.append(b)
+            restarted = threading.Event()
+            sent = [0]
+            errors: list = []
+
+            def sender():
+                try:
+                    while sent[0] < 20 * FLEET_ECHO_MIN_FRAMES and (
+                            not restarted.is_set() or
+                            sent[0] < FLEET_ECHO_MIN_FRAMES):
+                        i = sent[0]
+                        cl.chain(cl.sinkpad, TensorBuffer(
+                            [np.full((4,), i, dtype=np.float32)], pts=i))
+                        sent[0] += 1
+                        time.sleep(FLEET_ECHO_PACE_S)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            pids0 = [h.proc.pid for h in echo._handles]
+            th = threading.Thread(target=sender, daemon=True)
+            t_roll = time.monotonic()
+            th.start()
+            time.sleep(0.5)  # frames in flight before the first restart
+            echo.rolling_restart(wait_s=FLEET_BOOT_S)
+            roll_s = time.monotonic() - t_roll
+            restarted.set()
+            th.join(timeout=600)
+            check(not th.is_alive() and not errors,
+                  f"fleet: the echo stream failed: {errors}")
+            cl.handle_eos()
+            cl.stop()
+            n = sent[0]
+            invokes = []
+            for i in range(FLEET_ECHO_REPLICAS):
+                log = os.path.join(tmp, "echo", f"replica{i}",
+                                   "invokes.log")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        invokes += f.read().splitlines()
+            values = [int(np.asarray(o.to_host().tensors[0])[0])
+                      for o in outs]
+            check(values == [2 * i for i in range(n)],
+                  f"fleet: the echo stream delivered {len(values)} of {n} "
+                  "frames, or out of order")
+            check(len(invokes) == len(set(invokes)) == n,
+                  f"fleet: {len(invokes)} invokes ({len(set(invokes))} "
+                  f"distinct) for {n} frames across the rolling restart")
+            pids1 = [h.proc.pid for h in echo._handles]
+            check(all(a != b for a, b in zip(pids0, pids1)) and
+                  echo.replicas_up() == FLEET_ECHO_REPLICAS,
+                  f"fleet: the replicas were not all restarted ({pids0} → "
+                  f"{pids1})")
+            return {"frames": n, "invokes": len(invokes),
+                    "restart_s": roll_s}
+
+        def bench():
+            """bench.py's ``measure_fleet`` protocol at its defaults on
+            the restarted echo replicas: the fleet of k is the first k
+            of them, named to the balanced client by ``servers=`` (no
+            discovery, so no ad's load block in the score)."""
+            ends = echo.endpoints(timeout=FLEET_BOOT_S)
+            check(len(ends) == BENCH_FLEET_N,
+                  f"fleet: {len(ends)} echo replicas for bench.py's fleet")
+            client_cls = get_subplugin(ELEMENT, "tensor_query_client")
+            fps = []
+            for k in range(1, BENCH_FLEET_N + 1):
+                bc = client_cls(servers=",".join(f"{h}:{p}"
+                                                 for h, p in ends[:k]),
+                                reliable=True, balance="shortest-slack",
+                                max_in_flight=4 * k, timeout=10.0)
+                bouts: list = []
+                bc.srcpad.push = lambda b, o=bouts: o.append(b)
+                try:
+                    for i in range(BENCH_FLEET_WARMUP):
+                        bc.chain(bc.sinkpad, TensorBuffer(
+                            [np.full((4,), i, dtype=np.float32)], pts=i))
+                    t0 = time.monotonic()
+                    for i in range(BENCH_FLEET_WARMUP,
+                                   BENCH_FLEET_WARMUP + BENCH_FLEET_FRAMES):
+                        bc.chain(bc.sinkpad, TensorBuffer(
+                            [np.full((4,), i, dtype=np.float32)], pts=i))
+                    bc.handle_eos()
+                    dt = time.monotonic() - t0
+                finally:
+                    bc.stop()
+                check(len(bouts) == BENCH_FLEET_WARMUP + BENCH_FLEET_FRAMES,
+                      f"fleet: the bench fleet of {k} lost frames")
+                fps.append(BENCH_FLEET_FRAMES / dt)
+            return {"fleet_admitted_fps": fps,
+                    "fleet_scaling": fps[-1] / (BENCH_FLEET_N * fps[0]),
+                    "fleet_spin_ms": BENCH_FLEET_SPIN_MS,
+                    "frames": BENCH_FLEET_FRAMES}
+
+        # (c) runs while the flagship replicas boot and warm up and this
+        # process runs the reference; (a) starts once it is done, so
+        # nothing else shares the host with the measured streams
+        restart: dict = {}
+
+        def restart_thread():
+            try:
+                restart["result"] = rolling_restart()
+                mark("restarted")
+                restart["bench"] = bench()
+                mark("bench")
+            except BaseException as e:  # noqa: BLE001 — raised below
+                restart["error"] = e
+
+        roller = threading.Thread(target=restart_thread, daemon=True)
+        roller.start()
+
+        # the same codec and region in this process, while replicas boot
+        local = nt.parse_launch(
+            f"videotestsrc num-buffers={FLEET_FRAMES} pattern=ball ! "
+            "tensor_converter ! queue prefetch-device=true ! "
+            f"tensor_quant_enc ! {body} ! tensor_sink name=sink",
+            pipeline=Pipeline(name="fleet_local"))
+        msg = local.run(timeout=600)
+        check(msg is not None and msg.kind == "eos",
+              f"fleet: the in-process run ({msg})")
+        _region_of(local, ["tensor_transform", "tensor_filter"])
+        want = _logit_bytes(local)
+        eps = flagship.endpoints(timeout=FLEET_BOOT_S)
+        check(len(eps) == FLEET_REPLICAS,
+              f"fleet: {len(eps)} of {FLEET_REPLICAS} flagship replicas "
+              "advertised")
+        result["boot_s"] = time.monotonic() - t_start
+        mark("flagship_up")
+        fed = FederatedMetrics(operation=FLEET_OP,
+                               broker_port=broker.port)
+        check(len(fed.discover(timeout=30)) == FLEET_REPLICAS,
+              f"fleet: metrics endpoints {fed.endpoints}")
+        # (d)'s CLI federates the flagship replicas while (a) and (b) run
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch.cli", "-q",
+             "--metrics-port", "0", "--fleet",
+             f"op={FLEET_OP},broker=127.0.0.1:{broker.port}",
+             "videotestsrc num-buffers=8 ! tensor_converter ! tensor_sink"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+        def routes():
+            return {ep: _counter("nns_lb_route_total",
+                                 endpoint=f"{ep[0]}:{ep[1]}") for ep in eps}
+
+        # warm-up, while the echo fleet restarts: every replica runs its
+        # eager first frame and captures
+        r0 = routes()
+        for rnd in range(FLEET_WARM_ROUNDS):
+            stream(FLEET_WARMUP, f"fleet_warm{rnd}", "timeout=60")
+            r1 = routes()
+            if all(r1[ep] - r0[ep] >= FLEET_WARM_ROUTES for ep in eps):
+                break
+        check(all(r1[ep] - r0[ep] >= FLEET_WARM_ROUTES for ep in eps),
+              f"fleet: the warm-up reached the replicas {r1} (from {r0})")
+        mark("warm")
+        roller.join(timeout=600)
+        check(not roller.is_alive(), "fleet: the rolling restart hangs")
+        if "error" in restart:
+            raise restart["error"]
+        result["rolling_restart"] = restart["result"]
+        result["bench"] = restart["bench"]
+        mark("joined")
+
+        def replica_counts():
+            """Each flagship replica's own counts, from its
+            ``/metrics.json`` scraped through the federation: B1's
+            launches in that process (``launches``) and its fused
+            regions' eager frames, replays and captures (``regions``)."""
+            out = {}
+            for h, p in fed.endpoints:
+                snap = fed.scrape_one(h, p)
+                check(snap is not None and "launches" in snap and
+                      snap.get("regions"),
+                      f"fleet: replica {h}:{p} gave no launches or regions "
+                      f"({snap and sorted(snap)})")
+                regions = snap["regions"].values()
+                out[f"{h}:{p}"] = {
+                    "b1": snap["launches"]["normalize_chain"],
+                    **{k: sum(r[k] for r in regions)
+                       for k in ("eager_frames", "replays", "captures")}}
+            return out
+
+        def measured(name, extra=""):
+            """One stream of FLEET_FRAMES with every count from zero: the
+            client's launches, routes, retries; the replicas' counters
+            through the federation, and each replica's own launches and
+            region dispatches."""
+            v0, rt0, c0 = fed.collect(), routes(), replica_counts()
+            retries0 = resilience.metrics()["retries"].value
+            reset_launches()
+            with TL.tracing() as tl:
+                pipe, arrivals = stream(FLEET_FRAMES, name, extra)
+            b3 = LAUNCHES.get("quantize_int8", 0)
+            v1, rt1 = fed.collect(), routes()
+            got = list(pipe.get("sink").buffers)
+            check(len(got) == FLEET_FRAMES,
+                  f"fleet: {name}: {len(got)} of {FLEET_FRAMES} results")
+            check([b.pts for b in got] == [b.pts for b in
+                                           local.get("sink").buffers],
+                  f"fleet: {name}: the results came back out of order")
+            check(all(np.asarray(b[0]).dtype == np.float32 and
+                      np.asarray(b[0]).shape == (1, CLASSES) for b in got),
+                  f"fleet: {name}: the results are not float32 [1, 1001]")
+            differ = [i for i, (a, b) in enumerate(
+                zip(_logit_bytes(pipe), want)) if a != b]
+            check(not differ, f"fleet: {name}: the logits of frames "
+                              f"{differ[:10]} differ from the in-process "
+                              "run's")
+            check(b3 == FLEET_FRAMES, f"fleet: {name}: B3 {b3} times for "
+                                      f"{FLEET_FRAMES} frames")
+
+            def delta(metric, **labels):
+                return (_fleet_counters(v1, metric, **labels) -
+                        _fleet_counters(v0, metric, **labels))
+
+            served = delta("nns_query_requests_total")
+
+            def replica_deltas():
+                c1 = replica_counts()
+                return {ep: {k: c1[ep][k] - c0[ep][k] for k in c1[ep]}
+                        for ep in c1}
+
+            # a region counts its dispatch (and its replay's launches)
+            # after the serversink sent the result: the last frames'
+            # counts may land after the client has them all
+            per = replica_deltas()
+            settle = time.monotonic() + 10.0
+            while (sum(d["eager_frames"] + d["replays"]
+                       for d in per.values()) < served and
+                   time.monotonic() < settle):
+                time.sleep(0.05)
+                per = replica_deltas()
+            b1 = sum(d["b1"] for d in per.values())
+            dispatches = sum(d["eager_frames"] + d["replays"]
+                             for d in per.values())
+            share = {f"{h}:{p}": rt1[(h, p)] - rt0[(h, p)] for h, p in eps}
+            check(all(n > 0 for n in share.values()),
+                  f"fleet: {name}: routes by replica {share}")
+            check(served == FLEET_FRAMES,
+                  f"fleet: {name}: the replicas served {served} frames "
+                  f"for {FLEET_FRAMES} sent")
+            check(dispatches == served,
+                  f"fleet: {name}: the replicas' regions ran {dispatches} "
+                  f"times for {served} frames served ({per})")
+            check(b1 == served, f"fleet: {name}: B1 {b1} times over the "
+                                f"replicas for {served} frames served "
+                                f"({per})")
+            p50, p99 = _quantiles_ms([x * 1e3 for x in
+                                      pipe.get("sink").latencies])
+            cl = pipe.get("c")
+            rtt = {f"{h}:{p}": {"ewma_ms": st.ewma() * 1e3,
+                                "p99_ms": st.p99() * 1e3}
+                   for (h, p), st in cl._r_stats.items()
+                   if st.ewma() is not None and st.p99() is not None}
+            return {"frames": len(got), "b3_launches": b3,
+                    "b1_launches_replicas": b1, "served": served,
+                    # the model's invocations: its region's dispatches (a
+                    # dedup hit replays a packed reply and runs none)
+                    "invokes_replicas": dispatches,
+                    "replicas": per,
+                    "dedup_hits_replicas": delta("nns_net_dedup_hits_total"),
+                    "retries": resilience.metrics()["retries"].value -
+                    retries0,
+                    "share": {ep: n / FLEET_FRAMES
+                              for ep, n in share.items()},
+                    "fps": steady_fps(arrivals, arrivals[-1]),
+                    "latency_p50_ms": p50, "latency_p99_ms": p99,
+                    "rtt": rtt, "splice": _splice_check(tl),
+                    "stages_p50_ms": _stage_p50_ms(tl)}
+
+        # (a) the balanced flagship fleet, int8 transport
+        result["balanced"] = measured("fleet_client", "timeout=30")
+        splice = result["balanced"]["splice"]
+        check(splice["frames"] == FLEET_FRAMES,
+              f"fleet: remote stages spliced for {splice['frames']} of "
+              f"{FLEET_FRAMES} frames")
+        check(splice["max_tile_error_s"] <= 1e-6,
+              f"fleet: the spliced stages miss the round trip by "
+              f"{splice['max_tile_error_s']} s")
+        check(splice["wall_split_frames"] > 0 and
+              splice["remote_device_frames"] > 0,
+              f"fleet: the splice shows no wall split or remote device "
+              f"time ({splice})")
+        for i in range(FLEET_REPLICAS):
+            with open(os.path.join(tmp, "flagship", f"replica{i}",
+                                   "replica.log")) as f:
+                out = f.read()
+            check(f"Device: cuda:0 {kind}" in out,
+                  f"fleet: replica {i} did not serve on cuda:0: "
+                  f"{out[:500]!r}")
+        result["replica_device"] = f"cuda:0 {kind}"
+        mark("balanced")
+        emit({"phase": "fleet_balanced", **result["balanced"]})
+
+        # (b) the same stream under transport chaos, in this process only
+        faults.activate(FLEET_CHAOS, seed=FLEET_CHAOS_SEED)
+        try:
+            chaos = measured("fleet_chaos", "timeout=5 max-retry=8 "
+                                            "reconnect-backoff-ms=10")
+        finally:
+            faults.deactivate()
+        check(chaos["retries"] > 0, f"fleet: chaos: no retries ({chaos})")
+        check(chaos["dedup_hits_replicas"] > 0,
+              f"fleet: chaos: no dedup hit over the replicas ({chaos})")
+        result["chaos"] = chaos
+        mark("chaos")
+        emit({"phase": "fleet_chaos", **chaos})
+
+        # (d) federation: the front server's merged view
+        front = MetricsServer(host="127.0.0.1", port=0,
+                              federation=fed).start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{front.port}/fleet/metrics.json",
+                    timeout=30) as r:
+                view = _json.loads(r.read().decode())
+        finally:
+            front.stop()
+        want_eps = {f"{h}:{p}" for h, p in fed.endpoints}
+        check(set(view["endpoints"]) == want_eps and
+              len(want_eps) == FLEET_REPLICAS and
+              all(e["ok"] for e in view["endpoints"].values()),
+              f"fleet: /fleet/metrics.json endpoints {view['endpoints']}")
+        result["federation"] = {
+            "endpoints": sorted(view["endpoints"]),
+            "compile_cache_hits": _fleet_counters(
+                view, "nns_compile_cache_hits_total"),
+            "compile_cache_misses": _fleet_counters(
+                view, "nns_compile_cache_misses_total")}
+        check(result["federation"]["compile_cache_misses"] == 0,
+              f"fleet: a replica built a kernel ({result['federation']})")
+        out, err = cli.communicate(timeout=300)
+        check(cli.returncode == 0 and
+              "Serving fleet federation on" in out,
+              f"fleet: nns-launch --fleet rc {cli.returncode}: "
+              f"{out[-800:]!r} {err[-800:]!r}")
+        cli = None
+        result["cli_fleet_rc"] = 0
+        mark("federation")
+        # both fleets end at once
+        ender = threading.Thread(target=echo.stop, daemon=True)
+        ender.start()
+        flagship.stop()
+        ender.join(timeout=60)
+        mark("stopped")
+    finally:
+        if cli is not None:
+            cli.kill()
+            cli.communicate(timeout=30)
+        for fl in (flagship, echo):
+            fl.stop()
+        broker.stop()
+    result["phase_s"] = time.monotonic() - t_start
+    emit({"phase": "fleet", **{k: v for k, v in result.items()
+                               if k not in ("balanced", "chaos")}})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -7169,6 +7773,8 @@ def main() -> int:
     # a new process on the card: last, after every profiled run (after it
     # the parent's torch.profiler traces began to lose device events)
     phase_cli(power)
+    # replica processes on the card: after every profiled run, as the CLI
+    fleet = phase_fleet(power)
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     emit(phase_seconds())
@@ -7216,6 +7822,13 @@ def main() -> int:
         # over MQTT (once a frame, 240 frames)
         "launches_pubsub_discovery": pubsub["discovery_mqtt"]["b1_launches"],
         "launches_pubsub_stream": pubsub["stream"]["b1_launches"],
+        # the balanced fleet: B1's launches counted in each of the two
+        # flagship replicas (its /metrics.json's launches, scraped
+        # through the federation) and summed, in the clean stream and
+        # under transport chaos
+        "launches_fleet_replicas": fleet["balanced"]["b1_launches_replicas"],
+        "launches_fleet_chaos_replicas":
+            fleet["chaos"]["b1_launches_replicas"],
         # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
         "kws_ms": b1["kws_ms"],
         "kws_device_ms": dev_b1["kws_device_ms"],
@@ -7277,6 +7890,9 @@ def main() -> int:
         "launches": offload["launches"]["quantize_int8"],
         # the publisher of the int8 camera stream over MQTT (once a frame)
         "launches_pubsub": pubsub["stream"]["b3_launches"],
+        # the balanced fleet's client (once a frame), clean and under chaos
+        "launches_fleet": fleet["balanced"]["b3_launches"],
+        "launches_fleet_chaos": fleet["chaos"]["b3_launches"],
         "max_abs_err": b3["max_abs_err"],
         "ms": frame_q["ms"],
         "device_ms": dev_b3[f"{frame_tag}_device_ms"],

@@ -23,7 +23,11 @@ Options, as the JAX CLI's:
   --dot FILE       write the started graph (fused regions as clusters)
   --metrics-port, --trace-out, --flight-dir, --slo-budget-ms, --lanes,
   --inflight, --error-policy, --watchdog-s
-                   as in the JAX CLI
+                   as in the JAX CLI; the ``/metrics.json`` of
+                   --metrics-port also carries ``regions`` (each fused
+                   region's eager frames, replays, captures) and
+                   ``launches`` (the kernel wrappers' counts,
+                   ``ops/_counts.py``), which the JAX CLI has not
   --export MODEL OUT
                    export a model (a ``.pt``/``.pth`` file or a registered
                    name) to a ``torch.export`` ``.pt2`` artifact
@@ -36,10 +40,15 @@ Options, as the JAX CLI's:
   --compile-cache DIR
                    keep the kernel libraries in DIR/kernels, so a later
                    run on the same checkout builds none
+  --fleet ENDPOINTS
+                   with --metrics-port, serve the merged view of replica
+                   metrics at /fleet/metrics (``obs/distributed.py``):
+                   a comma list of host:port ``/metrics.json`` endpoints,
+                   or ``op=NAME[,broker=HOST[:PORT]]`` for the replicas
+                   that advertise a metrics port under that operation
 
-Flags whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP item: ``--fleet`` (26b), ``--scaffold`` (26g, with the
-external subplugin search).
+``--scaffold`` is not ported and raises ``NotImplementedError`` naming
+ROADMAP 26g (with the external subplugin search).
 """
 
 from __future__ import annotations
@@ -133,7 +142,11 @@ def main(argv=None) -> int:
                          "/metrics.json) while the pipeline runs; "
                          "0 picks a free port (printed at startup)")
     ap.add_argument("--fleet", default=None, metavar="ENDPOINTS",
-                    help="not ported (ROADMAP 26b)")
+                    help="federate replica metrics: comma list of "
+                         "host:port /metrics.json endpoints (or "
+                         "op=NAME[,broker=HOST[:PORT]] for broker "
+                         "discovery); merged fleet view served at "
+                         "/fleet/metrics on the --metrics-port server")
     ap.add_argument("--export", nargs=2, metavar=("MODEL", "OUT"),
                     help="export a model (.pt/.pth file or registered "
                          "name) to a torch.export .pt2 artifact and exit")
@@ -194,8 +207,6 @@ def main(argv=None) -> int:
                          "NNSTPU_WATCHDOG_S does the same")
     args = ap.parse_args(argv)
 
-    if args.fleet is not None:
-        raise _not_ported("--fleet", "26b fleet balancing")
     if args.scaffold:
         raise _not_ported("--scaffold", "26g analysis and tooling")
     if not args.export and (args.custom or args.input or args.inputtype):
@@ -295,17 +306,32 @@ def main(argv=None) -> int:
     if args.metrics_port is not None:
         from nnstreamer_tpu_torch.obs import MetricsServer
 
+        federation = None
+        if args.fleet:
+            federation = _parse_fleet(args.fleet)
+
+        from nnstreamer_tpu_torch.ops._counts import LAUNCHES
+
         def _extra_sections(p=pipe):
             # the in-process metrics_snapshot()'s recorder sections, on
-            # the scraped /metrics.json too
+            # the scraped /metrics.json too; and what only this process
+            # counts: its fused regions' eager frames, replays and
+            # captures, and its kernel wrappers' launches (a fleet
+            # replica's, read through the federation's scrape)
             snap = p.metrics_snapshot()
-            return {k: snap[k] for k in ("slo", "attribution", "quantiles")
-                    if k in snap}
+            out = {k: snap[k] for k in ("slo", "attribution", "quantiles",
+                                        "regions") if k in snap}
+            out["launches"] = dict(LAUNCHES)
+            return out
 
         metrics_srv = MetricsServer(port=args.metrics_port,
-                                    snapshot_fn=_extra_sections).start()
+                                    snapshot_fn=_extra_sections,
+                                    federation=federation).start()
         print(f"Serving metrics on "
               f"http://0.0.0.0:{metrics_srv.port}/metrics")
+        if federation is not None:
+            print(f"Serving fleet federation on "
+                  f"http://0.0.0.0:{metrics_srv.port}/fleet/metrics")
 
     print(f"Setting pipeline to PLAYING ({len(pipe.elements)} elements)...")
     try:
@@ -348,6 +374,37 @@ def main(argv=None) -> int:
         # counters; it stops only when the CLI is about to return
         if metrics_srv is not None:
             metrics_srv.stop()
+
+
+def _parse_fleet(spec: str):
+    """``--fleet`` argument → FederatedMetrics: either a comma list of
+    ``host:port`` scrape endpoints, or ``op=NAME[,broker=HOST[:PORT]]``
+    for broker discovery of replicas advertising a metrics_port."""
+    from nnstreamer_tpu_torch.obs.distributed import FederatedMetrics
+
+    parts = [p.strip() for p in spec.split(",") if p.strip()]
+    if any(p.startswith("op=") for p in parts):
+        operation = broker_host = None
+        broker_port = 1883
+        for p in parts:
+            k, _, v = p.partition("=")
+            if k == "op":
+                operation = v
+            elif k == "broker":
+                h, _, pp = v.partition(":")
+                broker_host = h
+                if pp:
+                    broker_port = int(pp)
+        fed = FederatedMetrics(operation=operation,
+                               broker_host=broker_host or "127.0.0.1",
+                               broker_port=broker_port)
+        fed.discover()
+        return fed
+    endpoints = []
+    for p in parts:
+        host, _, port = p.rpartition(":")
+        endpoints.append((host or "127.0.0.1", int(port)))
+    return FederatedMetrics(endpoints=endpoints)
 
 
 def _print_trace_breakdown(tl) -> None:

@@ -28,9 +28,8 @@ Port of ``nnstreamer_tpu/elements/pubsub.py``. The sink fetches a device
 buffer to the host once (one counted D2H, ``TensorBuffer.to_host``), as
 the JAX sink's ``to_host()`` does; the src pushes host buffers, which the
 next element uploads. A ``bfloat16`` memory comes back as a CPU torch
-tensor. The JAX src also stamps the header's send time into the buffer's
-meta for its distributed trace (``obs/distributed.py``); that plane is
-ROADMAP item 26a, so the port's src does not (ROADMAP C.41).
+tensor. The src surfaces the header's send stamp as distributed-trace meta
+(``obs/distributed.py``), as the JAX src does.
 """
 
 from __future__ import annotations
@@ -254,9 +253,24 @@ class TensorPubSubSrc(SourceElement, _PubSubBase):
             buf = TensorBuffer(tensors, dts=msg["dts"],
                                duration=msg["duration"],
                                meta={"caps_str": msg["caps_str"]})
+            self._stamp_trace(buf, msg["sent_time_epoch"])
             return buf, msg["base_time_epoch"], msg["pts"]
-        base_epoch, _sent, pts, payload = parse_buffer_envelope(body)
-        return P.unpack_buffer(payload), base_epoch, pts
+        base_epoch, sent, pts, payload = parse_buffer_envelope(body)
+        buf = P.unpack_buffer(payload)
+        self._stamp_trace(buf, sent)
+        return buf, base_epoch, pts
+
+    @staticmethod
+    def _stamp_trace(buf: TensorBuffer, sent_epoch_ns) -> None:
+        """Both wire headers already carry a sender send-stamp (the
+        reference's ``sent_time`` field / the NPE2 envelope): surface it
+        as distributed-trace meta so the receiving pipeline's ledger can
+        attribute the hop — no wire change, works against reference
+        mqttsink peers."""
+        from nnstreamer_tpu_torch.obs import distributed as _dist
+
+        if _dist.enabled() and sent_epoch_ns:
+            buf.meta[_dist.SENT_WALL_META] = float(sent_epoch_ns) / 1e9
 
     def create(self):
         n = int(self.get_property("num_buffers"))

@@ -9,7 +9,9 @@ metrics; ``collectors.register_pipeline_collector`` (registered by every
 queues, the dispatch window and transfers; ``NNSTPU_TRACE``);
 ``flight.FlightRecorder`` is the always-on recorder every pipeline
 installs on that ledger (``NNSTPU_FLIGHT``); ``server.MetricsServer``
-serves the registry over HTTP (Prometheus text and JSON).
+serves the registry over HTTP (Prometheus text and JSON), and with a
+``distributed.FederatedMetrics`` the merged view of a fleet's replicas;
+``distributed`` also carries a frame's trace across the query hop.
 """
 
 from nnstreamer_tpu_torch.obs.registry import (  # noqa: F401

@@ -210,8 +210,8 @@ class FlightRecorder(_timeline.Timeline):
         """One frame's accumulated stage durations — O(1) from the
         in-flight accumulator (overrides the Timeline's ring scan); a
         frame that already completed is found in the attribution ring.
-        (The JAX package's query server reads it at result egress; the
-        port's query spans wait for ROADMAP 26a.)"""
+        This is the span-vector source a query server reads at result
+        egress (obs/distributed)."""
         with self._fl_lock:
             d = self._frames.get(seq)
             if d is not None:
@@ -434,8 +434,9 @@ class FlightRecorder(_timeline.Timeline):
         return out
 
     def quantile_states(self) -> Dict[str, Dict[str, dict]]:
-        """Serializable P² marker states per stage, the marker sets a
-        fleet aggregator merges (in the JAX package; ROADMAP 26b here)."""
+        """Serializable P² marker states per stage — what a replica's
+        ``/metrics.json`` exposes so a FederatedMetrics aggregator can
+        marker-merge fleet quantiles without ever shipping samples."""
         return {name: {w: q.snapshot() for w, q in qs.items()}
                 for name, qs in self._q.items()
                 if qs["p50"].count > 0}

@@ -33,8 +33,12 @@ an exact kill switch:
   LRU order, and the flight recorder's P² quantile markers and
   attribution ring. Armed by ``NNSTPU_CHECKPOINT=<dir>`` /
   ``--checkpoint-dir`` / ``Pipeline.checkpoint_dir``; unset means one env
-  read in start/stop. ``"servers"`` is ``{}``: the query server's dedup
-  windows arrive with ROADMAP 26a.
+  read in start/stop. ``"servers"`` holds each live resilient query
+  server's dedup windows (packed reply bytes, no tensor). As in the JAX
+  package, the hooks in ``Pipeline.start()``/``stop()`` run while the
+  serversrc holds no server (restore before the sources start, the
+  checkpoint after they stop), so only an explicit ``checkpoint`` of a
+  running pipeline carries them (ROADMAP C.43).
 
 - **Persistent compile cache** (:func:`enable_compile_cache`). The port
   has no XLA programs to cache; what a second boot can skip is the
@@ -289,6 +293,16 @@ def _effective_checkpoint_dir(pipe, directory: Optional[str] = None
     return env or None
 
 
+def _query_servers(pipe):
+    """Elements carrying a live query server (tensor_query_serversrc)."""
+    out = []
+    for el in getattr(pipe, "elements", ()):
+        srv = getattr(el, "server", None) or getattr(el, "_server", None)
+        if srv is not None and hasattr(srv, "checkpoint_state"):
+            out.append((el.name, srv))
+    return out
+
+
 def checkpoint(pipe, directory: Optional[str] = None) -> str:
     """Serialize the pipeline's durable serving state into
     ``<dir>/serving_state.pkl`` (atomic publish) and refresh the
@@ -316,8 +330,8 @@ def checkpoint(pipe, directory: Optional[str] = None) -> str:
         "flight": fr.checkpoint_state() if fr is not None else None,
         "residency": acct.residency.checkpoint_state()
         if acct is not None else None,
-        # the query server's dedup windows arrive with ROADMAP 26a
-        "servers": {},
+        "servers": {name: srv.checkpoint_state()
+                    for name, srv in _query_servers(pipe)},
         "swap_epochs": {el.name: int(el._swap_epoch)
                         for el in pipe.elements
                         if getattr(el, "_swap_epoch", 0)},
@@ -337,8 +351,8 @@ def checkpoint(pipe, directory: Optional[str] = None) -> str:
 def restore(pipe, directory: Optional[str] = None) -> Dict[str, Any]:
     """Load ``<dir>/serving_state.pkl`` and re-arm the warm serving
     state: repo slots (on the package device), scheduler estimates and
-    knobs, residency LRU order, flight-recorder quantiles, swap epochs,
-    and the compile cache. Returns a summary of what was applied."""
+    knobs, residency LRU order, flight-recorder quantiles, query-server
+    dedup windows, swap epochs, and the compile cache. Returns a summary of what was applied."""
     directory = _effective_checkpoint_dir(pipe, directory)
     if not directory:
         raise ValueError(
@@ -371,6 +385,12 @@ def restore(pipe, directory: Optional[str] = None) -> Dict[str, Any]:
     if acct is not None and state.get("residency"):
         acct.residency.restore_state(state["residency"])
         applied["residency"] = True
+    servers = dict(_query_servers(pipe))
+    for name, srv_state in (state.get("servers") or {}).items():
+        srv = servers.get(name)
+        if srv is not None:
+            srv.restore_state(srv_state)
+            applied.setdefault("servers", []).append(name)
     for name, epoch in (state.get("swap_epochs") or {}).items():
         el = pipe.by_name.get(name)
         if el is not None:

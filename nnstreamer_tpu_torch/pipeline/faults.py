@@ -19,13 +19,16 @@ injector with hooks at the places the async substrate can fail:
 - ``mqtt.publish``    — MQTT client publish (``query/mqtt.py``): ``drop``
   swallows the send, ``disconnect`` severs the broker link, ``corrupt``
   writes a reserved packet type; a dropped QoS1 copy recovers by DUP
+- ``query.send``      — query-client frame send (``elements/query.py``)
+- ``query.recv``      — query-client result receive (``elements/query.py``)
 
-The JAX package also hooks the transport sites ``query.send`` and
-``query.recv`` (ROADMAP 26a) and ``grpc.call`` (26f). The grammar still
-parses them, but :func:`activate` raises
-``NotImplementedError`` naming the item for a spec that names one: a
-rule no hook can fire would report "the system survives faults"
-vacuously.
+The transport interprets ``drop``, ``disconnect`` and ``corrupt`` itself
+through :meth:`FaultInjector.action`, as the JAX hooks do (the
+resilience layer, ``query/resilience.py``, is what is under test there).
+The JAX package also hooks ``grpc.call`` (ROADMAP 26f). The grammar still
+parses it, but :func:`activate` raises ``NotImplementedError`` naming the
+item for a spec that names it: a rule no hook can fire would report "the
+system survives faults" vacuously.
 
 Spec grammar (``NNSTPU_FAULTS``)::
 
@@ -106,8 +109,6 @@ SITES: Tuple[str, ...] = ("filter.invoke", "filter.open",
 #: sites whose hook the port does not have yet → the ROADMAP.md item that
 #: brings it
 UNPORTED_SITES: Dict[str, str] = {
-    "query.send": "26a resilient transport",
-    "query.recv": "26a resilient transport",
     "grpc.call": "26f gRPC",
 }
 

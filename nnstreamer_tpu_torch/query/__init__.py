@@ -1,4 +1,5 @@
-"""Distributed query transport: wire protocol and server core (the classic
-wire of the JAX package's ``query`` package), the reference two-port wire,
-and the pub/sub layer: the shim and MQTT brokers, SNTP clock correction and
-broker discovery."""
+"""Distributed query transport: wire protocol and server core (the JAX
+package's ``query`` wire, classic and resilient), the reference two-port
+wire, the resilience primitives and the fleet balancer, and the pub/sub
+layer: the shim and MQTT brokers, SNTP clock correction and broker
+discovery."""

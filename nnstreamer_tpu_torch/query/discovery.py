@@ -14,9 +14,9 @@ through any conformant broker and interops with reference query-hybrid
 peers (tensor_query_hybrid.c publishes through paho the same way).
 
 Port of ``nnstreamer_tpu/query/discovery.py``: a copy with its imports
-rewritten. The ad's ``load`` block and ``metrics_port`` are carried as the
-JAX module carries them; only the fleet (ROADMAP item 26b, not ported yet)
-reads them.
+rewritten. The ad's ``load`` block feeds the fleet balancer
+(``query/balance.py``) and its ``metrics_port`` fleet federation
+(``obs/distributed.py``).
 """
 
 from __future__ import annotations
@@ -216,7 +216,7 @@ class ServerDiscovery:
         """The raw ``load`` block of this endpoint's latest ad, or None
         when the ad carries none (pre-fleet replica, or the endpoint is
         unknown). Parsing/validation is the balancer's job
-        (``query.balance.parse_ad_load``, ROADMAP item 26b)."""
+        (``query.balance.parse_ad_load``)."""
         with self._lock:
             info = self._meta.get(f"{host}:{port}")
         if not info:
@@ -227,8 +227,8 @@ class ServerDiscovery:
     def metrics_endpoints(self) -> List[Tuple[str, int]]:
         """``(host, metrics_port)`` for every live server whose ad
         carries a ``metrics_port`` — the fleet-federation scrape list
-        (the JAX package's ``obs.distributed.FederatedMetrics``; ROADMAP
-        item 26b here)."""
+        (see :class:`~nnstreamer_tpu_torch.obs.distributed.
+        FederatedMetrics`)."""
         with self._lock:
             out = []
             for key in list(self._servers):

@@ -14,12 +14,12 @@ u32 num_tensors, then per-tensor TensorMetaInfo header + raw bytes (the
 flex-header framing from ``tensors.meta``). Caps exchange sends the caps
 repr string; APPROVE echoes the server's src caps.
 
-The port of the JAX package's classic wire (commands 1-8), byte for byte,
-so clients and servers of the two packages talk to each other. Frames go
+The port of the JAX package's wire, byte for byte, so clients and servers
+of the two packages talk to each other: the classic commands 1-8 and the
+resilient extension 9-14 (``query/resilience.py``, ``obs/distributed.py``),
+which a client speaks only when asked (``reliable=true``). Frames go
 through plain ``sendall``/``recv``; the JAX package's native ``.so`` path
-waits for ROADMAP item 26e. Commands 9-14 (the resilient transport and its
-trace extension) are not ported: sending or receiving one raises
-:class:`QueryProtocolError` naming ROADMAP item 26a.
+waits for ROADMAP item 26e.
 """
 
 from __future__ import annotations
@@ -38,9 +38,6 @@ _BUF_HDR = struct.Struct("<qqqI")
 
 DEFAULT_TIMEOUT = 10.0  # reference QUERY_DEFAULT_TIMEOUT (tensor_query_common.h:30)
 
-#: the ROADMAP item that brings commands 9-14
-RESILIENT_ITEM = "26a resilient transport"
-
 
 class Cmd(enum.IntEnum):
     REQUEST_INFO = 1
@@ -51,35 +48,84 @@ class Cmd(enum.IntEnum):
     CLIENT_ID = 6
     PING = 7
     BYE = 8
-    # -- the resilient extension and its trace variant: not ported
-    HELLO = 9
-    TRANSFER_EX = 10
-    RESULT_EX = 11
-    EXPIRED = 12
-    TRANSFER_EX2 = 13
-    RESULT_EX2 = 14
+    # -- resilient extension (query/resilience.py) — a client that never
+    # sets a resilience knob never emits these, so the classic wire
+    # (commands 1-8) stays byte-identical to pre-extension builds
+    HELLO = 9        # "<instance>:<dedup window>"; server echoes HELLO
+    TRANSFER_EX = 10  # ext header (req_id, slack_s) + classic buffer
+    RESULT_EX = 11    # ext header (req_id, -1) + classic buffer
+    EXPIRED = 12      # ext header only: deadline missed, frame shed
+    # -- distributed-trace extension (obs/distributed.py) — only spoken
+    # after BOTH sides advertised the "dt1" feature in the HELLO
+    # exchange, so a peer without it (or NNSTPU_DIST_TRACE=0) keeps every
+    # wire byte identical to the resilient protocol above
+    TRANSFER_EX2 = 13  # ext2 header + trace blob + classic buffer
+    RESULT_EX2 = 14    # ext2 header + remote span blob + classic buffer
+
+
+#: extended-command header: u64 request id + f64 deadline slack in
+#: seconds (negative = no deadline; 0.0 = already expired at send time)
+_EXT_HDR = struct.Struct("<Qd")
+
+#: distributed-trace header: the _EXT_HDR pair plus a u64 trace/frame id
+#: (the client Timeline's frame seq, globally qualified by instance) and
+#: a f64 wall-clock stamp (epoch seconds: client send time on
+#: TRANSFER_EX2, remote receive time on RESULT_EX2). Wall stamps are
+#: *advisory* — the splice only ever uses them to split wire time inside
+#: the client's observed RTT window, never as absolute anchors.
+_EXT2_HDR = struct.Struct("<QdQd")
+
+#: length prefix for the variable trace blob that follows _EXT2_HDR
+_BLOB_LEN = struct.Struct("<I")
 
 
 class QueryProtocolError(RuntimeError):
     pass
 
 
-def _check_classic(cmd: int) -> Cmd:
+def pack_ext(req_id: int, slack_s: float, body: bytes = b"") -> bytes:
+    return _EXT_HDR.pack(req_id, slack_s) + body
+
+
+def unpack_ext(payload: bytes) -> Tuple[int, float, bytes]:
+    if len(payload) < _EXT_HDR.size:
+        raise QueryProtocolError("short extended header")
+    req_id, slack_s = _EXT_HDR.unpack_from(payload)
+    return req_id, slack_s, payload[_EXT_HDR.size:]
+
+
+def pack_ext2(req_id: int, slack_s: float, trace_id: int, stamp: float,
+              blob: bytes = b"", body: bytes = b"") -> bytes:
+    return (_EXT2_HDR.pack(req_id, slack_s, trace_id, stamp)
+            + _BLOB_LEN.pack(len(blob)) + blob + body)
+
+
+def unpack_ext2(payload: bytes
+                ) -> Tuple[int, float, int, float, bytes, bytes]:
+    if len(payload) < _EXT2_HDR.size + _BLOB_LEN.size:
+        raise QueryProtocolError("short extended-trace header")
+    req_id, slack_s, trace_id, stamp = _EXT2_HDR.unpack_from(payload)
+    off = _EXT2_HDR.size
+    (blob_len,) = _BLOB_LEN.unpack_from(payload, off)
+    off += _BLOB_LEN.size
+    if len(payload) < off + blob_len:
+        raise QueryProtocolError("short trace blob")
+    blob = payload[off:off + blob_len]
+    return req_id, slack_s, trace_id, stamp, blob, payload[off + blob_len:]
+
+
+def _check_cmd(cmd: int) -> Cmd:
     try:
-        cmd = Cmd(cmd)
+        return Cmd(cmd)
     except ValueError:
         raise QueryProtocolError(f"unknown query command {cmd}") from None
-    if cmd >= Cmd.HELLO:
-        raise QueryProtocolError(
-            f"query command {cmd.name} belongs to the resilient transport, "
-            f"which is not ported to nnstreamer_tpu_torch yet (ROADMAP.md, "
-            f"{RESILIENT_ITEM})")
-    return cmd
 
 
-def send_msg(sock: socket.socket, cmd: Cmd, payload: bytes = b"") -> None:
-    cmd = _check_classic(int(cmd))
+def send_msg(sock: socket.socket, cmd: Cmd, payload: bytes = b"") -> int:
+    """Send one frame; returns the bytes written (header included)."""
+    cmd = _check_cmd(int(cmd))
     sock.sendall(_HDR.pack(_MAGIC, int(cmd), len(payload)) + payload)
+    return _HDR.size + len(payload)
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
@@ -98,7 +144,7 @@ def recv_msg(sock: socket.socket) -> Tuple[Cmd, bytes]:
     magic, cmd, plen = _HDR.unpack(_recv_exact(sock, _HDR.size))
     if magic != _MAGIC:
         raise QueryProtocolError(f"bad magic {magic:#x}")
-    cmd = _check_classic(cmd)
+    cmd = _check_cmd(cmd)
     payload = _recv_exact(sock, plen) if plen else b""
     return cmd, payload
 
@@ -137,9 +183,7 @@ def unpack_buffer(payload: bytes) -> TensorBuffer:
 def send_buffer(sock: socket.socket, buf: TensorBuffer,
                 cmd: Cmd = Cmd.TRANSFER) -> int:
     """Send one buffer frame; returns the bytes written (header included)."""
-    payload = pack_buffer(buf)
-    send_msg(sock, cmd, payload)
-    return _HDR.size + len(payload)
+    return send_msg(sock, cmd, pack_buffer(buf))
 
 
 def connect(host: str, port: int, timeout: float = DEFAULT_TIMEOUT

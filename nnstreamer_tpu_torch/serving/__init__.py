@@ -5,8 +5,9 @@ N generation streams share ONE batched, KV-cached decode loop on the card
 engine by the name it was registered under here. The engine module is
 imported lazily: it pulls in the transformer model stack, which a frame
 pipeline never needs. ``serving/scheduler.py`` is the SLO scheduler of
-pipelines and of the engine's request path (``SloRejected``). The JAX
-package's replicated fleet waits for ROADMAP 26b.
+pipelines and of the engine's request path (``SloRejected``).
+``serving/fleet.py`` launches and supervises replica processes behind one
+discovery operation (``FleetLauncher``, imported lazily).
 """
 
 import threading
@@ -43,9 +44,13 @@ def __getattr__(name: str):
         from nnstreamer_tpu_torch.serving import scheduler as _scheduler
 
         return getattr(_scheduler, name)
+    if name == "FleetLauncher":
+        from nnstreamer_tpu_torch.serving.fleet import FleetLauncher
+
+        return FleetLauncher
     raise AttributeError(name)
 
 
 __all__ = ["ContinuousBatchingEngine", "GenerationStream", "SloRejected",
-           "SloScheduler", "register_engine", "get_engine",
+           "SloScheduler", "FleetLauncher", "register_engine", "get_engine",
            "unregister_engine"]

@@ -477,15 +477,19 @@ class SloScheduler:
         self._m["shed_late" if late else "shed_capacity"].inc()
         # a shed frame never reaches a dispatch fence: release its pool
         # staging stash and an exclusively-owned device payload now
-        # rather than letting shed work pin device memory/slabs until GC.
-        # (The JAX module also tells a query client whose propagated
-        # deadline expired; the port's query wire carries no deadline
-        # until ROADMAP 26a.)
+        # rather than letting shed work pin device memory/slabs until GC
         from nnstreamer_tpu_torch.pipeline.dispatch import (
             release_shed_payload,
         )
 
         release_shed_payload(buf)
+        if "_net_expire" in buf.meta:
+            # the frame arrived over the query wire with a propagated
+            # deadline: tell the origin client it was shed so its
+            # in-flight slot frees now instead of timing out
+            from nnstreamer_tpu_torch.query import resilience
+
+            resilience.note_remote_shed(buf)
         tl = _timeline.ACTIVE
         if tl is not None:
             tl.mark("sched_shed", buf.meta.get(_timeline.TRACE_SEQ_META),

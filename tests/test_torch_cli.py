@@ -109,7 +109,6 @@ def test_check_parses_without_running(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--fleet", "127.0.0.1:9000"], "26b"),
     (["--scaffold", "filter", "mine"], "26g"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):

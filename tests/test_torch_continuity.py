@@ -485,8 +485,8 @@ def test_slot_snapshot_restore_round_trip():
 def test_checkpoint_sections_equal_the_jax_packages(swap_models, tmp_path):
     """The same repo loop and the same scheduler observations through
     both packages: the checkpoints' ``repo`` and ``scheduler`` sections
-    are equal (arrays bit for bit, floats exactly); ``servers`` is
-    empty until 26a."""
+    are equal (arrays bit for bit, floats exactly); ``servers`` is empty
+    in both (the pipeline has no query server)."""
     # a pipeline-wide budget attaches the scheduler; with no admission
     # queue it sheds nothing, so every frame reaches the slot
     desc = ("appsrc name=src ! tensor_filter framework=jax model=cont_a "

@@ -131,13 +131,10 @@ def test_queue_properties_run(queue_props):
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m shard=dp2 ! tensor_sink", "A.24"),
     # the converter's other media (ROADMAP A.17) and the query client's
-    # reference wire (26d) are ported; its fleet balancing is not
-    ("videotestsrc ! tensor_converter ! tensor_query_client "
-     "balance=shortest-slack ! tensor_sink", "26b"),
+    # reference wire (26d), resilient transport (26a) and fleet balancing
+    # (26b) are ported
     ("videotestsrc ! tensor_converter ! tensor_filter framework=jax "
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
-    ("videotestsrc ! tensor_converter ! tensor_query_client "
-     "reliable=true ! tensor_sink", "26a"),
 ])
 def test_unported_properties_raise_naming_the_roadmap(desc, item):
     with pytest.raises(NotImplementedError, match=item):

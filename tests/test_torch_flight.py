@@ -564,6 +564,31 @@ def test_metrics_server_serves_stage_quantiles_over_http():
     assert ok == b"ok\n"
 
 
-def test_metrics_server_federation_raises_naming_26b():
-    with pytest.raises(NotImplementedError, match="26b"):
-        MetricsServer(federation=object())
+def test_metrics_server_serves_a_federation():
+    """``MetricsServer(federation=)`` serves ``/fleet/metrics`` and
+    ``/fleet/metrics.json`` from the aggregator it is given, as the JAX
+    server does; without one those paths are 404."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    class Fed:
+        def render_prometheus(self):
+            return "nns_fleet_endpoint_up 1\n"
+
+        def collect(self):
+            return {"endpoints": {"h:1": {"ok": True}}}
+
+    with MetricsServer(host="127.0.0.1", port=0, federation=Fed()) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(base + "/fleet/metrics",
+                                    timeout=10) as r:
+            assert r.read() == b"nns_fleet_endpoint_up 1\n"
+        with urllib.request.urlopen(base + "/fleet/metrics.json",
+                                    timeout=10) as r:
+            assert json.loads(r.read()) == {
+                "endpoints": {"h:1": {"ok": True}}}
+    with MetricsServer(host="127.0.0.1", port=0) as srv:
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/fleet/metrics", timeout=10)

@@ -196,9 +196,13 @@ def test_import_leaves_jax_out():
         "'decoders.protobuf_codec', 'converters.protobuf_codec', "
         "'decoders.flatbuf_codec', 'query.refwire', 'single', "
         "'filters.pipeline_filter', 'filters.python_class', "
-        "'filters.native_filter', 'filters.tflite_backend'):\n"
+        "'filters.native_filter', 'filters.tflite_backend', "
+        "'query.resilience', 'query.balance', 'obs.distributed', "
+        "'serving.fleet', 'query.server', 'elements.query', "
+        "'obs.server', 'cli'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
+        "from nnstreamer_tpu_torch.serving import FleetLauncher\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'nnstreamer_tpu'))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
@@ -224,18 +228,32 @@ def test_staging_properties_are_ported(desc):
     tnt.parse_launch(desc)
 
 
-@pytest.mark.parametrize("desc,item", [
-    ("appsrc ! tensor_query_client propagate-deadline=true ! "
-     "tensor_sink", "26a"),
-    ("appsrc ! tensor_query_client balance=shortest-slack ! "
-     "tensor_sink", "26b"),
+@pytest.mark.parametrize("desc", [
+    "appsrc ! tensor_query_client reliable=true propagate-deadline=true "
+    "! tensor_sink",
+    "appsrc ! tensor_query_client reliable=true balance=shortest-slack "
+    "discovery-stale-s=2 ! tensor_sink",
 ])
-def test_admission_properties_still_raise(desc, item):
-    """The filter's throttle and the queue's SLO budget are ported; the
-    admission pieces that ride the query wire are not: a deadline carried
-    to the server (26a) and slack-aware fleet balancing (26b)."""
-    with pytest.raises(NotImplementedError, match=item):
-        tnt.parse_launch(desc)
+def test_query_admission_properties_are_ported(desc):
+    """The admission pieces that ride the query wire are ported with the
+    resilient transport (26a) and the fleet (26b): a deadline carried to
+    the server and slack-aware fleet balancing."""
+    tnt.parse_launch(desc)
+
+
+def test_balance_without_reliable_fails_the_chain_as_jax():
+    """``balance=`` needs ``reliable=true`` in both packages: the JAX
+    client raises a FlowError at its first frame, and so does the port's."""
+    from nnstreamer_tpu.pipeline.element import FlowError as JaxFlowError
+    from nnstreamer_tpu_torch.pipeline.element import FlowError
+
+    desc = "appsrc name=src ! tensor_query_client balance=shortest-slack " \
+           "! tensor_sink"
+    for pkg, err in ((tnt, FlowError), (jnt, JaxFlowError)):
+        cl = pkg.parse_launch(desc).elements[1]
+        buf = pkg.TensorBuffer([np.zeros(2, np.float32)])
+        with pytest.raises(err, match="requires reliable=true"):
+            cl.chain(cl.sinkpad, buf)
 
 
 def test_mesh_quantum_still_raises():

@@ -279,28 +279,45 @@ def test_streams_cross_the_packages_bit_for_bit(transport, publisher):
     assert port_meta == jax_meta
 
 
-def test_the_port_src_stamps_no_trace_meta(broker):
-    """ROADMAP C.41: the JAX src puts the sender's send stamp in the
-    buffer's meta for its distributed trace (26a); the port's does not."""
-    pipes = {pkg: _subscriber(pkg, "tensor_pubsub_src host=127.0.0.1 "
-                                   f"port={broker.port}", 1)
-             for pkg in ("port", "jax")}
-    time.sleep(0.3)
-    pub = Client("127.0.0.1", broker.port)
+@pytest.mark.parametrize("transport", ["shim", "mqtt"])
+def test_the_port_src_meta_equals_the_jax_src_meta(transport):
+    """ROADMAP C.41, closed: a port src and a JAX src on the same topic
+    give their buffers the same meta, the sender's send stamp as
+    ``dist_sent_wall`` (the distributed trace's hop anchor) included."""
+    if transport == "shim":
+        b = Broker(port=0).start()
+        spec = f"tensor_pubsub_src host=127.0.0.1 port={b.port}"
+        close = b.stop
+    else:
+        b = M.MqttBroker()
+        spec = f"mqttsrc broker=mqtt://127.0.0.1:{b.port}"
+        close = b.close
     try:
-        pub.publish("cross/t", jpubsub.make_buffer_envelope(
-            P.pack_buffer(tnt.TensorBuffer([np.arange(3, dtype=np.int8)])),
-            5))
-        for pipe in pipes.values():
-            assert pipe.wait(timeout=WAIT).kind == "eos"
+        pipes = {pkg: _subscriber(pkg, spec, 1) for pkg in ("port", "jax")}
+        time.sleep(0.3)
+        pub = tnt.parse_launch(
+            f"appsrc name=a ! tensor_pubsub_sink {spec.split(' ', 1)[1]} "
+            "pub-topic=cross/t")
+        pub.get("a").push([np.arange(3, dtype=np.int8)], pts=5)
+        pub.get("a").end_of_stream()
+        try:
+            assert pub.run(timeout=WAIT).kind == "eos"
+            for pipe in pipes.values():
+                assert pipe.wait(timeout=WAIT).kind == "eos"
+        finally:
+            pub.stop()
+            for pipe in pipes.values():
+                pipe.stop()
     finally:
-        pub.close()
-        for pipe in pipes.values():
-            pipe.stop()
+        close()
     (port_buf,) = pipes["port"].get("out").buffers
     (jax_buf,) = pipes["jax"].get("out").buffers
-    assert "dist_sent_wall" in jax_buf.meta
-    assert "dist_sent_wall" not in port_buf.meta
+    src_keys = {"dist_sent_wall", "caps_str"}
+    port_meta = {k: v for k, v in port_buf.meta.items() if k in src_keys}
+    jax_meta = {k: v for k, v in jax_buf.meta.items() if k in src_keys}
+    assert "dist_sent_wall" in port_meta
+    assert port_meta == jax_meta
+    assert set(port_buf.meta) == set(jax_buf.meta)
 
 
 # -- discovery ------------------------------------------------------------------

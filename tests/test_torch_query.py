@@ -90,15 +90,19 @@ def test_unset_timestamps_and_bfloat16():
 
 
 @pytest.mark.parametrize("cmd", list(range(9, 15)))
-def test_resilient_commands_raise_with_their_item(cmd):
+def test_resilient_commands_cross_between_packages(cmd):
+    """Commands 9-14 (the resilient transport and its trace extension)
+    carry the JAX package's ids and frame bytes in both directions."""
+    assert P.Cmd(cmd).name == JP.Cmd(cmd).name
     a, b = socket.socketpair()
     try:
-        with pytest.raises(P.QueryProtocolError, match="26a"):
-            P.send_msg(a, P.Cmd(cmd), b"x")
-        JP.send_msg(a, JP.Cmd(cmd), b"x")  # a JAX peer speaking it
         b.settimeout(10)
-        with pytest.raises(P.QueryProtocolError, match="26a"):
-            P.recv_msg(b)
+        a.settimeout(10)
+        P.send_msg(a, P.Cmd(cmd), b"x" * cmd)
+        got = JP.recv_msg(b)
+        assert (int(got[0]), got[1]) == (cmd, b"x" * cmd)
+        JP.send_msg(b, JP.Cmd(cmd), b"y")
+        assert P.recv_msg(a) == (P.Cmd(cmd), b"y")
     finally:
         a.close()
         b.close()
@@ -326,18 +330,20 @@ def test_client_with_every_server_down_errors():
         client.stop()
 
 
-UNPORTED = [
-    (TensorQueryClient, "reliable", "true", "26a"),
-    (TensorQueryClient, "propagate-deadline", "true", "26a"),
-    (TensorQueryClient, "breaker-failures", "3", "26a"),
-    (TensorQueryClient, "breaker-reset-ms", "10", "26a"),
-    (TensorQueryClient, "hedge-ms", "5", "26a"),
-    (TensorQueryClient, "reconnect-backoff-ms", "9", "26a"),
-    (TensorQueryClient, "balance", "shortest-slack", "26b"),
-    (TensorQueryClient, "discovery-stale-s", "2", "26b"),
-    (TensorQueryServerSrc, "reliable", "true", "26a"),
-    (TensorQueryServerSrc, "metrics-port", "9090", "26b"),
-    (TensorQueryServerSrc, "advertise-interval-s", "1", "26b"),
+#: the resilient transport's and the fleet's properties, ported with them
+#: (ROADMAP 26a, 26b): (element, property, a value, the value it reads as)
+RESILIENCE_PROPS = [
+    (TensorQueryClient, "reliable", "true", True),
+    (TensorQueryClient, "propagate-deadline", "true", True),
+    (TensorQueryClient, "breaker-failures", "3", 3),
+    (TensorQueryClient, "breaker-reset-ms", "10", 10.0),
+    (TensorQueryClient, "hedge-ms", "5", 5.0),
+    (TensorQueryClient, "reconnect-backoff-ms", "9", 9.0),
+    (TensorQueryClient, "balance", "shortest-slack", "shortest-slack"),
+    (TensorQueryClient, "discovery-stale-s", "2", 2.0),
+    (TensorQueryServerSrc, "reliable", "true", True),
+    (TensorQueryServerSrc, "metrics-port", "9090", 9090),
+    (TensorQueryServerSrc, "advertise-interval-s", "1", 1.0),
 ]
 
 #: the reference wire's properties, ported with it (ROADMAP 26d)
@@ -361,13 +367,20 @@ DISCOVERY_PROPS = [
 ]
 
 
-@pytest.mark.parametrize("cls,prop,value,item", UNPORTED,
+@pytest.mark.parametrize("cls,prop,value,want", RESILIENCE_PROPS,
                          ids=[f"{c.ELEMENT_NAME}-{p}" for c, p, _, _ in
-                              UNPORTED])
-def test_unported_properties_raise_with_their_item(cls, prop, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cls(**{prop: value})
-    cls(**{prop: cls.DEFAULT_ONLY[prop.replace("-", "_")][0]})  # the default
+                              RESILIENCE_PROPS])
+def test_resilience_properties_are_settable(cls, prop, value, want):
+    """Each property parses from a launch string's text as the JAX
+    element parses it, and defaults to the JAX element's default."""
+    from nnstreamer_tpu.registry import ELEMENT as JELEMENT
+    from nnstreamer_tpu.registry import get_subplugin as jget
+
+    jcls = jget(JELEMENT, cls.ELEMENT_NAME)
+    el, jel = cls(**{prop: value}), jcls(**{prop: value})
+    assert el.get_property(prop) == jel.get_property(prop) == want
+    key = prop.replace("-", "_")
+    assert cls.PROPERTIES[key] == jcls.PROPERTIES[key]
 
 
 @pytest.mark.parametrize("cls,prop,value", REFWIRE_PROPS,
@@ -376,7 +389,6 @@ def test_unported_properties_raise_with_their_item(cls, prop, value, item):
 def test_reference_wire_properties_are_settable(cls, prop, value):
     el = cls(**{prop: value})
     assert el.get_property(prop) == value
-    assert prop.replace("-", "_") not in cls.DEFAULT_ONLY
 
 
 @pytest.mark.parametrize("cls,prop,value", DISCOVERY_PROPS,
@@ -385,7 +397,6 @@ def test_reference_wire_properties_are_settable(cls, prop, value):
 def test_discovery_properties_are_settable(cls, prop, value):
     el = cls(**{prop: value})
     assert el.get_property(prop) == value
-    assert prop.replace("-", "_") not in cls.DEFAULT_ONLY
 
 
 def test_serversink_needs_the_client_id_and_a_paired_source():
