@@ -160,6 +160,18 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   ``measure_fleet`` at its defaults; ``/fleet/metrics.json`` and
   ``nns-launch --fleet``; the remote stages spliced into the client's
   ledger. It runs last: it starts processes that use the card.
+- The filter backends and the exported kernels (``filters``):
+  ``tensor_filter framework=script`` after the flagship's transform (B1)
+  on 240 gradient frames, its outputs on the card equal to the same
+  script's ``custom=mode:host``; the flagship as one module (uint8 frame
+  → ``normalize_u8`` → MobileNetV2) exported to ``.pt2`` with
+  ``nnstpu::normalize_chain`` in its graph and loaded by ``tensor_filter
+  framework=torch`` into a fused region, B1 once a frame from the loaded
+  program, labels and logits bit-identical to the live module; an
+  exported attention block (B2) and quantize module (B3, nearest and
+  dithered) loaded onto the card, bit-identical to the live calls.
+  ``framework=tensorflow`` and ``transformers`` need packages this
+  machine lacks and are held to the JAX package by the CPU tests only.
 
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
@@ -468,6 +480,29 @@ BENCH_FLEET_N = FLEET_ECHO_REPLICAS
 BENCH_FLEET_SPIN_MS = 20.0
 BENCH_FLEET_FRAMES = 120
 BENCH_FLEET_WARMUP = 8
+# the filter backends and exported kernels (filters): the frames of the
+# script filter and of the exported flagship, the script (the
+# BRANCH_SCRIPT of tests/test_filter_backends_extra.py) and its device vs
+# host tolerance (that test's own between its two modes: the frame mean
+# sums in another order on the card), the exported attention block's
+# shape (a prefill bucket B2 already runs) and calls, the exported
+# quantize module's input (the flagship's float32 frame) and seed
+FILTERS_FRAMES = 240
+FILTERS_SCRIPT = ("m = jnp.mean(x)\n"
+                  "y = cond(m > 0.5, lambda a: a * 2.0, "
+                  "lambda a: a * 0.5, x)\n")
+FILTERS_SCRIPT_RTOL, FILTERS_SCRIPT_ATOL = 1e-6, 1e-7
+FILTERS_ATTN = (1, 64, 8, 64)
+FILTERS_ATTN_CALLS = 32
+FILTERS_QUANT_SEED = 2 ** 40 + 7
+#: packages the card's machine lacks: these framework= names are held to
+#: the JAX package by the CPU tests only
+FILTERS_HOST_ONLY = {
+    "tensorflow": "tests/test_torch_tf_backend.py (the tensorflow package "
+                  "is not on this machine)",
+    "transformers": "tests/test_torch_transformers.py (the transformers "
+                    "package is not on this machine)",
+}
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -7122,6 +7157,288 @@ def phase_pubsub(power: str) -> dict:
     return result
 
 
+# -- the filter backends and exported kernels (ROADMAP A.23, C.26) ----------
+def _flagship_exportable():
+    """``uint8 frame → normalize_u8 → MobileNetV2 1.0`` (224×224×3, 1001
+    classes, bf16, seed 0): the flagship as one module, B1 inside."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.ops.preprocess import normalize_u8
+
+    class Flagship(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, frame):
+            return self.net(normalize_u8(frame))
+
+    net, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                             dtype=torch.bfloat16, seed=0)
+    return Flagship(net).eval()
+
+
+def _attention_block():
+    """A causal attention block at FILTERS_ATTN (d_model 512 = 8 × 64,
+    bf16, seed 0): q, k, v projections, B2, the output projection."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = FILTERS_ATTN
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.qkv = torch.nn.Linear(h * d, 3 * h * d)
+            self.out = torch.nn.Linear(h * d, h * d)
+
+        def forward(self, x):
+            q, k, v = self.qkv(x).view(b, s, 3, h, d).unbind(2)
+            o = fa.flash_attention(q, k, v, causal=True)
+            return self.out(o.reshape(b, s, h * d))
+
+    torch.manual_seed(0)
+    return Block().to(torch.bfloat16).eval()
+
+
+def _graph_ops(ep) -> list:
+    return sorted({str(n.target) for n in ep.graph.nodes
+                   if str(n.target).startswith("nnstpu.")})
+
+
+def phase_filters(power: str) -> dict:
+    """The filter backends of ROADMAP A.23 and the exported kernels of
+    C.26 on the card.
+
+    (a) ``framework=script``: 240 ``videotestsrc pattern=gradient``
+    224×224 frames ``! tensor_converter ! tensor_transform
+    mode=arithmetic option=typecast:float32,add:-127.5,div:127.5 !
+    tensor_filter framework=script model=<the branch script> !
+    tensor_sink``; the outputs lie on cuda:0 and equal the same script in
+    ``custom=mode:host`` within FILTERS_SCRIPT_RTOL / _ATOL; B1 240
+    (the transform, eager: a lone script filter forms no region); frames
+    a second. (b) the flagship as one module (uint8 frame →
+    ``normalize_u8`` → MobileNetV2 1.0, bf16, seed 0) exported to
+    ``.pt2``, its graph holding ``nnstpu.normalize_chain``, loaded by
+    ``videotestsrc ! tensor_converter ! tensor_filter framework=torch
+    model=<file> ! tensor_decoder mode=image_labeling ! tensor_sink``
+    (240 frames, filter ! decoder one fused region): B1 240 from the
+    loaded program (1 eager frame + 239 replays, 1 capture), labels and
+    scores bit-identical to the live module in the same string; the
+    loaded program called directly on the same frames, B1 once a call,
+    its logits bit-identical to the live module's. (c) an exported causal attention block at
+    [1, 64, 8, 64] bf16: B2 launches = calls, output bit-identical to
+    the live module. (d) an exported quantize module: q and the scale
+    bit-identical to a direct ``quantize_int8`` call, nearest and
+    dithered with one seed. ``framework=tensorflow`` and ``transformers``
+    run no step here (their packages are not on this machine); a line
+    before the phase's says so."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters import artifact
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.elements.source import VideoTestSrc
+    from nnstreamer_tpu_torch.ops import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.ops.quantize import quantize_int8
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    emit({"filters_not_on_the_card": FILTERS_HOST_ONLY})
+    nt.set_device(None)
+    dev = torch.device("cuda:0")
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="nns_smoke_filters_")
+    #: seconds from the phase's start at the end of each step
+    marks = {}
+    result = {"marks_s": marks}
+    try:
+        # (a) the script filter on the card, against host mode
+        script = os.path.join(tmp, "branch.jaxs")
+        with open(script, "w") as f:
+            f.write(FILTERS_SCRIPT)
+        head = (f"videotestsrc num-buffers={FILTERS_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=gradient ! tensor_converter ! "
+                "tensor_transform mode=arithmetic "
+                "option=typecast:float32,add:-127.5,div:127.5 ! "
+                f"tensor_filter framework=script model={script}")
+        outs = {}
+        for mode, custom, sink in (("device", "", "to-host=false"),
+                                   ("host", " custom=mode:host", "")):
+            pipe = nt.parse_launch(
+                f"{head}{custom} ! tensor_sink name=sink {sink}",
+                pipeline=Pipeline(name=f"filters_script_{mode}"))
+            arrivals, _, eos, launches = _collect_arrivals(pipe)
+            outs[mode] = [b[0] for b in pipe.get("sink").buffers]
+            check(not pipe._regions, f"filters: script {mode} fused")
+            check(launches == FILTERS_FRAMES,
+                  f"filters: script {mode}: B1 {launches} times")
+            result[f"script_{mode}"] = {
+                "frames": len(outs[mode]), "b1_launches": launches,
+                "fps": steady_fps(arrivals, eos)}
+        devices = {str(t.device) for t in outs["device"]}
+        check(devices == {"cuda:0"},
+              f"filters: the script's device outputs lie on {devices}")
+        check(len(outs["device"]) == len(outs["host"]) == FILTERS_FRAMES,
+              "filters: script frame counts")
+        err = 0.0
+        for d, h in zip(outs["device"], outs["host"]):
+            d, h = d.cpu().numpy(), np.asarray(h)
+            check(d.shape == h.shape and d.dtype == h.dtype,
+                  "filters: script device/host shapes or types differ")
+            np.testing.assert_allclose(d, h, rtol=FILTERS_SCRIPT_RTOL,
+                                       atol=FILTERS_SCRIPT_ATOL)
+            err = max(err, float(np.abs(d - h).max()))
+        result["script_max_abs_err"] = err
+        marks["script"] = time.monotonic() - t_phase
+
+        # (b) the flagship exported with B1 inside
+        live = _flagship_exportable()
+        path = os.path.join(tmp, "flagship.pt2")
+        t0 = time.monotonic()
+        ep = artifact.save_artifact(path, live, in_info=nt.TensorsInfo
+                                    .from_str(f"3:{IMAGE}:{IMAGE}:1",
+                                              "uint8"))
+        result["export_s"] = time.monotonic() - t0
+        marks["export"] = time.monotonic() - t_phase
+        result["flagship_graph_ops"] = _graph_ops(ep)
+        check(result["flagship_graph_ops"] == ["nnstpu.normalize_chain"
+                                               ".default"],
+              f"filters: the flagship's graph holds "
+              f"{result['flagship_graph_ops']}")
+        live = live.to(dev)
+        # declared infos: the backend probes no shapes on a meta twin,
+        # which the eager wrapper (B1) refuses
+        register_torch_model("filters_live", live, *artifact
+                             .artifact_tensors_info(ep))
+        labels = os.path.join(tmp, "labels.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
+        src = (f"videotestsrc num-buffers={FILTERS_FRAMES} width={IMAGE} "
+               f"height={IMAGE} pattern=ball ! tensor_converter")
+        rows = {}
+        for name, model in (("loaded", path), ("live", "filters_live")):
+            pipe = nt.parse_launch(
+                f"{src} ! tensor_filter framework=torch model={model} ! "
+                f"tensor_decoder mode=image_labeling option1={labels} ! "
+                "tensor_sink name=sink",
+                pipeline=Pipeline(name=f"filters_flagship_{name}"))
+            arrivals, _, eos, launches = _collect_arrivals(pipe)
+            region = _region_of(pipe, ["tensor_filter", "tensor_decoder"])
+            rows[name] = _label_rows(pipe)
+            result[f"flagship_{name}"] = {
+                "frames": len(rows[name]), "b1_launches": launches,
+                "eager_frames": region.eager_frames,
+                "replays": region.replays, "captures": region.captures,
+                "fps": steady_fps(arrivals, eos)}
+            check(len(rows[name]) == FILTERS_FRAMES and
+                  launches == FILTERS_FRAMES and region.captures == 1,
+                  f"filters: flagship {name}: {len(rows[name])} frames, B1 "
+                  f"{launches}, {region.captures} captures")
+        check(rows["loaded"] == rows["live"],
+              "filters: the loaded flagship's labels differ from the live "
+              "module's")
+        # the logits, frame by frame: the loaded program called as the
+        # backend loads it, against the live module
+        ball = VideoTestSrc(width=IMAGE, height=IMAGE, pattern="ball")
+        xs = [torch.from_numpy(ball._frame(i)[None]).to(dev)
+              for i in range(FILTERS_FRAMES)]
+        prog = artifact.artifact_entry(path, dev)["module"]
+        with torch.inference_mode():
+            reset_launches()
+            loaded = [prog(x) for x in xs]
+            torch.cuda.synchronize()
+            result["flagship_direct_b1_launches"] = \
+                LAUNCHES["normalize_chain"]
+            differ = [i for i, x in enumerate(xs)
+                      if not torch.equal(_bits(loaded[i]), _bits(live(x)))]
+        check(result["flagship_direct_b1_launches"] == FILTERS_FRAMES,
+              f"filters: B1 {result['flagship_direct_b1_launches']} times "
+              f"in {FILTERS_FRAMES} calls of the loaded program")
+        check(not differ, f"filters: the loaded flagship's logits of "
+                          f"frames {differ[:10]} differ from the live "
+                          "module's")
+        marks["flagship"] = time.monotonic() - t_phase
+        unregister_torch_model("filters_live")
+
+        # (c) an exported attention block with B2 inside
+        block = _attention_block()
+        x = torch.randn(FILTERS_ATTN[:2] + (FILTERS_ATTN[2] *
+                                            FILTERS_ATTN[3],),
+                        generator=torch.Generator().manual_seed(1)
+                        ).to(torch.bfloat16)
+        path = os.path.join(tmp, "attention.pt2")
+        ep = artifact.save_artifact(path, block, example_inputs=[x])
+        result["attention_graph_ops"] = _graph_ops(ep)
+        check(result["attention_graph_ops"] == ["nnstpu.flash_attention"
+                                                ".default"],
+              f"filters: the block's graph holds "
+              f"{result['attention_graph_ops']}")
+        prog = artifact.artifact_entry(path, dev)["module"]
+        block, x = block.to(dev), x.to(dev)
+        with torch.inference_mode():
+            want = block(x)
+            reset_launches()
+            got = [prog(x) for _ in range(FILTERS_ATTN_CALLS)]
+            torch.cuda.synchronize()
+        result["attention_b2_launches"] = LAUNCHES["flash_attention"]
+        check(LAUNCHES["flash_attention"] == FILTERS_ATTN_CALLS,
+              f"filters: B2 {LAUNCHES['flash_attention']} launches in "
+              f"{FILTERS_ATTN_CALLS} calls")
+        check(all(torch.equal(_bits(g), _bits(want)) for g in got),
+              "filters: the loaded attention block differs from the live "
+              "module")
+        marks["attention"] = time.monotonic() - t_phase
+
+        # (d) an exported quantize module, nearest and dithered
+        frame = torch.randn((1, IMAGE, IMAGE, 3),
+                            generator=torch.Generator().manual_seed(2))
+        class Quantizer(torch.nn.Module):
+            def __init__(self, force):
+                super().__init__()
+                self.force = force
+
+            def forward(self, x):
+                return quantize_int8(x, seed=FILTERS_QUANT_SEED,
+                                     force=self.force)
+
+        launches = 0
+        for force in ("reference", None):
+            mode = force or "dither"
+            path = os.path.join(tmp, f"quantize_{mode}.pt2")
+            ep = artifact.save_artifact(path, Quantizer(force),
+                                        example_inputs=[frame])
+            check(_graph_ops(ep) == ["nnstpu.quantize_int8.default"],
+                  f"filters: the quantizer's graph holds {_graph_ops(ep)}")
+            prog = artifact.artifact_entry(path, dev)["module"]
+            x = frame.to(dev)
+            wq, ws = quantize_int8(x, seed=FILTERS_QUANT_SEED, force=force)
+            reset_launches()
+            q, s = prog(x)
+            torch.cuda.synchronize()
+            launches += LAUNCHES["quantize_int8"]
+            check(LAUNCHES["quantize_int8"] == 1,
+                  f"filters: B3 {mode}: {LAUNCHES['quantize_int8']} "
+                  "launches in one call")
+            check(torch.equal(q, wq) and torch.equal(_bits(s), _bits(ws)),
+                  f"filters: the loaded quantizer ({mode}) differs from "
+                  "a direct quantize_int8 call")
+            result[f"quantize_{mode}_scale"] = float(s[0])
+        result["quantize_b3_launches"] = launches
+        marks["quantize"] = time.monotonic() - t_phase
+    finally:
+        unregister_torch_model("filters_live")
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["seconds"] = time.monotonic() - t_phase
+    emit({"phase": "filters", **result, "gpu": power})
+    return result
+
+
 def _free_ports(n: int) -> int:
     """The first of ``n`` consecutive TCP ports nothing listens on now."""
     import socket
@@ -7746,6 +8063,7 @@ def main() -> int:
     algebra = phase_algebra(power)
     refwire = phase_refwire(power)
     pubsub = phase_pubsub(power)
+    filters = phase_filters(power)
     mem = phase_memory(power)
     cont = phase_continuity(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
@@ -7829,6 +8147,15 @@ def main() -> int:
         "launches_fleet_replicas": fleet["balanced"]["b1_launches_replicas"],
         "launches_fleet_chaos_replicas":
             fleet["chaos"]["b1_launches_replicas"],
+        # the filters phase: the transform before the script filter (once
+        # a frame, 240 frames), and the exported flagship loaded by
+        # tensor_filter (nnstpu::normalize_chain from the loaded program:
+        # fused, 1 eager frame + 239 replays) and called directly (once a
+        # call)
+        "launches_filters_script": filters["script_device"]["b1_launches"],
+        "launches_filters_export": filters["flagship_loaded"]["b1_launches"],
+        "launches_filters_export_direct":
+            filters["flagship_direct_b1_launches"],
         # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
         "kws_ms": b1["kws_ms"],
         "kws_device_ms": dev_b1["kws_device_ms"],
@@ -7871,6 +8198,9 @@ def main() -> int:
         "launches_lm_sampled": lm_sampled["flash_launches"],
         # the paged engine under the HBM accountant: layers × cold prefills
         "launches_lm_memory": lm_mem["flash_launches"],
+        # the filters phase: the exported attention block loaded onto the
+        # card (nnstpu::flash_attention), once a call
+        "launches_filters_export": filters["attention_b2_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": prefill["ms"],
         "device_ms": dev_b2[f"{prefill_tag}_device_ms"],
@@ -7893,6 +8223,9 @@ def main() -> int:
         # the balanced fleet's client (once a frame), clean and under chaos
         "launches_fleet": fleet["balanced"]["b3_launches"],
         "launches_fleet_chaos": fleet["chaos"]["b3_launches"],
+        # the filters phase: the exported quantize module loaded onto the
+        # card (nnstpu::quantize_int8), nearest and dithered, once each
+        "launches_filters_export": filters["quantize_b3_launches"],
         "max_abs_err": b3["max_abs_err"],
         "ms": frame_q["ms"],
         "device_ms": dev_b3[f"{frame_tag}_device_ms"],

@@ -29,17 +29,17 @@ DEFAULT_EXT_PRIORITY: Dict[str, List[str]] = {
     ".pth": ["torch"],
     # torch.export artifacts (filters/artifact.py)
     ".pt2": ["torch"],
-    # the JAX package's StableHLO artifacts and TF models: the torch
-    # backend names ROADMAP A.23 for them
+    # the JAX package's StableHLO artifacts: the torch backend names
+    # ROADMAP C.24 for them
     **{ext: ["torch"] for ext in (".jaxexp", ".stablehlo", ".mlir",
-                                  ".mlirbc", ".pb")},
+                                  ".mlirbc")},
     ".tflite": ["tflite"],
     ".py": ["python"],
     ".so": ["native", "custom"],
 }
 
-#: model files the torch backend recognises and refuses (A.23)
-FOREIGN_MODEL_EXTS = (".jaxexp", ".stablehlo", ".mlir", ".mlirbc", ".pb")
+#: model files the torch backend recognises and refuses (C.24)
+FOREIGN_MODEL_EXTS = (".jaxexp", ".stablehlo", ".mlir", ".mlirbc")
 
 
 class Conf:

@@ -15,13 +15,16 @@ model=x.pt2`` needs no ``input``/``output`` properties.
 - :func:`export_model` exports a registered model or a ``.pt``/``.pth``
   file (the CLI's ``--export``).
 
-A model whose forward reaches a hand-written kernel's wrapper (a ``ctypes``
-call, ``ops/_counts.refuse_export``) cannot be traced: the export raises a
-``ValueError`` naming the kernel and never exports the plain version in
-its place. The flagship's MobileNetV2 reaches none (B1 runs in
-``tensor_transform``). Raw StableHLO, StableHLO portable artifacts and
-TensorFlow models stay with the JAX package: the torch backend raises
-naming ROADMAP A.23 for them.
+A model whose forward reaches a hand-written kernel's wrapper (B1
+``normalize_chain``, B2 ``flash_attention``, B3 ``quantize_int8``)
+exports with the wrapper's op (``nnstpu::normalize_chain``,
+``nnstpu::flash_attention``, ``nnstpu::quantize_int8``) in its graph, not
+the plain version's ATen ops. Importing this module registers the three
+ops (it imports ``ops``), so a ``.pt2`` that holds them loads in a fresh
+process; on the card the loaded program launches the kernels, each
+counted in ``ops/_counts.LAUNCHES``. Raw StableHLO and StableHLO portable
+artifacts stay with the JAX package: the torch backend raises naming
+ROADMAP C.24 for them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
+# registers nnstpu::normalize_chain, ::flash_attention and ::quantize_int8
+# before any torch.export.load (the kernels build at their first CUDA call)
+from nnstreamer_tpu_torch.ops import flash_attention, preprocess, quantize  # noqa: F401
 from nnstreamer_tpu_torch.tensors.types import TensorInfo, TensorsInfo, TensorType
 
 
@@ -95,11 +101,16 @@ def artifact_tensors_info(ep) -> Tuple[TensorsInfo, TensorsInfo]:
 
 def artifact_entry(path: str, device: torch.device) -> dict:
     """Backend entry (module/in_info/out_info) for a ``.pt2`` file: the
-    exported program as a module on ``device``."""
+    exported program moved to ``device`` — its weights, its lifted
+    constants and the devices its graph burnt in (a ``.to(dtype)`` asserts
+    the device it was traced on) — as a module. An op whose inputs then
+    sit on the card runs its CUDA implementation."""
+    from torch.export.passes import move_to_device_pass
+
     ep = load_artifact(path)
     in_info, out_info = artifact_tensors_info(ep)
-    module = ep.module().to(device)
-    return dict(module=module, in_info=in_info, out_info=out_info,
+    ep = move_to_device_pass(ep, device)
+    return dict(module=ep.module(), in_info=in_info, out_info=out_info,
                 exported=ep)
 
 

@@ -38,8 +38,10 @@ Model forms accepted (``model`` property): a name registered with
 :func:`register_torch_model`, a ``.pt``/``.pth`` file holding TorchScript
 or a pickled ``nn.Module`` (reference ``tensor_filter_pytorch.cc``), or a
 ``.pt2`` ``torch.export`` artifact (``filters/artifact.py``), loaded onto
-the chosen device. The JAX package's StableHLO artifacts and TensorFlow
-models raise naming ROADMAP A.23.
+the chosen device. A frozen ``.pb`` GraphDef or a SavedModel directory
+goes to the TensorFlow backend (``filters/tf_backend.py``), which runs it
+on the host, as the JAX backend sends them to its TF staging. The JAX
+package's StableHLO artifacts raise naming ROADMAP C.24.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import torch
 from nnstreamer_tpu_torch.config import FOREIGN_MODEL_EXTS
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
+from nnstreamer_tpu_torch.filters.tf_backend import TensorFlowFilter, is_tf_model
 from nnstreamer_tpu_torch.registry import FILTER, register_subplugin, subplugin
 from nnstreamer_tpu_torch.tensors import memory as _memory
 from nnstreamer_tpu_torch.tensors.buffer import as_torch
@@ -84,13 +87,11 @@ def unregister_torch_model(name: str) -> bool:
 def _load_file(path: str, device: torch.device) -> dict:
     """A backend entry (module, in_info, out_info) for a model file."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in FOREIGN_MODEL_EXTS or os.path.isfile(
-            os.path.join(path, "saved_model.pb")):
+    if ext in FOREIGN_MODEL_EXTS:
         raise ValueError(
-            f"torch: {path!r} is a StableHLO artifact or a TensorFlow "
-            "model, which the torch backend does not load (ROADMAP.md, "
-            "A.23 the other filter backends); export the model to a .pt2 "
-            "file")
+            f"torch: {path!r} is a StableHLO artifact of the JAX package, "
+            "which the port does not run (ROADMAP.md C.24); export the "
+            "model to a .pt2 file")
     if ext == ".pt2":
         from nnstreamer_tpu_torch.filters.artifact import artifact_entry
 
@@ -238,6 +239,8 @@ class TorchFilter(FilterFramework):
         #: the (possibly shared) module ``open()`` loaded, when it serves
         #: that object itself
         self._opened_from = None
+        #: the TensorFlow backend a .pb or SavedModel model is served by
+        self._tf: Optional[TensorFlowFilter] = None
         #: held by every dispatch that reads the weights (:meth:`_hold`)
         #: and by a swap or reload that writes them, so no frame reads a
         #: half-installed set; ``Pipeline.swap_model`` holds it across
@@ -247,8 +250,14 @@ class TorchFilter(FilterFramework):
     # -- lifecycle -----------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
         super().open(props)
-        self._device = resolve_device(props.accelerator)
         model = props.model
+        # a TF model is served on the host by the TF backend (C.46)
+        self.KEEP_ON_DEVICE = not is_tf_model(model)
+        if not self.KEEP_ON_DEVICE:
+            self._tf = TensorFlowFilter()
+            self._tf.open(props)
+            return
+        self._device = resolve_device(props.accelerator)
         if not model:
             raise ValueError("torch: model not set")
         name = model.split(":", 1)[1] if model.startswith("registered:") \
@@ -397,6 +406,9 @@ class TorchFilter(FilterFramework):
             super().reload()
 
     def close(self) -> None:
+        if self._tf is not None:
+            self._tf.close()
+            self._tf = None
         if self._resident is not None:
             acct = _memory.ACTIVE
             if acct is not None:
@@ -407,6 +419,8 @@ class TorchFilter(FilterFramework):
 
     # -- model info ----------------------------------------------------------
     def get_model_info(self):
+        if self._tf is not None:
+            return self._tf.get_model_info()
         return self._in_info, self._out_info
 
     def set_input_info(self, in_info: TensorsInfo) -> TensorsInfo:
@@ -461,7 +475,7 @@ class TorchFilter(FilterFramework):
             return self._device_stage()
 
     def _device_stage(self):
-        if self._module is None:
+        if self._module is None:  # not open, or a TF model on the host
             return None
         from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
 
@@ -478,7 +492,9 @@ class TorchFilter(FilterFramework):
                            hold=self._hold)
 
     # -- hot path ------------------------------------------------------------
-    def invoke(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        if self._tf is not None:
+            return self._tf.invoke(inputs)
         xs = [as_torch(x, self._device, non_blocking=True) for x in inputs]
         with self._hold(), self.global_stats().measure(), \
                 torch.inference_mode():

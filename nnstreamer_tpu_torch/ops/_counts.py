@@ -12,6 +12,11 @@ its launch goes to the tally that the capturing thread opened with
 ``LAUNCHES`` on every replay (:func:`add_replay`). A capture without an
 open tally is not counted.
 
+Each wrapper is also a ``torch.library.custom_op`` (``nnstpu::<name>``,
+registered when its module is imported): an exported program
+(``filters/artifact.py``) calls the op, whose CUDA implementation is the
+wrapper's launch and counts here as a direct call does, in a replay too.
+
 :class:`GraphProgram` is the static-buffer program the LM path builds on
 that: a body over buffers that stay where they are, captured once as a
 CUDA graph (with its tally) and replayed; on the CPU the body runs.
@@ -44,28 +49,12 @@ def _stream_capturing() -> bool:
 capturing = _stream_capturing
 
 
-#: the TPU kernel each wrapper stands for, as ``torch.export`` errors
-#: name it
-KERNEL_NAMES = {
-    "normalize_chain": "B1 normalize (csrc/normalize.cu)",
-    "flash_attention": "B2 flash attention (csrc/flash_attention.cu)",
-    "quantize_int8": "B3 int8 quantize (csrc/quantize.cu)",
-}
-
-
-def refuse_export(name: str) -> None:
-    """Raise while ``torch.export`` traces a model through this wrapper:
-    the kernel is a ``ctypes`` call the exported program cannot hold, and
-    exporting the plain version in its place would hide the kernel
-    (``filters/artifact.py``; ``torch.library.custom_op`` registration
-    is later work, ROADMAP)."""
-    exporting = getattr(torch.compiler, "is_exporting", None)
-    if exporting is not None and exporting():
-        raise ValueError(
-            f"torch.export cannot trace kernel {KERNEL_NAMES[name]}: the "
-            f"model reaches the hand-written kernel's wrapper ({name}), "
-            "which is not an exportable op; the plain version is not "
-            "exported in its place")
+def tracing() -> bool:
+    """Whether ``torch.export`` or ``torch.compile`` traces the caller. A
+    wrapper then calls its ``torch.ops.nnstpu`` op, which the traced
+    graph holds in place of the kernel's ``ctypes`` call; outside a trace
+    it keeps its direct call (the dispatcher costs every eager call)."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
 
 
 def count_launch(name: str) -> None:

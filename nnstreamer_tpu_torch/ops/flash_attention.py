@@ -20,7 +20,9 @@ version only for a tensor on the CPU (or the meta device, where it infers
 shapes); for a CUDA tensor it launches the kernel or raises. The kernel's
 shape rule is ``d % 8 == 0 and d <= 256``; a CUDA call outside it raises,
 and a caller that wants plain attention on the card calls
-:func:`attention_reference`.
+:func:`attention_reference`. :func:`flash_attention` is also the op
+``nnstpu::flash_attention``, which a model exported through it holds
+(``ops/_counts.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import functools
 import torch
 
 from nnstreamer_tpu_torch.ops import _build
-from nnstreamer_tpu_torch.ops._counts import count_launch, refuse_export
+from nnstreamer_tpu_torch.ops._counts import count_launch, tracing
 
 #: scores below this act as -inf without producing exp() NaNs in fully
 #: masked rows
@@ -162,13 +164,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention on ``[batch, seq, heads, dim]`` tensors: the plain version
     for a CPU tensor, the kernel for a CUDA tensor its shape rule takes,
-    and an error for any other."""
-    refuse_export("flash_attention")
+    and an error for any other. Under ``torch.export`` the call is the op
+    ``nnstpu::flash_attention``."""
     _check(q, k, v)
+    if tracing():
+        return torch.ops.nnstpu.flash_attention(q, k, v, bool(causal))
     if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _launch(q, k, v, causal)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors, or an error: the wrapper's and the
+    op's CUDA implementation."""
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one device")
     d = q.shape[-1]
@@ -203,3 +214,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"CUDA error {rc}")
     count_launch("flash_attention")
     return o
+
+
+# ``nnstpu::flash_attention``: the CPU implementation is the plain
+# version, the CUDA one the kernel; no other device has one.
+@torch.library.custom_op(
+    "nnstpu::flash_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
+def _flash_attention_op(q, k, v, causal):
+    _check(q, k, v)
+    return attention_reference(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(q, k, v, causal):
+    _check(q, k, v)
+    return _launch(q, k, v, causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    _check(q, k, v)
+    return q.new_empty(q.shape)

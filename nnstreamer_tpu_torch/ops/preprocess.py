@@ -13,7 +13,8 @@ transform's per-frame kernel on the main path.
 Beside it, :func:`normalize_chain_reference` does the same fp32 per-op
 math in plain PyTorch. The wrapper :func:`normalize_chain` takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. It is also the op ``nnstpu::normalize_chain``, which a
+model exported through the wrapper holds (``ops/_counts.py``).
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from nnstreamer_tpu_torch.ops import _build
 from nnstreamer_tpu_torch.ops._counts import (  # noqa: F401 (re-exported)
     LAUNCHES,
     count_launch,
-    refuse_export,
     reset_launches,
+    tracing,
 )
 
 CHAIN_MAX = 8
@@ -164,14 +165,26 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
     type (contiguous), first converted to float32 as ``.to(torch.float32)``
     converts it, result ``out_dtype`` (float32, bfloat16 or float16) of the
     same shape. CPU tensors take the plain version; CUDA tensors the
-    kernel. The chain struct is built once per ``ops`` and cached."""
-    refuse_export("normalize_chain")
+    kernel. The chain struct is built once per ``ops`` and cached. Under
+    ``torch.export`` the call is the op ``nnstpu::normalize_chain``."""
+    if tracing():
+        _check_ops(ops)
+        return torch.ops.nnstpu.normalize_chain(
+            x, [op for op, _ in ops], [float(v) for _, v in ops], out_dtype)
     device = x.device
     if device.type == "cpu":
         return normalize_chain_reference(x, ops, out_dtype)
     if device.type != "cuda":
         _check_ops(ops)
         raise ValueError(f"normalize_chain: no kernel for device {device}")
+    return _launch(x, ops, out_dtype)
+
+
+def _launch(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on a CUDA tensor, or an error: the wrapper's and the
+    op's CUDA implementation."""
+    device = x.device
     _, chain_ptr = _cached_chain(ops)
     in_code = IN_CODES.get(x.dtype)
     if in_code is None:
@@ -195,6 +208,29 @@ def normalize_chain(x: torch.Tensor, ops: Sequence[Tuple[str, float]],
                            f"CUDA error {rc}")
     count_launch("normalize_chain")
     return y
+
+
+# ``nnstpu::normalize_chain``: the chain as parallel ``str[]`` and
+# ``float[]`` lists. The CPU implementation is the plain version, the CUDA
+# one the kernel; no other device has one.
+@torch.library.custom_op(
+    "nnstpu::normalize_chain", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, str[] ops, float[] values, ScalarType out_dtype) "
+           "-> Tensor")
+def _normalize_chain_op(x, ops, values, out_dtype):
+    y = normalize_chain_reference(x, list(zip(ops, values)), out_dtype)
+    return y.clone() if y is x else y  # an op's output may not alias x
+
+
+@_normalize_chain_op.register_kernel("cuda")
+def _(x, ops, values, out_dtype):
+    return _launch(x, list(zip(ops, values)), out_dtype)
+
+
+@_normalize_chain_op.register_fake
+def _(x, ops, values, out_dtype):
+    _check_ops(list(zip(ops, values)))
+    return x.new_empty(x.shape, dtype=out_dtype)
 
 
 def normalize_u8(x: torch.Tensor, mean: float = 127.5,

@@ -35,6 +35,9 @@ kernel or raises. ``force`` picks the function:
   mode);
 - ``"dither"``: dithered on any device (on the CPU the plain version). It
   takes the place of the JAX function's ``force="pallas"``.
+
+:func:`quantize_int8` is also the op ``nnstpu::quantize_int8``, which a
+model exported through it holds (``ops/_counts.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nnstreamer_tpu_torch.ops import _build
-from nnstreamer_tpu_torch.ops._counts import count_launch, refuse_export
+from nnstreamer_tpu_torch.ops._counts import count_launch, tracing
 
 #: dtype codes shared with csrc/quantize.cu
 IN_CODES = {
@@ -283,15 +286,27 @@ def device_plan(n: int, dtype: torch.dtype, dither: bool,
     return plan
 
 
+def _seed64(seed: int) -> int:
+    """``seed``'s low 64 bits as a signed int64 (the op schema's ``int``);
+    the kernel takes them back as unsigned."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
 def quantize_int8(x: torch.Tensor, seed: int = 0,
                   force: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor absmax int8: ``(int8 q of x's shape, f32 scale [1])``,
-    both on ``x``'s device. See the module docstring for ``force``."""
+    both on ``x``'s device. See the module docstring for ``force``. Under
+    ``torch.export`` the call is the op ``nnstpu::quantize_int8``, whose
+    ``mode`` is ``force`` (``"auto"`` for None), so an exported module
+    picks its mode by the device it runs on, as the wrapper does."""
     if force not in FORCES:
         raise ValueError(f"quantize_int8: force must be one of {FORCES}, "
                          f"got {force!r}")
-    refuse_export("quantize_int8")
+    if tracing():
+        return torch.ops.nnstpu.quantize_int8(x, _seed64(seed),
+                                              force or "auto")
     dither = force == "dither" or (force is None and x.device.type == "cuda")
     device = x.device
     if device.type == "cpu":
@@ -300,6 +315,16 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
         return quantize_nearest_reference(x)
     if device.type != "cuda":
         raise ValueError(f"quantize_int8: no kernel for device {device}")
+    return _launch(x, seed, dither)
+
+
+def _launch(x: torch.Tensor, seed: int, dither: bool, own_q: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on a CUDA tensor, or an error: the wrapper's and the
+    op's CUDA implementation. q and the scale are views of one buffer,
+    unless ``own_q`` gives q its own (an op's outputs may not share
+    storage)."""
+    device = x.device
     code = IN_CODES.get(x.dtype)
     if code is None:
         raise TypeError(f"quantize_int8: no kernel for {x.dtype} (takes "
@@ -311,8 +336,11 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
     plan = device_plan(n, x.dtype, dither, device.index)
     buf = torch.empty(plan.buffer, dtype=torch.int8, device=device)
     base = buf.data_ptr()
+    # x is contiguous, so its strides are q's
+    q = torch.empty(x.shape, dtype=torch.int8, device=device) if own_q \
+        else buf.as_strided(x.shape, x.stride(), Q_OFFSET)
     rc = _build.call_on_stream(
-        _kernel_entry(), device, x.data_ptr(), code, n, base + Q_OFFSET,
+        _kernel_entry(), device, x.data_ptr(), code, n, q.data_ptr(),
         base, base + Q_OFFSET + _round16(n), int(dither),
         int(seed) & 0xFFFFFFFFFFFFFFFF, plan.blocks, plan.threads,
         plan.chunk, plan.kept, plan.smem)
@@ -320,6 +348,45 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
         raise RuntimeError(f"quantize_int8: kernel launch failed with CUDA "
                            f"error {rc}")
     count_launch("quantize_int8")
-    # x is contiguous, so its strides are q's
-    return (buf.as_strided(x.shape, x.stride(), Q_OFFSET),
-            buf[:4].view(torch.float32))
+    return q, buf[:4].view(torch.float32)
+
+
+def _seed64(seed: int) -> int:
+    """``seed``'s low 64 bits as a signed int64 (the op schema's ``int``);
+    the kernel reads them back unsigned."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
+#: the op's ``mode``: ``quantize_int8``'s ``force``, ``"auto"`` for None
+OP_MODES = ("auto", "reference", "dither")
+
+
+def _op_mode(mode: str) -> Optional[str]:
+    if mode not in OP_MODES:
+        raise ValueError(f"nnstpu::quantize_int8: mode must be one of "
+                         f"{OP_MODES}, got {mode!r}")
+    return None if mode == "auto" else mode
+
+
+# ``nnstpu::quantize_int8``: the CPU implementation is the plain version,
+# the CUDA one the kernel; no other device has one.
+@torch.library.custom_op(
+    "nnstpu::quantize_int8", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, int seed, str mode) -> (Tensor, Tensor)")
+def _quantize_int8_op(x, seed, mode):
+    if _op_mode(mode) == "dither":
+        return quantize_dither_reference(x, seed)
+    return quantize_nearest_reference(x)
+
+
+@_quantize_int8_op.register_kernel("cuda")
+def _(x, seed, mode):
+    return _launch(x, seed, _op_mode(mode) != "reference", own_q=True)
+
+
+@_quantize_int8_op.register_fake
+def _(x, seed, mode):
+    _op_mode(mode)
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((1,), dtype=torch.float32))

@@ -42,6 +42,9 @@ _BUILTIN_PROVIDERS: Dict[str, Dict[str, str]] = {
         "tensorflow-lite": "nnstreamer_tpu_torch.filters.tflite_backend",
         "native": "nnstreamer_tpu_torch.filters.native_filter",
         "pipeline": "nnstreamer_tpu_torch.filters.pipeline_filter",
+        "tensorflow": "nnstreamer_tpu_torch.filters.tf_backend",
+        "script": "nnstreamer_tpu_torch.filters.script",
+        "transformers": "nnstreamer_tpu_torch.filters.transformers_backend",
     },
     DECODER: {
         "image_labeling": "nnstreamer_tpu_torch.decoders.image_labeling",

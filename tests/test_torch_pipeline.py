@@ -199,12 +199,14 @@ def test_import_leaves_jax_out():
         "'filters.native_filter', 'filters.tflite_backend', "
         "'query.resilience', 'query.balance', 'obs.distributed', "
         "'serving.fleet', 'query.server', 'elements.query', "
-        "'obs.server', 'cli'):\n"
+        "'obs.server', 'cli', 'filters.script', 'filters.tf_backend', "
+        "'filters.transformers_backend'):\n"
         "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "from nnstreamer_tpu_torch.serving import FleetLauncher\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'nnstreamer_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'nnstreamer_tpu', "
+        "'tensorflow', 'transformers'))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -264,7 +266,10 @@ def test_mesh_quantum_still_raises():
 
 
 def test_sources_name_no_jax():
-    forbidden = ("import jax", "from jax", "flax", "ml_dtypes",
+    # the transformers backend names Flax (backend:flax, Flax parameter
+    # trees) and imports none of it: test_import_leaves_jax_out checks
+    forbidden = ("import jax", "from jax", "import flax", "from flax",
+                 "ml_dtypes",
                  "import nnstreamer_tpu\n", "import nnstreamer_tpu ",
                  "from nnstreamer_tpu.", "from nnstreamer_tpu import")
     files = [os.path.join(REPO, "chip_smoke.py")]
