@@ -48,12 +48,27 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   tensor_lm_serve ! tensor_query_serversink``), fed by four ``appsrc !
   tensor_query_client ! tensor_sink`` clients over 127.0.0.1; in fp32 each
   client's tokens equal the in-process run's.
-- The flagship offloaded over the query pair with int8 transport: the
-  client runs videotestsrc → tensor_converter → tensor_transform (B1) →
-  tensor_quant_enc (kernel B3, on the card) → tensor_query_client; the
-  server tensor_quant_dec → tensor_filter MobileNetV2 → tensor_decoder
-  image_labeling. Its labels equal an in-process run through the same
-  codec, and the client ships about a quarter of the f32 frame's bytes.
+- The flagship offloaded over the query pair with int8 transport
+  (``query_offload``): the client runs videotestsrc → tensor_converter →
+  tensor_transform typecast → tensor_quant_enc (kernel B3, on the card) →
+  tensor_query_client; the server tensor_quant_dec → tensor_transform (B1)
+  → tensor_filter MobileNetV2, one fused region, and the bf16 logits come
+  back. The 240 frames run against a server on the native epoll core
+  (``server.native``) and again on the Python transport
+  (``NNSTPU_PURE_PY_SERVER=1``): rates of both, B1 240 in 240 on the
+  server and B3 on the client, logits bit-identical across the
+  transports and to the same string in one process; four clients at once
+  on the native core each get their own frames' logits; the client ships
+  about a quarter of the f32 frame's bytes. Every non-reliable classic
+  serversrc of the script runs on the native core (the
+  ``server_transports`` line).
+- The lock-order witness (``lockgraph``): a child process with
+  ``NNSTPU_LOCKGRAPH=<file>`` runs bench.py's uncut string (64 frames)
+  and the native query pair (32): no violation, no contradiction with
+  the static NNS202 graph. The gRPC elements (``grpc``) resolve; with
+  grpcio on the machine 16 of B1's CUDA outputs stream from
+  ``tensor_sink_grpc`` to ``tensor_src_grpc`` byte for byte, without it
+  starting one raises its ImportError.
 - The flagship classification pipeline (videotestsrc → tensor_converter
   → tensor_transform → tensor_filter MobileNetV2 → tensor_decoder
   image_labeling → queue → tensor_sink) at the model's full width:
@@ -63,8 +78,8 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   tensor_transform ! tensor_filter ! tensor_decoder is one fused region
   replayed as a CUDA graph with B1 inside (``pipeline_fused``: one capture,
   B1 counted once a frame through the replays, labels and scores bit for
-  bit the unfused run's). The offload server fuses tensor_filter !
-  tensor_decoder the same way.
+  bit the unfused run's). The offload server fuses
+  tensor_transform ! tensor_filter the same way.
 - The flagship at bench.py's default batch (``pipeline_batched``): 800
   frames through ``tensor_aggregator`` (batch 8), a ``prefetch-device``
   staging queue (page-locked pool slabs, one copy a drained run), the
@@ -373,6 +388,11 @@ ENCODE_FRAMES = 8          # device quant_encode blobs held to the host one's
 #: vectorized body, inf in the scalar tail, both, -inf
 QUANT_NON_FINITE = ({2000: "nan"}, {4098: "inf"}, {7: "-inf"},
                     {5: "inf", 4097: "nan"})
+QUERY_CLIENT_PATTERNS = ("ball", "gradient", "smpte", "black")
+QUERY_CLIENT_FRAMES = 32   # a client of the four at once on the native core
+LOCKGRAPH_UNCUT_FRAMES = 64
+LOCKGRAPH_QUERY_FRAMES = 32
+GRPC_FRAMES = 16           # the card's normalized frames over gRPC
 QUERY_BYTES_MAX = 0.26     # client bytes sent per frame / the f32 frame's
 #: CUDA API calls (runtime ``cuda*`` and low-level ``cu*``) that launch
 #: device work, counted on the host side of a profiled run
@@ -1655,6 +1675,7 @@ def _serve_over_query(engine_name: str, prompts, new_tokens: int,
         f"tensor_lm_serve engine={engine_name} max-new-tokens={new_tokens} "
         "! tensor_query_serversink id=32")
     server.start()
+    _note_transport("lm_query", server)
     per = len(prompts) // clients
     pipes, got = [], []
     try:
@@ -1776,8 +1797,45 @@ def phase_lm_query(power: str, bf16_engine, fp32_engine, local_bf16):
 
 
 # -- phase: the flagship offloaded over the query pair with int8 transport ----
-def phase_query_offload(power: str):
+def _tensor_bytes(t) -> bytes:
+    """A host tensor's bytes (a ``bfloat16`` torch tensor through its
+    16-bit view)."""
     import numpy as np
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        if t.dtype is torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+    return np.ascontiguousarray(np.asarray(t)).tobytes()
+
+
+#: which transport each phase's non-reliable classic serversrc ran on
+#: (reported with the ``server_transports`` line; the reference wire and
+#: the fleet's reliable replicas stay on Python by design)
+SERVER_TRANSPORTS: dict = {}
+
+
+def _note_transport(phase: str, server) -> None:
+    SERVER_TRANSPORTS[phase] = \
+        "native" if server.get("ss").server.native else "python"
+
+
+def phase_query_offload(power: str):
+    """The flagship (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed
+    0) offloaded over the classic wire with int8 transport: the client
+    casts each ``pattern=ball`` frame to f32 and quantizes it with B3
+    (``tensor_quant_enc``, nearest), the server dequantizes, normalizes
+    with B1 and runs the model in one fused region, and the bf16 logits
+    come back. The same 240 frames run against a server on the native
+    epoll core (the default: ``server.native``) and against one on the
+    Python transport (``NNSTPU_PURE_PY_SERVER=1``); the logits of both
+    must be bit-identical to each other and to the same string run in
+    one process (fused), and four clients at once on the native core
+    must each get their own frames' logits back."""
+    import threading
+
     import torch
 
     import nnstreamer_tpu_torch as nt
@@ -1788,6 +1846,7 @@ def phase_query_offload(power: str):
     from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
     from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
 
+    t_phase = time.monotonic()
     nt.set_device(None)  # the package default: cuda:0
     module, in_info, out_info = mobilenet_v2(
         num_classes=CLASSES, image_size=IMAGE, dtype=torch.bfloat16, seed=0)
@@ -1801,94 +1860,350 @@ def phase_query_offload(power: str):
         seen["param_devices"].add(str(next(mod.parameters()).device))
 
     hook = module.register_forward_hook(forward_hook)
-    tmp = tempfile.mkdtemp(prefix="nns_smoke_")
-    labels = os.path.join(tmp, "labels.txt")
-    with open(labels, "w") as f:
-        f.write("\n".join(f"class_{i}" for i in range(CLASSES)) + "\n")
-    frames = (f"videotestsrc num-buffers={{n}} width={IMAGE} height={IMAGE} "
-              "pattern=ball ! tensor_converter ! "
-              "tensor_transform mode=arithmetic "
-              "option=typecast:float32,add:-127.5,div:127.5 ! "
-              "tensor_quant_enc ! ")
-    server = nt.parse_launch(
-        "tensor_query_serversrc name=ss port=0 id=31 ! tensor_quant_dec ! "
-        "tensor_filter framework=jax model=mnv2q ! "
-        f"tensor_decoder mode=image_labeling option1={labels} ! "
-        "tensor_query_serversink id=31")
-    try:
-        server.start()
-        port = server.get("ss").port
+    head = (f"videotestsrc num-buffers={{n}} width={IMAGE} height={IMAGE} "
+            "pattern={pattern} ! tensor_converter ! "
+            "tensor_transform mode=typecast option=float32 ! "
+            "tensor_quant_enc ! ")
+    body = ("tensor_quant_dec ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=mnv2q")
 
-        def client(n: int):
-            return nt.parse_launch(
-                frames.format(n=n) +
-                f"tensor_query_client name=qc dest-host=127.0.0.1 "
-                f"dest-port={port} timeout=60 ! tensor_sink name=out")
+    def run_client(port: int, n: int, pattern: str = "ball"):
+        """The client pipeline's run: the pipeline, its logits and the
+        bytes it sent (a delta: the counter's labels are shared by every
+        client pipeline of this phase)."""
+        pipe = nt.parse_launch(
+            head.format(n=n, pattern=pattern) +
+            f"tensor_query_client name=qc dest-host=127.0.0.1 "
+            f"dest-port={port} timeout=60 ! "
+            "tensor_sink name=out to-host=true")
 
-        client(WARMUP_FRAMES).run(timeout=600)
-        seen.update(calls=0, param_devices=set())
-        pipe = client(FRAMES)
-        got = []
-        pipe.get("out").connect(lambda buf: got.append(
-            np.asarray(buf.tensors[0]).tobytes().decode()))
-
-        def sent_bytes():  # the counter's labels are shared with the warm-up
+        def sent_bytes():
             return pipe.metrics_snapshot()["elements"]["qc"]["sent_bytes"]
 
-        def server_replays():  # the server fuses filter ! decoder
-            return sum(r["replays"] for r in server.metrics_snapshot().get(
-                "regions", {}).values())
-
         sent0 = sent_bytes()
-        replays0 = server_replays()
-        reset_launches()
-        t0 = time.monotonic()
-        pipe.run(timeout=900)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = dict(LAUNCHES)
-        # model runs: eager forwards, and replays of a graph holding one
-        measured = dict(seen, calls=seen["calls"] + server_replays()
-                        - replays0)
-        p50, p99 = pipe.get("out").latency_percentiles(50.0, 99.0)
-        sent = sent_bytes() - sent0
+        msg = pipe.run(timeout=900)
+        check(msg is not None and msg.kind == "eos",
+              f"an offload client ended with {msg}")
+        return pipe, [_tensor_bytes(b.tensors[0])
+                      for b in pipe.get("out").buffers], \
+            sent_bytes() - sent0
 
-        # the same module in process, through the same codec
-        ref = nt.parse_launch(
-            frames.format(n=FRAMES) + "tensor_quant_dec ! "
-            "tensor_filter framework=jax model=mnv2q ! "
-            f"tensor_decoder mode=image_labeling option1={labels} ! "
-            "tensor_sink name=out")
-        want = []
-        ref.get("out").connect(lambda buf: want.append(buf.meta["label"]))
-        ref.run(timeout=900)
+    def server_replays(server):  # the server fuses transform ! filter
+        return sum(r["replays"] for r in server.metrics_snapshot().get(
+            "regions", {}).values())
+
+    def serve(transport: str) -> dict:
+        pure = transport == "python"
+        if pure:
+            os.environ["NNSTPU_PURE_PY_SERVER"] = "1"
+        try:
+            server = nt.parse_launch(
+                f"tensor_query_serversrc name=ss port=0 id=31 ! {body} ! "
+                "tensor_query_serversink id=31")
+            server.start()
+        finally:
+            os.environ.pop("NNSTPU_PURE_PY_SERVER", None)
+        out = {"native": server.get("ss").server.native}
+        try:
+            check(out["native"] == (not pure),
+                  f"the {transport} server has native={out['native']}")
+            port = server.get("ss").port
+            seen["param_devices"] = set()
+            # the warm-up's first frame runs the module eagerly (then the
+            # region captures it): the devices are read from there
+            run_client(port, WARMUP_FRAMES)
+            seen["calls"] = 0
+            replays0 = server_replays(server)
+            reset_launches()
+            t0 = time.monotonic()
+            pipe, logits, sent = run_client(port, FRAMES)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = dict(LAUNCHES)
+            p50, p99 = pipe.get("out").latency_percentiles(50.0, 99.0)
+            out.update(
+                fps=FRAMES / wall, wall_s=wall, latency_p50_ms=p50,
+                latency_p99_ms=p99, launches=launches,
+                b1_launches_server=launches["normalize_chain"],
+                b3_launches_client=launches["quantize_int8"],
+                model_runs=seen["calls"] + server_replays(server)
+                - replays0,
+                param_devices=sorted(seen["param_devices"]),
+                sent_bytes_per_frame=sent / FRAMES, logits=logits)
+            if not pure:
+                # four clients at once, each its own pattern
+                got = {}
+
+                def one(pattern):
+                    try:
+                        got[pattern] = run_client(
+                            port, QUERY_CLIENT_FRAMES, pattern)[1]
+                    except Exception as e:  # noqa: BLE001 — checked below
+                        got[pattern] = e
+
+                threads = [threading.Thread(target=one, args=(p,),
+                                            daemon=True)
+                           for p in QUERY_CLIENT_PATTERNS]
+                t0 = time.monotonic()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                out["clients_wall_s"] = time.monotonic() - t0
+                out["clients"] = got
+            if not pure:
+                _note_transport("query_offload", server)
+        finally:
+            server.stop()
+        return out
+
+    try:
+        runs = {t: serve(t) for t in ("native", "python")}
+        # the same string in one process (fused), the reference
+        local = {}
+        for pattern, n in [("ball", FRAMES)] + [
+                (p, QUERY_CLIENT_FRAMES) for p in QUERY_CLIENT_PATTERNS]:
+            ref = nt.parse_launch(
+                head.format(n=n, pattern=pattern) + body +
+                " ! tensor_sink name=out to-host=true")
+            msg = ref.run(timeout=900)
+            check(msg is not None and msg.kind == "eos",
+                  f"the local flagship ended with {msg}")
+            check(bool(ref._regions), "the local flagship did not fuse")
+            local.setdefault(pattern, {})[n] = [
+                _tensor_bytes(b.tensors[0]) for b in ref.get("out").buffers]
     finally:
-        server.stop()
         hook.remove()
         unregister_torch_model("mnv2q")
-        shutil.rmtree(tmp, ignore_errors=True)
 
     frame_bytes = IMAGE * IMAGE * 3 * 4
-    check(len(got) == FRAMES, f"{len(got)} of {FRAMES} labels came back")
-    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-    check(len(want) == FRAMES and not differ,
-          f"labels of frames {differ[:10]} differ from the in-process run")
-    check(launches["normalize_chain"] == FRAMES and
-          launches["quantize_int8"] == FRAMES,
-          f"client launches {launches} for {FRAMES} frames")
-    check(measured["calls"] == FRAMES, f"model ran {measured['calls']} times")
-    check(measured["param_devices"] == {"cuda:0"},
-          f"filter parameters on {measured['param_devices']}")
-    check(sent / FRAMES <= QUERY_BYTES_MAX * frame_bytes,
-          f"{sent / FRAMES} bytes sent per frame")
-    result = {"frames": FRAMES, "labels_equal_in_process": FRAMES,
-              "launches": launches, "fps": FRAMES / wall, "wall_s": wall,
-              "latency_p50_ms": p50, "latency_p99_ms": p99,
-              "sent_bytes_per_frame": sent / FRAMES,
-              "f32_frame_bytes": frame_bytes,
-              "sent_share_of_f32_frame": sent / FRAMES / frame_bytes,
-              "gpu": power}
+    want = local["ball"][FRAMES]
+    result = {"frames": FRAMES, "gpu": power}
+    logits = {name: run.pop("logits") for name, run in runs.items()}
+    clients = runs["native"].pop("clients")
+    for name, run in runs.items():
+        run["logits_equal_local"] = sum(
+            a == b for a, b in zip(logits[name], want))
+        result[name] = run
+    result["native"]["clients"] = {
+        "count": len(QUERY_CLIENT_PATTERNS),
+        "frames_each": QUERY_CLIENT_FRAMES,
+        "patterns": list(QUERY_CLIENT_PATTERNS),
+        "logits_equal_local": {
+            p: isinstance(clients.get(p), list)
+            and clients[p] == local[p][QUERY_CLIENT_FRAMES]
+            for p in QUERY_CLIENT_PATTERNS}}
+    result["logits_equal_across_transports"] = \
+        logits["native"] == logits["python"]
+    # the kernels line reads the native run's counts
+    result["launches"] = result["native"]["launches"]
+    result["f32_frame_bytes"] = frame_bytes
+    result["seconds"] = time.monotonic() - t_phase
     emit({"phase": "query_offload", **result})
+    check(len(want) == FRAMES, f"the local run gave {len(want)} logits")
+    for name, run in runs.items():
+        check(len(logits[name]) == FRAMES,
+              f"{name}: {len(logits[name])} of {FRAMES} logits came back")
+        check(run["logits_equal_local"] == FRAMES,
+              f"{name}: {run['logits_equal_local']} of {FRAMES} logits "
+              "equal the local fused flagship's")
+        check(run["b1_launches_server"] == FRAMES and
+              run["b3_launches_client"] == FRAMES,
+              f"{name}: launches {run['launches']} for {FRAMES} frames")
+        check(run["model_runs"] == FRAMES,
+              f"{name}: the model ran {run['model_runs']} times")
+        check(run["param_devices"] == ["cuda:0"],
+              f"{name}: filter parameters on {run['param_devices']}")
+        check(run["sent_bytes_per_frame"] <= QUERY_BYTES_MAX * frame_bytes,
+              f"{name}: {run['sent_bytes_per_frame']} bytes sent a frame")
+    for pattern, ok in result["native"]["clients"][
+            "logits_equal_local"].items():
+        check(ok, f"native client {pattern} did not get its own frames' "
+                  f"logits: {clients.get(pattern)!r:.200}")
+    check(result["logits_equal_across_transports"],
+          "the transports' logits differ")
+    return result
+
+
+def _lockgraph_child() -> None:
+    """The child of the lockgraph phase (``NNSTPU_LOCKGRAPH`` set by the
+    parent): bench.py's flagship string with no cuts for
+    ``LOCKGRAPH_UNCUT_FRAMES`` frames, then the flagship behind the native
+    query pair for ``LOCKGRAPH_QUERY_FRAMES``. The witness dumps its graph
+    at exit."""
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.obs import lockgraph
+
+    check(lockgraph.is_active(), "the lock witness is not armed")
+    nt.set_device(None)
+    _, labels = _flagship_model("mnv2_lg")
+    _flagship_model("mnv2_lgq", declare_io=True)
+    try:
+        pipe = nt.parse_launch(
+            uncut_desc(LOCKGRAPH_UNCUT_FRAMES, "mnv2_lg", labels),
+            lanes=UNCUT_LANES)
+        msg = pipe.run(timeout=600)
+        check(msg is not None and msg.kind == "eos",
+              f"the uncut string ended with {msg}")
+        check(bool(pipe._lane_execs), "the uncut string spliced no lanes")
+        server = nt.parse_launch(
+            "tensor_query_serversrc name=ss port=0 id=33 ! tensor_quant_dec "
+            "! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! "
+            "tensor_filter framework=jax model=mnv2_lgq ! "
+            "tensor_query_serversink id=33")
+        server.start()
+        try:
+            check(server.get("ss").server.native,
+                  "the lockgraph server is not on the native core")
+            client = nt.parse_launch(
+                f"videotestsrc num-buffers={LOCKGRAPH_QUERY_FRAMES} "
+                f"width={IMAGE} height={IMAGE} pattern=ball ! "
+                "tensor_converter ! tensor_transform mode=typecast "
+                "option=float32 ! tensor_quant_enc ! tensor_query_client "
+                f"dest-host=127.0.0.1 dest-port={server.get('ss').port} "
+                "timeout=60 ! tensor_sink name=out to-host=true")
+            msg = client.run(timeout=600)
+            check(msg is not None and msg.kind == "eos",
+                  f"the lockgraph client ended with {msg}")
+            check(len(client.get("out").buffers) == LOCKGRAPH_QUERY_FRAMES,
+                  "the lockgraph client lost frames")
+        finally:
+            server.stop()
+    finally:
+        unregister_torch_model("mnv2_lg")
+        unregister_torch_model("mnv2_lgq")
+    snap = lockgraph.snapshot()
+    print(json.dumps({"acquisitions": snap["acquisitions"],
+                      "nodes": len(snap["nodes"]),
+                      "edges": len(snap["edges"])}), flush=True)
+
+
+def phase_lockgraph(power: str) -> dict:
+    """The runtime lock-order witness over bench.py's uncut flagship
+    string (lanes 4, leaky stamp-admission ingress, batch 8) and the
+    native query pair, in a child process armed with
+    ``NNSTPU_LOCKGRAPH=<file>``: zero observed lock-order violations, and
+    no contradiction with the port's static NNS202 graph."""
+    import subprocess
+
+    from nnstreamer_tpu_torch.analysis.concurrency import static_lock_graph
+    from nnstreamer_tpu_torch.obs import lockgraph
+
+    t0 = time.monotonic()
+    out = os.path.join(HERE, "smoke_out", "lockgraph.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, **{lockgraph.ENV: out})
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+         "c._lockgraph_child()"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"the lockgraph child failed: {proc.stderr[-3000:]}")
+    with open(out) as f:
+        runtime = json.load(f)
+    from pathlib import Path
+
+    static = static_lock_graph(Path(HERE) / "nnstreamer_tpu_torch")
+    problems = lockgraph.cross_check(runtime, static)
+    result = {"frames_uncut": LOCKGRAPH_UNCUT_FRAMES,
+              "frames_query": LOCKGRAPH_QUERY_FRAMES,
+              "nodes": len(runtime["nodes"]),
+              "edges": len(runtime["edges"]),
+              "acquisitions": runtime["acquisitions"],
+              "violations": len(runtime["violations"]),
+              "static_nodes": len(static["nodes"]),
+              "static_edges": len(static["edges"]),
+              "cross_check_problems": problems,
+              "seconds": time.monotonic() - t0, "gpu": power}
+    emit({"phase": "lockgraph", **result})
+    check(runtime["acquisitions"] > 0 and runtime["nodes"],
+          "the witness recorded nothing")
+    check(not runtime["violations"],
+          f"lock-order violations: {runtime['violations'][:3]}")
+    check(not problems, f"static/runtime contradictions: {problems[:3]}")
+    return result
+
+
+def phase_grpc(power: str) -> dict:
+    """The gRPC elements on the card's machine: both factories resolve.
+    Where grpcio is missing, starting one raises the ``ImportError`` for
+    ``grpc`` the JAX element raises; where it is installed, a stream of
+    the flagship's normalized frames (B1's CUDA outputs) goes from a
+    ``tensor_sink_grpc`` to a ``tensor_src_grpc`` over 127.0.0.1 with
+    ``idl=nnstpu-flex`` (no codec package needed), each frame fetched to
+    the host once and received byte for byte."""
+    import importlib.util
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.registry import ELEMENT, get_subplugin
+
+    t0 = time.monotonic()
+    result = {"grpc_installed": importlib.util.find_spec("grpc") is not None,
+              "protobuf_installed":
+                  importlib.util.find_spec("google.protobuf") is not None,
+              "flatbuffers_installed":
+                  importlib.util.find_spec("flatbuffers") is not None,
+              "gpu": power}
+    for factory in ("tensor_src_grpc", "tensor_sink_grpc"):
+        check(get_subplugin(ELEMENT, factory) is not None,
+              f"{factory} does not resolve")
+        pipe = nt.parse_launch(f"{factory} name=g server=true port=0")
+        try:
+            pipe.get("g").start()
+            err = None
+        except ImportError as e:
+            err = e
+        finally:
+            pipe.get("g").stop()
+        if result["grpc_installed"]:
+            check(err is None, f"{factory} failed to start: {err!r}")
+        else:
+            check(err is not None and getattr(err, "name", None) == "grpc",
+                  f"{factory} started without grpcio: {err!r}")
+        result[factory] = repr(err) if err is not None else "started"
+    if result["grpc_installed"]:
+        nt.set_device(None)
+        rx = nt.parse_launch(
+            f"tensor_src_grpc name=rx server=true port=0 "
+            f"num-buffers={GRPC_FRAMES} idl=nnstpu-flex ! "
+            "tensor_sink name=out to-host=true")
+        rx.start()
+        try:
+            tx = nt.parse_launch(
+                f"videotestsrc num-buffers={GRPC_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=ball ! tensor_converter ! "
+                "tensor_transform mode=arithmetic "
+                "option=typecast:float32,add:-127.5,div:127.5 ! tee name=t "
+                "t. ! queue ! tensor_sink_grpc server=false idl=nnstpu-flex "
+                f"port={rx.get('rx').port} t. ! queue ! "
+                "tensor_sink name=sent to-host=true")
+            t1 = time.monotonic()
+            msg = tx.run(timeout=300)
+            check(msg is not None and msg.kind == "eos",
+                  f"the gRPC sender ended with {msg}")
+            got = rx.get("out").wait(GRPC_FRAMES, timeout=60)
+            result["stream_s"] = time.monotonic() - t1
+        finally:
+            rx.stop()
+        sent = [_tensor_bytes(b.tensors[0]) for b in tx.get("sent").buffers]
+        recv = [_tensor_bytes(b.tensors[0]) for b in got]
+        result["stream_frames"] = len(recv)
+        result["stream_equal"] = sum(a == b for a, b in zip(recv, sent))
+    result["seconds"] = time.monotonic() - t0
+    emit({"phase": "grpc", **result})
+    if result["grpc_installed"]:
+        check(result["stream_frames"] == GRPC_FRAMES and
+              result["stream_equal"] == GRPC_FRAMES,
+              f"{result['stream_equal']} of {GRPC_FRAMES} gRPC frames "
+              "arrived intact")
     return result
 
 
@@ -6526,6 +6841,7 @@ def phase_refwire(power: str) -> dict:
             "tensor_query_serversink name=sk",
             pipeline=Pipeline(name="refwire_server"))
         server.start()
+        _note_transport("refwire", server)
         try:
             _wait_for(lambda: server.get("sk").sinkpad.caps is not None,
                       "the server's output caps")
@@ -6901,6 +7217,7 @@ def phase_pubsub(power: str) -> dict:
                 "tensor_query_serversink name=sk",
                 pipeline=Pipeline(name=f"{name}_server"))
             server.start()
+            _note_transport(f"pubsub_{name}", server)
             try:
                 disco = ServerDiscovery(broker_host, broker_port, "classify")
                 found = disco.wait_servers(timeout=10)
@@ -8091,8 +8408,12 @@ def main() -> int:
     # a new process on the card: last, after every profiled run (after it
     # the parent's torch.profiler traces began to lose device events)
     phase_cli(power)
+    # the lock witness's child process: after every profiled run too
+    phase_lockgraph(power)
+    phase_grpc(power)
     # replica processes on the card: after every profiled run, as the CLI
     fleet = phase_fleet(power)
+    emit({"phase": "server_transports", **SERVER_TRANSPORTS})
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     emit(phase_seconds())
@@ -8131,6 +8452,12 @@ def main() -> int:
         "launches_files": [files[k]["launches"]
                            for k in ("multifilesrc", "filesrc")],
         "launches_gate": algebra["gate"]["b1_launches"],
+        # the flagship offloaded with int8 transport: once a frame on the
+        # server (240 frames), behind the native epoll core and behind
+        # the Python transport
+        "launches_query_offload": offload["native"]["b1_launches_server"],
+        "launches_query_offload_python":
+            offload["python"]["b1_launches_server"],
         # the flagship behind the reference wire (once a frame on the
         # server, 240 frames) and inside the pipeline filter (64 frames)
         "launches_refwire": refwire["wire"]["b1_launches"],
@@ -8217,7 +8544,11 @@ def main() -> int:
         # reference arithmetic, the codec's); dither_ms and dither_plain_ms
         # time dither mode, the counterpart of the TPU kernel bodies
         "mode": "nearest",
+        # the offload client (once a frame, 240 frames) against the native
+        # core; the same client against the Python transport
         "launches": offload["launches"]["quantize_int8"],
+        "launches_query_offload_python":
+            offload["python"]["b3_launches_client"],
         # the publisher of the int8 camera stream over MQTT (once a frame)
         "launches_pubsub": pubsub["stream"]["b3_launches"],
         # the balanced fleet's client (once a frame), clean and under chaos

@@ -31,6 +31,12 @@ Quick start (the flagship classification pipeline)::
 
 __version__ = "0.1.0"
 
+# before everything else: with NNSTPU_LOCKGRAPH set, the lock-order
+# witness must patch the threading factories ahead of every module that
+# creates locks at import time (obs/__init__ arms it as ITS first
+# statement; with the env unset this import changes nothing)
+import nnstreamer_tpu_torch.obs  # noqa: E402,F401
+
 from nnstreamer_tpu_torch.device import get_device, set_device  # noqa: F401
 from nnstreamer_tpu_torch.tensors.types import (  # noqa: F401
     TensorType,

@@ -17,9 +17,17 @@ Options, as the JAX CLI's:
   -v / --verbose   print each buffer a sink receives
   --confchk        print the effective configuration, the device and the
                    registries, and exit
-  --check          parse the description and resolve its links without
-                   running it (the JAX package's full static verifier,
-                   the NNS0xx diagnostics, waits for ROADMAP 26g)
+  --check          statically verify the description without running it:
+                   the NNS0xx diagnostics of ``analysis/verify.py``
+                   (unknown factories and properties, caps
+                   intersections, dangling pads, cycles, policy
+                   conflicts) against the port's registry; exit 1 on
+                   an error-severity diagnostic
+  --scaffold KIND NAME
+                   write subplugin boilerplate (filter, decoder or
+                   converter) importing from nnstreamer_tpu_torch, named
+                   ``nnstreamer_tpu_torch_<kind>_<name>.py``: the file
+                   the registry finds on NNSTREAMER_TPU_<KIND>_PATH
   --dot FILE       write the started graph (fused regions as clusters)
   --metrics-port, --trace-out, --flight-dir, --slo-budget-ms, --lanes,
   --inflight, --error-policy, --watchdog-s
@@ -46,9 +54,6 @@ Options, as the JAX CLI's:
                    a comma list of host:port ``/metrics.json`` endpoints,
                    or ``op=NAME[,broker=HOST[:PORT]]`` for the replicas
                    that advertise a metrics port under that operation
-
-``--scaffold`` is not ported and raises ``NotImplementedError`` naming
-ROADMAP 26g (with the external subplugin search).
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ def confchk() -> int:
     """Dump effective config, the device and the registries (reference
     confchk.c)."""
     from nnstreamer_tpu_torch import elements  # noqa: F401 — registers
+    from nnstreamer_tpu_torch import native
     from nnstreamer_tpu_torch.config import ENV_PREFIX, get_conf
     from nnstreamer_tpu_torch.registry import (
         CONVERTER,
@@ -100,6 +106,8 @@ def confchk() -> int:
           f"{'ENABLED' if allowed is not None else 'disabled'}")
     if allowed is not None:
         print(f"    allowlist: {', '.join(sorted(allowed)) or '(empty)'}")
+    print(f"  native runtime : "
+          f"{'available' if native.available() else 'NOT built'}")
     print(f"  device : {device_line()}")
     for kind, label in ((ELEMENT, "elements"), (FILTER, "filters"),
                         (DECODER, "decoders"), (CONVERTER, "converters")):
@@ -108,10 +116,128 @@ def confchk() -> int:
     return 0
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    from nnstreamer_tpu_torch.pipeline.element import not_ported
+_SCAFFOLDS = {
+    "filter": '''"""Custom filter subplugin "{name}".
 
-    return not_ported(f"nns-launch {flag}", item)
+Drop this file's directory onto the filter search path and the registry
+discovers it on first use (the reference's dlopen-from-conf-paths flow):
+
+    export NNSTREAMER_TPU_FILTER_PATH=$PWD
+    nns-launch-torch "... ! tensor_filter framework={name} model=x ! ..."
+"""
+
+import numpy as np
+
+from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
+from nnstreamer_tpu_torch.registry import FILTER, subplugin
+from nnstreamer_tpu_torch.tensors.types import TensorsInfo
+
+
+@subplugin(FILTER, "{name}")
+class {cls}(FilterFramework):
+    NAME = "{name}"
+
+    def open(self, props: FilterProperties) -> None:
+        super().open(props)
+        # load/prepare your model here; props.model / props.custom are set
+
+    def get_model_info(self):
+        # (None, None) = adapt to any input; set_input_info decides output.
+        # Return fixed TensorsInfo pairs instead for a fixed-shape model.
+        return None, None
+
+    def set_input_info(self, in_info: TensorsInfo) -> TensorsInfo:
+        self._info = in_info
+        return in_info  # passthrough: output shapes = input shapes
+
+    def invoke(self, inputs):
+        # inputs: list of arrays; return list of output arrays
+        return [np.asarray(x) for x in inputs]
+''',
+    "decoder": '''"""Custom decoder subplugin "{name}".
+
+    export NNSTREAMER_TPU_DECODER_PATH=$PWD
+    nns-launch-torch "... ! tensor_decoder mode={name} ! ..."
+"""
+
+import numpy as np
+
+from nnstreamer_tpu_torch.pipeline.caps import Caps
+from nnstreamer_tpu_torch.registry import DECODER, subplugin
+
+
+@subplugin(DECODER, "{name}")
+class {cls}:
+    def out_caps(self, config, options) -> Caps:
+        return Caps("other/tensors", {{"format": "flexible"}})
+
+    def decode(self, buf, config, options):
+        # buf.tensors are host numpy arrays; return a new TensorBuffer
+        return buf.with_tensors([np.asarray(t) for t in buf.tensors])
+
+    # Optional fused-device split — delete if host-only:
+    # def device_kernel(self, options):
+    #     def fn(consts, tensors):  # torch ops, replayed in the fused region
+    #         return tensors
+    #     return None, fn
+    # def host_finalize(self, host_buf, config, options):
+    #     return host_buf
+''',
+    "converter": '''"""Custom converter subplugin "{name}".
+
+    export NNSTREAMER_TPU_CONVERTER_PATH=$PWD
+    nns-launch-torch "... ! tensor_converter mode=custom-code:{name} ! ..."
+"""
+
+from nnstreamer_tpu_torch.registry import CONVERTER, subplugin
+from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
+
+
+@subplugin(CONVERTER, "{name}")
+class {cls}:
+    def convert(self, buf: TensorBuffer, in_caps) -> TensorBuffer:
+        # parse buf.tensors (host arrays) into the tensors you want to emit
+        return buf
+''',
+}
+
+
+def scaffold(kind: str, name: str, out_dir: str = ".") -> int:
+    """Write subplugin boilerplate (reference codegen tool equivalent)."""
+    import keyword
+    import os
+    import re
+
+    from nnstreamer_tpu_torch.registry import external_subplugin_filename
+
+    if kind not in _SCAFFOLDS:
+        print(f"nns-launch-torch: unknown scaffold kind {kind!r} "
+              f"(choose from {', '.join(_SCAFFOLDS)})", file=sys.stderr)
+        return 2
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_-]*", name):
+        print(f"nns-launch-torch: invalid subplugin name {name!r}",
+              file=sys.stderr)
+        return 2
+    cls = "".join(p.capitalize() for p in re.split(r"[_-]+", name))
+    # guard the generated class name: keywords ("none" → None), digit-leading
+    # segments ("_1a" → 1a), or shadowing a template import ("caps" → Caps)
+    if not cls or not cls[0].isalpha():
+        cls = "Plugin" + cls
+    if (not cls.isidentifier() or keyword.iskeyword(cls)
+            or cls in ("TensorBuffer", "TensorsInfo", "Caps",
+                       "FilterFramework", "FilterProperties")):
+        cls += "Plugin"
+    # the registry's external search looks for exactly this filename on the
+    # NNSTREAMER_TPU_<KIND>_PATH search path
+    path = os.path.join(out_dir, external_subplugin_filename(kind, name))
+    if os.path.exists(path):
+        print(f"nns-launch-torch: {path} already exists", file=sys.stderr)
+        return 2
+    with open(path, "w") as f:
+        f.write(_SCAFFOLDS[kind].format(name=name, cls=cls))
+    print(f"wrote {path} ({kind} subplugin '{name}') — add its directory to "
+          f"NNSTREAMER_TPU_{kind.upper()}_PATH to use it")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -128,10 +254,14 @@ def main(argv=None) -> int:
     ap.add_argument("--confchk", action="store_true",
                     help="print effective configuration and exit")
     ap.add_argument("--check", action="store_true",
-                    help="parse the description and resolve its links, "
-                         "then exit without running it")
+                    help="statically verify the description (graph, "
+                         "caps, policy conflicts: the NNS0xx "
+                         "diagnostics) without running it; exit 1 on "
+                         "errors")
     ap.add_argument("--scaffold", nargs=2, metavar=("KIND", "NAME"),
-                    help="not ported (ROADMAP 26g)")
+                    help="write subplugin boilerplate (KIND: filter, "
+                         "decoder or converter) to the current "
+                         "directory and exit")
     ap.add_argument("--dot", metavar="FILE",
                     help="write the started pipeline graph (fused "
                          "regions included) as Graphviz dot to FILE")
@@ -208,7 +338,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.scaffold:
-        raise _not_ported("--scaffold", "26g analysis and tooling")
+        return scaffold(*args.scaffold)
     if not args.export and (args.custom or args.input or args.inputtype):
         ap.error("--custom/--input/--inputtype only apply with --export "
                  "(in a pipeline description, set them as element "
@@ -252,13 +382,16 @@ def main(argv=None) -> int:
 
     desc = " ".join(args.description)
     if args.check:
-        try:
-            pipe = parse_launch(desc)
-        except (ValueError, KeyError, NotImplementedError) as e:
-            print(f"nns-launch: check failed: {e}", file=sys.stderr)
-            return 1
-        print(f"OK: {len(pipe.elements)} elements, every link resolved")
-        return 0
+        from nnstreamer_tpu_torch.analysis.diagnostics import (
+            has_errors,
+            render_text,
+        )
+        from nnstreamer_tpu_torch.analysis.verify import verify_description
+
+        diags = verify_description(desc)
+        if diags or not args.quiet:
+            print(render_text(diags))
+        return 1 if has_errors(diags) else 0
     try:
         # the package device first: no card and no --platforms cpu is an
         # error before anything is built

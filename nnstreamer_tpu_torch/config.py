@@ -72,6 +72,13 @@ class Conf:
             return default
         return str(v).strip().lower() in ("1", "true", "yes", "on")
 
+    def subplugin_paths(self, kind: str) -> List[str]:
+        """Extra search paths for dynamically-discovered subplugins
+        (reference [filter]/[decoder]/[converter] path keys;
+        ``NNSTREAMER_TPU_<KIND>_PATH``)."""
+        raw = self.get(kind, "path", "") or ""
+        return [p for p in raw.split(os.pathsep) if p]
+
     def allowed_elements(self) -> Optional[set]:
         """Element allowlist, or ``None`` when restriction is off
         (reference ``enable-element-restriction`` + ``allowed-elements``).

@@ -326,7 +326,7 @@ class BoundingBoxes:
         if key not in self._anchor_tensors:
             from nnstreamer_tpu_torch.models.ssd_mobilenet import anchor_grid
 
-            self._anchor_tensors[key] = torch.from_numpy(
+            self._anchor_tensors[key] = torch.from_numpy(  # nns-lint: disable=NNS113 -- a model constant, uploaded once per width and device and cached
                 anchor_grid(width)).to(device)
         return self._anchor_tensors[key]
 

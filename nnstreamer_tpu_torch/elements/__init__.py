@@ -2,8 +2,8 @@
 
 Importing this package registers every element the port has with its
 ELEMENT registry (the reference registers its elements in one gst plugin,
-``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The JAX package's
-gRPC elements wait for a later slice of the port (ROADMAP.md, queue A).
+``gst/nnstreamer/registerer/nnstreamer.c:85-116``). The gRPC elements
+register with or without grpcio, which they import at ``start()``.
 ``tensor_lm_serve`` imports no model code until its engine is looked up.
 """
 
@@ -32,3 +32,6 @@ from nnstreamer_tpu_torch.elements import join  # noqa: F401
 from nnstreamer_tpu_torch.elements import cond  # noqa: F401
 from nnstreamer_tpu_torch.elements import crop  # noqa: F401
 from nnstreamer_tpu_torch.elements import sparse  # noqa: F401
+
+from nnstreamer_tpu_torch.elements import grpc_io  # noqa: F401 (grpcio itself
+# is imported lazily inside the elements' start())

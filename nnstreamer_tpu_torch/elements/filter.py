@@ -408,7 +408,7 @@ class TensorFilter(Element):
                 shape = getattr(model_inputs[0], "shape", None) \
                     if model_inputs else None
                 sched.observe_service(t1 - t0,
-                                      frames=int(shape[0]) if shape else 1)
+                                      frames=shape[0] if shape else 1)
             tl = _timeline.ACTIVE
             if tl is not None and seq is not None:
                 # from the sender's hand-off: the unfused preprocessing ahead

@@ -19,8 +19,10 @@ decoder sniffs the header and accepts both):
 
 A port of the JAX package's module. An element counts as zero when all of
 its bytes are zero: the scan runs on an unsigned-integer view of the
-element's width, as the JAX package's C++ scan (``native/nnstpu.cc``)
-compares bytes, so ``-0.0`` and every NaN are kept as non-zeros. The
+element's width, through the native library's GIL-free C++ scan
+(``native.sparse_encode_arrays``/``sparse_decode_arrays``, which compares
+bytes) when it is loaded and numpy otherwise, so ``-0.0`` and every NaN
+are kept as non-zeros on both paths. The
 encoder fetches a device buffer to the host once and scans there, as the
 JAX encoder does; a ``bfloat16`` tensor stays a CPU torch tensor on the
 host and is scanned through its 16-bit view.
@@ -71,9 +73,10 @@ def sparse_encode(arr, layout: str = "reference") -> bytes:
     if layout not in _LAYOUTS:
         raise ValueError(f"sparse_encode: unknown layout {layout!r} "
                          "(reference|native)")
+    from nnstreamer_tpu_torch import native
+
     info, bits = _flat_bits(arr)
-    idx = np.flatnonzero(bits).astype(np.uint32)
-    vals = bits[idx]
+    idx, vals = native.sparse_encode_arrays(bits)
     meta = TensorMetaInfo.from_info(info, format=TensorFormat.SPARSE,
                                     sparse_nnz=int(idx.size))
     if layout == "reference":
@@ -108,8 +111,9 @@ def sparse_decode(blob: bytes, offset: int = 0):
     if nnz and int(idx.max()) >= n:
         raise ValueError(f"sparse_decode: index {int(idx.max())} outside "
                          f"dense tensor of {n} elements")
-    dense = np.zeros(n, ubits)
-    dense[idx] = vals
+    from nnstreamer_tpu_torch import native
+
+    dense = native.sparse_decode_arrays(idx, vals, n)
     if meta.type is TensorType.BFLOAT16:
         out = torch.from_numpy(dense.view(np.int16)).view(torch.bfloat16)
         return out.reshape(info.shape), end

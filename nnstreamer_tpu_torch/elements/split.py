@@ -14,9 +14,8 @@ host fetch copies).
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
-
-import numpy as np
 
 from nnstreamer_tpu_torch.pipeline.element import CapsEvent, Element, FlowReturn
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
@@ -71,7 +70,7 @@ class TensorSplit(Element):
         axis = arr.ndim - 1 - dim_idx
         # plain ints: offsets come from the element's own sizes property,
         # never from a device array, and slice() takes them directly
-        offsets = np.cumsum([0] + sizes).tolist()
+        offsets = list(itertools.accumulate([0] + sizes))
         if offsets[-1] != arr.shape[axis]:
             raise ValueError(
                 f"tensor_split: tensorseg sums to {offsets[-1]} but dim "

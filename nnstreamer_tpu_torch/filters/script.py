@@ -287,7 +287,7 @@ class ScriptFilter(FilterFramework):
             for v in outs:
                 t = v.tensor if isinstance(v, tnp.ndarray) else \
                     torch.as_tensor(v)
-                t = t.to(device, _DEVICE_DTYPE_NARROW.get(t.dtype, t.dtype))
+                t = t.to(device, _DEVICE_DTYPE_NARROW.get(t.dtype, t.dtype))  # nns-lint: disable=NNS113 -- a script result on the frame's device: a no-op for device results, a host scalar otherwise
                 result.append(t)
         return result
 

@@ -194,7 +194,7 @@ class DispatchLock:
     def dispatch(self):
         if self._owner != threading.get_ident():
             # the owner's own nested dispatch must not wait for itself
-            self._no_writer.wait()
+            self._no_writer.wait()  # nns-lint: disable=NNS110 -- waits out one install_weights swap, a bounded in-place copy that always clears the flag
         self._acquire()
         try:
             yield
@@ -270,17 +270,17 @@ class TorchFilter(FilterFramework):
         self._opened_from = None
         if acct is not None and not isinstance(entry["module"],
                                                 torch.jit.ScriptModule):
-            self._module = self._register_resident(
+            self._module = self._register_resident(  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
                 acct, entry["module"], f"torch:{id(self)}", str(model))
         else:
-            self._module = self._opened_from = _eval(
+            self._module = self._opened_from = _eval(  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
                 entry["module"].to(self._device))
             if props.is_updatable:
                 # swaps write into the weights this filter serves: an
                 # updatable filter serves its own copy from the start,
                 # so a swap reaches no other user of the module and the
                 # graphs captured over the copy stay valid
-                self._module = copy.deepcopy(self._module)
+                self._module = copy.deepcopy(self._module)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
         self._in_info = props.input_info or entry["in_info"]
         self._out_info = props.output_info or entry["out_info"]
 

@@ -169,7 +169,7 @@ def mobilenet_v2(num_classes: int = 1001, width: float = 1.0,
     tensor_transform owns preprocessing)."""
     module = MobileNetV2(num_classes=num_classes, width=width)
     init_weights(module, torch.Generator().manual_seed(seed))
-    module = module.to(device=device, dtype=dtype,
+    module = module.to(device=device, dtype=dtype,  # nns-lint: disable=NNS113 -- weights: a filter that serves the module registers them as its residency unit at open() (torch_backend._register_resident)
                        memory_format=torch.channels_last).eval()
     in_info = TensorsInfo.from_str(
         f"3:{image_size}:{image_size}:{batch}", "float32")

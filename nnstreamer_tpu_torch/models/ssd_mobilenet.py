@@ -142,7 +142,7 @@ def _build(module: nn.Module, seed: int, dtype, device) -> nn.Module:
     """Seeded weights (``mobilenet_v2.init_weights``) in float32 on the
     CPU, then ``dtype``, channels_last, eval mode, on ``device``."""
     init_weights(module, torch.Generator().manual_seed(seed))
-    return module.to(device=device, dtype=dtype,
+    return module.to(device=device, dtype=dtype,  # nns-lint: disable=NNS113 -- weights: a filter that serves the module registers them as its residency unit at open() (torch_backend._register_resident)
                      memory_format=torch.channels_last).eval()
 
 

@@ -12,9 +12,18 @@ installs on that ledger (``NNSTPU_FLIGHT``); ``server.MetricsServer``
 serves the registry over HTTP (Prometheus text and JSON), and with a
 ``distributed.FederatedMetrics`` the merged view of a fleet's replicas;
 ``distributed`` also carries a frame's trace across the query hop.
+``lockgraph`` is the runtime lock-order witness (``NNSTPU_LOCKGRAPH``),
+armed here before any other module of the package creates a lock.
 """
 
-from nnstreamer_tpu_torch.obs.registry import (  # noqa: F401
+# FIRST import, before any sibling that creates module-level locks
+# (the metrics registry, the flight recorder): when NNSTPU_LOCKGRAPH is
+# set the lock factories must already be patched by the time those
+# locks are created, or the witness misses them
+from nnstreamer_tpu_torch.obs import lockgraph  # noqa: F401
+lockgraph.maybe_activate_env()
+
+from nnstreamer_tpu_torch.obs.registry import (  # noqa: E402,F401
     Counter,
     Gauge,
     Histogram,

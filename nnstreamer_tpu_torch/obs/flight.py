@@ -412,7 +412,7 @@ class FlightRecorder(_timeline.Timeline):
             "stages": stages,
             # a monotonic int: a snapshot reads it at worst one frame
             # stale, never torn
-            "completed": self._completed,
+            "completed": self._completed,  # nns-lint: disable=NNS201 -- monotonic int; an export snapshot at worst reads one frame stale, never torn
         }
         if self.slo_budget_s is not None:
             fast, slow = self.burn_rates(now)

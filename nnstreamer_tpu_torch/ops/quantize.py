@@ -69,7 +69,7 @@ _MASK32 = 0xFFFFFFFF
 def _f32(value: float, device) -> torch.Tensor:
     """A 0-dim f32 operand on ``device``: tensor-tensor ops keep division
     IEEE division (torch on CUDA multiplies by a CPU scalar's reciprocal)."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return torch.tensor(value, dtype=torch.float32, device=device)  # nns-lint: disable=NNS113 -- a 4-byte operand
 
 
 def _empty_result(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,10 +25,8 @@ injector with hooks at the places the async substrate can fail:
 The transport interprets ``drop``, ``disconnect`` and ``corrupt`` itself
 through :meth:`FaultInjector.action`, as the JAX hooks do (the
 resilience layer, ``query/resilience.py``, is what is under test there).
-The JAX package also hooks ``grpc.call`` (ROADMAP 26f). The grammar still
-parses it, but :func:`activate` raises ``NotImplementedError`` naming the
-item for a spec that names it: a rule no hook can fire would report "the
-system survives faults" vacuously.
+``grpc.call`` fires in ``query/grpc_bridge.py`` as each stream opens: any
+verdict there raises ``ConnectionError``, as a dead channel would.
 
 Spec grammar (``NNSTPU_FAULTS``)::
 
@@ -105,12 +103,6 @@ SITES: Tuple[str, ...] = ("filter.invoke", "filter.open",
                           "lane.worker", "queue.push", "dispatch.fence",
                           "query.send", "query.recv", "grpc.call",
                           "mqtt.publish")
-
-#: sites whose hook the port does not have yet → the ROADMAP.md item that
-#: brings it
-UNPORTED_SITES: Dict[str, str] = {
-    "grpc.call": "26f gRPC",
-}
 
 KINDS: Tuple[str, ...] = ("raise", "crash", "stall", "oom",
                           "drop", "disconnect", "corrupt")
@@ -365,18 +357,9 @@ class FaultInjector:
 # activation (timeline.ACTIVE-style kill switch)
 # --------------------------------------------------------------------------
 def activate(spec: str, seed: int = 0) -> FaultInjector:
-    """Install a process-wide injector from a spec string. A rule at a
-    site the port has no hook for raises ``NotImplementedError`` naming
-    the site's ROADMAP.md item."""
+    """Install a process-wide injector from a spec string."""
     global ACTIVE
     rules = parse_faults(spec)
-    for rule in rules:
-        item = UNPORTED_SITES.get(rule.site)
-        if item is not None:
-            from nnstreamer_tpu_torch.pipeline.element import not_ported
-
-            raise not_ported(f"the fault-injection hook {rule.site!r}",
-                             item)
     inj = FaultInjector(rules, seed=seed)
     ACTIVE = inj
     return inj

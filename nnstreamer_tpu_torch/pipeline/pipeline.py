@@ -882,6 +882,15 @@ class Pipeline:
     def get(self, name: str) -> Element:
         return self.by_name[name]
 
+    def verify(self):
+        """Static pre-flight of the constructed graph (no buffers run):
+        dangling pads, cycles, sync-policy conflicts, tee fan-out without
+        queues. A list of ``analysis.Diagnostic``, empty when the graph
+        is clean."""
+        from nnstreamer_tpu_torch.analysis.verify import verify_pipeline
+
+        return verify_pipeline(self)
+
     def to_dot(self) -> str:
         """Graphviz dot text of the current runtime graph (fused regions
         as clusters) — ``pipeline/dot.py``."""

@@ -17,9 +17,12 @@ repr string; APPROVE echoes the server's src caps.
 The port of the JAX package's wire, byte for byte, so clients and servers
 of the two packages talk to each other: the classic commands 1-8 and the
 resilient extension 9-14 (``query/resilience.py``, ``obs/distributed.py``),
-which a client speaks only when asked (``reliable=true``). Frames go
-through plain ``sendall``/``recv``; the JAX package's native ``.so`` path
-waits for ROADMAP item 26e.
+which a client speaks only when asked (``reliable=true``). On a blocking
+socket (``gettimeout() is None``) a frame is written with the native
+library's GIL-free ``writev`` and read with its GIL-free ``recv``
+(``native.py``), as in the JAX package; a socket with a timeout, or a
+process without the library, takes ``sendall``/``recv_into``. The bytes
+are the same on both paths.
 """
 
 from __future__ import annotations
@@ -123,8 +126,10 @@ def _check_cmd(cmd: int) -> Cmd:
 
 def send_msg(sock: socket.socket, cmd: Cmd, payload: bytes = b"") -> int:
     """Send one frame; returns the bytes written (header included)."""
+    from nnstreamer_tpu_torch import native
+
     cmd = _check_cmd(int(cmd))
-    sock.sendall(_HDR.pack(_MAGIC, int(cmd), len(payload)) + payload)
+    native.send_frame(sock, _MAGIC, int(cmd), bytes(payload))
     return _HDR.size + len(payload)
 
 
@@ -140,7 +145,33 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
     return bytes(buf)
 
 
+def _recv_native(lib, sock: socket.socket) -> Tuple[int, int, bytes]:
+    """One frame read by the native library (a blocking socket only:
+    its C side retries EINTR alone)."""
+    import ctypes
+
+    hdr = bytearray(_HDR.size)
+    if lib.nnstpu_recv_header(
+            sock.fileno(), (ctypes.c_char * _HDR.size).from_buffer(hdr)):
+        raise QueryProtocolError("connection closed mid-frame")
+    magic, cmd, plen = _HDR.unpack(hdr)
+    if magic != _MAGIC:
+        raise QueryProtocolError(f"bad magic {magic:#x}")
+    payload = bytearray(plen)
+    if plen and lib.nnstpu_recv_payload(
+            sock.fileno(), (ctypes.c_char * plen).from_buffer(payload),
+            plen):
+        raise QueryProtocolError("connection closed mid-frame")
+    return magic, cmd, bytes(payload)
+
+
 def recv_msg(sock: socket.socket) -> Tuple[Cmd, bytes]:
+    from nnstreamer_tpu_torch import native
+
+    lib = native.get_lib()
+    if lib is not None and sock.gettimeout() is None:
+        _, cmd, payload = _recv_native(lib, sock)
+        return _check_cmd(cmd), payload
     magic, cmd, plen = _HDR.unpack(_recv_exact(sock, _HDR.size))
     if magic != _MAGIC:
         raise QueryProtocolError(f"bad magic {magic:#x}")

@@ -15,9 +15,9 @@ Protocol commands (framed as query.protocol):
   MSG <topic> <payload>  — broker → subscriber delivery
 
 Port of ``nnstreamer_tpu/query/pubsub.py``: a copy with its imports
-rewritten. Frames go through a plain ``sendall``, the bytes the JAX
-package's native ``send_frame`` writes (its ``.so`` path waits for ROADMAP
-item 26e), so a broker or client of either package serves the other.
+rewritten. Frames go through ``native.send_frame`` (a GIL-free ``writev``
+on a blocking socket, ``sendall`` otherwise), the bytes the JAX package
+writes, so a broker or client of either package serves the other.
 """
 
 from __future__ import annotations
@@ -58,7 +58,9 @@ def _unpack_topic(data: bytes) -> Tuple[str, bytes]:
 
 
 def _send(sock, cmd: int, payload: bytes) -> None:
-    sock.sendall(struct.pack("<IIQ", _MAGIC, cmd, len(payload)) + payload)
+    from nnstreamer_tpu_torch import native
+
+    native.send_frame(sock, _MAGIC, cmd, payload)
 
 
 def _recv(sock) -> Tuple[int, bytes]:

@@ -582,7 +582,7 @@ class RefWireQueryServer:
             # taken that connection: wait for the claim while the client's
             # src connection lives, rather than drop the result
             self._sink_claimed.wait_for(
-                lambda: client_id in self._sinks
+                lambda: client_id in self._sinks  # nns-lint: disable=NNS201 -- wait_for runs its predicate with the condition's lock, self._lock, held
                 or client_id not in self._srcs or self._stop.is_set(),
                 timeout=SINK_CLAIM_WAIT_S)
             conn = self._sinks.get(client_id)

@@ -5,21 +5,31 @@ Reference: ``tensor_query_server.c`` (262 LoC) + the server halves of
 (tagged with client id), and send results back to the right client
 (serversink routes by the GstMetaQuery client-id, tensor_meta.c).
 
-The port of the JAX package's pure-Python transport: a thread per client
-speaking the classic commands, or with ``wire="nnstreamer"`` the
-reference's two-port raw-struct wire (``query/refwire.py``), whose
-memories are rebuilt into tensors from ``caps_str``. With
-``resilient=True`` it also speaks the extended protocol
-(``query/resilience.py``): HELLO, ``TRANSFER_EX``/``EX2`` through a dedup
-window per client instance, deadline admission, ``EXPIRED`` notices,
-``RESULT_EX``/``EX2`` with the remote span blob (``obs/distributed.py``),
-and the windows' checkpoint. A window caches the packed reply bytes, so
-it never holds a device tensor. Not ported yet: the native epoll core
-(ROADMAP.md item 26e).
+The port of the JAX package's server. The classic wire runs, as there,
+on the C++ epoll core (``native.NativeServerCore``): one native thread
+owns every socket, and Python sees only complete TRANSFER payloads
+(``wait_pop``) and pushes framed results (``send``). The thread-per-client
+Python transport serves instead when ``resilient=True`` (the core does
+not speak commands 9-14), when ``NNSTPU_PURE_PY_SERVER`` is set, or when
+the library cannot be built or loaded; ``server.native`` says which runs.
+With ``resilient=True`` the Python transport also speaks the extended
+protocol (``query/resilience.py``): HELLO, ``TRANSFER_EX``/``EX2``
+through a dedup window per client instance, deadline admission,
+``EXPIRED`` notices, ``RESULT_EX``/``EX2`` with the remote span blob
+(``obs/distributed.py``), and the windows' checkpoint. A window caches
+the packed reply bytes, so it never holds a device tensor.
+
+With ``wire="nnstreamer"`` it serves the reference's two-port raw-struct
+wire (``query/refwire.py``), whose memories are rebuilt into tensors from
+``caps_str``. That wire stays on Python, native library or not (ROADMAP
+C.50): the JAX package's native reference-wire core approves every
+client with the caps it was started with, so it could neither DENY a
+mismatched client nor announce the negotiated output caps.
 """
 
 from __future__ import annotations
 
+import os
 import queue as _queue
 import socket
 import struct
@@ -60,6 +70,7 @@ class QueryServer:
         #: sink=sink_port) so reference edge peers can offload to us
         self.wire = wire
         self.sink_port = sink_port
+        self._core = None  # NativeServerCore when the native path is live
         self._refwire: Optional[R.RefWireQueryServer] = None
         #: refwire: the TensorsConfig the raw memories are rebuilt with
         self._config = None
@@ -106,6 +117,11 @@ class QueryServer:
                 log.info("refwire caps %r not parseable (%s); "
                          "mems surface as u8", caps_str, e)
 
+    @property
+    def native(self) -> bool:
+        """True while the C++ epoll core carries this server's wire."""
+        return self._core is not None
+
     def start(self) -> "QueryServer":
         self._stop.clear()
         if self.wire == "nnstreamer":
@@ -115,6 +131,22 @@ class QueryServer:
             self.port = self._refwire.src_port
             self.sink_port = self._refwire.sink_port
             return self
+        if self.resilient:
+            log.info("resilient mode: using the pure-Python transport "
+                     "(the native core does not speak the extended "
+                     "protocol)")
+        elif not os.environ.get("NNSTPU_PURE_PY_SERVER"):
+            try:
+                from nnstreamer_tpu_torch.native import NativeServerCore
+
+                self._core = NativeServerCore(
+                    self.host, self.port, self.caps_str, MAX_QUEUE)
+                self.port = self._core.port
+                return self
+            except OSError as e:
+                log.info("native server core unavailable (%s); "
+                         "using pure-Python transport", e)
+                self._core = None
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listener.bind((self.host, self.port))
@@ -132,6 +164,10 @@ class QueryServer:
         if self._refwire is not None:
             self._refwire.stop()
             self._refwire = None
+        if self._core is not None:
+            self._core.stop()
+            self._core = None
+            return
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=5)
             self._accept_thread = None
@@ -189,16 +225,17 @@ class QueryServer:
             while not self._stop.is_set():
                 cmd, payload = P.recv_msg(conn)
                 if cmd is P.Cmd.REQUEST_INFO:
-                    # caps negotiation: client caps in payload; approve with
-                    # flexible (empty) server caps + the assigned client id
-                    self._send(conn, P.Cmd.APPROVE)
+                    # caps negotiation: client caps in payload; approve and
+                    # return our caps + assigned client id
+                    self._send(conn, P.Cmd.APPROVE, self.caps_str.encode())
                     self._send(conn, P.Cmd.CLIENT_ID,
                                str(client_id).encode())
                 elif cmd is P.Cmd.TRANSFER:
                     try:
                         buf = P.unpack_buffer(payload)
                     except Exception as e:  # noqa: BLE001 — corrupt frame:
-                        # orderly disconnect, not a thread-killing traceback
+                        # orderly disconnect (matches the native path's
+                        # kick-on-bad-frame), not a thread-killing traceback
                         self._m_errors.inc()
                         log.warning("bad frame from client %d (%s); "
                                     "disconnecting it", client_id, e)
@@ -455,6 +492,14 @@ class QueryServer:
         req_id = buf.meta.get("net_req_id")
         if req_id is not None:
             return self._send_result_ex(client_id, buf, int(req_id))
+        core = self._core  # capture once: stop() nulls the attribute
+        if core is not None:
+            ok = core.send(client_id, int(P.Cmd.RESULT), P.pack_buffer(buf))
+            if not ok:
+                self._m_errors.inc()
+                log.warning("result for client %d not deliverable",
+                            client_id)
+            return ok
         with self._clients_lock:
             conn = self._clients.get(client_id)
         if conn is None:
@@ -538,6 +583,8 @@ class QueryServer:
             got = refsrv.get(timeout=timeout) if refsrv is not None \
                 else None
             buf = None if got is None else self._refwire_buf(*got)
+        elif self._core is not None:
+            buf = self._native_get(timeout)
         else:
             try:
                 buf = self.incoming.get(timeout=timeout)
@@ -546,3 +593,33 @@ class QueryServer:
         if buf is not None:
             self._m_requests.inc()
         return buf
+
+    def _native_get(self, timeout: Optional[float]
+                    ) -> Optional[TensorBuffer]:
+        """One buffer from the native core: a frame that does not unpack
+        disconnects its sender (the Python loop's parity) and the wait
+        goes on until ``timeout``."""
+        core = self._core  # capture once: stop() nulls the attribute
+        if core is None:
+            return None
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            remaining = None
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+            got = core.wait_pop(remaining)
+            if got is None:
+                return None
+            client_id, payload = got
+            try:
+                buf = P.unpack_buffer(payload)
+            except Exception as e:  # noqa: BLE001 — corrupt frame
+                self._m_errors.inc()
+                log.warning("bad frame from client %d (%s); "
+                            "disconnecting it", client_id, e)
+                core.kick(client_id)
+                continue
+            buf.meta["query_client_id"] = client_id
+            return buf

@@ -6,12 +6,20 @@ the reference's ``nnstreamer_subplugin.c``: explicit registration
 (:func:`register_subplugin` / the :func:`subplugin` decorator) and lookup
 with lazy discovery of the built-in module that provides a name
 (:func:`get_subplugin`). ELEMENT factories register when
-``nnstreamer_tpu_torch.elements`` is imported.
+``nnstreamer_tpu_torch.elements`` is imported. A name no built-in module
+provides is looked for as ``nnstreamer_tpu_torch_<kind>_<name>.py`` on the
+kind's search path (``NNSTREAMER_TPU_<KIND>_PATH`` or the ini's
+``[<kind>] path``), the file ``nns-launch-torch --scaffold`` writes; the
+JAX package's scaffolds are named ``nnstreamer_tpu_<kind>_<name>.py`` and
+are not loaded here.
 """
 
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import os
+import sys
 import threading
 from typing import Any, Callable, Dict, Optional
 
@@ -99,9 +107,34 @@ def subplugin(kind: str, name: str) -> Callable:
     return deco
 
 
+def external_subplugin_filename(kind: str, name: str) -> str:
+    """The on-disk filename the external search expects — shared with the
+    ``--scaffold`` codegen so the two can never drift."""
+    return f"nnstreamer_tpu_torch_{kind}_{name}.py"
+
+
+def _search_external(kind: str, name: str) -> None:
+    """Load ``nnstreamer_tpu_torch_<kind>_<name>.py`` from the configured
+    search paths (the dlopen-from-conf-paths analog,
+    nnstreamer_subplugin.c:107-135); the module registers itself."""
+    from nnstreamer_tpu_torch.config import get_conf
+
+    fname = external_subplugin_filename(kind, name)
+    for path in get_conf().subplugin_paths(kind):
+        full = os.path.join(path, fname)
+        if os.path.isfile(full):
+            spec = importlib.util.spec_from_file_location(
+                f"nnstreamer_tpu_torch_ext.{kind}.{name}", full)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[spec.name] = mod
+            spec.loader.exec_module(mod)
+            return
+
+
 def get_subplugin(kind: str, name: str) -> Optional[Any]:
     """Look up a subplugin, lazily importing the built-in module that
-    provides it. Reference ``get_subplugin`` (nnstreamer_subplugin.c:138)."""
+    provides it, else an external one from the search paths. Reference
+    ``get_subplugin`` (nnstreamer_subplugin.c:138)."""
     with _lock:
         if name in _registry[kind]:
             return _registry[kind][name]
@@ -110,6 +143,10 @@ def get_subplugin(kind: str, name: str) -> Optional[Any]:
     provider = _BUILTIN_PROVIDERS.get(kind, {}).get(name)
     if provider:
         importlib.import_module(provider)
+    with _lock:
+        if name in _registry[kind]:
+            return _registry[kind][name]
+    _search_external(kind, name)
     with _lock:
         return _registry[kind].get(name)
 

@@ -159,8 +159,8 @@ class BlockPool:
     def _ids(self, ids: Sequence[int]) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(ids, np.int64))
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            return t.pin_memory().to(self.device, non_blocking=True)  # nns-lint: disable=NNS113 -- control data: a few token ids or block indices per dispatch; the cache and weights are the tracked bytes
+        return t.to(self.device)  # nns-lint: disable=NNS113 -- control data: a few token ids or block indices per dispatch; the cache and weights are the tracked bytes
 
     def scatter_prefill(self, cache1, block_ids: Sequence[int]) -> None:
         """Move a batch-1 prefill cache (``KVCache`` leaves ``[L, 2, 1, S,

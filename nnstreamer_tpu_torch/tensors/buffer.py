@@ -558,7 +558,7 @@ def upload_many(bufs: List[TensorBuffer], device: torch.device
     devs: List[torch.Tensor] = []
     moved = 0
     for j in range(len(bufs[0].tensors)):
-        frames = [np.asarray(b.tensors[j]) for b in bufs]
+        frames = [np.asarray(b.tensors[j]) for b in bufs]  # nns-lint: disable=NNS108 -- host frames by contract, stacked for one batched H2D (the batched twin of to_device)
         stacked = contiguous_window_view(frames) if k > 1 else None
         if stacked is None:
             stacked = pool.acquire_window(k, frames[0].shape,

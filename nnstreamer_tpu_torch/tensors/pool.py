@@ -253,8 +253,11 @@ class BufferPool:
 
     def _forget(self, slab: np.ndarray) -> None:
         """The slab leaves the pool (caller holds the lock)."""
-        if id(slab) in self._slab_ids:
-            self._slab_ids.discard(id(slab))
+        try:
+            self._slab_ids.remove(id(slab))
+        except KeyError:
+            pass  # never counted (a slab from before the accountant)
+        else:
             _mem_account(slab.nbytes, grow=False)
         self._copy_events.pop(id(slab), None)
 

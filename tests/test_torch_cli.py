@@ -99,21 +99,100 @@ def test_slo_footer_counts_as_the_jax_cli(capsys):
 
 
 def test_check_parses_without_running(capsys):
+    """``--check`` runs the static verifier (the NNS0xx diagnostics) and
+    builds nothing."""
     assert main(["--platforms", "cpu", "--check", DESC]) == 0
-    assert "OK: 4 elements" in capsys.readouterr().out
+    assert "0 error(s), 0 warning(s)" in capsys.readouterr().out
     assert main(["--check", "videotestsrc ! no_such_element ! "
                  "tensor_sink"]) == 1
-    assert main(["--check", "videotestsrc ! tensor_filter framework=jax "
-                 "model=m mesh=dp2 ! tensor_sink"]) == 1
-    assert "A.24" in capsys.readouterr().err
+    assert "NNS001" in capsys.readouterr().out
+    assert main(["--check", "videotestsrc ! tensor_converter ! "
+                 "tensor_filter framework=jax model=m mesh=dp2 ! "
+                 "tensor_sink"]) == 1
+    out = capsys.readouterr().out
+    assert "NNS002" in out and "A.24" in out
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--scaffold", "filter", "mine"], "26g"),
+@pytest.mark.parametrize("desc", [
+    DESC,
+    "videotestsrc ! tensor_converter ! tee name=t t. ! tensor_sink "
+    "t. ! tensor_sink",
+    "videotestsrc ! tensor_filter framework=jax model=m ! tensor_sink",
+    "videotestsrc ! tensor_converter ! tensor_filter framework=nope "
+    "model=m ! tensor_sink",
+    'videotestsrc ! "unterminated',
 ])
-def test_unported_flags_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        main(argv + [DESC])
+def test_check_prints_the_jax_clis_diagnostics(desc, capsys):
+    """``--check`` exits and prints as the JAX CLI's does: the same codes
+    in the same order."""
+    import re
+
+    ours = main(["--check", desc])
+    our_codes = re.findall(r"NNS\d{3}", capsys.readouterr().out)
+    theirs = jax_main(["--check", desc])
+    their_codes = re.findall(r"NNS\d{3}", capsys.readouterr().out)
+    assert (ours, our_codes) == (theirs, their_codes)
+
+
+@pytest.mark.parametrize("kind,name,use", [
+    ("filter", "my_scaler",
+     "appsrc name=src ! tensor_filter framework=my_scaler model=x ! "
+     "tensor_sink name=out"),
+    ("decoder", "my_dec",
+     "appsrc name=src ! tensor_decoder mode=my_dec ! tensor_sink name=out"),
+    ("converter", "my_conv",
+     "appsrc name=src ! tensor_converter mode=custom-code:my_conv ! "
+     "tensor_sink name=out"),
+])
+def test_scaffold_writes_a_subplugin_the_registry_finds(kind, name, use,
+                                                        tmp_path):
+    """A scaffold imports from the port, lands under the name the
+    registry's external search looks for, and runs in a pipeline from
+    its search path (in a child process, so the registry here stays
+    clean)."""
+    import numpy as np
+
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert main(["--scaffold", kind, name]) == 0
+        assert main(["--scaffold", kind, name]) == 2  # never overwrites
+    finally:
+        os.chdir(cwd)
+    path = tmp_path / f"nnstreamer_tpu_torch_{kind}_{name}.py"
+    text = path.read_text()
+    assert "from nnstreamer_tpu_torch." in text
+    assert "nnstreamer_tpu." not in text and "jax" not in text.lower()
+    code = (
+        "import numpy as np\n"
+        "import nnstreamer_tpu_torch as nt\n"
+        "nt.set_device('cpu')\n"
+        f"pipe = nt.parse_launch({use!r})\n"
+        "pipe.get('src').push([np.arange(6, dtype=np.float32)])\n"
+        "pipe.get('src').end_of_stream()\n"
+        "msg = pipe.run(timeout=60)\n"
+        "assert msg is not None and msg.kind == 'eos', msg\n"
+        "out = pipe.get('out').buffers\n"
+        "print(len(out), np.asarray(out[0].tensors[0]).reshape(-1).tolist())\n")
+    env = dict(os.environ, **{f"NNSTREAMER_TPU_{kind.upper()}_PATH":
+                              str(tmp_path)})
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[0] == "1"
+    assert np.allclose(eval(proc.stdout.split(" ", 1)[1]), np.arange(6))
+
+
+@pytest.mark.parametrize("argv", [["--scaffold", "sink", "x"],
+                                  ["--scaffold", "filter", "9bad name"]])
+def test_scaffold_rejects_a_bad_kind_or_name(argv, tmp_path):
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert main(argv) == 2
+    finally:
+        os.chdir(cwd)
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.fixture

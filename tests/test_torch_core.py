@@ -161,6 +161,22 @@ def test_unported_pipeline_options_raise(kwargs):
         sched.note_mesh(2)
 
 
+@pytest.mark.parametrize("factory", ["tensor_src_grpc", "tensor_sink_grpc"])
+def test_grpc_factories_resolve(factory):
+    """The gRPC elements register with the element registry whether or not
+    grpcio imports; the JAX package's factories resolve to their twins."""
+    from nnstreamer_tpu.registry import ELEMENT as JELEMENT
+    from nnstreamer_tpu.registry import get_subplugin as jget
+    from nnstreamer_tpu_torch.registry import ELEMENT, get_subplugin
+
+    cls = get_subplugin(ELEMENT, factory)
+    assert cls is not None and cls.__module__ == \
+        "nnstreamer_tpu_torch.elements.grpc_io"
+    assert set(cls.PROPERTIES) == set(jget(JELEMENT, factory).PROPERTIES)
+    el = tnt.parse_launch(f"{factory} name=g").get("g")
+    assert el.port == 0
+
+
 def test_unknown_property_is_an_error():
     with pytest.raises(KeyError):
         tnt.parse_launch("videotestsrc ! queue no-such-thing=1 ! tensor_sink")

@@ -9,9 +9,9 @@ held to the JAX package's injector.
   are the JAX module's.
 - Every compute-site hook of the port fires in a pipeline and halts it
   as the JAX package's does; the MQTT client's ``mqtt.publish`` hook
-  drops, disconnects and corrupts as the JAX client's does; the transport
-  sites the port has no hook for raise at ``activate()``, naming their
-  ROADMAP items (26a, 26f).
+  drops, disconnects and corrupts as the JAX client's does. The
+  ``grpc.call`` hook is held to the JAX bridge's in
+  ``tests/test_torch_grpc.py``.
 """
 
 import time
@@ -139,15 +139,6 @@ def test_check_kinds_raise_the_jax_classes(kind, cls):
             "injected fault at filter.invoke (occurrence 1)"
 
 
-@pytest.mark.parametrize("site,item", [("grpc.call", "26f")])
-def test_sites_without_a_hook_raise_naming_their_item(site, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-        faults.activate(f"{site}:rate=0.1")
-    assert faults.ACTIVE is None
-    with pytest.raises(NotImplementedError, match=item):
-        faults.activate(f"filter.invoke:nth=2;{site}:nth=1")
-
-
 def test_env_activation(monkeypatch):
     monkeypatch.delenv("NNSTPU_FAULTS", raising=False)
     assert faults.maybe_activate_env() is None and faults.ACTIVE is None
@@ -164,9 +155,6 @@ def test_env_activation(monkeypatch):
     inj = faults.maybe_activate_env()
     assert inj is faults.ACTIVE and list(inj._rules) == ["mqtt.publish"]
     faults.deactivate()
-    monkeypatch.setenv("NNSTPU_FAULTS", "grpc.call:rate=0.5")
-    with pytest.raises(NotImplementedError, match="26f"):
-        faults.maybe_activate_env()
 
 
 def _publish_under_fault(mod, fmod, spec, qos):

@@ -15,8 +15,10 @@ held to the JAX package's over 127.0.0.1.
 - The offload pipeline with a port model returns what the JAX pipeline
   with ``refwire_triple`` returns.
 
-The JAX servers run with ``NNSTPU_PURE_PY_SERVER=1``: the port has no twin
-of the JAX package's native epoll core (ROADMAP 26e, C.35).
+The JAX servers run with ``NNSTPU_PURE_PY_SERVER=1``: the JAX package's
+native reference-wire core approves every client, while the port keeps its
+reference wire on Python, native library or not (ROADMAP C.50,
+``tests/test_torch_native.py``).
 """
 
 import ctypes

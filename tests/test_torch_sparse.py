@@ -140,6 +140,26 @@ def test_negative_zero_and_nan_are_kept_as_the_library_keeps_them(layout,
     assert _dense_bytes(out) == _jax_bytes(jax_in)
 
 
+@pytest.mark.parametrize("layout,dtype", [
+    ("reference", "float32"), ("reference", "float64"),
+    ("native", "float16"), ("native", "float32"), ("native", "bfloat16")])
+def test_negative_zero_and_nan_are_kept_without_the_port_library(
+        layout, dtype, monkeypatch):
+    """C.34 on the port's numpy path: with its native library unloaded the
+    scan still reads each element's bytes, so the blob is the library's
+    (the JAX package's, which has its library loaded)."""
+    from nnstreamer_tpu_torch import native as tnative
+
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", True)
+    vals = np.array([0.0, -0.0, np.nan, 1.0, 0.0, -np.nan, -0.0, 0.0])
+    port, jax_in = _bits(dtype, vals)
+    blob = sparse_encode(port, layout=layout)
+    assert blob == jsparse.sparse_encode(jax_in, layout=layout)
+    out, _ = sparse_decode(blob)
+    assert _dense_bytes(out) == _jax_bytes(jax_in)
+
+
 def test_rank5_in_the_native_layout():
     a = _mostly_zero("int16").astype(np.int16).reshape(1, 3, 1, 5, 7)
     blob = sparse_encode(a, layout="native")
