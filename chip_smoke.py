@@ -429,6 +429,9 @@ MEM_BUDGET_SHARE = 0.75    # the budget, as a share of the summed weights
 MEM_OOM_FRAMES = 160       # the OOM-ladder run: 20 windows
 MEM_OOM_FAULT = "filter.invoke:nth=9,kind=oom"
 CONT_FRAMES = 800          # the swap run, cut over at half
+MESH_SWAP_WINDOWS = 5      # batch-8 windows before and after the mesh swap
+MESH_TAIL = 5              # frames of the mesh phase's short window
+MESH_LM_NEW = 32           # greedy tokens a prompt in the mesh LM checks
 CONT_DISTINCT = 64         # distinct frames it cycles through
 CONT_LSTM_STEPS = 400      # lstm steps before and after the checkpoint
 CONT_SWAP_SLACK = 128      # frames a running swap may cut over past 400
@@ -7826,6 +7829,323 @@ def _stage_p50_ms(tl) -> dict:
             for k in kinds}
 
 
+def phase_mesh(power: str) -> dict:
+    """The serving mesh (``parallel/``, ROADMAP A.24) over the card's one
+    device, through the entry points a user calls:
+
+    (a) bench.py's batch-8 flagship (800 gradient frames) with
+        ``mesh=dp-1`` on the filter: one sharded fused region, labels and
+        f32 scores bit-identical to the unmeshed run in this process, B1
+        once a window inside the region, ``nns_shard_count`` 1;
+    (b) a two-filter chain at ``dp-1`` (the JAX package's
+        ``tests/test_mesh_serving.py`` chain) at the flagship's frame
+        size: 0 reshard bytes at the hand-off; a ``dp1``/``tp1`` pair
+        raises ``MeshShardingError`` at ``start()``;
+    (c) ``mesh=dp2`` raises at plan time ("needs 2 devices, have 1");
+    (d) a short window (5 frames) through the sharded region: labelled
+        as unmeshed (one device divides every batch, so it runs as a dp1
+        batch; the replicated fallback is held on the CPU's dp8 mesh);
+    (e) under the HBM accountant the weights register one unit per
+        shard; ``swap_model`` retires the group, the region captures once
+        more and no frame drops;
+    (f) the LM engine at ``mesh`` dp1×tp1 (the configuration lm_graph
+        serves, fp32) gives the unmeshed engine's greedy tokens with one
+        graph per (B, K); the paged int8 engine at dp1 likewise."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import get_registry
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.parallel import make_mesh, serve
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors import memory
+
+    nt.set_device(None)
+    result = {"gpu": power}
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    swap_to, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                 dtype=torch.bfloat16, seed=1)
+    register_torch_model("mnv2_mesh", module)
+    labels = _labels_file("mesh")
+    chain = "tensor_transform mode=arithmetic " \
+        "option=typecast:float32,add:-127.5,div:127.5 ! " \
+        "tensor_filter framework=jax model=mnv2_mesh name=filter " \
+        "inflight=2 {mesh}! tensor_decoder mode=image_labeling " \
+        f"option1={labels} option2=batched ! "
+
+    def flagship(mesh):
+        return (f"videotestsrc num-buffers={BATCHED_FRAMES} width={IMAGE} "
+                f"height={IMAGE} pattern=gradient ! tensor_converter ! "
+                "queue max-size-buffers=16 ! tensor_aggregator frames-in=1 "
+                "frames-out=8 frames-flush=8 frames-dim=3 concat=true ! "
+                "queue max-size-buffers=8 prefetch-device=true ! " +
+                chain.format(mesh=mesh) +
+                "queue max-size-buffers=64 materialize-host=true ! "
+                "tensor_sink name=out to-host=true")
+
+    def run(desc, name):
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
+        got = []
+        pipe.get("out").connect(lambda buf: got.append(buf.meta))
+        reset_launches()
+        t0 = time.monotonic()
+        pipe.run(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return pipe, labelled_frames(got), dict(LAUNCHES), wall, len(got)
+
+    def pushed(desc, name, windows, swap=None):
+        """``windows`` ([n, S, S, 3] uint8 each) pushed through an appsrc;
+        ``swap`` (a state dict) swapped in after the first half."""
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
+        got = []
+        pipe.get("out").connect(lambda buf: got.append(buf.meta))
+        src = pipe.get("src")
+        reset_launches()
+        pipe.start()
+        report = None
+        try:
+            half = len(windows) // 2 if swap is not None else len(windows)
+            for w in windows[:half]:
+                src.push([w])
+            if swap is not None:
+                deadline = time.monotonic() + 300
+                while len(got) < half and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                report = pipe.swap_model("filter", weights=swap)
+                for w in windows[half:]:
+                    src.push([w])
+            src.end_of_stream()
+            msg = pipe.wait(timeout=600)
+            check(msg is not None and msg.kind == "eos",
+                  f"mesh: {name} ended with {msg}")
+        finally:
+            pipe.stop()
+        return pipe, labelled_frames(got), dict(LAUNCHES), report
+
+    try:
+        # (a) the flagship, unmeshed (once to warm the process up, once
+        # timed), then over the card's one device
+        _, plain, _, _, _ = run(flagship(""), "mesh_warm")
+        r0 = serve.reshard_bytes_total()
+        pipe, frames, launches, wall, windows = run(
+            flagship("mesh=dp-1 "), "mesh_dp1")
+        moved = serve.reshard_bytes_total() - r0
+        _, plain2, _, plain_wall, _ = run(flagship(""), "mesh_plain")
+        check(plain2 == plain, "mesh: two unmeshed runs differ")
+        regions = list(pipe.metrics_snapshot()["regions"].values())
+        check(len(frames) == BATCHED_FRAMES,
+              f"mesh: {len(frames)} of {BATCHED_FRAMES} frames labelled")
+        differ = [i for i, (a, b) in enumerate(zip(frames, plain)) if a != b]
+        check(not differ and len(plain) == BATCHED_FRAMES,
+              f"mesh: frames {differ[:5]} differ from the unmeshed run")
+        want = BATCHED_FRAMES // BATCH
+        check(windows == want and launches["normalize_chain"] == want,
+              f"mesh: B1 {launches['normalize_chain']} for {windows} "
+              f"windows ({want} due)")
+        check(len(regions) == 1 and not regions[0]["unspliced"] and
+              regions[0]["captures"] == 1 and
+              regions[0]["replays"] == want - 1,
+              f"mesh: regions {regions}")
+        gauge = get_registry().get("nns_shard_count", pipeline="mesh_dp1",
+                                   filter="filter")
+        check(gauge is not None and float(gauge.value) == 1.0,
+              "mesh: nns_shard_count is not 1")
+        result["flagship"] = {
+            "frames": len(frames), "windows": windows,
+            "b1_launches": launches["normalize_chain"],
+            "captures": regions[0]["captures"],
+            "replays": regions[0]["replays"],
+            "shard_count": float(gauge.value),
+            "bit_identical_to_unmeshed": True,
+            # the staging queue's uploads are device tensors: placed on the
+            # mesh they count as resharded, as in the JAX package
+            "reshard_bytes": moved,
+            "fps": BATCHED_FRAMES / wall, "plain_fps": BATCHED_FRAMES /
+            plain_wall, "wall_s": wall, "plain_wall_s": plain_wall}
+
+        # (b) the JAX package's two-filter chain, at the flagship's size
+        class Scale(torch.nn.Module):
+            def forward(self, x):
+                return x * 2.0
+
+        class Shift(torch.nn.Module):
+            def forward(self, x):
+                return x + 1.0
+
+        register_torch_model("mesh_a", Scale())
+        register_torch_model("mesh_b", Shift())
+        two = ("appsrc name=src ! tensor_filter framework=jax model=mesh_a "
+               "name=fa mesh={a} ! queue max-size-buffers=4 ! "
+               "tensor_filter framework=jax model=mesh_b name=fb mesh={b} ! "
+               "tensor_sink name=sink to-host=true")
+        pipe = nt.parse_launch(two.format(a="dp-1", b="dp-1"),
+                               pipeline=Pipeline(name="mesh_chain"))
+        r0 = serve.reshard_bytes_total()
+        pipe.start()
+        try:
+            handoff = pipe.get("fa")._mesh_handoff
+            for i in range(BATCH):
+                pipe.get("src").push([np.full((BATCH, IMAGE, IMAGE, 3),
+                                              float(i), np.float32)])
+            pipe.get("src").end_of_stream()
+            msg = pipe.wait(timeout=300)
+        finally:
+            pipe.stop()
+        chain_moved = serve.reshard_bytes_total() - r0
+        outs = [np.asarray(b.tensors[0]) for b in pipe.get("sink").buffers]
+        check(msg is not None and msg.kind == "eos" and len(outs) == BATCH
+              and all(np.all(o == 2.0 * i + 1.0) for i, o in
+                      enumerate(outs)), f"mesh: the chain gave {len(outs)} "
+                                        "frames or wrong values")
+        check(handoff and chain_moved == 0,
+              f"mesh: the matched chain moved {chain_moved} bytes "
+              f"(hand-off {handoff})")
+        try:
+            bad = nt.parse_launch(two.format(a="dp1", b="tp1"))
+            try:
+                bad.start()
+                mismatch = None
+            except serve.MeshShardingError as e:
+                mismatch = str(e)
+            finally:
+                bad.stop()
+        finally:
+            unregister_torch_model("mesh_a")
+            unregister_torch_model("mesh_b")
+        check(mismatch is not None and "fa -> fb" in mismatch,
+              "mesh: a dp1/tp1 boundary did not raise at start()")
+        result["chain"] = {"frames": len(outs), "reshard_bytes": chain_moved,
+                           "handoff": handoff, "mismatch_error": mismatch}
+
+        # (c) a mesh of two devices on one card
+        try:
+            serve.get_mesh_plan("dp2")
+            narrowed = None
+        except ValueError as e:
+            narrowed = str(e)
+        check(narrowed is not None and "needs 2 devices, have 1" in narrowed,
+              f"mesh: mesh=dp2 on one card gave {narrowed!r}")
+        result["dp2_error"] = narrowed
+
+        # (d) a short window through the sharded region
+        rng = np.random.default_rng(0)
+        tail = [rng.integers(0, 256, (BATCH, IMAGE, IMAGE, 3),
+                             dtype=np.uint8),
+                rng.integers(0, 256, (MESH_TAIL, IMAGE, IMAGE, 3),
+                             dtype=np.uint8)]
+        small = "appsrc name=src ! " + chain + \
+            "tensor_sink name=out to-host=true"
+        _, tail_plain, _, _ = pushed(small.format(mesh=""), "mesh_tail0",
+                                     tail)
+        tpipe, tail_mesh, tail_launches, _ = pushed(
+            small.format(mesh="mesh=dp-1 "), "mesh_tail1", tail)
+        plan = serve.get_mesh_plan("dp-1")
+        check(tail_mesh == tail_plain and len(tail_mesh) == BATCH + MESH_TAIL
+              and tail_launches["normalize_chain"] == 2 and
+              plan.sharding_for(tail[1]) == plan.batched(),
+              f"mesh: the short window gave {len(tail_mesh)} frames, "
+              f"B1 {tail_launches['normalize_chain']}")
+        (treg,) = tpipe.metrics_snapshot()["regions"].values()
+        result["tail"] = {"frames": len(tail_mesh), "captures":
+                          treg["captures"], "placement": "dp1 batch",
+                          "b1_launches": tail_launches["normalize_chain"]}
+
+        # (e) per-shard residency and a swap under the HBM accountant
+        acct = memory.activate(16 << 30)
+        try:
+            windows8 = [rng.integers(0, 256, (BATCH, IMAGE, IMAGE, 3),
+                                     dtype=np.uint8)
+                        for _ in range(2 * MESH_SWAP_WINDOWS)]
+            spipe = nt.parse_launch(small.format(mesh="mesh=dp-1 "),
+                                    pipeline=Pipeline(name="mesh_swap"))
+            got = []
+            spipe.get("out").connect(lambda buf: got.append(buf.meta))
+            src = spipe.get("src")
+            reset_launches()
+            spipe.start()
+            try:
+                for w in windows8[:MESH_SWAP_WINDOWS]:
+                    src.push([w])
+                deadline = time.monotonic() + 300
+                while len(got) < MESH_SWAP_WINDOWS and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.01)
+                keys0 = sorted(k for k in acct.residency._units
+                               if ":shard" in k)
+                used0 = acct._used.get("weights", 0)
+                report = spipe.swap_model("filter",
+                                          weights=swap_to.state_dict())
+                keys1 = sorted(k for k in acct.residency._units
+                               if ":shard" in k)
+                used1 = acct._used.get("weights", 0)
+                for w in windows8[MESH_SWAP_WINDOWS:]:
+                    src.push([w])
+                src.end_of_stream()
+                msg = spipe.wait(timeout=600)
+            finally:
+                spipe.stop()
+            (sreg,) = spipe.metrics_snapshot()["regions"].values()
+        finally:
+            memory.deactivate()
+        sframes = labelled_frames(got)
+        check(msg is not None and msg.kind == "eos" and
+              len(sframes) == 2 * MESH_SWAP_WINDOWS * BATCH,
+              f"mesh: the swap run labelled {len(sframes)} frames")
+        check(len(keys0) == len(keys1) == 1 and ":e1:" in keys1[0] and
+              keys0 != keys1 and used1 == used0 and
+              report["residency_unit"].endswith(":e1"),
+              f"mesh: residency units {keys0} -> {keys1}, weights "
+              f"{used0} -> {used1} bytes")
+        check(sreg["captures"] == 2 and not sreg["unspliced"],
+              f"mesh: the swap run captured {sreg['captures']} times")
+        check(LAUNCHES["normalize_chain"] == 2 * MESH_SWAP_WINDOWS,
+              f"mesh: B1 {LAUNCHES['normalize_chain']} in the swap run")
+        result["swap"] = {"frames": len(sframes), "units_before": keys0,
+                          "units_after": keys1, "weights_bytes": used1,
+                          "captures": sreg["captures"],
+                          "b1_launches": LAUNCHES["normalize_chain"]}
+    finally:
+        unregister_torch_model("mnv2_mesh")
+
+    # (f) the LM engine on a one-device mesh
+    prompts, _ = _lm_prompts()
+    lm = {}
+    for tag, kw in (("dense", {}), ("paged_int8", dict(
+            kv_quant="int8", block_tokens=LM_PAGED_BLOCK))):
+        toks = {}
+        for mesh in (None, make_mesh([("dp", 1), ("tp", 1)])):
+            eng = _fp32_engine(mesh=mesh, attention="reference", **kw)
+            eng.start()
+            try:
+                t0 = time.monotonic()
+                streams = [eng.submit(p, max_new_tokens=MESH_LM_NEW)
+                           for p in prompts]
+                got = [s.result(timeout=600) for s in streams]
+                wall = time.monotonic() - t0
+            finally:
+                eng.stop()
+            graph = _check_graph(eng, f"mesh lm {tag}")
+            toks["mesh" if mesh is not None else "plain"] = got
+            lm[f"{tag}_{'mesh' if mesh is not None else 'plain'}"] = {
+                "graphs": graph, "tokens_per_s":
+                sum(len(g) for g in got) / wall}
+        differ = [i for i, (a, b) in enumerate(zip(toks["mesh"],
+                                                   toks["plain"])) if a != b]
+        check(not differ, f"mesh lm {tag}: prompts {differ} differ from "
+                          "the unmeshed engine")
+    result["lm"] = lm
+    emit({"phase": "mesh", **result})
+    return result
+
+
 def phase_fleet(power: str) -> dict:
     """The flagship (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed
     0) served by a balanced, exactly-once fleet of replica processes.
@@ -8383,6 +8703,7 @@ def main() -> int:
     filters = phase_filters(power)
     mem = phase_memory(power)
     cont = phase_continuity(power)
+    mesh = phase_mesh(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine, lm_eager)
@@ -8483,6 +8804,9 @@ def main() -> int:
         "launches_filters_export": filters["flagship_loaded"]["b1_launches"],
         "launches_filters_export_direct":
             filters["flagship_direct_b1_launches"],
+        # the serving mesh: the batch-8 flagship with mesh=dp-1, one
+        # sharded region over the card's one device (once a window)
+        "launches_mesh": mesh["flagship"]["b1_launches"],
         # B1 at the audio window (int16 [16000, 1] -> float32, / 32768)
         "kws_ms": b1["kws_ms"],
         "kws_device_ms": dev_b1["kws_device_ms"],

@@ -37,7 +37,11 @@ __version__ = "0.1.0"
 # statement; with the env unset this import changes nothing)
 import nnstreamer_tpu_torch.obs  # noqa: E402,F401
 
-from nnstreamer_tpu_torch.device import get_device, set_device  # noqa: F401
+from nnstreamer_tpu_torch.device import (  # noqa: F401
+    get_device,
+    set_device,
+    set_host_device_count,
+)
 from nnstreamer_tpu_torch.tensors.types import (  # noqa: F401
     TensorType,
     TensorFormat,

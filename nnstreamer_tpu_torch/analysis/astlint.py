@@ -97,15 +97,15 @@ These rules encode invariants this codebase has already been burned by
   stops round-tripping, a key restored but never saved reads as absent
   on every real checkpoint. Classes whose schema is dynamic (no
   literal keys on one side, e.g. ``TensorRepo``) are skipped.
-- NNS117: a device mesh or DTensor placement constructed outside the
-  ``parallel`` package: ``DeviceMesh``/``init_device_mesh``,
-  ``distribute_tensor``/``distribute_module``, ``DTensor.from_local`` or
-  a ``Shard``/``Replicate``/``Partial`` placement anywhere else scatters
+- NNS117: a mesh placement constructed outside the ``parallel``
+  package: a ``Placement`` (the port's ``NamedSharding``), a
+  ``ShardedTensor`` or a ``shard_tensor`` call anywhere else scatters
   device-placement decisions across the codebase. The ``parallel``
-  package (ROADMAP A.24) is the audited home for every placement: that
-  is what makes the matched-sharding hand-off contract and the per-shard
-  HBM accounting enforceable. Callers pass a mesh-spec string
-  (``mesh=dp4``) or a plan object around instead.
+  package is the audited home for every placement: that is what makes
+  the matched-sharding hand-off contract and the per-shard HBM
+  accounting enforceable. Callers pass a mesh-spec string (``mesh=dp4``)
+  or a plan object around and place through ``parallel.serve``
+  (``place_batch``, ``place_params``, ``place_tree``) instead.
 - NNS116: a wire-header ``struct.Struct`` whose field count disagrees
   with a pack/unpack site. For every ``NAME = struct.Struct("<fmt>")``
   binding in a file, each ``NAME.pack(...)`` must pass exactly as many
@@ -241,9 +241,7 @@ _DEVICE_FACTORIES = {"torch.as_tensor", "torch.tensor"}
 #: mesh/placement-construction callables (NNS117), matched on the last
 #: dotted component: allowed only inside the ``parallel`` package — the
 #: audited home of every placement decision
-_SHARDING_CTORS = {"DeviceMesh", "init_device_mesh", "distribute_tensor",
-                   "distribute_module", "from_local", "Shard",
-                   "Replicate", "Partial"}
+_SHARDING_CTORS = {"Placement", "ShardedTensor", "shard_tensor"}
 
 #: obs hot-path recording function names (NNS114): the per-frame /
 #: per-event entry points of the always-on telemetry layer — anything
@@ -730,13 +728,14 @@ class _FileLinter(ast.NodeVisitor):
             return
         self.emit(
             "NNS117", node,
-            f"{dotted}(...) constructs a device mesh or DTensor placement "
-            f"outside the parallel package — placement decisions "
+            f"{dotted}(...) constructs a mesh placement outside the "
+            f"parallel package — placement decisions "
             f"scattered across the codebase break the matched-sharding "
             f"hand-off contract and the per-shard HBM accounting the "
             f"parallel package makes auditable",
-            hint="name a mesh spec (mesh=dp4) and build the mesh and its "
-                 "placements in parallel/ — or justify with a pragma")
+            hint="name a mesh spec (mesh=dp4) and place through "
+                 "parallel.serve (place_batch/place_params/place_tree) — "
+                 "or justify with a pragma")
 
     @staticmethod
     def _is_device_expr(arg: ast.AST) -> bool:

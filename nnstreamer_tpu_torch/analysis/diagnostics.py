@@ -93,11 +93,10 @@ CODE_TABLE: Dict[str, str] = {
               "of values, or a tuple-unpack binding the wrong number of "
               "names, raises only at runtime — on the first real frame, "
               "usually on the peer)",
-    "NNS117": "device mesh or DTensor placement constructed outside the "
-              "parallel package (DeviceMesh/distribute_tensor/Shard/"
-              "Replicate anywhere else scatters placement decisions the "
-              "parallel package keeps auditable — pass a mesh spec or "
-              "plan instead)",
+    "NNS117": "mesh placement constructed outside the parallel package "
+              "(Placement/ShardedTensor/shard_tensor anywhere else "
+              "scatters placement decisions the parallel package keeps "
+              "auditable — pass a mesh spec or plan instead)",
     "NNS118": "direct subscript of a paged KV arena outside "
               "serving/kvpool.py (block refcounts, the trash block and "
               "the storage a captured graph replays against live in the "

@@ -10,13 +10,19 @@ or ``false``, the reference grammar of
 ``nnstreamer_plugin_api_filter.h:547-568``) for that filter. Resolving a
 CUDA device when CUDA is unavailable raises: the port never carries on
 on the CPU without being asked to.
+
+The serving mesh (``parallel/``) spans :func:`mesh_devices`: the visible
+cards, or, on the CPU, :func:`set_host_device_count` logical host
+devices (default 1), the counterpart of XLA's
+``--xla_force_host_platform_device_count``. Logical host devices all
+compute on the one CPU; each holds its own shards.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -26,6 +32,7 @@ DEVICE_ENV = "NNSTPU_TORCH_DEVICE"
 
 _lock = threading.Lock()
 _device: Optional[torch.device] = None
+_host_devices = 1
 
 
 def set_device(device: Union[str, torch.device, None]) -> None:
@@ -76,3 +83,33 @@ def resolve_device(accelerator: Optional[str] = None) -> torch.device:
             "or give a tensor_filter accelerator=true:cpu (a "
             "tensor_transform acceleration=false)")
     return dev
+
+
+def set_host_device_count(n: int) -> None:
+    """The number of logical host devices a mesh on the CPU spans (XLA's
+    ``--xla_force_host_platform_device_count``); ``1`` restores the
+    default."""
+    global _host_devices
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"host device count must be >= 1, got {n}")
+    with _lock:
+        _host_devices = n
+
+
+def host_device_count() -> int:
+    with _lock:
+        return _host_devices
+
+
+def mesh_devices() -> List[torch.device]:
+    """The devices a serving mesh spans, in order: ``cuda:0`` ..
+    ``cuda:<n-1>`` when the package device is a card (raising, as
+    :func:`resolve_device`, when CUDA is unavailable), else
+    :func:`host_device_count` entries of the CPU, one per logical host
+    device."""
+    dev = resolve_device()
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * host_device_count()

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.obs import timeline as _timeline
-from nnstreamer_tpu_torch.pipeline.element import Element, not_ported
+from nnstreamer_tpu_torch.pipeline.element import Element
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensors.pool import get_pool
@@ -114,10 +114,23 @@ class TensorAggregator(Element):
         super().stop()
 
     def note_mesh_quantum(self, quantum: int) -> None:
-        """Mesh-wide batch forming rounds frames-out to the data-parallel
-        shard count: not ported (the port serves on one card)."""
-        raise not_ported("mesh-wide batch forming (note_mesh_quantum)",
-                         "A.24 multi-GPU serving")
+        """Mesh-wide batch forming (parallel/serve.py): round frames-out
+        up to a multiple of the pipeline's dp shard count so every full
+        window this former emits splits evenly across the mesh. A
+        non-multiple window is still legal — the sharded invoke falls
+        back to a replicated one for it — but it serializes the batch
+        onto one shard, so the former should not produce one by
+        construction. Called by Pipeline.start() once the sharded plan
+        is known; pass-through configs (frames-out == 1) are left alone
+        because the user asked for per-frame service, not batching."""
+        q = max(1, int(quantum))
+        fout = int(self.get_property("frames_out"))
+        if q <= 1 or fout <= 1 or fout % q == 0:
+            return
+        rounded = ((fout + q - 1) // q) * q
+        self.log.info("%s: frames-out %d -> %d (mesh shard quantum %d)",
+                      self.name, fout, rounded, q)
+        self.set_property("frames_out", rounded)
 
     def transform_caps(self, pad, caps):
         return None  # announced from the first output (shape changes)

@@ -42,8 +42,16 @@ closes it). ``is-updatable=true`` lets a ``reload_model`` custom event (or
 :meth:`TensorFilter.reload_model`) reopen the backend on a new model
 (``nns_tensor_filter_reloads_total``); a fused region over the filter is
 invalidated and captures anew. ``Pipeline.swap_model`` builds on it
-(``pipeline/continuity.py``). Mesh sharding of the JAX package is not
-ported yet.
+(``pipeline/continuity.py``).
+
+``mesh=<spec>`` (alias ``shard=``) serves the filter over a device mesh
+(``parallel/serve.py``): the batch shards over ``dp``, each device runs
+its shard on its own copy of the weights, ``nns_shard_count`` reports the
+mesh's devices and each output buffer carries its spec in the
+``mesh-spec`` meta. The outputs stay sharded only where every consumer
+down the device hand-off is a sharded invoker of the same spec
+(``pipeline/fuse.verify_mesh_boundaries``); elsewhere they are gathered
+onto the mesh's first device. ``NNSTPU_MESH=0`` ignores the property.
 """
 
 from __future__ import annotations
@@ -80,9 +88,6 @@ from nnstreamer_tpu_torch.tensors.buffer import (
     is_device_array,
 )
 from nnstreamer_tpu_torch.tensors.types import TensorsConfig, TensorsInfo
-
-_MULTI = "A.24 multi-GPU serving"
-
 
 def detect_framework(model: str) -> Optional[str]:
     """framework=auto: first loadable backend for this model's extension
@@ -133,10 +138,11 @@ class TensorFilter(Element):
         "inflight": 2,
         "is_updatable": False,    # reload_model allowed
         "shared_tensor_filter_key": None,
-    }
-    UNPORTED_PROPERTIES = {
-        "mesh": _MULTI,
-        "shard": _MULTI,
+        # serving mesh spec like "dp4" / "dp2xtp2" / "dp-1"
+        # (parallel/serve.py); "shard" is an alias. Unset (or
+        # NNSTPU_MESH=0) = the single-device path
+        "mesh": None,
+        "shard": None,
     }
 
     def __init__(self, name=None, **props):
@@ -154,6 +160,11 @@ class TensorFilter(Element):
         self._shared_key: Optional[str] = None
         self._last_invoke_t = 0.0
         self._window = DispatchWindow(self)
+        self._m_shard = None   # nns_shard_count gauge (mesh= filters only)
+        #: set by Pipeline.start() (fuse.verify_mesh_boundaries) when every
+        #: consumer down the device hand-off is a matched sharded invoker:
+        #: the sharded outputs then travel as they are
+        self._mesh_handoff = False
 
     def _obs_invoke(self):
         """``nns_tensor_filter_invoke_seconds`` times only the backend
@@ -232,6 +243,7 @@ class TensorFilter(Element):
             model=model,
             custom=self.get_property("custom"),
             accelerator=self.get_property("accelerator"),
+            mesh=self.get_property("mesh") or self.get_property("shard"),
             input_info=self._forced_info("input", "inputtype"),
             output_info=self._forced_info("output", "outputtype"),
             is_updatable=bool(self.get_property("is_updatable")),
@@ -248,6 +260,17 @@ class TensorFilter(Element):
             self._shared_key = str(shared_key)
         else:
             self.fw = open_backend()
+        plan = getattr(self.fw, "_mesh_plan", None)
+        if plan is not None and self._m_shard is None:
+            # nns_shard_count{filter=...}: how many devices this filter's
+            # serving mesh spans (absent = single-device)
+            n = int(plan.shard_count)
+            self._m_shard = get_registry().gauge(
+                "nns_shard_count",
+                "Devices in this filter's serving mesh (mesh= property)",
+                fn=lambda _n=n: float(_n),
+                pipeline=getattr(self.pipeline, "name", "") or "",
+                filter=self.name)
         return self.fw
 
     def _close_fw(self) -> None:
@@ -377,6 +400,22 @@ class TensorFilter(Element):
             model_inputs = [host_array(x) for x in model_inputs]
 
         seq = buf.meta.get(_timeline.TRACE_SEQ_META)
+        plan = getattr(fw, "_mesh_plan", None)
+        if plan is not None:
+            # unfused mesh invoke: place the batch HERE, where the frame's
+            # trace identity is known, so the placement lands in the
+            # ledger as its own `shard` stage (the fused path does the
+            # same in FusedRegion.chain); the backend's own place_batch
+            # then sees matched tensors and moves nothing
+            from nnstreamer_tpu_torch.parallel import serve as _serve
+
+            t_sh0 = _time.monotonic()
+            model_inputs = [_serve.place_batch(x, plan)
+                            for x in model_inputs]
+            tl = _timeline.ACTIVE
+            if tl is not None and seq is not None:
+                tl.span("shard", seq, t_sh0, _time.monotonic(),
+                        track=self.name)
         fi = _faults.ACTIVE
         if fi is not None:
             # chaos hook, BEFORE the stash pop: a retrying error policy
@@ -425,11 +464,17 @@ class TensorFilter(Element):
                          for k, i in out_comb]
             else:
                 final = list(outputs)
+            if plan is not None and not self._mesh_handoff:
+                # the mesh's egress: one tensor each on its first device
+                final = [_serve.gather(x) for x in final]
             # bounded asynchronous dispatch: the oldest outstanding batch
             # fences only when more than `inflight` are in flight, and the
             # staging arrays this dispatch read recycle at that fence
             self._window.admit(final, stash, frame=seq)
         out_buf = buf.with_tensors(final)
+        if plan is not None:
+            # the hand-off names the mesh this batch was computed on
+            out_buf.meta[_serve.MESH_SPEC_META] = plan.spec
         if t1 is not None:
             out_buf.meta[_timeline.HANDOFF_META] = t1
         if peer_device_capable(self.srcpad):
@@ -473,4 +518,4 @@ class TensorFilter(Element):
         )
         return DeviceStage(consts=backend_stage.consts, fn=fn, key=key,
                            device=backend_stage.device,
-                           hold=backend_stage.hold)
+                           hold=backend_stage.hold, mesh=backend_stage.mesh)

@@ -184,6 +184,11 @@ class TensorQueryClient(Element):
         self._r_instance = uuid.uuid4().hex
         self._r_next_id = 1  # monotone per-instance request id
         self._r_pending: List[_res.PendingEntry] = []
+        #: results that arrived ahead of an earlier request still in
+        #: flight, by request id: a reconnect's replays and a request
+        #: invoked before the flap can reach us out of order, and the
+        #: transport delivers in request order
+        self._r_held: Dict[int, tuple] = {}
         self._r_breakers: dict = {}  # (host, port) → CircuitBreaker
         #: (host, port) → EndpointStats — per-endpoint like the breakers,
         #: so hedge timeouts and balancer scores use the latency
@@ -373,6 +378,7 @@ class TensorQueryClient(Element):
             # in-flight requests die with the connection — a restart must
             # not pair old (pts, meta) with new results
             self._drop_pending_locked()
+            self._r_held.clear()
         super().stop()
 
     def transform_caps(self, pad, caps):
@@ -749,13 +755,15 @@ class TensorQueryClient(Element):
                 got = self._r_result(cmd, payload, self._r_pop_pending)
                 if got is None:
                     continue  # dedup replay of a delivered result
-                done.append(got)
+                self._r_held[got[1].req_id] = got
+                self._r_release_held(done)
                 failures = 0
             elif cmd is P.Cmd.EXPIRED:
                 req_id, _slack, _body = P.unpack_ext(payload)
                 entry = self._r_pop_pending(req_id)
                 if entry is not None:
                     self._note_expired(entry, req_id)
+                    self._r_release_held(done)
                 failures = 0
             elif cmd is P.Cmd.PING:
                 continue
@@ -772,7 +780,17 @@ class TensorQueryClient(Element):
             if n:
                 self.log.warning("reliable transport exhausted (%s); "
                                  "dropped %d frame(s)", err, n)
+            self._r_release_held(done)
         return done, err
+
+    def _r_release_held(self, done: List[tuple]) -> None:
+        """Move the held results that no request still in flight
+        precedes onto ``done``, in request order."""
+        first = min((e.req_id for e in self._r_pending), default=None)
+        for rid in sorted(self._r_held):
+            if first is not None and rid > first:
+                break
+            done.append(self._r_held.pop(rid))
 
     def _chain_resilient(self, buf):
         if self._refwire():

@@ -241,7 +241,11 @@ class TensorTransform(Element):
             return host_array(spec.apply(as_torch(t, torch.device("cpu"))))
         if self._device is None:
             self._device = resolve_device()
-        return spec(as_torch(t, self._device, non_blocking=True))
+        # a tensor on a card stays there (a sharded region's shard on its
+        # mesh device); host data goes to the element's device
+        dev = t.device if isinstance(t, torch.Tensor) and \
+            t.device.type == "cuda" else self._device
+        return spec(as_torch(t, dev, non_blocking=True))
 
     def chain(self, pad, buf):
         spec = self._get_spec()

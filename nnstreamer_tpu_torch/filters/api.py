@@ -50,6 +50,8 @@ class FilterProperties:
     model: Optional[str] = None          # path(s), comma-separated
     custom: Optional[str] = None         # backend-specific option string
     accelerator: Optional[str] = None    # e.g. "true:cuda", "true:cpu"
+    mesh: Optional[str] = None           # serving mesh spec, e.g. "dp4",
+                                         # "dp2xtp2" (parallel/serve.py)
     input_info: Optional[TensorsInfo] = None   # user-forced input shapes
     output_info: Optional[TensorsInfo] = None  # user-forced output shapes
     is_updatable: bool = False           # model hot-reload allowed

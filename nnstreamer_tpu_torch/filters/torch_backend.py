@@ -30,6 +30,14 @@ unchanged.
   ``invoke()`` returns before the card finishes.
 - **Shapes are probed on the meta device**: no data, no kernels.
 - ``accelerator=true:cpu`` (or ``false``) runs the same code on the CPU.
+- **Serving mesh** (``mesh=dp4``, ``parallel/serve.py``; ``NNSTPU_MESH=0``
+  ignores it): the module is replicated on every mesh device (one served
+  copy each; under an HBM budget one residency unit per shard, loaded,
+  evicted and retired as a group) and each invoke places its batch over
+  ``dp`` with ``serve.place_batch`` (a matched sharded input moves no
+  byte) and runs each device's shard on its copy. The outputs are
+  ``parallel.mesh.ShardedTensor``s. ``custom=sharding:<axis>`` shards the
+  batch over a one-axis mesh of every device the same way (not fusible).
 - **Fusible.** :meth:`TorchFilter.device_stage` hands the module to a
   fused region (``pipeline/fuse.py``), which on the card replays it inside
   one CUDA graph with the elements around it.
@@ -58,11 +66,14 @@ import torch
 from nnstreamer_tpu_torch.config import FOREIGN_MODEL_EXTS
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.filters.api import FilterFramework, FilterProperties
+from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.filters.tf_backend import TensorFlowFilter, is_tf_model
 from nnstreamer_tpu_torch.registry import FILTER, register_subplugin, subplugin
 from nnstreamer_tpu_torch.tensors import memory as _memory
 from nnstreamer_tpu_torch.tensors.buffer import as_torch
 from nnstreamer_tpu_torch.tensors.types import TensorInfo, TensorsInfo, TensorType
+
+log = get_logger("torch-backend")
 
 _registered: Dict[str, dict] = {}
 _reg_lock = threading.Lock()
@@ -234,8 +245,18 @@ class TorchFilter(FilterFramework):
         self._device: Optional[torch.device] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
-        #: the weights' residency unit under an HBM budget, else None
+        #: the weights' residency unit under an HBM budget, else None;
+        #: under a mesh the primary of a per-shard group whose keys are
+        #: ``_resident_keys``
         self._resident = None
+        self._resident_keys: List[str] = []
+        #: ``custom=sharding:<axis>`` (a BatchSharding) or the ``mesh=``
+        #: plan (a MeshPlan, parallel/serve.py); None on one device
+        self._sharding = None
+        self._mesh_plan = None
+        #: the served module on each mesh device (its first is
+        #: ``_module``); None on one device
+        self._replicas: Optional[List[torch.nn.Module]] = None
         #: the (possibly shared) module ``open()`` loaded, when it serves
         #: that object itself
         self._opened_from = None
@@ -260,6 +281,7 @@ class TorchFilter(FilterFramework):
         self._device = resolve_device(props.accelerator)
         if not model:
             raise ValueError("torch: model not set")
+        self._open_sharding(props)
         name = model.split(":", 1)[1] if model.startswith("registered:") \
             else model
         with _reg_lock:
@@ -281,8 +303,45 @@ class TorchFilter(FilterFramework):
                 # so a swap reaches no other user of the module and the
                 # graphs captured over the copy stay valid
                 self._module = copy.deepcopy(self._module)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
+            if self._sharding is not None:
+                self._replicas = self._replicate(self._module)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
         self._in_info = props.input_info or entry["in_info"]
         self._out_info = props.output_info or entry["out_info"]
+
+    # -- the serving mesh (parallel/) -----------------------------------------
+    def _open_sharding(self, props: FilterProperties) -> None:
+        """``custom=sharding:<axis>`` and the ``mesh=`` plan (the kill
+        switch ``NNSTPU_MESH=0`` ignores the property). Under either, the
+        backend computes on the mesh's devices; its first is the
+        controller's."""
+        from nnstreamer_tpu_torch.parallel import serve as _serve
+
+        self._sharding = self._mesh_plan = None
+        self._replicas = None  # nns-lint: disable=NNS201 -- called from open() only, before start() or inside reload() under the dispatch lock
+        for part in (props.custom or "").split(","):
+            if part.startswith("sharding:"):
+                from nnstreamer_tpu_torch.parallel.mesh import batch_sharding
+
+                self._sharding = batch_sharding(part.split(":", 1)[1])
+        if props.mesh:
+            if _serve.mesh_enabled():
+                self._mesh_plan = _serve.get_mesh_plan(props.mesh)
+                self._sharding = self._mesh_plan
+            else:
+                log.info("mesh=%s requested but NNSTPU_MESH=0: "
+                         "single-device path", props.mesh)
+        if self._sharding is not None:
+            self._device = self._mesh_devices()[0]
+
+    def _mesh_devices(self) -> List[torch.device]:
+        return [d.device for d in self._sharding.mesh.device_list()]
+
+    def _replicate(self, module: torch.nn.Module) -> List[torch.nn.Module]:
+        """One served copy of ``module`` on each mesh device: the first
+        is ``module`` (on the first device already), the others copies
+        of their own."""
+        return [module] + [copy.deepcopy(module).to(dev)  # nns-lint: disable=NNS113 -- replicated weights: each mesh device holds a copy, as the JAX backend's replicated placement
+                           for dev in self._mesh_devices()[1:]]
 
     # -- HBM residency (tensors/memory.py) -----------------------------------
     def _register_resident(self, acct, module: torch.nn.Module, key: str,
@@ -293,34 +352,62 @@ class TorchFilter(FilterFramework):
         tensors the unit's loader points at device copies of the host
         staging (``state``, default ``module``'s own tensors) and whose
         eviction points at empty tensors, freeing the storage. The unit
-        loads now, under the budget."""
-        device = self._device
+        loads now, under the budget.
 
-        def empty(t):
-            return torch.empty(0, dtype=t.dtype, device=device)
+        Under a mesh: ONE UNIT PER SHARD in a load/evict group — the
+        replicated placement puts a full copy on every device, so each
+        unit carries the full weight bytes and ``nns_mem_used_bytes``
+        sums to the real footprint; one load fills every device's twin
+        (``_replicas``), and ``_resident_keys`` lists every key so a swap
+        or ``close()`` retires the whole group."""
+        devices = self._mesh_devices() if self._sharding is not None \
+            else [self._device]
+
+        def empty(t, dev):
+            return torch.empty(0, dtype=t.dtype, device=dev)
 
         if state is None:
-            served = _eval(_meta_twin(module))
-            served._apply(empty)  # on the device, holding nothing yet
+            served = []
+            for dev in devices:
+                m = _eval(_meta_twin(module))
+                m._apply(lambda t, _d=dev: empty(t, _d))  # holding nothing yet
+                served.append(m)
         else:
-            served = self._module
+            served = self._replicas or [self._module]
         src = state if state is not None else _named_tensors(module)
         host = {n: t.detach().to("cpu", copy=True) for n, t in src.items()}
 
-        def load(staged, _m=served):
-            _rebind(_m, {n: t.to(device) for n, t in staged.items()})
-            return _m
+        def load(staged, _ms=served):
+            for m, dev in zip(_ms, devices):
+                _rebind(m, {n: t.to(dev) for n, t in staged.items()})
+            return _ms
 
-        def evict(_m=served):
-            if self._resident is not None and self._resident.key != key:
+        def evict(_ms=served):
+            if self._resident is not None and \
+                    key not in (self._resident.key, self._resident.group):
                 return  # a retired epoch's unit: the module is the new one's
-            _rebind(_m, {n: empty(t) for n, t in _named_tensors(_m).items()})
+            for m, dev in zip(_ms, devices):
+                _rebind(m, {n: empty(t, dev)
+                            for n, t in _named_tensors(m).items()})
 
-        self._resident = acct.residency.register(
-            key=key, host_value=host, nbytes=_memory.nbytes_of(host),
-            loader=load, label=label, on_evict=evict)
+        nbytes = _memory.nbytes_of(host)
+        if self._mesh_plan is None:
+            self._resident = acct.residency.register(
+                key=key, host_value=host, nbytes=nbytes, loader=load,
+                label=label, on_evict=evict)
+            self._resident_keys = [key]
+        else:
+            units = [acct.residency.register(
+                key=f"{key}:shard{k}", host_value=host, nbytes=nbytes,
+                loader=load, label=f"{label}#shard{k}", group=key,
+                on_evict=evict if k == 0 else None)
+                for k in range(len(devices))]
+            self._resident = units[0]
+            self._resident_keys = [u.key for u in units]
         self._resident.value()
-        return served
+        if self._sharding is not None:
+            self._replicas = served  # nns-lint: disable=NNS201 -- from open() (before start, or reload under the dispatch lock) or install_weights (under the dispatch lock)
+        return served[0]
 
     @contextlib.contextmanager
     def _hold(self):
@@ -379,26 +466,32 @@ class TorchFilter(FilterFramework):
             # the module is the registered one, which other filters may
             # serve: swap a copy (new storage, so the region captures once)
             self._module = copy.deepcopy(self._module)
-            current = _named_tensors(self._module)
+            if self._replicas:
+                self._replicas[0] = self._module
         acct = _memory.ACTIVE
         if self._resident is not None and acct is not None:
             old = self._resident
-            acct.residency.unregister(old.key)
-            out["retired"] = old.key
+            # retire the WHOLE previous epoch — under a mesh one unit per
+            # shard; one left behind would leak a full weight copy
+            for k in self._resident_keys or [old.key]:
+                acct.residency.unregister(k)
+            out["retired"] = old.group or old.key
             new_key = f"torch:{id(self)}:e{int(epoch)}"
             self._register_resident(acct, None, new_key,
                                     f"{self.props.model}@e{int(epoch)}",
                                     state=new)
             out["residency"] = new_key
             return out
+        modules = self._replicas or [self._module]
         with torch.no_grad():
-            for name, t in current.items():
-                v = new[name]
-                if v.shape == t.shape and v.dtype == t.dtype:
-                    t.copy_(v.to(t.device, non_blocking=True))
-                else:
-                    t.data = v.to(t.device)
-                    out["rebound"] += 1
+            for m in modules:
+                for name, t in _named_tensors(m).items():
+                    v = new[name]
+                    if v.shape == t.shape and v.dtype == t.dtype:
+                        t.copy_(v.to(t.device, non_blocking=True))
+                    else:
+                        t.data = v.to(t.device)
+                        out["rebound"] += 1
         return out
 
     def reload(self) -> None:
@@ -412,9 +505,12 @@ class TorchFilter(FilterFramework):
         if self._resident is not None:
             acct = _memory.ACTIVE
             if acct is not None:
-                acct.residency.unregister(self._resident.key)
+                for k in self._resident_keys or [self._resident.key]:
+                    acct.residency.unregister(k)
             self._resident = None
+            self._resident_keys = []
         self._module = None
+        self._replicas = None
         super().close()
 
     # -- model info ----------------------------------------------------------
@@ -475,31 +571,73 @@ class TorchFilter(FilterFramework):
             return self._device_stage()
 
     def _device_stage(self):
+        """Not fusible under ``custom=sharding:`` (the region would drop
+        that placement). A ``mesh=`` plan IS fusible: the stage's consts
+        are the per-device copies and it carries the mesh spec; the region
+        runs each device's shard (``pipeline/fuse.py``)."""
         if self._module is None:  # not open, or a TF model on the host
+            return None
+        if self._sharding is not None and self._mesh_plan is None:
             return None
         from nnstreamer_tpu_torch.pipeline.fuse import DeviceStage
 
         device = self._device
+        # under a mesh each device's copy computes on its device
+        devices = {} if self._replicas is None else {
+            id(m): d for m, d in zip(self._replicas, self._mesh_devices())}
 
         def fn(module, tensors):
-            xs = [as_torch(x, device, non_blocking=True) for x in tensors]
+            dev = devices.get(id(module), device)
+            xs = [as_torch(x, dev, non_blocking=True) for x in tensors]
             with torch.inference_mode():
                 out = module(*xs)
             return [out] if isinstance(out, torch.Tensor) else list(out)
 
+        if self._mesh_plan is not None:
+            return DeviceStage(consts=list(self._replicas), fn=fn,
+                               key=("torch", tuple(self._replicas)),
+                               hold=self._hold, mesh=self._mesh_plan.spec)
         return DeviceStage(consts=self._module, fn=fn,
-                           key=("torch", self._module), device=device,
+                           key=("torch", self._module), device=self._device,
                            hold=self._hold)
 
     # -- hot path ------------------------------------------------------------
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         if self._tf is not None:
             return self._tf.invoke(inputs)
+        if self._sharding is not None:
+            return self._invoke_sharded(inputs)
         xs = [as_torch(x, self._device, non_blocking=True) for x in inputs]
         with self._hold(), self.global_stats().measure(), \
                 torch.inference_mode():
             out = self._module(*xs)
         return [out] if isinstance(out, torch.Tensor) else list(out)
+
+    def _invoke_sharded(self, inputs: Sequence[Any]) -> List[Any]:
+        """The batch placed over the mesh (``serve.place_batch`` for a
+        ``mesh=`` plan: matched sharded inputs move no byte), each
+        device's shard through its copy of the module; sharded outputs
+        for a ``mesh=`` plan (the filter element gathers them unless they
+        hand off), gathered ones under ``custom=sharding:``."""
+        from nnstreamer_tpu_torch.parallel import serve as _serve
+
+        plan = self._sharding
+        if self._mesh_plan is not None:
+            xs = [_serve.place_batch(x, plan) for x in inputs]
+        else:
+            xs = [_serve.place_on(x, plan, count=False) for x in inputs]
+        per_device = []
+        with self._hold(), self.global_stats().measure(), \
+                torch.inference_mode():
+            for i, module in enumerate(self._replicas):
+                out = module(*(x.shards[i] for x in xs))
+                per_device.append([out] if isinstance(out, torch.Tensor)
+                                  else list(out))
+        outs = _serve.shard_outputs(per_device, xs, plan.mesh)
+        if self._mesh_plan is None:
+            # custom=sharding: has no hand-off contract: gathered here
+            outs = [_serve.gather(x) for x in outs]
+        return outs
 
 
 # reference launch strings name framework=jax

@@ -28,6 +28,14 @@ tokens. Their scatters never index out of range (a CUDA device-side
 assert): a write the JAX package drops (``mode="drop"``) lands in the
 arena's private trash block, at the same fixed shape.
 
+Under a serving mesh (``parallel/sharded.py``) the same step functions
+run on each device's shards. The layer math then meets the other
+tensor-parallel ranks at four collectives (:func:`tp_sum`,
+:func:`tp_gather`): after the attention projection and after the FFN
+(partial products over the rank's heads and hidden units), at the
+embedding (its model dimension is split) and at the logits. Outside a
+tp group they return their input.
+
 Sampling (:func:`make_sampler`) is the JAX sampler's filter with a
 counter-based draw: Philox4x32-10 keyed by (seed, stream id) at the
 position of the token being drawn, then the inverse CDF of the filtered
@@ -38,8 +46,10 @@ softmax. The repo-loop stream steps (:func:`build_greedy_stream_step`,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -128,6 +138,46 @@ def prepare_params(params: Params, cfg: TransformerConfig,
             for k, v in params.items()}
 
 
+# -- tensor-parallel collectives ------------------------------------------------
+#: the calling thread's tp group and rank (``parallel/sharded.run_tp``)
+_tp = threading.local()
+
+
+@contextlib.contextmanager
+def tp_rank(group, rank: int):
+    """Run the layer math in this thread as ``rank`` of ``group`` (a
+    ``parallel.sharded.TpGroup``)."""
+    outer = getattr(_tp, "state", None)
+    _tp.state = (group, rank)
+    try:
+        yield
+    finally:
+        _tp.state = outer
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the calling thread's tp group (the partial
+    products of a split contraction), else ``x``."""
+    state = getattr(_tp, "state", None)
+    return x if state is None else state[0].all_reduce(state[1], x)
+
+
+def tp_gather(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s last dimension gathered over the tp group, else ``x``."""
+    state = getattr(_tp, "state", None)
+    return x if state is None else state[0].all_gather(state[1], x, -1)
+
+
+def _logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x @ embed.T`` against the tied embedding; under tp the rank
+    holds columns of the embedding and contracts its slice of ``x``."""
+    state = getattr(_tp, "state", None)
+    if state is not None:
+        dl = embed.shape[-1]
+        x = x[..., state[1] * dl:(state[1] + 1) * dl]
+    return tp_sum(torch.matmul(x.float(), embed.t()))
+
+
 # -- the shared layer math ---------------------------------------------------
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
@@ -192,13 +242,13 @@ def _block_tail(x, a, lp, cfg):
     dtype = cfg.dtype
     b, s = a.shape[:2]
     proj = lp["proj"].to(dtype)                             # [h, c, d]
-    x = x + torch.matmul(a.reshape(b, s, -1),
-                         proj.reshape(-1, proj.shape[-1]))
+    x = x + tp_sum(torch.matmul(a.reshape(b, s, -1),
+                                proj.reshape(-1, proj.shape[-1])))
     h2 = _rmsnorm(x, lp["ln2"])
     if cfg.num_experts:
-        return x + _moe_ffn(h2, lp["router"], lp["w_in"], lp["w_out"],
-                            dtype)
-    return x + _dense_ffn(h2, lp["w_in"], lp["w_out"], dtype)
+        return x + tp_sum(_moe_ffn(h2, lp["router"], lp["w_in"],
+                                   lp["w_out"], dtype))
+    return x + tp_sum(_dense_ffn(h2, lp["w_in"], lp["w_out"], dtype))
 
 
 def _attend_cache(q, ck, cv, mask, head_dim, dtype):
@@ -215,7 +265,7 @@ def _attend_cache(q, ck, cv, mask, head_dim, dtype):
 def _final_logits(x, params):
     """Final rmsnorm + tied-embedding projection in fp32."""
     x = _rmsnorm(x, params["ln_f"])
-    return torch.matmul(x.float(), params["embed"].t())
+    return _logits(x, params["embed"])
 
 
 def _layer(params: Params, l: int) -> Params:
@@ -226,7 +276,7 @@ def _layer(params: Params, l: int) -> Params:
 def _embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # embed.astype(dtype)[tokens]: gather then cast gives the same values
     # without casting the whole table
-    return params["embed"][tokens.long()].to(dtype)
+    return tp_gather(params["embed"][tokens.long()].to(dtype))
 
 
 def make_layer_body(cfg: TransformerConfig,
@@ -576,17 +626,17 @@ def build_prefill(cfg: TransformerConfig,
         for l in range(cfg.n_layers):
             x, kv = layer_body(x, positions, _layer(params, l))
             kvs.append(kv)
+        # the heads this device holds (all of them but under tp)
         cache = codec.place_prefix(
-            codec.init(cfg.n_layers, b, s_max, cfg.n_heads, cfg.head_dim,
-                       dev), torch.stack(kvs))
+            codec.init(cfg.n_layers, b, s_max, params["qkv"].shape[3],
+                       cfg.head_dim, dev), torch.stack(kvs))
         x = _rmsnorm(x, params["ln_f"])
         if lengths is None:
             last = x[:, -1]
         else:
             idx = (torch.as_tensor(lengths, device=dev).long() - 1)  # nns-lint: disable=NNS113 -- one length int per prompt row
             last = x[torch.arange(b, device=dev), idx]
-        logits = torch.matmul(last.float(), params["embed"].t())
-        return logits, cache
+        return _logits(last, params["embed"]), cache
 
     return prefill
 

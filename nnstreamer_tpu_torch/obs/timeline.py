@@ -44,7 +44,8 @@ latency:
 - ``sched_hold``  EDF-heap residency in a scheduler-mode queue (the SLO
                   scheduler, ``serving/scheduler.py``)
 - ``fence_wait``  dispatch-window fence block for the frame's own entry
-- ``shard``       mesh placement (ROADMAP A.24: never recorded yet)
+- ``shard``       mesh placement: a ``mesh=`` filter's or sharded
+                  region's ``serve.place_batch`` before its invoke
 - ``device``      filter/fused-region invoke: on CUDA the HOST's enqueue
                   of the region's graph replay (or the filter's kernels),
                   not kernel time — launches are asynchronous, so the

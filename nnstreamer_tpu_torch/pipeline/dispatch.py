@@ -77,14 +77,16 @@ def release_shed_payload(buf) -> None:
 
 def batch_event(tensors):
     """An event recorded on the current stream of the first CUDA tensor's
-    device, or None when no tensor lies on a card."""
-    for t in tensors:
-        if is_device_array(t) and t.device.type == "cuda":
-            import torch
+    device (a sharded tensor's shards count), or None when no tensor lies
+    on a card."""
+    for x in tensors:
+        for t in getattr(x, "shards", (x,)):
+            if is_device_array(t) and t.device.type == "cuda":
+                import torch
 
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(t.device))
-            return ev
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(t.device))
+                return ev
     return None
 
 

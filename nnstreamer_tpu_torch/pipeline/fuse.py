@@ -67,10 +67,22 @@ used under a budget (the JAX filter is not fusible then); the port keeps
 the region and pays a capture per reload. A region that holds two weight
 units needs both resident at once.
 
+A member carrying a ``mesh=`` spec (``parallel/serve.py``) makes the
+whole region sharded: every frame tensor is placed over the mesh
+(``serve.place_batch``: a matched sharded input moves no byte) before
+anything else, and each mesh device runs the composed stages on its
+shard, with its own copy of the weights — on the card one CUDA graph per
+device and signature, each launching its kernels once per shard. Mixed
+specs in one run are a plan-time :class:`MeshShardingError`; the spec is
+part of the region's key. :func:`verify_mesh_boundaries` checks, at
+``Pipeline.start()``, that every device hand-off between sharded
+invokers joins equal specs, and lets a producer whose consumers all match
+hand its sharded outputs on as they are; any other sharded output is
+gathered onto the mesh's first device.
+
 What the JAX module has and this one does not: donation of the input slab
 (``NNSTPU_DONATE``) has no counterpart, since the graph reads static input
-buffers into which each frame is copied; a mesh-sharded stage raises
-(A.24).
+buffers into which each frame is copied.
 
 Disable globally with ``NNSTPU_FUSE=0`` or per pipeline with
 ``Pipeline(fuse=False)``.
@@ -93,6 +105,7 @@ from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.ops import _counts
+from nnstreamer_tpu_torch.parallel import serve as _serve
 from nnstreamer_tpu_torch.pipeline import faults as _faults
 from nnstreamer_tpu_torch.pipeline.element import (
     CustomEvent,
@@ -102,7 +115,6 @@ from nnstreamer_tpu_torch.pipeline.element import (
     FlowError,
     Pad,
     QosEvent,
-    not_ported,
     peer_device_capable,
 )
 from nnstreamer_tpu_torch.pipeline.dispatch import (
@@ -142,7 +154,8 @@ class DeviceStage:
     #: the device the stage computes on and its consts live on; None for
     #: a stage that runs where its inputs lie (a decoder's device half)
     device: Optional[torch.device] = None
-    #: the JAX stage's serving-mesh spec: not ported
+    #: the serving-mesh spec the stage computes under; its ``consts`` are
+    #: then one per mesh device (a copy of the weights each)
     mesh: Optional[str] = None
     #: ``hold() -> context manager`` keeping the consts' device storage
     #: in place and unchanged for one dispatch (the torch backend's
@@ -151,11 +164,6 @@ class DeviceStage:
     #: whenever that storage was made anew (an evicted unit reloaded),
     #: which drops the region's graphs
     hold: Optional[Callable[[], Any]] = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise not_ported("mesh-sharded region stages (mesh=)",
-                             "A.24 multi-GPU serving")
 
 
 def _storage_pin(consts) -> Optional[tuple]:
@@ -307,8 +315,9 @@ class FusedRegion(Element):
         self._keys: Optional[list] = None
         self._seen: set = set()
         self._graphs: Dict[tuple, _Graph] = {}
-        self._pool = None    # the graphs' shared memory pool (lazy)
-        self._stream = None  # the capture stream (lazy)
+        #: per device: the capture stream and the graphs' shared memory
+        #: pool (lazy; a sharded region captures on every mesh device)
+        self._streams: Dict[torch.device, tuple] = {}
         self._dead = False   # set when un-spliced back out of the graph
         self._m_retrace = None
         self._m_whole = None
@@ -319,6 +328,12 @@ class FusedRegion(Element):
         self.captures = 0
         #: frames dropped by a downstream QoS interval before dispatch
         self.qos_drops = 0
+        #: serving MeshPlan adopted from the members' mesh= specs (set by
+        #: _build); None = single-device region
+        self._mesh_plan = None
+        #: set by verify_mesh_boundaries: every consumer down the device
+        #: hand-off is a matched sharded invoker (outputs stay sharded)
+        self._mesh_handoff = False
 
     # -- stage (re)build -----------------------------------------------------
     def _build(self):
@@ -334,6 +349,22 @@ class FusedRegion(Element):
             raise FlowError(f"fused region {self.name}: members compute on "
                             f"{sorted(str(d) for d in devices)}")
         device = devices.pop() if devices else None
+        # mesh adoption: a member carrying a mesh= spec shards the WHOLE
+        # region over that mesh. One region has one mesh — mixed specs
+        # inside a run are a hard plan-time error (NOT a FlowError:
+        # silently unsplicing to per-element dispatch would hide a
+        # sharding contract violation)
+        specs = sorted({st.mesh for st in stages if st.mesh is not None})
+        if len(specs) > 1:
+            raise _serve.MeshShardingError(
+                f"fused region {self.name}: members carry mixed mesh specs "
+                f"{specs}; align the mesh= properties or split the run "
+                f"with a non-fusible element")
+        plan = _serve.get_mesh_plan(specs[0]) \
+            if specs and _serve.mesh_enabled() else None
+        self._mesh_plan = plan
+        if plan is not None:
+            device = plan.mesh.device_list()[0].device
         # the device is part of what a graph computes: a stage key names
         # the computation, not where it runs; the storage pin names the
         # addresses its consts hold, which a graph replays
@@ -341,6 +372,8 @@ class FusedRegion(Element):
                 for st, pin in ((st, _storage_pin(st.consts))
                                 for st in stages)]
         keys.append(("device", str(device)))
+        # the same member stages run per shard on another mesh
+        keys.append(("mesh", plan.spec if plan is not None else ""))
         # a None key means "cannot prove the computation is unchanged"
         if any(k is None for k in keys) or keys != self._keys:
             self._keys = None if any(k is None for k in keys) else keys
@@ -354,8 +387,14 @@ class FusedRegion(Element):
             return list(tensors)
 
         holds = [st.hold for st in stages if st.hold is not None]
-        compiled = ([st.consts for st in stages], composed,
-                    stages[-1].finalize, device, holds)
+        consts = [st.consts for st in stages]
+        if plan is not None:
+            # one consts list per mesh device: a sharded stage's own copy
+            # there, every other stage's consts as they are
+            consts = [[st.consts[i] if st.mesh is not None else st.consts
+                       for st in stages] for i in range(plan.shard_count)]
+        compiled = (consts, composed, stages[-1].finalize, device, holds,
+                    plan)
         self._compiled = compiled
         if self._m_whole is None:
             ref = weakref.ref(self)
@@ -518,7 +557,9 @@ class FusedRegion(Element):
         """One frame through the replayed graph, or the composed stages
         (and a capture) for a new signature: the buffer to push, or
         :class:`_Pushed` when the member chain took the frame."""
-        consts, fn, finalize, device, _holds = compiled
+        if compiled[5] is not None:
+            return self._dispatch_mesh(buf, compiled, seq, t_dev0, tl)
+        consts, fn, finalize, device, _holds, _plan = compiled
         stash = buf.meta.pop(POOL_STASH_META, None)
         tensors = list(buf.tensors)
         sig = _signature(tensors)
@@ -546,6 +587,11 @@ class FusedRegion(Element):
                 if stash:
                     buf.meta[POOL_STASH_META] = stash
                 return _Pushed(self._fallback(buf))
+        return self._emit(buf, out, stash, finalize, seq, t_dev0, tl)
+
+    def _emit(self, buf, out, stash, finalize, seq, t_dev0, tl):
+        """The dispatched frame's output buffer, admitted to the dispatch
+        window."""
         # bounded asynchronous dispatch: the event follows the output
         # copies on this stream; the oldest batch fences only when more
         # than `inflight` are outstanding, and this frame's staging
@@ -565,6 +611,57 @@ class FusedRegion(Element):
             out_buf = as_device_buffer(out_buf)
         return out_buf
 
+    def _dispatch_mesh(self, buf, compiled, seq, t_dev0, tl):
+        """One frame of a sharded region: placed over the mesh, then each
+        device's shard through the composed stages with that device's
+        consts — a replay of the device's graph for a known signature on
+        the card, else the stages (and, on the card, a capture)."""
+        consts, fn, finalize, _device, _holds, plan = compiled
+        stash = buf.meta.pop(POOL_STASH_META, None)
+        # mesh placement first: an input already carrying the plan's
+        # placement (the matched hand-off from an upstream sharded
+        # invoker) passes through untouched — zero bytes,
+        # nns_reshard_bytes_total unmoved; host arrays scatter over dp.
+        # The placement is the frame's "shard" span; "device" starts after
+        args = [_serve.place_batch(t, plan) for t in buf.tensors]
+        if tl is not None and seq is not None:
+            t_sh1 = time.monotonic()
+            tl.span("shard", seq, t_dev0, t_sh1, track=self.name)
+            t_dev0 = t_sh1
+        per_device = []
+        for i, md in enumerate(plan.mesh.device_list()):
+            dev = md.device
+            local = [a.shards[i] for a in args]
+            sig = (i, _signature(local))
+            on_card = dev.type == "cuda"
+            graph = self._graphs.get(sig) if on_card else None
+            if graph is not None:
+                with torch.cuda.device(dev):
+                    out = graph.replay(local)
+                self.replays += 1
+            elif not on_card and sig in self._seen:
+                out = fn(consts[i], local)
+                self.eager_frames += 1
+            else:
+                try:
+                    out = self._first_frame(consts[i], fn, dev, sig, local,
+                                            on_card)
+                except Exception as e:  # noqa: BLE001 — as _dispatch
+                    log.warning("%s: fused stages failed (%s); falling "
+                                "back to member chain", self.name, e)
+                    if stash:
+                        buf.meta[POOL_STASH_META] = stash
+                    return _Pushed(self._fallback(buf))
+            per_device.append(out)
+        out = _serve.shard_outputs(per_device, args, plan.mesh)
+        if not self._mesh_handoff:
+            # the mesh's egress: one tensor each on its first device
+            out = [_serve.gather(x) for x in out]
+        out_buf = self._emit(buf, out, stash, finalize, seq, t_dev0, tl)
+        # the hand-off names the mesh this batch was computed on
+        out_buf.meta[_serve.MESH_SPEC_META] = plan.spec
+        return out_buf
+
     def _first_frame(self, consts, fn, device, sig, tensors, on_card):
         """The first frame of a new signature: through the composed stages
         and, on the card, captured."""
@@ -580,17 +677,19 @@ class FusedRegion(Element):
         return out
 
     def _capture_stream(self, device: torch.device):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._stream
+        """``device``'s capture stream and graph memory pool."""
+        if device not in self._streams:
+            with torch.cuda.device(device):
+                self._streams[device] = (torch.cuda.Stream(device),
+                                         torch.cuda.graph_pool_handle())
+        return self._streams[device]
 
     def _run_and_capture(self, consts, fn, device, tensors):
         """The eager first frame, on the capture stream and synchronised
         (its output is the frame's; it also builds and loads the kernel
         libraries and sets up cuBLAS and cuDNN for that stream outside the
         capture), then one capture of the same stages on static inputs."""
-        stream = self._capture_stream(device)
+        stream, pool = self._capture_stream(device)
         cur = torch.cuda.current_stream(device)
         ins = [as_torch(t, device, non_blocking=True) for t in tensors]
         stream.wait_stream(cur)
@@ -612,7 +711,7 @@ class FusedRegion(Element):
         # "thread_local": the pipeline's other threads (a queue worker, a
         # sink's fetch) keep calling CUDA while this thread captures
         with _counts.capture_tally() as tally, torch.cuda.graph(
-                graph, pool=self._pool, stream=stream,
+                graph, pool=pool, stream=stream,
                 capture_error_mode="thread_local"):
             static_out = fn(consts, static_in)
         self.captures += 1
@@ -769,3 +868,103 @@ def fuse_pipeline(pipe) -> List[FusedRegion]:
         region.splice(pipe)
         regions.append(region)
     return regions
+
+
+# --------------------------------------------------------------------------
+# plan-time matched-sharding verification (parallel/serve.py contract)
+# --------------------------------------------------------------------------
+def _element_plan(el):
+    """The serving-mesh plan this element invokes under, or None: a
+    sharded fused region's (``_mesh_plan`` from _build) or an UNFUSED
+    tensor_filter's backend's."""
+    plan = getattr(el, "_mesh_plan", None)
+    if plan is None:
+        plan = getattr(getattr(el, "fw", None), "_mesh_plan", None)
+    return plan
+
+
+def _element_mesh_spec(el) -> Optional[str]:
+    plan = _element_plan(el)
+    return plan.spec if plan is not None else None
+
+
+def verify_mesh_boundaries(pipe) -> None:
+    """PLAN-time check of the matched-sharding contract: every device-
+    passthrough hand-off between two mesh-sharded invokers must carry
+    identical mesh specs, so the producer's out-placement equals the
+    consumer's in-placement and the hand-off moves ZERO bytes. A mismatch
+    raises :class:`~nnstreamer_tpu_torch.parallel.serve.MeshShardingError`
+    before any frame flows. (Hand-offs that cross a non-passthrough
+    element materialize to host anyway and are exempt.)
+
+    A producer all of whose hand-offs end at matched consumers keeps its
+    outputs sharded (``_mesh_handoff``); every other sharded invoker
+    gathers its outputs onto the mesh's first device.
+
+    Runs in ``Pipeline.start()`` after regions build; inert when no
+    element carries a mesh plan or ``NNSTPU_MESH=0``.
+    """
+    producers = []
+    for el in _live_invokers(pipe):
+        if hasattr(el, "_mesh_handoff"):
+            el._mesh_handoff = False
+        spec = _element_mesh_spec(el) if _serve.mesh_enabled() else None
+        if spec is not None:
+            producers.append((el, spec))
+    for el, spec in producers:
+        matched = [_walk_boundary(el, spec, pad, set()) for pad in el.srcpads]
+        el._mesh_handoff = bool(matched) and all(matched)
+
+
+def _live_invokers(pipe):
+    """Pipeline elements buffers actually flow through: added elements
+    minus fused members, plus the spliced regions themselves (regions
+    live in ``pipe._regions``, not ``pipe.elements``)."""
+    for el in getattr(pipe, "elements", []):
+        if getattr(el, "_fused_region", None) is not None:
+            continue  # fused member: its pads are re-routed
+        yield el
+    for r in (getattr(pipe, "_regions", None) or ()):
+        if not getattr(r, "_dead", False):
+            yield r
+
+
+def pipeline_shard_count(pipe) -> int:
+    """Largest serving-mesh fan-out any invoker in the pipeline runs
+    under (1 = single device) — the SLO scheduler aligns its admission
+    batch cap to a multiple of this so every admitted micro-batch splits
+    evenly over dp shards."""
+    n = 1
+    for el in _live_invokers(pipe):
+        plan = _element_plan(el)
+        if plan is not None:
+            n = max(n, int(plan.shard_count))
+    return n
+
+
+def _walk_boundary(producer, spec: str, pad: Pad, seen: set) -> bool:
+    """Follow ``producer``'s device hand-off from ``pad``: raise on a
+    consumer of another spec; True when every path ends at a consumer of
+    the same spec."""
+    peer = pad.peer
+    if peer is None:
+        return False
+    el = peer.element
+    if id(el) in seen:
+        return True
+    seen.add(id(el))
+    consumer_spec = _element_mesh_spec(el)
+    if consumer_spec is not None:
+        if consumer_spec != spec:
+            raise _serve.MeshShardingError(
+                f"mesh boundary {producer.name} -> {el.name}: producer "
+                f"shards over mesh={spec!r} but consumer expects "
+                f"mesh={consumer_spec!r} — the hand-off would reshard "
+                f"every frame; align the mesh= properties (or break "
+                f"residency with a non-device-passthrough element to "
+                f"make the host bounce explicit)")
+        return True  # matched; the consumer's own outputs get their walk
+    if not getattr(el, "DEVICE_PASSTHROUGH", False) or not el.srcpads:
+        return False  # materializes to host — no device hand-off past here
+    results = [_walk_boundary(producer, spec, p, seen) for p in el.srcpads]
+    return all(results)

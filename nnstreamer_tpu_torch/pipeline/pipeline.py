@@ -972,6 +972,29 @@ class Pipeline:
         return _continuity.restore(self, directory)
 
     # -- state ----------------------------------------------------------------
+    def _plan_mesh(self) -> None:
+        """The serving mesh (``parallel/serve.py``), once every region and
+        backend holds its plan: verify the matched-sharding contract
+        across device-passthrough boundaries (a mismatch is a hard
+        ``MeshShardingError`` here, before any frame could reshard), then
+        align the SLO scheduler's admission quantum and the batch formers'
+        windows to the mesh's fan-out so batches split evenly. Both are
+        no-ops without a ``mesh=`` property (or with ``NNSTPU_MESH=0``)."""
+        from nnstreamer_tpu_torch.pipeline.fuse import (
+            pipeline_shard_count,
+            verify_mesh_boundaries,
+        )
+
+        verify_mesh_boundaries(self)
+        quantum = pipeline_shard_count(self)
+        if self._slo_scheduler is not None:
+            self._slo_scheduler.note_mesh(quantum)
+        if quantum > 1:
+            for el in self.elements:
+                hook = getattr(el, "note_mesh_quantum", None)
+                if hook is not None:
+                    hook(quantum)
+
     def start(self) -> "Pipeline":
         """NULL→PLAYING: start all elements (non-sources first so queues and
         filters are ready), splice fused regions over them and then ingest
@@ -1030,6 +1053,7 @@ class Pipeline:
             for r in self._regions or ():
                 r.start()
                 started.append(r)
+            self._plan_mesh()
             # lanes after fusion: a transform folded into a region is out
             # of the replicable segment, so its math stays in the graph
             if self._lane_execs is None:

@@ -89,6 +89,15 @@ class QueryServer:
         self._dedup: Dict[str, _res.DedupWindow] = {}
         self._instances: Dict[str, int] = {}      # instance → live client id
         self._conn_instance: Dict[int, str] = {}  # client id → instance
+        #: (instance, req_id) → the client id its reply is owed to: the
+        #: connection the request arrived on, or the one whose resend of
+        #: it found it still in flight. A reply goes only there: sent to
+        #: whatever connection the instance holds now, a reply could
+        #: overtake the replays that connection's resends are about to
+        #: get, or go to a dead connection after the resend was dropped
+        #: as a duplicate. Read and written under ``_clients_lock``
+        #: together with the dedup admit and resolve.
+        self._owed: Dict[tuple, int] = {}
         #: instances that negotiated the dt1 distributed-trace feature
         #: in their HELLO (obs/distributed) — only these ever see EX2
         self._dt1_instances: set = set()
@@ -336,15 +345,22 @@ class QueryServer:
         with self._clients_lock:
             instance = self._conn_instance.get(client_id)
             dedup = self._dedup.get(instance) if instance else None
+            verdict = None if dedup is None else dedup.admit(req_id)
+            # a connection the instance has left behind (its handler
+            # still reading what arrived before the flap) keeps no
+            # claim on a request a newer connection already resent
+            if verdict is _res.NEW or (
+                    verdict is _res.PENDING and
+                    self._instances.get(instance) == client_id):
+                self._owed[(instance, req_id)] = client_id
         if dedup is None:
             self._m_errors.inc()
             log.warning("TRANSFER_EX from client %d before HELLO; "
                         "disconnecting it", client_id)
             return False
-        verdict = dedup.admit(req_id)
         if verdict is _res.PENDING:
-            # original invocation still in flight — its reply will route
-            # to this instance's current connection when it lands
+            # original invocation still in flight — its reply is now owed
+            # to this connection and goes here when it lands
             self.dedup_hits += 1
             _res.metrics()["dedup_hits"].inc()
             return True
@@ -367,7 +383,9 @@ class QueryServer:
             # disconnect, same as the classic TRANSFER path. Forget the
             # dedup admit so the client's resend of the intact frame
             # invokes instead of being dropped as a duplicate
-            dedup.forget(req_id)
+            with self._clients_lock:
+                dedup.forget(req_id)
+                self._owed.pop((instance, req_id), None)
             self._m_errors.inc()
             log.warning("bad frame from client %d (%s); disconnecting it",
                         client_id, e)
@@ -404,14 +422,15 @@ class QueryServer:
         reply = (P.Cmd.EXPIRED, P.pack_ext(req_id, -1.0))
         with self._clients_lock:
             dedup = self._dedup.get(instance)
-        if dedup is not None:
-            dedup.resolve(req_id, reply)
+            if dedup is not None:
+                dedup.resolve(req_id, reply)
+            cid = self._owed.pop((instance, req_id), None)
+            if conn is None:
+                if cid is None:
+                    cid = self._instances.get(instance)
+                conn = self._clients.get(cid) if cid is not None else None
         self.remote_expired += 1
         _res.metrics()["expired_remote"].inc()
-        if conn is None:
-            with self._clients_lock:
-                cid = self._instances.get(instance)
-                conn = self._clients.get(cid) if cid is not None else None
         if conn is None:
             return
         try:
@@ -526,16 +545,14 @@ class QueryServer:
                         req_id: int) -> bool:
         """Resilient result: cache the reply in the instance's dedup
         window (so a post-reconnect resend replays it), then send it to
-        the instance's CURRENT connection — which, after a flap, is a
-        different client id than the one the request arrived on. The
+        the connection it is owed to (``_owed``) — after a flap, the one
+        whose resend found the request still in flight, a different
+        client id than the one the request arrived on. The
         cached reply is the packed frame (``pack_buffer`` fetches a
         device result to the host once), never the tensor."""
         instance = buf.meta.get("net_instance")
         with self._clients_lock:
             dedup = self._dedup.get(instance) if instance else None
-            cid = self._instances.get(instance, client_id) \
-                if instance else client_id
-            conn = self._clients.get(cid)
             dt1 = instance in self._dt1_instances if instance else False
         dist = buf.meta.get("dist_trace")
         if dt1 and isinstance(dist, dict):
@@ -560,8 +577,14 @@ class QueryServer:
         else:
             reply = (P.Cmd.RESULT_EX, P.pack_ext(req_id, -1.0,
                                                  P.pack_buffer(buf)))
-        if dedup is not None:
-            dedup.resolve(req_id, reply)
+        with self._clients_lock:
+            if dedup is not None:
+                dedup.resolve(req_id, reply)
+            # the connection the reply is owed to (see ``_owed``); after
+            # the resolve, a resend on a newer connection replays it
+            cid = self._owed.pop((instance, req_id), client_id) \
+                if instance else client_id
+            conn = self._clients.get(cid)
         if conn is None:
             # cached for replay: the client's reconnect resend gets it
             log.info("result for instance %s req %d cached (no live "

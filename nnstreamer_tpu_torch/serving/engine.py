@@ -75,8 +75,18 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
   finished request's submit-to-finish time feeds the estimate. The paged
   engine's streams carry its budget as their deadline.
 
-The option of the JAX engine that is not ported yet raises with its
-ROADMAP item: ``mesh`` (A.24). Under the HBM accountant the paged pool
+- **Serving mesh** (``mesh``, a ``parallel.mesh.Mesh``): the params are
+  placed per ``parallel.sharded.transformer_param_specs`` (heads and the
+  FFN over ``tp``; axes the mesh lacks pruned to replicated), the cache
+  shards batch slots over ``dp`` and heads over ``tp``, the paged arena
+  blocks over ``dp`` (its block count padded to divide) and heads over
+  ``tp``; ``parallel.sharded.ShardedLM`` runs each step shard by shard.
+  Prefill keeps plain attention, as the JAX engine keeps XLA attention
+  under a mesh. ``speculate`` raises under a mesh. On one card the
+  K-step dispatch stays one captured graph per (B, K); a mesh of several
+  cards dispatches eagerly.
+
+Under the HBM accountant the paged pool
 registers its arena under ``kvcache``, a dropped paged prefix entry
 counts ``nns_mem_pressure_events_total{rung="evict"}`` and a shed stream
 ``{rung="shed"}``. :meth:`ContinuousBatchingEngine.close` stops the
@@ -99,11 +109,11 @@ import torch
 from nnstreamer_tpu_torch.device import resolve_device
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.models.transformer import (
+    KVCache,
     philox_uniforms,
     sampling_key,
 )
 from nnstreamer_tpu_torch.ops import _counts
-from nnstreamer_tpu_torch.pipeline.element import not_ported
 
 log = get_logger("serving")
 
@@ -381,7 +391,14 @@ class ContinuousBatchingEngine:
         keeps the monolithic cache.
     kv_blocks: arena size in blocks (paged mode); defaults to
         ``max_streams * max_seq / block_tokens``, the monolithic cache's
-        bytes.
+        bytes (under a mesh padded so the blocks with the zero block
+        divide over dp).
+    mesh: a ``parallel.mesh.Mesh`` (``parallel.make_mesh``) — serving over
+        several devices: params per ``parallel.sharded.
+        transformer_param_specs`` (heads and the FFN over ``tp``), the
+        cache's slots and the arena's blocks over ``dp``
+        (``max_streams`` and ``n_heads`` must divide); plain attention;
+        the engine's device is the mesh's first. None: one device.
     temperature, top_k, min_p: sampling (``models.transformer.
         make_sampler``); ``temperature <= 0`` (default) is greedy and
         ignores ``top_k`` and ``min_p``.
@@ -458,8 +475,6 @@ class ContinuousBatchingEngine:
         from nnstreamer_tpu_torch.serving import kvpool as _kvpool
         from nnstreamer_tpu_torch.utils.stats import InvokeStats
 
-        if mesh is not None:
-            raise not_ported("multi-device serving (mesh=)", "A.24")
         if attention not in ("auto", "reference"):
             raise ValueError(
                 f"serving: attention must be 'auto' or 'reference', got "
@@ -494,21 +509,65 @@ class ContinuousBatchingEngine:
         self._chunk_fn = build_chunk_decode(cfg, self.S, kv_codec=kv_quant)
         self.device = resolve_device() if device is None \
             else torch.device(device)
-        if attention == "auto" and self.device.type == "cuda" and \
+        #: the serving mesh's sharded steps (parallel/sharded.py); None
+        #: on one device
+        self._lm = None
+        if mesh is not None:
+            from nnstreamer_tpu_torch.parallel import serve as _serve
+            from nnstreamer_tpu_torch.parallel.mesh import P
+            from nnstreamer_tpu_torch.parallel.sharded import (
+                ShardedLM,
+                transformer_param_specs,
+            )
+
+            def axis(name, dim, total):
+                if name not in mesh.axis_names or mesh.shape[name] <= 1:
+                    return None
+                if total % mesh.shape[name]:
+                    raise ValueError(
+                        f"serving: {dim} ({total}) must divide by mesh "
+                        f"axis {name!r} ({mesh.shape[name]})")
+                return name
+
+            dp = axis("dp", "max_streams", self.B)
+            tp = axis("tp", "n_heads", cfg.n_heads)
+            # the mesh's first device is the controller's: host inputs
+            # land there and results gather there
+            self.device = mesh.device_list()[0].device
+
+            def prune(spec):
+                # drop axis names the mesh doesn't have (a dp-only
+                # serving mesh has no "tp"): replicated on that dimension
+                return P(*(a if (a is not None and a in mesh.axis_names)
+                           else None for a in spec))
+
+            specs = {k: prune(sp)
+                     for k, sp in transformer_param_specs(cfg).items()}
+        elif attention == "auto" and self.device.type == "cuda" and \
                 not kernel_takes(cfg.head_dim):
             raise ValueError(
                 f"serving: kernel B2 does not take head_dim "
                 f"{cfg.head_dim} (a multiple of 8, at most 256); pass "
                 "attention='reference' for plain attention")
-        self.params = prepare_params(params, cfg, self.device)
+        if mesh is None:
+            self.params = prepare_params(params, cfg, self.device)
+        else:
+            # serving-plane placement: per-shard bytes register with the
+            # budget accountant when one is active
+            self.params = _serve.place_params(
+                prepare_params(params, cfg, "cpu"), mesh, specs,
+                label="engine:lm")
         self._auto_k = steps_per_dispatch == "auto"
         self.K = 8 if self._auto_k else int(steps_per_dispatch)
         self.eos_id = eos_id
         self.min_bucket = int(min_bucket)
 
+        # the meshed engine keeps plain attention, as the JAX engine keeps
+        # XLA attention under a mesh: kernel B2 runs unmeshed only
         self._prefill_fn = build_prefill(
             cfg, self.S,
-            attention_fn=flash_attention if attention == "auto" else None,
+            attention_fn=flash_attention
+            if attention == "auto" and mesh is None else None,
             kv_codec=kv_quant)
 
         self.block_tokens = int(block_tokens or 0)
@@ -531,9 +590,45 @@ class ContinuousBatchingEngine:
                 cfg, self.block_tokens, self.S, kv_codec=kv_quant)
             self._num_blocks = int(kv_blocks) if kv_blocks \
                 else self.B * self.MB
+            if mesh is not None and "dp" in mesh.axis_names:
+                # the arena's block axis shards over dp: pad so the
+                # blocks with the zero block (NTOT) divide
+                self._num_blocks += (-(self._num_blocks + 1)) % \
+                    mesh.shape["dp"]
         self._init_cache = lambda: init_cache(cfg, self.B, self.S,
                                               kv_codec=kv_quant,
                                               device=self.device)
+        if mesh is not None:
+            self._lm = ShardedLM(cfg, mesh, {
+                "decode": self._decode, "chunk": self._chunk_fn,
+                "prefill": self._prefill_fn,
+                **({"paged_decode": self._paged_decode,
+                    "paged_chunk": self._paged_chunk_fn}
+                   if self.paged else {})})
+            self._decode, self._chunk_fn = self._lm.decode, self._lm.chunk
+            self._prefill_fn = self._lm.prefill
+            if self.paged:
+                self._paged_decode = self._lm.paged_decode
+                self._paged_chunk_fn = self._lm.paged_chunk
+
+            def shard_cache(cache):
+                # leaves [L, 2, B, S, h, dh] (and the int8 codec's scales
+                # [L, 2, B, S, h]): slots over dp, heads over tp. Working
+                # state the engine sizes itself: placed, not registered
+                full = (None, None, dp, None, tp, None)
+                return KVCache(*_serve.place_tree(
+                    list(cache.leaves()), mesh,
+                    lambda a: P(*full[:a.dim()]), label="engine:kv-cache"))
+
+            self._init_cache = lambda: shard_cache(init_cache(
+                cfg, self.B, self.S, kv_codec=kv_quant, device="cpu"))
+        #: the serving mesh (None on one device)
+        self._mesh = mesh
+        if mesh is not None and len(mesh.device_list()) > 1 and \
+                self.device.type == "cuda":
+            # one captured graph spans one device; the K-step dispatch
+            # of a multi-card mesh runs eagerly
+            self._eager_dispatch = True
         self._init_cache1 = lambda: init_cache(cfg, 1, self.S,
                                                kv_codec=kv_quant,
                                                device=self.device)
@@ -614,7 +709,7 @@ class ContinuousBatchingEngine:
         if self.paged:
             self._pool = _kvpool.BlockPool(
                 cfg, self._num_blocks, self.block_tokens, kv_codec=kv_quant,
-                owner=self.obs_name, device=self.device)
+                mesh=mesh, owner=self.obs_name, device=self.device)
             #: sid → per-stream decode state (stream, blocks, pos, last,
             #: budget, deadline_t, slot); engine thread only. Every
             #: admitted stream lives here, on a decode lane or parked
@@ -1161,8 +1256,11 @@ class ContinuousBatchingEngine:
         program reads the cache where it is), and CLAIM the slot. Returns
         ``(req, slot, first_d, lp_d)``."""
         first_d, lp_d = self._sample_first(req, logits)
-        self._cache.map(lambda t: t[:, :, slot]).copy_(
-            cache1.map(lambda t: t[:, :, 0]))
+        if self._lm is not None:
+            self._lm.write_slot(self._cache, slot, cache1)
+        else:
+            self._cache.map(lambda t: t[:, :, slot]).copy_(
+                cache1.map(lambda t: t[:, :, 0]))
         if self._spec is not None:
             # the shallow draft re-reads the whole prompt (half the
             # layers, one bucketed prefill), so its cache is canonical
@@ -1351,6 +1449,10 @@ class ContinuousBatchingEngine:
                 f"serving: speculate ({k}) must be < max_seq ({self.S})")
         if k and self.temperature > 0:
             raise ValueError(self._GREEDY_ONLY)
+        if k and self._mesh is not None:
+            raise ValueError(
+                "serving: speculate does not compose with mesh= (the "
+                "draft cache is slot-structured, not sharded)")
         if self._spec_program is not None:
             self._spec_program.release()
             self._spec_program = None

@@ -29,8 +29,13 @@ serving cache gives every one of ``max_streams`` batch slots the full
 Under the HBM accountant (``tensors/memory.py``) the arena's bytes,
 :attr:`BlockPool.nbytes`, register under the ``kvcache`` category when
 the pool is made and unregister at :meth:`BlockPool.close` (or when the
-pool is collected), against the accountant that registered them. A
-mesh-placed arena waits for A.24.
+pool is collected), against the accountant that registered them.
+
+Under a serving mesh (``mesh=``) each leaf is a
+``parallel.mesh.ShardedTensor``: blocks over ``dp`` (``NTOT`` must divide;
+the trash block rides on the first shard) and heads over ``tp``, as the
+JAX package places its arena. The in-place helpers then run on each tp
+rank's block-gathered view (``parallel.sharded.ShardedLM.blocks``).
 
 Kill switch: ``NNSTPU_PAGED_KV=0`` (or ``block_tokens=0`` on the engine)
 keeps the engine on its monolithic cache.
@@ -47,7 +52,6 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.device import resolve_device
-from nnstreamer_tpu_torch.pipeline.element import not_ported
 from nnstreamer_tpu_torch.tensors import memory as _memory
 
 _FALSY = ("0", "false", "no", "off")
@@ -73,8 +77,6 @@ class BlockPool:
                  owner: str = "kvpool", device=None):
         from nnstreamer_tpu_torch.models.transformer import _kv_codec
 
-        if mesh is not None:
-            raise not_ported("a mesh-placed KV arena (mesh=)", "A.24")
         if num_blocks <= 0:
             raise ValueError(f"BlockPool: num_blocks must be positive, "
                              f"got {num_blocks}")
@@ -88,15 +90,21 @@ class BlockPool:
         self.SENTINEL = self.ntot             # the trash block's index
         self.kv_codec = kv_codec
         self.owner = owner
-        self.device = resolve_device() if device is None \
-            else torch.device(device)
+        # under a mesh the arena lives on the mesh's devices (_place)
+        self.device = torch.device(device) if device is not None else \
+            None if mesh is not None else resolve_device()
         self._codec = _kv_codec(cfg, kv_codec)
         self._lock = threading.Lock()
         self._free: List[int] = list(range(self.num_blocks))
         self._ref = np.zeros(self.num_blocks, np.int64)
+        self.mesh = mesh
+        #: the mesh's sharded views (parallel/sharded.py); None unmeshed
+        self._lm = None
         self.arena = self._codec.paged_init(
             cfg.n_layers, self.ntot, self.block_tokens, cfg.n_heads,
-            cfg.head_dim, device=self.device)
+            cfg.head_dim, device="cpu" if mesh is not None else self.device)
+        if mesh is not None:
+            self.arena = self._place(self.arena)
         #: the arena's device bytes (trash block included), registered
         #: with the HBM accountant under "kvcache"
         self.nbytes = int(self.arena.nbytes)
@@ -107,6 +115,28 @@ class BlockPool:
                 self, _unregister_arena, weakref.ref(acct), self.nbytes)
         else:
             self._acct_finalizer = None
+
+    def _place(self, arena):
+        from nnstreamer_tpu_torch.models.transformer import KVCache
+        from nnstreamer_tpu_torch.parallel import serve as _serve
+        from nnstreamer_tpu_torch.parallel.mesh import P
+        from nnstreamer_tpu_torch.parallel.sharded import ShardedLM
+
+        names = set(self.mesh.axis_names)
+        dp = "dp" if "dp" in names else None
+        tp = "tp" if "tp" in names else None
+        if dp and self.ntot % self.mesh.shape["dp"]:
+            raise ValueError(
+                f"BlockPool: arena block count {self.ntot} (incl. zero "
+                f"block) must divide over dp={self.mesh.shape['dp']} — "
+                f"pad num_blocks")
+        self._lm = ShardedLM(self.cfg, self.mesh, {})
+        self.device = self._lm.device
+        # [L, NTOT + 1, 2, T, h(, dh)] — blocks over dp, heads over tp
+        head = (None, dp, None, None, tp)
+        return KVCache(*_serve.place_tree(
+            list(arena.leaves()), self.mesh,
+            lambda leaf: P(*head), label=f"{self.owner}:kvpool"))
 
     def close(self) -> None:
         """Unregister the arena's bytes (idempotent)."""
@@ -173,16 +203,32 @@ class BlockPool:
             return
         T = self.block_tokens
         idx = self._ids(block_ids)
-        for dst, c in zip(self.arena.leaves(), cache1.leaves()):
-            L, S = c.shape[0], c.shape[3]
-            u = c[:, :, 0].reshape((L, 2, S // T, T) + tuple(c.shape[4:]))
-            dst[:, idx] = u[:, :, :k].movedim(2, 1).to(dst.dtype)
+
+        def scatter(arena, cache):
+            for dst, c in zip(arena.leaves(), cache.leaves()):
+                L, S = c.shape[0], c.shape[3]
+                u = c[:, :, 0].reshape((L, 2, S // T, T) +
+                                       tuple(c.shape[4:]))
+                # a tp rank's heads of the prefill cache, on its device
+                dst[:, idx.to(dst.device)] = u[:, :, :k].movedim(2, 1).to(  # nns-lint: disable=NNS113 -- block ids and the prefill cache's KV moving into the arena, whose bytes are registered under kvcache
+                    dst.device, dst.dtype)
+
+        if self._lm is None:
+            scatter(self.arena, cache1)
+        else:
+            self._lm.scatter_prefill(self.arena, cache1, scatter)
 
     def copy_block(self, src: int, dst: int) -> None:
         """COW fault: duplicate physical block ``src`` into ``dst`` across
         every layer and leaf."""
-        for leaf in self.arena.leaves():
-            leaf[:, dst].copy_(leaf[:, src])
+        def copy(arena):
+            for leaf in arena.leaves():
+                leaf[:, dst].copy_(leaf[:, src])
+
+        if self._lm is None:
+            copy(self.arena)
+        else:
+            self._lm.each_arena(self.arena, copy)
 
     def reset(self) -> None:
         """Drop every allocation and zero the arena in place (the engine's
@@ -191,7 +237,8 @@ class BlockPool:
             self._free = list(range(self.num_blocks))
             self._ref[:] = 0
         for leaf in self.arena.leaves():
-            leaf.zero_()
+            for t in getattr(leaf, "shards", [leaf]):
+                t.zero_()
 
     def snapshot(self) -> dict:
         with self._lock:

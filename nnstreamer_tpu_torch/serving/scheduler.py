@@ -48,8 +48,9 @@ the request population between ingress and device dispatch instead:
   launch.
 
 Under an HBM budget (``tensors/memory.py``) :meth:`_memory_backlog` adds
-the accountant's overage in frames. Not ported: the serving mesh's
-admission quantum (:meth:`note_mesh` raises naming ROADMAP A.24).
+the accountant's overage in frames. Under a serving mesh
+(:meth:`note_mesh`) the batch cap rounds down to a multiple of the
+mesh's fan-out.
 
 Exported series: ``nns_sched_admitted_total``, ``nns_sched_rejected_total``,
 ``nns_sched_shed_total{reason}``, ``nns_sched_deadline_slack_seconds``,
@@ -68,7 +69,6 @@ from typing import Any, Dict, Optional
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.obs import timeline as _timeline
-from nnstreamer_tpu_torch.pipeline.element import not_ported
 
 log = get_logger("scheduler")
 
@@ -537,10 +537,10 @@ class SloScheduler:
 
     # -- knob application -----------------------------------------------------
     def note_mesh(self, shard_count: int) -> None:
-        """The JAX scheduler adopts the serving mesh's dp fan-out here as
-        its admission quantum. The port has no serving mesh yet."""
-        raise not_ported("the SLO scheduler's mesh quantum (note_mesh)",
-                         "A.24 the serving mesh")
+        """Adopt the pipeline's serving-mesh fan-out (Pipeline.start()
+        after region fusion): the admission quantum becomes the dp shard
+        count so drained micro-batches always split evenly over devices."""
+        self._mesh_quantum = max(1, int(shard_count))
 
     def batch_cap(self) -> int:
         cap = self.controller.batch_cap

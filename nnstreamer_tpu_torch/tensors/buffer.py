@@ -387,9 +387,15 @@ class TensorBuffer:
             buf = self.finalize(buf)
         return buf
 
-    def to_device(self, device: torch.device) -> "TensorBuffer":
+    def to_device(self, device: Optional[torch.device] = None,
+                  sharding=None) -> "TensorBuffer":
         """Move all tensors onto ``device`` (:func:`upload_tensor`: host
-        arrays are copied, asynchronously from a page-locked slab)."""
+        arrays are copied, asynchronously from a page-locked slab), or
+        place each over a serving mesh: ``sharding`` is a mesh plan or
+        placement (``parallel/serve.py``), and each tensor becomes a
+        ``parallel.mesh.ShardedTensor``."""
+        if sharding is not None:
+            return self._to_mesh(sharding)
         device = torch.device(device)
         t0 = time.monotonic()
         moved = sum(tensor_nbytes(t) for t in self.tensors
@@ -397,6 +403,20 @@ class TensorBuffer:
         out = [upload_tensor(t, device) for t in self.tensors]
         if moved and device.type != "cpu":
             _tally(h2d_bytes=moved, h2d_events=1)
+        buf = self.replace(tensors=out)
+        if moved:
+            _fault_check("transfer.h2d", self.meta)
+            _tl_xfer_span("h2d", (self.meta,), t0, nbytes=moved)
+            _mem_note_h2d(moved, buf)
+        return buf
+
+    def _to_mesh(self, sharding) -> "TensorBuffer":
+        from nnstreamer_tpu_torch.parallel import serve as _serve
+
+        t0 = time.monotonic()
+        moved = sum(tensor_nbytes(t) for t in self.tensors
+                    if not _serve.is_device_tensor(t))
+        out = [_serve.place_on(t, sharding) for t in self.tensors]
         buf = self.replace(tensors=out)
         if moved:
             _fault_check("transfer.h2d", self.meta)

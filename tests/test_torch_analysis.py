@@ -250,11 +250,11 @@ def test_nns113_pragma_suppressible():
 
 
 @pytest.mark.parametrize("expr", [
-    "DeviceMesh('cuda', [0, 1])",
-    "init_device_mesh('cuda', (2,))",
-    "torch.distributed.device_mesh.init_device_mesh('cuda', (4,))",
-    "distribute_tensor(x, mesh, [Shard(0)])",
-    "DTensor.from_local(x, mesh, [Replicate()])",
+    "Placement(mesh, P('dp'))",
+    "mesh_mod.Placement(mesh, P())",
+    "nnstreamer_tpu_torch.parallel.mesh.Placement(mesh, P(None, 'tp'))",
+    "shard_tensor(x, Placement(mesh, P('dp')))",
+    "ShardedTensor([x], placement, x.shape)",
 ])
 def test_nns117_placement_outside_parallel(expr):
     src = ("import torch\n"
@@ -266,11 +266,13 @@ def test_nns117_placement_outside_parallel(expr):
 
 @pytest.mark.parametrize("rel,src", [
     ("nnstreamer_tpu_torch/parallel/serve.py",
-     "def f(x, mesh):\n    return distribute_tensor(x, mesh, [Shard(0)])\n"),
+     "def f(x, mesh):\n    return shard_tensor(x, Placement(mesh, P()))\n"),
     ("elements/foo.py", "def f(x):\n    return x.shard(0)\n"),
     ("elements/foo.py",
-     "def f(x, mesh):\n    return distribute_tensor(  # nns-lint: "
-     "disable=NNS117 -- a test harness\n        x, mesh, [])\n"),
+     "def f(x, plan):\n    return serve.place_batch(x, plan)\n"),
+    ("elements/foo.py",
+     "def f(x, mesh):\n    return shard_tensor(  # nns-lint: "
+     "disable=NNS117 -- a test harness\n        x, mesh)\n"),
 ])
 def test_nns117_clean(rel, src):
     assert by_code(_lint(src, rel), "NNS117") == []

@@ -137,6 +137,16 @@ def test_queue_properties_run(queue_props):
      "model=m mesh=dp4 ! tensor_sink", "A.24"),
 ])
 def test_unported_properties_raise_naming_the_roadmap(desc, item):
+    """``mesh``/``shard`` raised naming A.24 until the serving mesh was
+    ported; they now parse into the filter's properties (the plan is made
+    at start, tests/test_torch_mesh_serving.py)."""
+    if item == "A.24":
+        pipe = tnt.parse_launch(desc)
+        (f,) = [e for e in pipe.elements
+                if e.ELEMENT_NAME == "tensor_filter"]
+        assert (f.get_property("mesh") or f.get_property("shard")) in \
+            ("dp2", "dp4")
+        return
     with pytest.raises(NotImplementedError, match=item):
         tnt.parse_launch(desc)
 
@@ -148,17 +158,16 @@ def test_unported_properties_raise_naming_the_roadmap(desc, item):
 ])
 def test_unported_pipeline_options_raise(kwargs):
     """Every pipeline option of the JAX package is ported: the SLO budget
-    attaches the scheduler beside the other options. What the scheduler
-    still lacks, the serving mesh's admission quantum, raises naming
-    ROADMAP A.24."""
+    attaches the scheduler beside the other options, and since the
+    serving mesh (A.24) its admission quantum too."""
     from nnstreamer_tpu_torch.serving.scheduler import ensure_scheduler
 
     pipe = Pipeline(**kwargs)
     assert pipe.slo_budget_ms == 10.0
     sched = ensure_scheduler(pipe)
     assert sched is pipe._slo_scheduler and sched.budget_ms == 10.0
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, A\.24"):
-        sched.note_mesh(2)
+    sched.note_mesh(2)
+    assert sched.snapshot()["mesh_quantum"] == 2
 
 
 @pytest.mark.parametrize("factory", ["tensor_src_grpc", "tensor_sink_grpc"])

@@ -224,8 +224,11 @@ def test_members_on_different_devices_are_not_fused():
 
 
 def test_mesh_stages_are_not_ported():
-    with pytest.raises(NotImplementedError, match="A.24"):
-        DeviceStage(consts=None, fn=lambda c, t: t, mesh="dp4")
+    """A stage with a mesh spec raised naming A.24 until the serving mesh
+    was ported; it now carries the spec its region adopts
+    (tests/test_torch_mesh_serving.py runs sharded regions)."""
+    stage = DeviceStage(consts=[None] * 4, fn=lambda c, t: t, mesh="dp4")
+    assert stage.mesh == "dp4" and stage.device is None
 
 
 def _appsrc_run(pipe, frames):

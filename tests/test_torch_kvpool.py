@@ -148,8 +148,16 @@ def test_bad_sizes_rejected():
         pool(0)
     with pytest.raises(ValueError):
         kvpool.BlockPool(CFG, 4, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.24"):
-        kvpool.BlockPool(CFG, 4, T, mesh=object(), device="cpu")
+    # a mesh-placed arena (A.24, ported): the blocks with the zero block
+    # must divide over dp
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.mesh import MeshDevice
+
+    cpu = [MeshDevice(i, torch.device("cpu")) for i in range(2)]
+    with pytest.raises(ValueError, match="divide over dp"):
+        kvpool.BlockPool(CFG, 4, T, mesh=make_mesh([("dp", 2)], cpu))
+    assert kvpool.BlockPool(CFG, 5, T, mesh=make_mesh([("dp", 2)], cpu)
+                            ).ntot == 6
 
 
 @pytest.mark.parametrize("kv_codec", [None, "int8"])

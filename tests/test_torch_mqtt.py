@@ -402,6 +402,10 @@ def test_reconnect_resubscribes_and_resends():
     broker2 = M.MqttBroker(port=port)
     try:
         assert _wait(lambda: c.reconnects >= 1, 15), "never reconnected"
+        # the count rises once the new SUBSCRIBE is sent; a publish that
+        # beat its SUBACK could reach the broker before the subscription
+        assert _wait(lambda: not c._resub_pids, 15), \
+            "resubscription never acknowledged"
         c2 = M.MqttClient(port=port)
         c2.publish("r/t", b"after-reconnect", qos=1, timeout=10.0)
         assert _wait(lambda: got and got[-1] == b"after-reconnect", 10)

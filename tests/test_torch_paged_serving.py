@@ -1,7 +1,8 @@
 """The port's paged-KV continuous batching (nnstreamer_tpu_torch/serving/
 engine.py with block_tokens > 0, serving/kvpool.py) on the CPU, held
 against the JAX package's paged engine: the cases of
-tests/test_paged_serving.py (the dp2 mesh case waits for A.24), each
+tests/test_paged_serving.py (the dp2 mesh case is in
+tests/test_torch_mesh_engine.py), each
 with the JAX paged engine's greedy tokens for the same prompts and seeded
 weights (tests/test_serving.py's configuration, float32).
 

@@ -259,10 +259,13 @@ def test_balance_without_reliable_fails_the_chain_as_jax():
 
 
 def test_mesh_quantum_still_raises():
+    """The mesh quantum raised naming A.24 until the serving mesh was
+    ported; a former's window now rounds up to a multiple of it."""
     from nnstreamer_tpu_torch.elements.aggregator import TensorAggregator
 
-    with pytest.raises(NotImplementedError, match="A.24"):
-        TensorAggregator(frames_out=8).note_mesh_quantum(2)
+    agg = TensorAggregator(frames_out=7)
+    agg.note_mesh_quantum(2)
+    assert int(agg.get_property("frames_out")) == 8
 
 
 def test_sources_name_no_jax():

@@ -345,6 +345,133 @@ def test_chaos_zero_loss_zero_double_invoke(server, client):
         assert R.metrics()["retries"].value > retries0
 
 
+# -- the reconnect interleavings behind ROADMAP C.53, forced -------------------
+def _raw_reliable_conn(port, instance="inst-c53"):
+    """A hand-driven reliable connection: classic handshake, then HELLO."""
+    sock = P.connect("127.0.0.1", port, timeout=5.0)
+    P.send_msg(sock, P.Cmd.REQUEST_INFO, b"")
+    assert P.recv_msg(sock)[0] is P.Cmd.APPROVE
+    P.recv_msg(sock)  # CLIENT_ID
+    P.send_msg(sock, P.Cmd.HELLO, f"{instance}:64".encode())
+    assert P.recv_msg(sock)[0] is P.Cmd.HELLO
+    return sock
+
+
+def _send_req(sock, req_id):
+    body = P.pack_buffer(TensorBuffer([np.full((2,), req_id, np.float32)],
+                                      pts=req_id))
+    P.send_msg(sock, P.Cmd.TRANSFER_EX, P.pack_ext(req_id, -1.0, body))
+
+
+def _reply(server, buf):
+    out = TensorBuffer([np.asarray(buf.to_host().tensors[0]) * 2],
+                       pts=buf.pts)
+    out.meta.update(buf.meta)
+    server.send_result(buf.meta["query_client_id"], out)
+
+
+def _wait_for(cond, what):
+    deadline = time.monotonic() + JOIN_S
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.005)
+
+
+def test_c53_reply_of_an_old_connection_waits_for_the_resend():
+    """Request 1 is answered on connection A, request 2 is still being
+    invoked when A dies. The client reconnects (B) and, before it resends,
+    request 2's reply is ready: sent to B at once it would overtake the
+    replay of request 1 that B's resend is about to get. It waits for its
+    resend instead, so B reads 1 then 2."""
+    src = TensorQueryServerSrc(port=0, reliable=True)
+    src.start()
+    server = src.server
+    try:
+        a = _raw_reliable_conn(src.port)
+        _send_req(a, 1)
+        _send_req(a, 2)
+        b1, b2 = server.get_buffer(timeout=5), server.get_buffer(timeout=5)
+        assert [b1.meta["net_req_id"], b2.meta["net_req_id"]] == [1, 2]
+        _reply(server, b1)
+        a.close()
+        _wait_for(lambda: not server._instances, "the server to drop A")
+        b = _raw_reliable_conn(src.port)
+        _reply(server, b2)  # lands before B's resends
+        _send_req(b, 1)
+        _send_req(b, 2)
+        got = []
+        for _ in range(2):
+            cmd, payload = P.recv_msg(b)
+            assert cmd is P.Cmd.RESULT_EX
+            got.append(P.unpack_ext(payload)[0])
+        assert got == [1, 2]
+        b.close()
+    finally:
+        src.stop()
+
+
+def test_c53_a_stale_connection_keeps_no_claim_on_a_resent_request():
+    """Connection A is left behind but its handler still reads: request 5
+    reaches the server over B (the resend) before A's copy of it. The
+    reply goes to B, which resent it, not to A."""
+    src = TensorQueryServerSrc(port=0, reliable=True)
+    src.start()
+    server = src.server
+    try:
+        a = _raw_reliable_conn(src.port)
+        b = _raw_reliable_conn(src.port)  # the instance now lives on B
+        _send_req(b, 5)
+        buf = server.get_buffer(timeout=5)
+        hits = server.dedup_hits
+        _send_req(a, 5)  # A's late copy: a duplicate
+        _wait_for(lambda: server.dedup_hits > hits, "A's copy")
+        _reply(server, buf)
+        b.settimeout(5.0)
+        cmd, payload = P.recv_msg(b)
+        assert cmd is P.Cmd.RESULT_EX and P.unpack_ext(payload)[0] == 5
+        a.close()
+        b.close()
+    finally:
+        src.stop()
+
+
+def test_c53_client_delivers_in_request_order():
+    """The server answers request 2 before request 1 (as a reconnect's
+    replays can): the reliable client holds 2 until 1 has arrived."""
+    src = TensorQueryServerSrc(port=0, reliable=True)
+    src.start()
+    server = src.server
+    stop = threading.Event()
+
+    def reversed_pair():
+        bufs = []
+        while len(bufs) < 2 and not stop.is_set():
+            buf = server.get_buffer(timeout=0.1)
+            if buf is not None:
+                bufs.append(buf)
+        for buf in reversed(bufs):
+            _reply(server, buf)
+
+    th = threading.Thread(target=reversed_pair, daemon=True)
+    th.start()
+    cl = TensorQueryClient(port=src.port, reliable=True, max_in_flight=2,
+                           timeout=5.0)
+    outs = []
+    cl.srcpad.push = lambda b: outs.append(b)
+    try:
+        for i in range(2):
+            cl.chain(cl.sinkpad, TensorBuffer(
+                [np.full((2,), i, np.float32)], pts=i))
+        cl.handle_eos()
+    finally:
+        stop.set()
+        cl.stop()
+        src.stop()
+        th.join(JOIN_S)
+    assert [o.pts for o in outs] == [0, 1]
+    assert _values(outs) == [0, 2]
+
+
 def test_corrupt_frames_recover_via_forget():
     outs, invokes, _ = _run(
         40, dict(max_in_flight=2, timeout=0.5, max_retry=8,

@@ -312,8 +312,13 @@ def test_restore_state_round_trips(pkg):
 
 
 def test_mesh_quantum_raises_naming_a24():
-    with pytest.raises(NotImplementedError, match=r"A\.24"):
-        scheduler.SloScheduler(budget_ms=50).note_mesh(2)
+    """``note_mesh`` raised naming A.24 until the serving mesh was ported:
+    it now sets the admission quantum, as the JAX scheduler's does."""
+    sched = scheduler.SloScheduler(budget_ms=50)
+    sched.note_mesh(2)
+    assert sched.snapshot()["mesh_quantum"] == 2
+    sched.controller.batch_cap = 5
+    assert sched.batch_cap() == 4
 
 
 def test_enqueue_only_invokes_never_widen_the_door():

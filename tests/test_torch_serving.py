@@ -258,10 +258,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A.24"),
-    # the paged cache (A.13.3) and speculation (A.13.4) are ported: with
-    # them, the options that remain unported still raise
-    ({"block_tokens": 8, "mesh": object()}, "A.24"),
+    ({"mesh": "dp1"}, "A.24"),
+    # the paged cache (A.13.3) and speculation (A.13.4) are ported, and
+    # with them the mesh on the paged arena
+    ({"block_tokens": 8, "mesh": "dp1"}, "A.24"),
     ({"speculate": 2, "top_k": 8}, "A.13.5"),
     ({"slo_budget_ms": 50.0, "block_tokens": 8, "min_p": 0.1}, "A.13.5"),
     ({"temperature": 0.8}, "A.13.5"),
@@ -270,15 +270,18 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ({"min_p": 0.1}, "A.13.5"),
 ])
 def test_unported_options_raise_with_their_item(kw, item):
-    """``mesh`` still raises naming A.24. The sampling options raised
-    naming A.13.5 until sampled decoding was ported; each engine now
-    serves: at temperature 0 the JAX engine's greedy tokens whatever
-    top_k and min_p say (ROADMAP C.5; with speculation too), sampled the
-    step-by-step draws of its (seed, stream id)."""
+    """``mesh`` raised naming A.24 and the sampling options naming A.13.5
+    until the serving mesh and sampled decoding were ported; each engine
+    now serves: at temperature 0 the JAX engine's greedy tokens whatever
+    top_k and min_p say (ROADMAP C.5; with speculation too) and whatever
+    the mesh (here one logical host device), sampled the step-by-step
+    draws of its (seed, stream id)."""
     if item == "A.24":
-        with pytest.raises(NotImplementedError, match=r"A\.24"):
-            _engine(**kw)
-        return
+        from nnstreamer_tpu_torch.parallel import make_mesh
+        from nnstreamer_tpu_torch.parallel.mesh import MeshDevice
+
+        kw = dict(kw, mesh=make_mesh(
+            [("dp", 1)], devices=[MeshDevice(0, torch.device("cpu"))]))
     prompt = [5, 11, 23, 42, 7]
     eng = _engine(max_streams=2, **kw).start()
     try:

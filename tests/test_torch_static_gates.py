@@ -152,8 +152,9 @@ def test_the_new_modules_import_no_jax_grpc_tf_or_transformers():
 
 def test_the_port_has_every_single_card_module():
     """``comm`` of the two packages' module lists: the JAX files with no
-    counterpart are the three that need no port and the parallel
-    package, which waits for more than one card (ROADMAP A.24, A.25)."""
+    counterpart are the three that need no port and ROADMAP A.25's ring
+    attention, pipeline parallelism and multi-host modules; no
+    ``not_ported`` raise names A.24 (the serving mesh) any more."""
     jax_pkg = ROOT / "nnstreamer_tpu"
     ours = {str(p.relative_to(PKG)) for p in MODULES}
     theirs = {str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
@@ -162,6 +163,10 @@ def test_the_port_has_every_single_card_module():
     no_port = {"filters/jax_backend.py", "models/_init.py",
                "ops/tiling.py"}
     assert no_port <= missing
-    assert all(m.startswith("parallel/") for m in missing - no_port), \
+    assert missing - no_port == {"parallel/ring.py", "parallel/pipeline.py",
+                                 "parallel/multihost.py"}, \
         sorted(missing - no_port)
-    assert len(missing) == 10, sorted(missing)
+    assert len(missing) == 6, sorted(missing)
+    a24 = [str(p.relative_to(PKG)) for p in MODULES
+           if "A.24" in p.read_text()]
+    assert a24 == [], a24
