@@ -188,6 +188,21 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   ``framework=tensorflow`` and ``transformers`` need packages this
   machine lacks and are held to the JAX package by the CPU tests only.
 
+- Training and long context (``train``): chip_smoke's LM at full width
+  (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff 2048), float32,
+  weights from a ``torch.Generator``, one 8 × 512 batch from a seed:
+  ``make_train_step`` at dp1 on ``cuda:0`` for 5 SGD steps (the first
+  step's loss equal to ``lm_loss`` of ``build_forward`` on the same
+  params, the loss falling on the memorised batch; ms a step, tokens a
+  second, peak allocated bytes); then four ranks on the one card (a mesh
+  of four ``MeshDevice(i, cuda:0)``, the logical devices the CPU tests
+  use, one thread a rank): the sp4 ring-attention forward against the
+  one-rank logits, ``make_pp_train_step`` at pp2×sp2 (4 microbatches)
+  against the dense step's loss and parameters, and the MoE model (4
+  experts) at ep4 against ep1. No kernel of B1-B3 is on this path (the
+  JAX train steps run XLA attention): the phase prints their launches,
+  all 0.
+
 Kernel B1 is held bit for bit against its plain version on both sides
 of its launch plan's switch from 4 to 16 elements a thread, for every
 numeric input type (at the flagship's, the ssd's, YOLO's and the
@@ -276,6 +291,21 @@ TRANSFORM_CHAIN = [("add", -127.5), ("div", 127.5)]
 NORMALIZE_U8_CHAIN = [("sub", 127.5), ("mul", 1.0 / 127.5)]
 #: the audio path's transform, ``typecast:float32,div:32768``, as B1's chain
 KWS_CHAIN = [("div", 32768.0)]
+
+# -- the train phase ---------------------------------------------------------
+TRAIN_BATCH = (8, 512)     # one batch of 8 x 512 tokens
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-2
+TRAIN_MB = 4               # microbatches of the pp2 x sp2 step
+TRAIN_EXPERTS = 4
+#: fp32 on the card, TF32 off: the dp1 step's first loss against lm_loss of
+#: build_forward (the same ops), the four-rank runs against one rank
+#: (other summation orders: the tp/ep sums, the ring's online softmax, the
+#: microbatches' gradient sum)
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_MESH_LOSS_RTOL = 1e-4
+TRAIN_LOGITS_ATOL = 1e-3
+TRAIN_PARAM_ATOL = 1e-5
 
 # -- kernel B2 and LM serving ------------------------------------------------
 #: (q shape, k shape) [b, s, h, d] held against the plain version: the LM
@@ -8146,6 +8176,197 @@ def phase_mesh(power: str) -> dict:
     return result
 
 
+def _train_params(cfg, seed: int) -> dict:
+    """The transformer's params (``init_params``'s shapes and scale) drawn
+    from a ``torch.Generator``, fp32 on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    L, D, H, F, E = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+                     cfg.num_experts)
+
+    def norm(*shape):
+        return torch.randn(shape, generator=gen) * 0.02
+
+    p = {"embed": norm(cfg.vocab, D), "ln1": torch.ones(L, D),
+         "qkv": norm(L, D, 3, H, D // H), "proj": norm(L, H, D // H, D),
+         "ln2": torch.ones(L, D), "ln_f": torch.ones(D)}
+    if E:
+        p.update(router=norm(L, D, E), w_in=norm(L, E, D, F),
+                 w_out=norm(L, E, F, D))
+    else:
+        p.update(w_in=norm(L, D, F), w_out=norm(L, F, D))
+    return p
+
+
+def _max_param_diff(a: dict, b: dict, dev) -> float:
+    from nnstreamer_tpu_torch.parallel import serve
+
+    return max(float((serve.gather(a[k], dev) -
+                      serve.gather(b[k], dev)).abs().max()) for k in a)
+
+
+def phase_train(power: str) -> dict:
+    """Training and long context (``parallel/sharded.py``, ``ring.py``,
+    ``pipeline.py``; ROADMAP A.25) at chip_smoke's LM width, fp32:
+
+    (a) ``make_train_step`` at dp1 on ``cuda:0``: 5 SGD steps on one
+        8 × 512 batch; the first step's loss equals ``lm_loss`` of
+        ``build_forward`` on the same params and the loss falls; ms a
+        step, tokens a second, peak allocated bytes;
+    (b) four ranks on the one card (``MeshDevice(i, cuda:0)``, one
+        thread a rank): the sp4 forward (ring attention) against the
+        one-rank logits; ``make_pp_train_step`` at pp2 × sp2 (4
+        microbatches) against the dense step's loss and parameters after
+        one step; the MoE model (4 experts) at ep4 against ep1, one step.
+    No kernel of B1-B3 is on this path: their launches in the phase are
+    printed and must be 0."""
+    import math
+
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        build_forward,
+    )
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.parallel import make_mesh, multihost
+    from nnstreamer_tpu_torch.parallel.mesh import MeshDevice
+    from nnstreamer_tpu_torch.parallel.sharded import (
+        lm_loss,
+        make_pp_train_step,
+        make_sharded_forward,
+        make_train_step,
+        shard_params,
+    )
+
+    nt.set_device(None)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {"gpu": power}
+    try:
+        check(multihost.initialize() is False and
+              multihost.process_info() == (0, 1),
+              "train: one process is not a no-op multi-host run")
+        cfg = TransformerConfig(**LM, dtype=torch.float32)
+        b, s = TRAIN_BATCH
+        gen = torch.Generator().manual_seed(11)
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               dtype=torch.int32)
+        reset_launches()
+        # what earlier phases still hold on the card: the step's own peak
+        # is the peak less this
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+
+        # (a) dp1 on cuda:0
+        one = make_mesh([("dp", 1)])
+        card = one.device_list()[0].device
+        check(str(card) == "cuda:0", f"train: the default mesh is {one}")
+        params = shard_params(_train_params(cfg, 0), one, cfg)
+        with torch.no_grad():
+            ref = float(lm_loss(build_forward(cfg),
+                                {k: v.shards[0] for k, v in params.items()},
+                                tokens.to(card)))
+        step = make_train_step(cfg, one, learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, loss = step(params, tokens)
+            losses.append(float(loss))   # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(map(math.isfinite, losses)),
+              f"train: non-finite loss {losses}")
+        check(abs(losses[0] - ref) <= TRAIN_LOSS_RTOL * abs(ref),
+              f"train: step 1 loss {losses[0]} != lm_loss {ref}")
+        check(losses[-1] < losses[0], f"train: loss did not fall {losses}")
+        warm = statistics.median(step_ms[1:])
+        result["dp1"] = {
+            "params": sum(v.numel() for v in params.values()),
+            "tokens": [b, s], "lr": TRAIN_LR, "losses": losses,
+            "lm_loss": ref, "step_ms": step_ms, "warm_step_ms": warm,
+            "tokens_per_s": b * s / (warm / 1e3),
+            "peak_allocated_bytes": peak, "held_before_bytes": held,
+            # params, gradients and activations of the steps
+            "step_peak_bytes": peak - held}
+        del params, step
+
+        # (b) four ranks on the one card
+        devs = [MeshDevice(i, card) for i in range(4)]
+        p0 = _train_params(cfg, 0)
+        fwd_one = make_sharded_forward(cfg, one)(
+            shard_params(p0, one, cfg), tokens)
+        sp4 = make_mesh([("sp", 4)], devices=devs)
+        t0 = time.perf_counter()
+        fwd_sp = make_sharded_forward(cfg, sp4)(
+            shard_params(p0, sp4, cfg), tokens)
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t0) * 1e3
+        sp_err = float((fwd_sp - fwd_one).abs().max())
+        check(sp_err <= TRAIN_LOGITS_ATOL,
+              f"train: sp4 logits {sp_err} from one rank")
+        del fwd_one, fwd_sp
+        result["sp4_forward"] = {"max_abs_err": sp_err, "ms": sp_ms}
+
+        dense = shard_params(_train_params(cfg, 0), one, cfg)
+        dense, dloss = make_train_step(cfg, one, learning_rate=TRAIN_LR)(
+            dense, tokens)
+        pp = make_mesh([("pp", 2), ("sp", 2)], devices=devs)
+        piped = shard_params(_train_params(cfg, 0), pp, cfg, pipelined=True)
+        t0 = time.perf_counter()
+        piped, ploss = make_pp_train_step(
+            cfg, pp, num_microbatches=TRAIN_MB, learning_rate=TRAIN_LR)(
+            piped, tokens.reshape(TRAIN_MB, b // TRAIN_MB, s))
+        ploss = float(ploss)
+        pp_ms = (time.perf_counter() - t0) * 1e3
+        pp_err = _max_param_diff(piped, dense, card)
+        check(abs(ploss - float(dloss)) <= TRAIN_MESH_LOSS_RTOL *
+              abs(float(dloss)), f"train: pp2xsp2 loss {ploss} != "
+                                 f"{float(dloss)}")
+        check(pp_err <= TRAIN_PARAM_ATOL,
+              f"train: pp2xsp2 params {pp_err} from the dense step")
+        result["pp2_sp2_step"] = {"loss": ploss, "dense_loss": float(dloss),
+                                  "max_param_diff": pp_err, "ms": pp_ms,
+                                  "microbatches": TRAIN_MB}
+        del dense, piped
+
+        moe = TransformerConfig(**LM, dtype=torch.float32,
+                                num_experts=TRAIN_EXPERTS)
+        ep1 = shard_params(_train_params(moe, 1), one, moe)
+        ep1, loss1 = make_train_step(moe, one, learning_rate=TRAIN_LR)(
+            ep1, tokens)
+        ep4 = make_mesh([("ep", 4)], devices=devs)
+        par = shard_params(_train_params(moe, 1), ep4, moe)
+        t0 = time.perf_counter()
+        par, loss4 = make_train_step(moe, ep4, learning_rate=TRAIN_LR)(
+            par, tokens)
+        loss4 = float(loss4)
+        ep_ms = (time.perf_counter() - t0) * 1e3
+        ep_err = _max_param_diff(par, ep1, card)
+        check(abs(loss4 - float(loss1)) <= TRAIN_MESH_LOSS_RTOL *
+              abs(float(loss1)), f"train: ep4 loss {loss4} != "
+                                 f"{float(loss1)}")
+        check(ep_err <= TRAIN_PARAM_ATOL,
+              f"train: ep4 params {ep_err} from ep1")
+        result["ep4_step"] = {"loss": loss4, "ep1_loss": float(loss1),
+                              "max_param_diff": ep_err, "ms": ep_ms,
+                              "experts": TRAIN_EXPERTS}
+        del ep1, par
+        launches = dict(LAUNCHES)
+        check(not any(launches.values()),
+              f"train: a kernel launched on a path with none: {launches}")
+        result["launches"] = launches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+    emit({"phase": "train", **result})
+    return result
+
+
 def phase_fleet(power: str) -> dict:
     """The flagship (MobileNetV2 1.0, 224×224×3, 1001 classes, bf16, seed
     0) served by a balanced, exactly-once fleet of replica processes.
@@ -8704,6 +8925,7 @@ def main() -> int:
     mem = phase_memory(power)
     cont = phase_continuity(power)
     mesh = phase_mesh(power)
+    phase_train(power)
     pipe, _ = phase_pipeline(power)  # profiles the flagship at its end
     profile_pipeline_batched(batched, batched_launch)
     profile_lm(lm_engine, lm_eager)

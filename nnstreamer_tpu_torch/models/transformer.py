@@ -34,7 +34,11 @@ tensor-parallel ranks at four collectives (:func:`tp_sum`,
 :func:`tp_gather`): after the attention projection and after the FFN
 (partial products over the rank's heads and hidden units), at the
 embedding (its model dimension is split) and at the logits. Outside a
-tp group they return their input.
+tp group they return their input. An expert-parallel rank (``ep``) holds
+a share of the MoE experts: the router logits are gathered over ep and
+the experts' shares of the FFN output summed (:func:`axis_sum`); the
+training steps' sequence ranks (``sp``) meet in ring attention
+(``parallel/ring.py``).
 
 Sampling (:func:`make_sampler`) is the JAX sampler's filter with a
 counter-based draw: Philox4x32-10 keyed by (seed, stream id) at the
@@ -138,43 +142,62 @@ def prepare_params(params: Params, cfg: TransformerConfig,
             for k, v in params.items()}
 
 
-# -- tensor-parallel collectives ------------------------------------------------
-#: the calling thread's tp group and rank (``parallel/sharded.run_tp``)
+# -- collectives over mesh axes -------------------------------------------------
+#: the calling thread's collective groups, ``{axis: (group, rank)}``
+#: (``parallel/sharded.run_ranks``)
 _tp = threading.local()
 
 
 @contextlib.contextmanager
-def tp_rank(group, rank: int):
-    """Run the layer math in this thread as ``rank`` of ``group`` (a
-    ``parallel.sharded.TpGroup``)."""
+def mesh_ranks(groups: Dict[str, Tuple[Any, int]]):
+    """Run the layer math in this thread as rank ``r`` of ``group`` on each
+    ``axis: (group, r)`` of ``groups`` (``parallel.sharded.Group``s)."""
     outer = getattr(_tp, "state", None)
-    _tp.state = (group, rank)
+    _tp.state = groups
     try:
         yield
     finally:
         _tp.state = outer
 
 
+def tp_rank(group, rank: int):
+    """:func:`mesh_ranks` with one tp group."""
+    return mesh_ranks({"tp": (group, rank)})
+
+
+def axis_group(axis: str) -> Optional[Tuple[Any, int]]:
+    """The calling thread's ``(group, rank)`` on mesh axis ``axis``, or
+    None outside a group of that axis (an axis of one device)."""
+    state = getattr(_tp, "state", None)
+    return None if state is None else state.get(axis)
+
+
+def axis_sum(axis: str, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the calling thread's group on ``axis``, else
+    ``x``."""
+    g = axis_group(axis)
+    return x if g is None else g[0].all_reduce(g[1], x)
+
+
 def tp_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the calling thread's tp group (the partial
     products of a split contraction), else ``x``."""
-    state = getattr(_tp, "state", None)
-    return x if state is None else state[0].all_reduce(state[1], x)
+    return axis_sum("tp", x)
 
 
 def tp_gather(x: torch.Tensor) -> torch.Tensor:
     """``x``'s last dimension gathered over the tp group, else ``x``."""
-    state = getattr(_tp, "state", None)
-    return x if state is None else state[0].all_gather(state[1], x, -1)
+    g = axis_group("tp")
+    return x if g is None else g[0].all_gather(g[1], x, -1)
 
 
 def _logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """fp32 ``x @ embed.T`` against the tied embedding; under tp the rank
     holds columns of the embedding and contracts its slice of ``x``."""
-    state = getattr(_tp, "state", None)
-    if state is not None:
+    g = axis_group("tp")
+    if g is not None:
         dl = embed.shape[-1]
-        x = x[..., state[1] * dl:(state[1] + 1) * dl]
+        x = x[..., g[1] * dl:(g[1] + 1) * dl]
     return tp_sum(torch.matmul(x.float(), embed.t()))
 
 
@@ -212,12 +235,23 @@ def _dense_ffn(x, w_in, w_out, dtype):
 
 
 def _moe_ffn(x, router, w_in, w_out, dtype):
-    """Top-1 routed MoE, the JAX package's one-hot dispatch form."""
+    """Top-1 routed MoE, the JAX package's one-hot dispatch form. Under an
+    ep group the rank holds a contiguous share of the experts (router
+    columns, ``w_in``/``w_out`` rows): it gathers every expert's router
+    logits, so that each rank takes the same top-1 (the first max, as
+    ``jnp.argmax``), and returns its experts' share of the output, zero
+    for a token routed elsewhere; :func:`_block_tail` sums the shares."""
     logits = torch.einsum("bsd,de->bse", x.float(), router.float())
+    ep = axis_group("ep")
+    if ep is not None:
+        logits = ep[0].all_gather(ep[1], logits, -1)
     gate = torch.softmax(logits, dim=-1)
     top = torch.argmax(gate, dim=-1)                        # [b, s]
-    onehot = F.one_hot(top, router.shape[-1]).to(dtype)     # [b, s, e]
+    onehot = F.one_hot(top, gate.shape[-1]).to(dtype)       # [b, s, e]
     weight = torch.gather(gate, -1, top[..., None])[..., 0].to(dtype)
+    if ep is not None:
+        n = router.shape[-1]
+        onehot = onehot[..., ep[1] * n:(ep[1] + 1) * n]
     h = torch.einsum("bsd,bse,edf->bsef", x, onehot, w_in.to(dtype))
     h = _gelu(h)
     out = torch.einsum("bsef,efd->bsed", h, w_out.to(dtype))
@@ -246,8 +280,8 @@ def _block_tail(x, a, lp, cfg):
                                 proj.reshape(-1, proj.shape[-1])))
     h2 = _rmsnorm(x, lp["ln2"])
     if cfg.num_experts:
-        return x + tp_sum(_moe_ffn(h2, lp["router"], lp["w_in"],
-                                   lp["w_out"], dtype))
+        return x + axis_sum("ep", tp_sum(_moe_ffn(
+            h2, lp["router"], lp["w_in"], lp["w_out"], dtype)))
     return x + tp_sum(_dense_ffn(h2, lp["w_in"], lp["w_out"], dtype))
 
 

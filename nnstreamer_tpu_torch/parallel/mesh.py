@@ -25,7 +25,8 @@ The mesh axes used throughout the framework, as in the JAX package:
 
 - ``dp`` — data/batch parallelism (mux-batched frames split over devices);
 - ``tp`` — tensor parallelism (attention heads / mlp hidden sharded);
-- ``sp`` — sequence/context parallelism (ring attention, ROADMAP A.25);
+- ``sp`` — sequence/context parallelism (ring attention, ``ring.py``);
+- ``pp`` — pipeline stages of the layer stack (``pipeline.py``);
 - ``ep`` — expert parallelism (MoE experts, one group per device set).
 
 Every placement is built here or in ``parallel/serve.py`` (lint rule

@@ -77,10 +77,12 @@ The JAX package's ``serving/engine.py`` on its single-chip, greedy path:
 
 - **Serving mesh** (``mesh``, a ``parallel.mesh.Mesh``): the params are
   placed per ``parallel.sharded.transformer_param_specs`` (heads and the
-  FFN over ``tp``; axes the mesh lacks pruned to replicated), the cache
-  shards batch slots over ``dp`` and heads over ``tp``, the paged arena
-  blocks over ``dp`` (its block count padded to divide) and heads over
-  ``tp``; ``parallel.sharded.ShardedLM`` runs each step shard by shard.
+  FFN over ``tp``, a MoE model's experts over ``ep``; axes the mesh
+  lacks pruned to replicated), the cache shards batch slots over ``dp``
+  and heads over ``tp``, the paged arena blocks over ``dp`` (its block
+  count padded to divide) and heads over ``tp``, both replicated over
+  ``ep``; ``parallel.sharded.ShardedLM`` runs each step shard by shard.
+  An ``sp`` or ``pp`` axis of more than one device raises.
   Prefill keeps plain attention, as the JAX engine keeps XLA attention
   under a mesh. ``speculate`` raises under a mesh. On one card the
   K-step dispatch stays one captured graph per (B, K); a mesh of several
@@ -395,9 +397,10 @@ class ContinuousBatchingEngine:
         divide over dp).
     mesh: a ``parallel.mesh.Mesh`` (``parallel.make_mesh``) — serving over
         several devices: params per ``parallel.sharded.
-        transformer_param_specs`` (heads and the FFN over ``tp``), the
-        cache's slots and the arena's blocks over ``dp``
-        (``max_streams`` and ``n_heads`` must divide); plain attention;
+        transformer_param_specs`` (heads and the FFN over ``tp``,
+        experts over ``ep``), the cache's slots and the arena's blocks
+        over ``dp`` (``max_streams``, ``n_heads`` and ``num_experts``
+        must divide); plain attention;
         the engine's device is the mesh's first. None: one device.
     temperature, top_k, min_p: sampling (``models.transformer.
         make_sampler``); ``temperature <= 0`` (default) is greedy and
@@ -412,8 +415,6 @@ class ContinuousBatchingEngine:
     device: where the engine computes; None → the package device
         (``cuda:0`` unless ``set_device`` says otherwise).
 
-    ``mesh`` keeps the JAX engine's signature and raises (see the module
-    docstring).
     """
 
     #: process-wide sequence behind ``obs_name`` (engine0, engine1, ...)

@@ -152,9 +152,9 @@ def test_the_new_modules_import_no_jax_grpc_tf_or_transformers():
 
 def test_the_port_has_every_single_card_module():
     """``comm`` of the two packages' module lists: the JAX files with no
-    counterpart are the three that need no port and ROADMAP A.25's ring
-    attention, pipeline parallelism and multi-host modules; no
-    ``not_ported`` raise names A.24 (the serving mesh) any more."""
+    counterpart are the three that need no port; no ``not_ported`` raise
+    names A.24 (the serving mesh) or A.25 (ring attention, pipeline
+    parallelism, multi-host runs and the train steps) any more."""
     jax_pkg = ROOT / "nnstreamer_tpu"
     ours = {str(p.relative_to(PKG)) for p in MODULES}
     theirs = {str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
@@ -162,11 +162,8 @@ def test_the_port_has_every_single_card_module():
     missing = theirs - ours
     no_port = {"filters/jax_backend.py", "models/_init.py",
                "ops/tiling.py"}
-    assert no_port <= missing
-    assert missing - no_port == {"parallel/ring.py", "parallel/pipeline.py",
-                                 "parallel/multihost.py"}, \
-        sorted(missing - no_port)
-    assert len(missing) == 6, sorted(missing)
-    a24 = [str(p.relative_to(PKG)) for p in MODULES
-           if "A.24" in p.read_text()]
-    assert a24 == [], a24
+    assert missing == no_port, sorted(missing)
+    assert len(missing) == 3, sorted(missing)
+    named = [str(p.relative_to(PKG)) for p in MODULES
+             if "A.24" in p.read_text() or "A.25" in p.read_text()]
+    assert named == [], named

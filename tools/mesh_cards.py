@@ -6,7 +6,7 @@ one captured graph per card, the tensor-parallel sum across cards).
 
     python3 tools/mesh_cards.py            # every visible card
     python3 tools/mesh_cards.py --cpu 4    # rehearsal: 4 logical host
-                                           # devices, small sizes
+                                           # devices, small sizes, gloo
 
 Checks, each printed as one JSON line:
 
@@ -21,7 +21,17 @@ Checks, each printed as one JSON line:
 - ``engine``: the LM of ``chip_smoke.phase_lm_graph`` (fp32, 8 slots,
   K = 8, plain attention) at dp × tp (tp = 2 when the cards are even):
   greedy tokens against the unmeshed engine's, and the paged int8 engine
-  at dp over every card.
+  at dp over every card;
+- ``ring``: the same LM's forward (fp32, one 8 × 512 batch) with the
+  sequence over every card (ring attention, ``sp`` = N) against one
+  card's logits;
+- ``pp_train``: one ``make_pp_train_step`` at pp2 across two cards (× sp
+  over the rest, 4 microbatches) against the one-card step: the loss and
+  every parameter;
+- ``multihost``: two processes joined over NCCL, one card each
+  (``CUDA_VISIBLE_DEVICES``), each a dp rank of one ``make_train_step``
+  on its half of the batch (``parallel/multihost.py``), against the
+  one-process step on the whole batch.
 
 The last line is ``{"ok": true|false, "cards": N, "failed": [...]}``.
 """
@@ -30,6 +40,8 @@ from __future__ import annotations
 
 import json
 import os
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -39,6 +51,12 @@ FRAMES, BATCH, IMAGE, CLASSES = 800, 8, 224, 1001
 LM = dict(vocab=32000, d_model=512, n_heads=8, n_layers=8, d_ff=2048,
           max_seq=512)
 LM_PROMPTS, LM_NEW = 12, 32
+TRAIN_BATCH, TRAIN_LR, TRAIN_MB = (8, 512), 1e-2, 4
+#: fp32, TF32 off: the meshed runs against one card (other summation
+#: orders: the ring's online softmax, the gradient sums)
+LOGITS_ATOL, LOSS_RTOL, PARAM_ATOL = 1e-3, 1e-4, 1e-5
+CHILD_TIMEOUT = 600
+CPU = False
 failed = []
 
 
@@ -111,10 +129,11 @@ def flagship(cards: int) -> None:
     diff = max((abs(a[1] - b[1]) for a, b in zip(meshed, plain)),
                default=float("nan"))
     check(len(meshed) == FRAMES, f"flagship: {len(meshed)} frames")
-    check(launches["normalize_chain"] == windows * cards,
+    on_card = torch.cuda.is_available()
+    # on the CPU the wrapper takes B1's plain version: no launch counts
+    check(not on_card or launches["normalize_chain"] == windows * cards,
           f"flagship: B1 {launches['normalize_chain']} for {windows} "
           f"windows on {cards} devices")
-    on_card = torch.cuda.is_available()
     check(len(regions) == 1 and not regions[0]["unspliced"] and
           (not on_card or regions[0]["captures"] == cards),
           f"flagship: regions {regions}")
@@ -218,6 +237,180 @@ def engine(cards: int) -> None:
               "plain_tokens_per_s": toks["plain_tps"]})
 
 
+def _train_setup():
+    import torch
+
+    from nnstreamer_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**LM, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, TRAIN_BATCH, generator=gen,
+                           dtype=torch.int32)
+    return cfg, init_params, tokens
+
+
+def _max_diff(a, b) -> float:
+    from nnstreamer_tpu_torch.parallel import serve
+
+    return max(float((serve.gather(a[k], "cpu") -
+                      serve.gather(b[k], "cpu")).abs().max()) for k in a)
+
+
+def ring(cards: int) -> None:
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.sharded import (
+        make_sharded_forward,
+        shard_params,
+    )
+
+    cfg, init_params, tokens = _train_setup()
+    params = init_params(cfg, seed=0)
+    one = make_mesh([("dp", 1)])
+    want = make_sharded_forward(cfg, one)(shard_params(params, one, cfg),
+                                          tokens)
+    mesh = make_mesh([("sp", cards)])
+    t0 = time.monotonic()
+    got = make_sharded_forward(cfg, mesh)(shard_params(params, mesh, cfg),
+                                          tokens)
+    sync()
+    ms = (time.monotonic() - t0) * 1e3
+    err = float((got - want).abs().max())
+    check(err <= LOGITS_ATOL, f"ring: sp{cards} logits {err} from one card")
+    emit({"check": "ring", "mesh": [("sp", cards)], "max_abs_err": err,
+          "ms": ms})
+
+
+def pp_train(cards: int) -> None:
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.sharded import (
+        make_pp_train_step,
+        make_train_step,
+        shard_params,
+    )
+
+    if cards < 2:
+        emit({"check": "pp_train", "skipped": "one card"})
+        return
+    cfg, init_params, tokens = _train_setup()
+    one = make_mesh([("dp", 1)])
+    dense, dloss = make_train_step(cfg, one, learning_rate=TRAIN_LR)(
+        shard_params(init_params(cfg, seed=0), one, cfg), tokens)
+    axes = [("pp", 2), ("sp", cards // 2)]
+    mesh = make_mesh(axes)
+    b, s = TRAIN_BATCH
+    t0 = time.monotonic()
+    piped, loss = make_pp_train_step(
+        cfg, mesh, num_microbatches=TRAIN_MB, learning_rate=TRAIN_LR)(
+        shard_params(init_params(cfg, seed=0), mesh, cfg, pipelined=True),
+        tokens.reshape(TRAIN_MB, b // TRAIN_MB, s))
+    loss = float(loss)
+    ms = (time.monotonic() - t0) * 1e3
+    err = _max_diff(piped, dense)
+    check(abs(loss - float(dloss)) <= LOSS_RTOL * abs(float(dloss)),
+          f"pp_train: loss {loss} != one card's {float(dloss)}")
+    check(err <= PARAM_ATOL, f"pp_train: params {err} from one card")
+    emit({"check": "pp_train", "mesh": axes, "loss": loss,
+          "one_card_loss": float(dloss), "max_param_diff": err, "ms": ms})
+
+
+#: one process of the multihost check: its half of the batch, one dp rank
+CHILD = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[2])
+import mesh_cards as mc
+from nnstreamer_tpu_torch.parallel import multihost
+from nnstreamer_tpu_torch.parallel.sharded import make_train_step, shard_params
+sizes = json.loads(sys.argv[3])
+mc.LM, mc.TRAIN_BATCH = sizes["LM"], tuple(sizes["TRAIN_BATCH"])
+joined = multihost.initialize()
+rank, world = multihost.process_info()
+cfg, init_params, tokens = mc._train_setup()
+mesh = multihost.global_mesh([("dp", -1)])
+params, loss = make_train_step(cfg, mesh, learning_rate=mc.TRAIN_LR)(
+    shard_params(init_params(cfg, seed=0), mesh, cfg),
+    tokens[multihost.local_batch_slice(tokens.shape[0])])
+np.savez(sys.argv[1], **{k: v.gather("cpu").numpy()
+                         for k, v in params.items()})
+print(json.dumps({"joined": joined, "rank": rank, "world": world,
+                  "backend": torch.distributed.get_backend(),
+                  "loss": float(loss)}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def multihost_check(cards: int) -> None:
+    import numpy as np
+
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.sharded import (
+        make_train_step,
+        shard_params,
+    )
+
+    if cards < 2:
+        emit({"check": "multihost", "skipped": "one card"})
+        return
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="nns_cards_mh_")
+    procs = []
+    t0 = time.monotonic()
+    try:
+        for i in range(2):
+            env = dict(os.environ, NNSTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       NNSTPU_NUM_PROCESSES="2", NNSTPU_PROCESS_ID=str(i),
+                       PYTHONPATH=HERE)
+            if CPU:
+                env["NNSTPU_TORCH_DEVICE"] = "cpu"
+            else:
+                env["CUDA_VISIBLE_DEVICES"] = str(i)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CHILD,
+                 os.path.join(out_dir, f"p{i}.npz"),
+                 os.path.dirname(os.path.abspath(__file__)),
+                 json.dumps({"LM": LM, "TRAIN_BATCH": TRAIN_BATCH})],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+            if p.returncode != 0:
+                raise RuntimeError(f"multihost child: {err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    wall = time.monotonic() - t0
+    cfg, init_params, tokens = _train_setup()
+    one = make_mesh([("dp", 1)])
+    want, loss = make_train_step(cfg, one, learning_rate=TRAIN_LR)(
+        shard_params(init_params(cfg, seed=0), one, cfg), tokens)
+    err = 0.0
+    for i in range(2):
+        got = np.load(os.path.join(out_dir, f"p{i}.npz"))
+        for k, v in want.items():
+            err = max(err, float(np.abs(
+                got[k] - v.gather("cpu").numpy()).max()))
+    check([(o["rank"], o["world"], o["joined"]) for o in outs] ==
+          [(0, 2, True), (1, 2, True)], f"multihost: {outs}")
+    check(abs(outs[0]["loss"] - float(loss)) <= LOSS_RTOL *
+          abs(float(loss)), f"multihost: loss {outs[0]['loss']} != "
+                            f"{float(loss)}")
+    check(err <= PARAM_ATOL, f"multihost: params {err} from one process")
+    emit({"check": "multihost", "processes": 2,
+          "backend": outs[0]["backend"], "loss": outs[0]["loss"],
+          "one_process_loss": float(loss), "max_param_diff": err,
+          "wall_s": wall})
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -226,14 +419,16 @@ def main() -> int:
 
     if "--cpu" in sys.argv:
         # the rehearsal: small sizes, logical host devices
-        global FRAMES, IMAGE, CLASSES, LM
+        global FRAMES, IMAGE, CLASSES, LM, TRAIN_BATCH, CPU
         n = int(sys.argv[sys.argv.index("--cpu") + 1])
+        CPU = True
         nt.set_device("cpu")
         nt.set_host_device_count(n)
         cards = n
         FRAMES, IMAGE, CLASSES = 80, 32, 10
         LM = dict(vocab=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
                   max_seq=128)
+        TRAIN_BATCH = (8, 64)
     else:
         if not torch.cuda.is_available():
             print("mesh_cards: no CUDA device", file=sys.stderr)
@@ -242,7 +437,9 @@ def main() -> int:
         cards = torch.cuda.device_count()
         emit({"cards": [torch.cuda.get_device_name(i)
                         for i in range(cards)]})
-    for step in (lambda: flagship(cards), chain, lambda: engine(cards)):
+    for step in (lambda: flagship(cards), chain, lambda: engine(cards),
+                 lambda: ring(cards), lambda: pp_train(cards),
+                 lambda: multihost_check(cards)):
         try:
             step()
         except Exception as e:  # noqa: BLE001 — reported, the rest runs
