@@ -187,6 +187,17 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   dithered) loaded onto the card, bit-identical to the live calls.
   ``framework=tensorflow`` and ``transformers`` need packages this
   machine lacks and are held to the JAX package by the CPU tests only.
+  The model files the JAX backend loads: MobileNetV2 1.0 (bf16, seed 0)
+  written as the JAX package's ``.msgpack`` and served by ``tensor_filter
+  framework=jax model=<file> custom=module:mobilenet_v2`` in bench.py's
+  batch-8 fused string (800 gradient frames), labels, indices and f32
+  scores bit-identical to the registered module, B1 once a window in one
+  capture; a ``.py`` model through the filter and through ``--export`` to
+  ``.pt2``, bit-identical; the flagship exported at batch 8 (dynamic
+  batch) under ``mesh=dp-1``, bit-identical to unmeshed.
+- The examples (``examples``): each ``examples/torch/*.py`` but
+  ``tf_savedmodel.py`` (tensorflow is not on this machine) as a process
+  of its own on the card, seven at a time, each rc 0 within its timeout.
 
 - Training and long context (``train``): chip_smoke's LM at full width
   (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff 2048), float32,
@@ -548,6 +559,30 @@ FILTERS_SCRIPT_RTOL, FILTERS_SCRIPT_ATOL = 1e-6, 1e-7
 FILTERS_ATTN = (1, 64, 8, 64)
 FILTERS_ATTN_CALLS = 32
 FILTERS_QUANT_SEED = 2 ** 40 + 7
+#: the model files' checks: frames of the ``.py`` model's run, and the
+#: ``.py`` model (per-channel scale and shift of the frame's mean, params
+#: as buffers of the filter's module)
+FILES_PY_FRAMES = 64
+FILES_PY_MODEL = (
+    "import torch\n"
+    "from nnstreamer_tpu_torch.tensors.types import TensorsInfo\n"
+    f"IN_INFO = TensorsInfo.from_str('3:{IMAGE}:{IMAGE}:1', 'uint8')\n"
+    "def get_model():\n"
+    "    params = {'scale': torch.linspace(0.5, 1.5, 3),\n"
+    "              'shift': torch.tensor([0.1, -0.2, 0.3])}\n"
+    "    def fn(p, x):\n"
+    "        y = x.to(torch.float32) / 255.0 * p['scale'] + p['shift']\n"
+    "        return torch.tanh(y).mean(dim=(1, 2))\n"
+    "    return fn, params\n")
+#: the examples phase: scripts that do not run on this machine, each
+#: script's time limit, and how many run at once
+EXAMPLES_NOT_ON_THE_CARD = {
+    "tf_savedmodel": "tensorflow is not on this machine (the TF backend "
+                     "runs it on the host, C.46); tests/test_torch_"
+                     "examples.py runs it on the CPU",
+}
+EXAMPLE_TIMEOUT_S = 240
+EXAMPLES_AT_ONCE = 7
 #: packages the card's machine lacks: these framework= names are held to
 #: the JAX package by the CPU tests only
 FILTERS_HOST_ONLY = {
@@ -7558,6 +7593,179 @@ def _graph_ops(ep) -> list:
                    if str(n.target).startswith("nnstpu.")})
 
 
+def batch8_desc(n, filt, labels, transform=True):
+    """bench.py's batch-8 fused string (the ``mesh`` and ``filters``
+    phases' flagship) with ``filt`` as the filter's model properties;
+    without ``transform`` the uint8 windows go to the model as they
+    are."""
+    pre = ("tensor_transform mode=arithmetic "
+           "option=typecast:float32,add:-127.5,div:127.5 ! "
+           if transform else "")
+    return (f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} "
+            "pattern=gradient ! tensor_converter ! "
+            "queue max-size-buffers=16 ! tensor_aggregator frames-in=1 "
+            "frames-out=8 frames-flush=8 frames-dim=3 concat=true ! "
+            "queue max-size-buffers=8 prefetch-device=true ! " + pre +
+            f"tensor_filter framework=jax {filt} name=filter inflight=2 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} "
+            "option2=batched ! queue max-size-buffers=64 "
+            "materialize-host=true ! tensor_sink name=out to-host=true")
+
+
+def _batch8_run(desc, name) -> dict:
+    """One run of a batch-8 string: its labelled frames, B1's launches,
+    its one region's counts, and its times: the whole run's wall (the
+    start-up, eager first window and capture, included), the first
+    window's arrival at the sink, and frames a second from the first
+    window to the last."""
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
+    got, seen = [], []
+
+    def on_window(buf):
+        got.append(buf.meta)
+        seen.append(time.monotonic())
+
+    pipe.get("out").connect(on_window)
+    reset_launches()
+    t0 = time.monotonic()
+    msg = pipe.run(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(msg is not None and msg.kind == "eos", f"{name}: ended with {msg}")
+    check(len(seen) >= 2, f"{name}: {len(seen)} windows at the sink")
+    frames = labelled_frames(got)
+    regions = list(pipe.metrics_snapshot()["regions"].values())
+    want = BATCHED_FRAMES // BATCH
+    check(len(frames) == BATCHED_FRAMES and
+          LAUNCHES["normalize_chain"] == want and len(regions) == 1 and
+          not regions[0]["unspliced"] and regions[0]["captures"] == 1 and
+          regions[0]["replays"] == want - 1,
+          f"{name}: {len(frames)} frames, B1 {LAUNCHES['normalize_chain']} "
+          f"for {want} windows, regions {regions}")
+    return {"frames": frames, "b1_launches": LAUNCHES["normalize_chain"],
+            "captures": regions[0]["captures"],
+            "replays": regions[0]["replays"], "wall_s": wall,
+            "fps_with_start_up": BATCHED_FRAMES / wall,
+            "first_window_s": seen[0] - t0,
+            "fps_after_first_window": len(labelled_frames(got[1:])) /
+            (seen[-1] - seen[0])}
+
+
+def filters_model_files(tmp: str, power: str) -> dict:
+    """The model files of the JAX backend on the card (the ``filters``
+    phase's last steps): the ``.msgpack`` flagship against the registered
+    module, a ``.py`` model against its ``.pt2`` export, and the exported
+    batch-8 flagship under ``mesh=dp-1`` against unmeshed."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.cli import main as cli_main
+    from nnstreamer_tpu_torch.filters import artifact
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        register_torch_model,
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import (
+        mobilenet_v2,
+        params_to_jax,
+    )
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.utils.checkpoint import save_params
+
+    out = {}
+    labels = os.path.join(tmp, "labels.txt")
+    # (e) the .msgpack flagship against the registered module
+    module, _, _ = mobilenet_v2(num_classes=CLASSES, image_size=IMAGE,
+                                dtype=torch.bfloat16, seed=0)
+    weights = os.path.join(tmp, "mnv2.msgpack")
+    t0 = time.monotonic()
+    save_params(params_to_jax(module), weights)
+    out["msgpack_write_s"] = time.monotonic() - t0
+    out["msgpack_bytes"] = os.path.getsize(weights)
+    register_torch_model("files_mnv2", module)
+    try:
+        plain = _batch8_run(batch8_desc(BATCHED_FRAMES, "model=files_mnv2",
+                                        labels), "files_registered")
+    finally:
+        unregister_torch_model("files_mnv2")
+    # the factory declares one frame (as the JAX package's): input= says
+    # a window of BATCH
+    got = _batch8_run(batch8_desc(
+        BATCHED_FRAMES, f"model={weights} custom=module:mobilenet_v2 "
+        f"input=3:{IMAGE}:{IMAGE}:{BATCH} inputtype=float32", labels),
+        "files_msgpack")
+    differ = [i for i, (a, b) in enumerate(zip(got["frames"],
+                                               plain["frames"])) if a != b]
+    check(not differ, f"filters: the .msgpack flagship's frames "
+                      f"{differ[:5]} differ from the registered module's")
+    out["msgpack_flagship"] = {
+        k: v for k, v in got.items() if k != "frames"}
+    out["msgpack_flagship"].update(
+        bit_identical_to_registered=True,
+        registered={k: v for k, v in plain.items() if k != "frames"},
+        gpu=power)
+
+    # (f) a .py model through the filter and through --export to .pt2
+    py = os.path.join(tmp, "tint.py")
+    with open(py, "w") as f:
+        f.write(FILES_PY_MODEL)
+    pt2 = os.path.join(tmp, "tint.pt2")
+    check(cli_main(["--export", py, pt2]) == 0, "filters: --export of the "
+                                                ".py model failed")
+    rows = {}
+    for name, model in (("py", py), ("pt2", pt2)):
+        pipe = nt.parse_launch(
+            f"videotestsrc num-buffers={FILES_PY_FRAMES} width={IMAGE} "
+            f"height={IMAGE} pattern=ball ! tensor_converter ! "
+            f"tensor_filter framework=jax model={model} ! "
+            "tensor_sink name=sink to-host=true",
+            pipeline=Pipeline(name=f"files_{name}"))
+        msg = pipe.run(timeout=300)
+        check(msg is not None and msg.kind == "eos",
+              f"filters: the {name} model ended with {msg}")
+        rows[name] = [np.asarray(b[0]).tobytes()
+                      for b in pipe.get("sink").buffers]
+    check(len(rows["py"]) == FILES_PY_FRAMES and rows["py"] == rows["pt2"],
+          "filters: the .py model and its .pt2 export differ")
+    out["py_model"] = {"frames": len(rows["py"]),
+                       "bit_identical_to_pt2": True}
+
+    # (g) the flagship exported at batch 8, under mesh=dp-1 and unmeshed
+    live = _flagship_exportable()
+    register_torch_model("files_flagship8", live, nt.TensorsInfo.from_str(
+        f"3:{IMAGE}:{IMAGE}:{BATCH}", "uint8"))
+    path8 = os.path.join(tmp, "flagship8.pt2")
+    try:
+        artifact.export_model("files_flagship8", path8)
+    finally:
+        unregister_torch_model("files_flagship8")
+    batches = artifact.program_batches(artifact.load_artifact(path8))
+    check(batches == [(BATCH, 1, sys.maxsize)],
+          f"filters: the batch-8 export's batch is {batches}")
+    runs = {}
+    for name, mesh in (("unmeshed", ""), ("mesh_dp1", " mesh=dp-1")):
+        runs[name] = _batch8_run(batch8_desc(
+            BATCHED_FRAMES, f"framework=torch model={path8}{mesh}", labels,
+            transform=False), f"files_pt2_{name}")
+    differ = [i for i, (a, b) in enumerate(zip(runs["mesh_dp1"]["frames"],
+                                               runs["unmeshed"]["frames"]))
+              if a != b]
+    check(not differ, f"filters: the batch-8 .pt2 under mesh=dp-1 differs "
+                      f"from unmeshed at frames {differ[:5]}")
+    out["pt2_mesh"] = {name: {k: v for k, v in r.items() if k != "frames"}
+                       for name, r in runs.items()}
+    out["pt2_mesh"].update(program_batch=list(batches[0][:2]),
+                           bit_identical_to_unmeshed=True)
+    return out
+
+
 def phase_filters(power: str) -> dict:
     """The filter backends of ROADMAP A.23 and the exported kernels of
     C.26 on the card.
@@ -7781,11 +7989,66 @@ def phase_filters(power: str) -> dict:
             result[f"quantize_{mode}_scale"] = float(s[0])
         result["quantize_b3_launches"] = launches
         marks["quantize"] = time.monotonic() - t_phase
+
+        # (e)-(g) the model files the JAX backend loads
+        result.update(filters_model_files(tmp, power))
+        marks["model_files"] = time.monotonic() - t_phase
     finally:
         unregister_torch_model("filters_live")
         shutil.rmtree(tmp, ignore_errors=True)
     result["seconds"] = time.monotonic() - t_phase
     emit({"phase": "filters", **result, "gpu": power})
+    return result
+
+
+def phase_examples(power: str) -> dict:
+    """Each ``examples/torch/*.py`` but those of EXAMPLES_NOT_ON_THE_CARD
+    as a process of its own on the card (the package default, cuda:0: no
+    ``NNSTPU_TORCH_DEVICE``), EXAMPLES_AT_ONCE at a time, each within
+    EXAMPLE_TIMEOUT_S (``subprocess.run`` kills one that overruns). Each
+    must exit 0; its last line is kept. The kernels come from this run's
+    compile cache."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("NNSTPU_TORCH_DEVICE", None)
+    scripts = [p for p in sorted(glob.glob(os.path.join(
+        HERE, "examples", "torch", "*.py")))
+        if os.path.basename(p)[:-3] not in EXAMPLES_NOT_ON_THE_CARD]
+    check(len(scripts) == 14 - len(EXAMPLES_NOT_ON_THE_CARD),
+          f"examples: {len(scripts)} scripts")
+
+    def run(path):
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run([sys.executable, path], cwd=HERE, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            return path, None, time.monotonic() - t0, "", "timed out"
+        return (path, proc.returncode, time.monotonic() - t0,
+                proc.stdout, proc.stderr[-1500:])
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(EXAMPLES_AT_ONCE) as pool:
+        done = list(pool.map(run, scripts))
+    result = {"scripts": {}, "not_run": EXAMPLES_NOT_ON_THE_CARD}
+    failed = []
+    stdout = {}
+    for path, rc, seconds, text, err in done:
+        name = os.path.basename(path)
+        stdout[name] = text
+        result["scripts"][name] = {
+            "rc": rc, "seconds": seconds,
+            "last_line": (text.strip().splitlines() or [""])[-1][:200]}
+        if rc != 0:
+            failed.append(f"{name} rc {rc}: {err}")
+    result["seconds"] = time.monotonic() - t0
+    check(not failed, "examples: " + " | ".join(failed))
+    check("devices: 1 x cuda" in stdout["sharded.py"],
+          f"examples: sharded.py ran on {stdout['sharded.py'][:100]!r}")
+    emit({"phase": "examples", **result, "gpu": power})
     return result
 
 
@@ -7911,14 +8174,7 @@ def phase_mesh(power: str) -> dict:
         f"option1={labels} option2=batched ! "
 
     def flagship(mesh):
-        return (f"videotestsrc num-buffers={BATCHED_FRAMES} width={IMAGE} "
-                f"height={IMAGE} pattern=gradient ! tensor_converter ! "
-                "queue max-size-buffers=16 ! tensor_aggregator frames-in=1 "
-                "frames-out=8 frames-flush=8 frames-dim=3 concat=true ! "
-                "queue max-size-buffers=8 prefetch-device=true ! " +
-                chain.format(mesh=mesh) +
-                "queue max-size-buffers=64 materialize-host=true ! "
-                "tensor_sink name=out to-host=true")
+        return batch8_desc(BATCHED_FRAMES, f"model=mnv2_mesh {mesh}", labels)
 
     def run(desc, name):
         pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name))
@@ -8956,6 +9212,8 @@ def main() -> int:
     phase_grpc(power)
     # replica processes on the card: after every profiled run, as the CLI
     fleet = phase_fleet(power)
+    # the examples' processes on the card: after every profiled run too
+    phase_examples(power)
     emit({"phase": "server_transports", **SERVER_TRANSPORTS})
     for mod in ("jax", "nnstreamer_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
@@ -9026,6 +9284,13 @@ def main() -> int:
         "launches_filters_export": filters["flagship_loaded"]["b1_launches"],
         "launches_filters_export_direct":
             filters["flagship_direct_b1_launches"],
+        # the model files: the .msgpack flagship in bench.py's batch-8
+        # string (once a window, 1 eager + 99 replays) and the flagship
+        # exported at batch 8 under mesh=dp-1 (once a window)
+        "launches_filters_msgpack":
+            filters["msgpack_flagship"]["b1_launches"],
+        "launches_filters_pt2_mesh":
+            filters["pt2_mesh"]["mesh_dp1"]["b1_launches"],
         # the serving mesh: the batch-8 flagship with mesh=dp-1, one
         # sharded region over the card's one device (once a window)
         "launches_mesh": mesh["flagship"]["b1_launches"],

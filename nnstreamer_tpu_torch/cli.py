@@ -278,14 +278,18 @@ def main(argv=None) -> int:
                          "discovery); merged fleet view served at "
                          "/fleet/metrics on the --metrics-port server")
     ap.add_argument("--export", nargs=2, metavar=("MODEL", "OUT"),
-                    help="export a model (.pt/.pth file or registered "
-                         "name) to a torch.export .pt2 artifact and exit")
+                    help="export a model (a .py with get_model(), a "
+                         ".msgpack with --custom module:<factory>, a "
+                         ".pt/.pth file or a registered name) to a "
+                         "torch.export .pt2 artifact, its batch "
+                         "dimension dynamic, and exit")
     ap.add_argument("--platforms", default=None,
                     help="'cpu' runs the package on the CPU "
                          "(set_device('cpu')); 'cuda' (the default) on "
                          "cuda:0")
     ap.add_argument("--custom", default=None,
-                    help="custom options for --export")
+                    help="custom options for --export (e.g. "
+                         "module:mobilenet_v2 for a .msgpack)")
     ap.add_argument("--input", default=None,
                     help="input dims for --export (caps grammar, e.g. "
                          "3:224:224:1)")

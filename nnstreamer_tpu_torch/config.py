@@ -29,6 +29,8 @@ DEFAULT_EXT_PRIORITY: Dict[str, List[str]] = {
     ".pth": ["torch"],
     # torch.export artifacts (filters/artifact.py)
     ".pt2": ["torch"],
+    # the JAX package's flax weights with custom=module:<factory>
+    ".msgpack": ["torch"],
     # the JAX package's StableHLO artifacts: the torch backend names
     # ROADMAP C.24 for them
     **{ext: ["torch"] for ext in (".jaxexp", ".stablehlo", ".mlir",

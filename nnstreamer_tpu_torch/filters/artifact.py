@@ -8,12 +8,17 @@ carries its input and output shapes and types, so ``tensor_filter
 model=x.pt2`` needs no ``input``/``output`` properties.
 
 - :func:`save_artifact` traces a module on example inputs (or zeros of
-  ``in_info``) and writes the ``.pt2``;
+  ``in_info``), with the batch dimension dynamic where the inputs have
+  one, so the program serves each device's shard under ``mesh=``
+  (ROADMAP C.58; :func:`program_batches` reads the range back), and
+  writes the ``.pt2``;
 - :func:`load_artifact` reads it (``torch.export.load``);
 - :func:`artifact_entry` is the backend's entry for a ``.pt2`` file: the
   exported program's module on the requested device, with its info;
-- :func:`export_model` exports a registered model or a ``.pt``/``.pth``
-  file (the CLI's ``--export``).
+- :func:`export_model` exports what the backend loads — a registered
+  model, a ``.py`` with ``get_model()``, a ``.msgpack`` with
+  ``custom=module:<factory>``, a ``.pt``/``.pth`` file — (the CLI's
+  ``--export``).
 
 A model whose forward reaches a hand-written kernel's wrapper (B1
 ``normalize_chain``, B2 ``flash_attention``, B3 ``quantize_int8``)
@@ -29,14 +34,19 @@ ROADMAP C.24 for them.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import sys
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+from torch.fx.experimental.symbolic_shapes import ConstraintViolationError
 
 # registers nnstpu::normalize_chain, ::flash_attention and ::quantize_int8
 # before any torch.export.load (the kernels build at their first CUDA call)
 from nnstreamer_tpu_torch.ops import flash_attention, preprocess, quantize  # noqa: F401
+from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.tensors.types import TensorInfo, TensorsInfo, TensorType
+
+log = get_logger("artifact")
 
 
 def _example_inputs(in_info: Optional[TensorsInfo],
@@ -49,17 +59,47 @@ def _example_inputs(in_info: Optional[TensorsInfo],
                  for i in in_info)
 
 
+def _batch_dims(args: tuple):
+    """``dynamic_shapes`` with dimension 0 of every input one shared
+    ``Dim`` (at least 1 row), or None when the inputs have no common
+    batch of 2 or more rows to trace it at."""
+    batches = {a.shape[0] if a.dim() else None for a in args}
+    if len(batches) != 1 or None in batches or batches.pop() < 2:
+        return None
+    batch = torch.export.Dim("batch", min=1)
+    dims = torch.export.ShapesCollection()  # keyed by tensor: any forward
+    for a in args:
+        dims[a] = {0: batch}
+    return dims
+
+
 def save_artifact(path: str, module: torch.nn.Module,
                   in_info: Optional[TensorsInfo] = None,
                   example_inputs: Optional[Sequence[Any]] = None):
     """Trace ``module`` (on the CPU, in eval mode, with its weights) with
     ``torch.export`` and write the program to ``path``. Input specs come
     from ``in_info`` (caps dims, reversed order) or ``example_inputs``.
-    Returns the ``ExportedProgram``."""
+    Dimension 0 of the inputs, where they share one of 2 or more rows, is
+    traced as a dynamic size of at least 1, so the program serves each
+    device's shard under ``mesh=`` (ROADMAP C.58); a module whose code
+    fixes its batch is traced static instead, with a warning. Returns the
+    ``ExportedProgram``."""
     args = _example_inputs(in_info, example_inputs)
     module = module.eval()
+    dims = _batch_dims(args)
     with torch.no_grad():
-        ep = torch.export.export(module, args)
+        ep = None
+        if dims is not None:
+            try:
+                ep = torch.export.export(module, args, dynamic_shapes=dims)
+            except (torch._dynamo.exc.UserError,
+                    ConstraintViolationError) as e:
+                log.warning("export: the model fixes its batch of %d, "
+                            "exported static (it serves under no mesh "
+                            "that splits it): %s", args[0].shape[0],
+                            str(e).splitlines()[0])
+        if ep is None:
+            ep = torch.export.export(module, args)
     torch.export.save(ep, path)
     return ep
 
@@ -75,20 +115,47 @@ def load_artifact(path: str):
             f"failed: {e}") from e
 
 
+def _size(d) -> int:
+    """A traced size: an int, or a dynamic size's traced value."""
+    return d if isinstance(d, int) else int(d.node.hint)
+
+
 def _info_of(vals) -> TensorsInfo:
     return TensorsInfo([
-        TensorInfo(dim=tuple(reversed(tuple(int(d) for d in v.shape))) or
+        TensorInfo(dim=tuple(reversed(tuple(_size(d) for d in v.shape))) or
                    (1,), type=TensorType.from_any(v.dtype))
         for v in vals
     ])
 
 
+def _user_inputs(ep) -> list:
+    nodes = {n.name: n for n in ep.graph.nodes}
+    return [nodes[name].meta["val"] for name in ep.graph_signature.user_inputs]
+
+
+def program_batches(ep) -> List[Tuple[int, int, int]]:
+    """``(traced batch, least, most)`` of dimension 0 of each user input
+    of rank 1 or more: a static size gives ``(n, n, n)``, a dynamic one
+    its range (``most`` a large int for an open range)."""
+    out = []
+    for v in _user_inputs(ep):
+        if not v.dim():
+            continue
+        d = v.shape[0]
+        if isinstance(d, int):
+            out.append((d, d, d))
+            continue
+        rng = ep.range_constraints[d.node.expr]
+        high = int(rng.upper) if rng.upper.is_Integer else sys.maxsize
+        out.append((_size(d), int(rng.lower), high))
+    return out
+
+
 def artifact_tensors_info(ep) -> Tuple[TensorsInfo, TensorsInfo]:
     """(in_info, out_info) caps from an ``ExportedProgram``'s user inputs
     and outputs (artifacts are self-describing)."""
-    nodes = {n.name: n for n in ep.graph.nodes}
     sig = ep.graph_signature
-    ins = [nodes[name].meta["val"] for name in sig.user_inputs]
+    ins = _user_inputs(ep)
     out_node = next(n for n in ep.graph.nodes if n.op == "output")
     outs_all = out_node.args[0]
     outs_all = outs_all if isinstance(outs_all, (list, tuple)) \
@@ -118,19 +185,16 @@ def export_model(model: str, out_path: str, custom: Optional[str] = None,
                  input_dims: Optional[str] = None,
                  input_types: Optional[str] = None) -> TensorsInfo:
     """Export a model the torch backend loads (a registered name, a
-    ``.pt``/``.pth`` file) to a ``.pt2`` at ``out_path`` — the producer
-    half of the opaque-file story (CLI: ``--export``). ``input_dims``
-    overrides the model's declared input info (e.g. to re-specialize the
-    batch). Returns the artifact's output info. ``custom`` is accepted
-    for the JAX CLI's sake; the torch backend reads no custom options."""
+    ``.py`` with ``get_model()``, a ``.msgpack`` with ``custom=module:
+    <factory>``, a ``.pt``/``.pth`` file) to a ``.pt2`` at ``out_path`` —
+    the producer half of the opaque-file story (CLI: ``--export``).
+    ``input_dims`` overrides the model's declared input info (e.g. to
+    re-specialize the batch). The batch dimension is exported dynamic
+    where the inputs share one of 2 or more rows (:func:`save_artifact`).
+    Returns the artifact's output info."""
     from nnstreamer_tpu_torch.filters import torch_backend as tb
 
-    del custom
-    name = model.split(":", 1)[1] if model.startswith("registered:") \
-        else model
-    with tb._reg_lock:
-        entry = dict(tb._registered[name]) if name in tb._registered \
-            else None
+    entry = tb.resolve_python_model(model, custom)
     if entry is None:
         entry = tb._load_file(model, torch.device("cpu"))
     module = entry["module"]

@@ -43,20 +43,30 @@ unchanged.
   one CUDA graph with the elements around it.
 
 Model forms accepted (``model`` property): a name registered with
-:func:`register_torch_model`, a ``.pt``/``.pth`` file holding TorchScript
-or a pickled ``nn.Module`` (reference ``tensor_filter_pytorch.cc``), or a
-``.pt2`` ``torch.export`` artifact (``filters/artifact.py``), loaded onto
-the chosen device. A frozen ``.pb`` GraphDef or a SavedModel directory
-goes to the TensorFlow backend (``filters/tf_backend.py``), which runs it
-on the host, as the JAX backend sends them to its TF staging. The JAX
-package's StableHLO artifacts raise naming ROADMAP C.24.
+:func:`register_torch_model`; a ``<file>.py`` whose ``get_model()``
+returns an ``nn.Module`` or a callable on tensors, or ``(callable,
+params)``; a ``<file>.msgpack`` of the JAX package's flax weights with
+``custom=module:<factory>`` naming a model of ``models.FACTORIES`` (the
+factory's arguments follow the file's shapes); a ``.pt``/``.pth`` file
+holding TorchScript or a pickled ``nn.Module`` (reference
+``tensor_filter_pytorch.cc``); or a ``.pt2`` ``torch.export`` artifact
+(``filters/artifact.py``), loaded onto the chosen device. Under a
+``mesh=`` plan a ``.pt2`` serves each device's shard when its batch is
+dynamic (``--export`` marks it so); a static batch that the plan would
+split raises at ``open()`` (ROADMAP C.58). A frozen ``.pb`` GraphDef or
+a SavedModel directory goes to the TensorFlow backend
+(``filters/tf_backend.py``), which runs it on the host, as the JAX
+backend sends them to its TF staging. The JAX package's StableHLO
+artifacts raise naming ROADMAP C.24.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import os
+import sys
 import threading
 import weakref
 from typing import Any, Dict, List, Optional, Sequence
@@ -95,6 +105,113 @@ def unregister_torch_model(name: str) -> bool:
         return _registered.pop(name, None) is not None
 
 
+def _as_info(info) -> Optional[TensorsInfo]:
+    """A model file's ``IN_INFO``/``OUT_INFO``: the port's TensorsInfo, or
+    any object with the caps strings (``dims_str()``/``types_str()``)."""
+    if info is None or isinstance(info, TensorsInfo):
+        return info
+    return TensorsInfo.from_str(info.dims_str(), info.types_str())
+
+
+class PythonModel(torch.nn.Module):
+    """A ``get_model()`` callable as a module, so it fuses, swaps and
+    exports as any module: ``fn(*inputs)``, or ``fn(params, *inputs)``
+    where each tensor (or numpy array) leaf of ``params`` is a buffer."""
+
+    def __init__(self, fn, params: Any = None):
+        super().__init__()
+        self.fn = fn
+        self._with_params = params is not None
+        self._spec = None
+        self._consts: List[Any] = []
+        if self._with_params:
+            import numpy as np
+            from torch.utils import _pytree
+
+            leaves, self._spec = _pytree.tree_flatten(params)
+            for i, leaf in enumerate(leaves):
+                if isinstance(leaf, (torch.Tensor, np.ndarray)):
+                    self.register_buffer(f"p{i}", torch.as_tensor(leaf))
+                    leaf = None
+                self._consts.append(leaf)
+
+    def forward(self, *xs):
+        if not self._with_params:
+            return self.fn(*xs)
+        from torch.utils import _pytree
+
+        leaves = [getattr(self, f"p{i}") if c is None else c
+                  for i, c in enumerate(self._consts)]
+        return self.fn(_pytree.tree_unflatten(leaves, self._spec), *xs)
+
+
+def _load_py_model(path: str) -> dict:
+    """``<file>.py`` with ``get_model()`` (``jax_backend._load_py_model``):
+    an ``nn.Module`` as it is, a plain callable wrapped in
+    :class:`PythonModel`; module-level ``IN_INFO``/``OUT_INFO``."""
+    spec = importlib.util.spec_from_file_location(
+        f"nnstreamer_tpu_torch_model_"
+        f"{os.path.basename(path).replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    if not hasattr(mod, "get_model"):
+        raise ValueError(f"torch: model file {path!r} must define "
+                         "get_model()")
+    got = mod.get_model()
+    fn, params = got if isinstance(got, tuple) else (got, None)
+    module = fn if isinstance(fn, torch.nn.Module) and params is None \
+        else PythonModel(fn, params)
+    return dict(module=module, in_info=_as_info(getattr(mod, "IN_INFO", None)),
+                out_info=_as_info(getattr(mod, "OUT_INFO", None)))
+
+
+def _custom_option(custom: Optional[str], key: str) -> Optional[str]:
+    """The value of ``key:<value>`` in a comma-separated ``custom``."""
+    value = None
+    for part in (custom or "").split(","):
+        if part.startswith(f"{key}:"):
+            value = part.split(":", 1)[1]
+    return value
+
+
+def _load_msgpack_model(path: str, custom: Optional[str]) -> dict:
+    """The JAX package's flax ``.msgpack`` weights with
+    ``custom=module:<factory>`` (``jax_backend._load_msgpack_model``):
+    the zoo model built at the file's shapes, loaded with its values."""
+    from nnstreamer_tpu_torch.models import from_jax
+    from nnstreamer_tpu_torch.utils.flax_msgpack import from_bytes
+
+    name = _custom_option(custom, "module")
+    if name is None:
+        raise ValueError(
+            "torch: .msgpack model needs custom=module:<models factory> "
+            "(e.g. custom=module:mobilenet_v2)")
+    with open(path, "rb") as f:
+        variables = from_bytes(f.read())
+    module, in_info, out_info = from_jax(name, variables)
+    return dict(module=module, in_info=in_info, out_info=out_info)
+
+
+def resolve_python_model(model: str, custom: Optional[str]
+                         ) -> Optional[dict]:
+    """The Python-authored model forms (a registered name, ``.py`` with
+    ``get_model()``, ``.msgpack`` with a zoo factory) as a backend entry,
+    or None when ``model`` is none of them. The filter and the exporter
+    (``filters/artifact.export_model``) share it, so ``--export`` takes
+    what the filter loads."""
+    name = model.split(":", 1)[1] if model.startswith("registered:") \
+        else model
+    with _reg_lock:
+        if name in _registered:
+            return dict(_registered[name])
+    if model.endswith(".py") and os.path.isfile(model):
+        return _load_py_model(model)
+    if model.endswith(".msgpack") and os.path.isfile(model):
+        return _load_msgpack_model(model, custom)
+    return None
+
+
 def _load_file(path: str, device: torch.device) -> dict:
     """A backend entry (module, in_info, out_info) for a model file."""
     ext = os.path.splitext(path)[1].lower()
@@ -109,7 +226,8 @@ def _load_file(path: str, device: torch.device) -> dict:
         return artifact_entry(path, device)
     if not os.path.isfile(path):
         raise ValueError(f"torch: cannot load model {path!r} (not "
-                         "registered, not a .pt/.pth/.pt2 file)")
+                         "registered, not a .py/.msgpack/.pt/.pth/.pt2 "
+                         "file)")
     return dict(module=_load_module(path, device), in_info=None,
                 out_info=None)
 
@@ -171,6 +289,28 @@ def _rebind(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]
     with torch.no_grad():
         for name, t in _named_tensors(module).items():
             t.data = tensors[name]
+
+
+def _check_shards(ep, sharding, model: str) -> None:
+    """ROADMAP C.58: a ``.pt2`` is traced at one batch. Under a mesh each
+    device runs its shard of the rows (the batch over ``dp``, or the whole
+    batch where it does not split), so the program's batch dimension must
+    admit the shard size: a dynamic batch whose range holds it, or a
+    static batch equal to it. Anything else raises here, not as a guard
+    failure inside the stream."""
+    from nnstreamer_tpu_torch.filters.artifact import program_batches
+
+    dp = getattr(sharding, "dp_size", sharding.num_devices)
+    for i, (batch, low, high) in enumerate(program_batches(ep)):
+        shard = batch // dp if batch % dp == 0 else batch
+        if not low <= shard <= high:
+            kind = "static" if low == high else f"dynamic [{low}, {high}]"
+            raise ValueError(
+                f"torch: {model!r} input {i} is exported at a {kind} batch "
+                f"of {batch}, and the mesh gives each device a shard of "
+                f"{shard} rows; export it with a dynamic batch "
+                "(nns-launch-torch --export marks the batch dynamic) "
+                "(ROADMAP C.58)")
 
 
 class DispatchLock:
@@ -282,18 +422,19 @@ class TorchFilter(FilterFramework):
         if not model:
             raise ValueError("torch: model not set")
         self._open_sharding(props)
-        name = model.split(":", 1)[1] if model.startswith("registered:") \
-            else model
-        with _reg_lock:
-            entry = dict(_registered[name]) if name in _registered else None
+        entry = resolve_python_model(model, props.custom)
         if entry is None:
             entry = _load_file(model, self._device)
+        exported = entry.get("exported")  # a .pt2's program, else None
+        if self._sharding is not None and exported is not None:
+            _check_shards(exported, self._sharding, model)
         acct = _memory.ACTIVE
         self._opened_from = None
         if acct is not None and not isinstance(entry["module"],
                                                 torch.jit.ScriptModule):
             self._module = self._register_resident(  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
-                acct, entry["module"], f"torch:{id(self)}", str(model))
+                acct, entry["module"], f"torch:{id(self)}", str(model),
+                exported=exported)
         else:
             self._module = self._opened_from = _eval(  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
                 entry["module"].to(self._device))
@@ -304,7 +445,7 @@ class TorchFilter(FilterFramework):
                 # graphs captured over the copy stay valid
                 self._module = copy.deepcopy(self._module)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
             if self._sharding is not None:
-                self._replicas = self._replicate(self._module)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
+                self._replicas = self._replicate(self._module, exported)  # nns-lint: disable=NNS201 -- open() runs before start() or inside reload() under the dispatch lock: no dispatch reads the module meanwhile
         self._in_info = props.input_info or entry["in_info"]
         self._out_info = props.output_info or entry["out_info"]
 
@@ -336,17 +477,27 @@ class TorchFilter(FilterFramework):
     def _mesh_devices(self) -> List[torch.device]:
         return [d.device for d in self._sharding.mesh.device_list()]
 
-    def _replicate(self, module: torch.nn.Module) -> List[torch.nn.Module]:
+    def _replicate(self, module: torch.nn.Module, exported=None
+                   ) -> List[torch.nn.Module]:
         """One served copy of ``module`` on each mesh device: the first
         is ``module`` (on the first device already), the others copies
-        of their own."""
+        of their own. For a ``.pt2`` the copies come from ``exported``,
+        the program ``module`` was made from, moved whole to each device
+        with the devices its graph burnt in, as ``artifact_entry`` moves
+        it (the pass moves ``exported`` itself, device by device)."""
+        if exported is not None:
+            from torch.export.passes import move_to_device_pass
+
+            return [module] + [_eval(move_to_device_pass(exported, dev)  # nns-lint: disable=NNS113 -- replicated weights: each mesh device holds a copy, as the JAX backend's replicated placement
+                                     .module())
+                               for dev in self._mesh_devices()[1:]]
         return [module] + [copy.deepcopy(module).to(dev)  # nns-lint: disable=NNS113 -- replicated weights: each mesh device holds a copy, as the JAX backend's replicated placement
                            for dev in self._mesh_devices()[1:]]
 
     # -- HBM residency (tensors/memory.py) -----------------------------------
     def _register_resident(self, acct, module: torch.nn.Module, key: str,
-                           label: str, state: Optional[dict] = None
-                           ) -> torch.nn.Module:
+                           label: str, state: Optional[dict] = None,
+                           exported=None) -> torch.nn.Module:
         """Make the weights an evictable residency unit and return the
         private module the backend serves: a twin of ``module`` whose
         tensors the unit's loader points at device copies of the host
@@ -359,7 +510,10 @@ class TorchFilter(FilterFramework):
         unit carries the full weight bytes and ``nns_mem_used_bytes``
         sums to the real footprint; one load fills every device's twin
         (``_replicas``), and ``_resident_keys`` lists every key so a swap
-        or ``close()`` retires the whole group."""
+        or ``close()`` retires the whole group. The twins of a ``.pt2``
+        (``exported``, its program) come from the program moved to each
+        device (:meth:`_replicate`): its graph burns in the device it was
+        moved to, which a copy of the first device's would keep."""
         devices = self._mesh_devices() if self._sharding is not None \
             else [self._device]
 
@@ -367,9 +521,12 @@ class TorchFilter(FilterFramework):
             return torch.empty(0, dtype=t.dtype, device=dev)
 
         if state is None:
+            bases = (self._replicate(module, exported)
+                     if exported is not None and self._sharding is not None
+                     else [module] * len(devices))
             served = []
-            for dev in devices:
-                m = _eval(_meta_twin(module))
+            for base, dev in zip(bases, devices):
+                m = _eval(_meta_twin(base))
                 m._apply(lambda t, _d=dev: empty(t, _d))  # holding nothing yet
                 served.append(m)
         else:

@@ -160,3 +160,9 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     jax_dense(out, "dense0", params["Dense_0"])
     jax_dense(out, "dense1", params["Dense_1"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The class count and the input channels."""
+    return {"num_classes": int(state["dense1.weight"].shape[0]),
+            "channels": int(state["convs.0.weight"].shape[1])}

@@ -63,3 +63,11 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     jax_dense(out, "dense", variables["params"]["Dense_0"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """``input_dim`` and ``hidden`` from the gate layer's ``(4 hidden,
+    input_dim + hidden)`` weight."""
+    out_dim, in_dim = state["dense.weight"].shape
+    hidden = int(out_dim) // 4
+    return {"input_dim": int(in_dim) - hidden, "hidden": hidden}

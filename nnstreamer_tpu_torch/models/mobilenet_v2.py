@@ -15,7 +15,9 @@ ReLU6, global mean pool and a dense classifier.
   convolutions here compute the SAME pads from the input size and pad
   explicitly.
 - :func:`params_from_jax` maps the JAX package's variable tree (as
-  numpy arrays) onto this module's ``state_dict``.
+  numpy arrays) onto this module's ``state_dict``, :func:`params_to_jax`
+  the other way, and :func:`args_from_state` reads the class count and
+  the width from a converted checkpoint's shapes.
 """
 
 from __future__ import annotations
@@ -250,3 +252,80 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     jax_bn(out, "head_bn", params["BatchNorm_1"], stats["BatchNorm_1"])
     jax_dense(out, "classifier", params["Dense_0"])
     return to_state_dict(out)
+
+
+#: the width multipliers MobileNetV2 is published at
+WIDTHS = (0.35, 0.5, 0.75, 1.0, 1.3, 1.4)
+
+
+def _shapes(state) -> Dict[str, Tuple[int, ...]]:
+    return {k: tuple(v.shape) for k, v in state.items()}
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """The factory arguments a converted checkpoint's shapes fix: the
+    class count, and the published width (or the stem's ``channels / 32``)
+    whose module has every one of the checkpoint's shapes. With no width
+    that fits, the class count alone: the loader then names the tensor
+    that does not fit."""
+    classes = int(state["classifier.weight"].shape[0])
+    want = _shapes(state)
+    for width in WIDTHS + (state["stem.weight"].shape[0] / 32,):
+        with torch.device("meta"):
+            twin = MobileNetV2(num_classes=classes, width=width)
+        if _shapes(twin.state_dict()) == want:
+            return {"num_classes": classes, "width": width}
+    return {"num_classes": classes}
+
+
+# -- converters to the JAX package's variable trees --------------------------
+def _jax_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """torch OIHW (depthwise: (C, 1, kh, kw)) → JAX HWIO ((kh, kw, 1, C))."""
+    return weight.detach().permute(2, 3, 1, 0).contiguous().cpu()
+
+
+def _to_jax_conv(src: str, state) -> dict:
+    return {"kernel": _jax_kernel(state[f"{src}.weight"])}
+
+
+def _to_jax_bn(params: dict, stats: dict, src: str, state) -> None:
+    params["scale"] = state[f"{src}.weight"].detach().cpu()
+    params["bias"] = state[f"{src}.bias"].detach().cpu()
+    stats["mean"] = state[f"{src}.running_mean"].detach().cpu()
+    stats["var"] = state[f"{src}.running_var"].detach().cpu()
+
+
+def params_to_jax(state) -> Dict[str, dict]:
+    """This module's ``state_dict`` (or the module) → the JAX package's
+    MobileNetV2 variables ``{"params": ..., "batch_stats": ...}``, the
+    inverse of :func:`params_from_jax`. Leaves are CPU tensors in the
+    weights' dtype (``utils/flax_msgpack`` writes ``torch.bfloat16`` as
+    ``bfloat16``), so ``utils.checkpoint.save_params`` writes a file the
+    JAX package's ``load_params`` reads."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    params: Dict[str, dict] = {}
+    stats: Dict[str, dict] = {}
+    params["Conv_0"] = _to_jax_conv("stem", state)
+    params["BatchNorm_0"], stats["BatchNorm_0"] = {}, {}
+    _to_jax_bn(params["BatchNorm_0"], stats["BatchNorm_0"], "stem_bn", state)
+    k = 0
+    while f"blocks.{k}.convs.0.weight" in state:
+        bp, bs = {}, {}
+        i = 0
+        while f"blocks.{k}.convs.{i}.weight" in state:
+            bp[f"Conv_{i}"] = _to_jax_conv(f"blocks.{k}.convs.{i}", state)
+            bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"] = {}, {}
+            _to_jax_bn(bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"],
+                      f"blocks.{k}.bns.{i}", state)
+            i += 1
+        params[f"InvertedResidual_{k}"] = bp
+        stats[f"InvertedResidual_{k}"] = bs
+        k += 1
+    params["Conv_1"] = _to_jax_conv("head", state)
+    params["BatchNorm_1"], stats["BatchNorm_1"] = {}, {}
+    _to_jax_bn(params["BatchNorm_1"], stats["BatchNorm_1"], "head_bn", state)
+    params["Dense_0"] = {
+        "kernel": state["classifier.weight"].detach().t().contiguous().cpu(),
+        "bias": state["classifier.bias"].detach().cpu()}
+    return {"params": params, "batch_stats": stats}

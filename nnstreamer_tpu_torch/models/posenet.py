@@ -77,3 +77,8 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     jax_conv(out, "heat", params["Conv_1"])
     jax_conv(out, "offs", params["Conv_2"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """PoseNet's shapes take no factory argument."""
+    return {}

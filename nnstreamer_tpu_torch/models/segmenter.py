@@ -132,3 +132,9 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
         block(f"decoder.{i}", 4 + i)
     jax_conv(out, "classifier", params["Conv_3"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The class count and the first encoder stage's width."""
+    return {"num_classes": int(state["classifier.weight"].shape[0]),
+            "base": int(state["encoder.0.conv.weight"].shape[0])}

@@ -183,3 +183,9 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
         jax_conv(out, f"box_heads.{f}", params[f"Conv_{1 + 2 * f}"])
         jax_conv(out, f"cls_heads.{f}", params[f"Conv_{2 + 2 * f}"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The class count a converted checkpoint's class head fixes (6
+    anchors a cell)."""
+    return {"num_classes": int(state["cls_heads.0.weight"].shape[0]) // 6}

@@ -131,6 +131,29 @@ def params_from_jax(np_params: Dict[str, Any]) -> Params:
             for k, v in np_params.items()}
 
 
+def params_to_jax(params) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: this module's params (or a
+    :class:`TransformerLM`'s buffers) → the JAX package's parameter dict,
+    fp32 numpy arrays in its order (a bf16 matmul weight widens exactly)."""
+    if isinstance(params, nn.Module):
+        params = {k: getattr(params, k) for k in params._names}
+    order = ("embed", "ln1", "qkv", "proj", "ln2", "ln_f", "router", "w_in",
+             "w_out")
+    return {k: params[k].detach().to("cpu", torch.float32).numpy()
+            for k in order if k in params}
+
+
+def args_from_state(params: Params) -> Dict[str, int]:
+    """The :func:`transformer_lm` arguments the params' shapes fix: vocab,
+    width, heads, layers, FFN width and experts."""
+    vocab, d_model = params["embed"].shape
+    n_layers, _, _, n_heads, _ = params["qkv"].shape
+    experts = int(params["router"].shape[-1]) if "router" in params else 0
+    return {"vocab": int(vocab), "d_model": int(d_model),
+            "n_heads": int(n_heads), "n_layers": int(n_layers),
+            "d_ff": int(params["w_in"].shape[-1]), "num_experts": experts}
+
+
 def prepare_params(params: Params, cfg: TransformerConfig,
                    device=None) -> Params:
     """Params for serving: the matmul weights cast to ``cfg.dtype`` once

@@ -89,3 +89,8 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     stem_from_jax(out, params, stats)
     jax_conv(out, "head", params["Conv_1"])
     return to_state_dict(out)
+
+
+def args_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The class count the head's ``3 (5 + C)`` channels fix."""
+    return {"num_classes": int(state["head.weight"].shape[0]) // 3 - 5}

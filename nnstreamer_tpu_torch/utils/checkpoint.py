@@ -5,7 +5,9 @@ Port of ``nnstreamer_tpu/utils/checkpoint.py``:
 - :func:`save_params` / :func:`load_params` — model weights as a
   ``torch.save`` of host tensors (a state dict, or any nest of tensors);
   ``load_params`` maps them onto a device, and with a template module
-  loads them into it;
+  loads them into it. A ``.msgpack`` path is the JAX package's format
+  (``flax.serialization``, through ``utils/flax_msgpack``): what
+  ``tensor_filter model=x.msgpack custom=module:<factory>`` loads;
 - :func:`save_stream_state` / :func:`restore_stream_state` — snapshot of
   the global ``tensor_repo`` (recurrent hidden state) as host arrays, so
   an RNN/LSTM pipeline resumes exactly where it stopped; a state written
@@ -36,21 +38,68 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
+def _is_msgpack(path: str) -> bool:
+    return str(path).lower().endswith(".msgpack")
+
+
 def save_params(params: Any, path: str) -> None:
     """Write ``params`` (a state dict, a module's weights, or a nest of
-    tensors) as host tensors with ``torch.save`` (atomic publish)."""
+    tensors) as host tensors with ``torch.save`` (atomic publish). To a
+    ``.msgpack`` path the tree is written as ``flax.serialization.
+    to_bytes`` writes it (numpy or tensor leaves), for the JAX package's
+    ``load_params``; a zoo model's ``params_to_jax`` gives its tree."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     tmp = path + ".tmp"
-    torch.save(_to_host(params), tmp)
+    if _is_msgpack(path):
+        from nnstreamer_tpu_torch.utils.flax_msgpack import to_bytes
+
+        with open(tmp, "wb") as f:
+            f.write(to_bytes(params))
+    else:
+        torch.save(_to_host(params), tmp)
     os.replace(tmp, path)
+
+
+def _restore(template: Any, state: Any, path: str = "") -> Any:
+    """``flax.serialization.from_state_dict``: ``state`` in the structure
+    of ``template`` (dicts, lists, tuples); the file's leaves win, shapes
+    included."""
+    if isinstance(template, dict):
+        missing = sorted(set(map(str, template)) - set(state))
+        if missing:
+            raise ValueError(
+                "The target dict keys and state dict keys do not match, "
+                f"target dict contains keys {missing} which are not present "
+                f"in state dict at path {path or '/'}")
+        return {k: _restore(v, state[str(k)], f"{path}/{k}")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        items = [_restore(v, state[str(i)], f"{path}/{i}")
+                 for i, v in enumerate(template)]
+        return type(template)(items) if isinstance(template, list) \
+            else tuple(items)
+    return state
 
 
 def load_params(params_template: Any, path: str,
                 device: Optional[torch.device] = None) -> Any:
     """Read weights written by :func:`save_params` onto ``device`` (the
     CPU when None). A module template gets them loaded in place and is
-    returned; otherwise the loaded nest is returned."""
+    returned; otherwise the loaded nest is returned.
+
+    A ``.msgpack`` path reads the JAX package's file (``flax.
+    serialization.from_bytes``): the tree in ``params_template``'s
+    structure (or the whole tree for None), leaves as numpy arrays
+    (``bfloat16`` ones as ``torch.bfloat16`` tensors), the file's shapes
+    winning, as ``from_bytes`` gives them."""
+    if _is_msgpack(path):
+        from nnstreamer_tpu_torch.utils.flax_msgpack import from_bytes
+
+        with open(path, "rb") as f:
+            tree = from_bytes(f.read())
+        return tree if params_template is None else \
+            _restore(params_template, tree)
     state = torch.load(path, map_location=device or "cpu",
                        weights_only=True)
     if isinstance(params_template, torch.nn.Module):

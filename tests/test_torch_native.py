@@ -17,10 +17,16 @@ the same seeded numpy inputs, with exact equality (all host code).
   core and denied by the port.
 """
 
+import builtins
 import logging
+import os
 import socket
+import subprocess
 import threading
 import time
+from pathlib import Path
+from types import SimpleNamespace
+from typing import List
 
 import numpy as np
 import pytest
@@ -61,11 +67,6 @@ def libraries():
 
 
 # -- the build -----------------------------------------------------------------
-def _native_dir_state():
-    return {p.name: (p.stat().st_mtime_ns, p.stat().st_size)
-            for p in tnative.SRC_DIR.iterdir() if p.is_file()}
-
-
 def test_the_library_loads_from_the_ports_build_directory():
     path = tnative.library_path()
     assert path.parent == tnative.BUILD_DIR
@@ -74,19 +75,57 @@ def test_the_library_loads_from_the_ports_build_directory():
     assert path.name.startswith("libnnstpu-") and path.is_file()
 
 
+def _record_build_writes(monkeypatch) -> List[Path]:
+    """Every path the port's ``native.build()`` writes, recorded from
+    inside the module: a file opened for writing, the compiler's ``-o``
+    target and both ends of the rename. Other processes (the JAX
+    package's own build, run by any worker that loads its library) may
+    write under ``native/`` meanwhile; this records the port's writes
+    alone."""
+    writes: List[Path] = []
+
+    def _open(path, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+"):
+            writes.append(Path(path))
+        return builtins.open(path, mode, *args, **kwargs)
+
+    def _run(cmd, *args, **kwargs):
+        writes.append(Path(cmd[cmd.index("-o") + 1]))
+        return subprocess.run(cmd, *args, **kwargs)
+
+    def _replace(src, dst):
+        writes.extend([Path(src), Path(dst)])
+        return os.replace(src, dst)
+
+    monkeypatch.setattr(tnative, "open", _open, raising=False)
+    monkeypatch.setattr(tnative, "subprocess", SimpleNamespace(
+        run=_run, CalledProcessError=subprocess.CalledProcessError))
+    monkeypatch.setattr(tnative, "os", SimpleNamespace(
+        environ=os.environ, getpid=os.getpid, replace=_replace))
+    return writes
+
+
 def test_a_build_writes_only_under_its_build_directory(tmp_path,
                                                        monkeypatch):
-    before = _native_dir_state()
-    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "native")
+    build_dir = tmp_path / "native"
+    monkeypatch.setattr(tnative, "BUILD_DIR", build_dir)
+    writes = _record_build_writes(monkeypatch)
     assert tnative.build()
     out = tnative.library_path()
-    assert out.is_file() and out.parent == tmp_path / "native"
+    assert out.is_file() and out.parent == build_dir
     assert sorted(p.name for p in out.parent.iterdir()) == \
         sorted([".build.lock", out.name])
+    # the lock, the compiler's temporary and the rename into place
+    assert build_dir / ".build.lock" in writes and out in writes
+    assert any(p.suffix == ".tmp" for p in writes), writes
+    outside = [p for p in writes if build_dir not in p.parents]
+    assert not outside, outside
+    assert not list(tnative.SRC_DIR.glob("libnnstpu-*"))
     # a second build finds the library and compiles nothing
     mtime = out.stat().st_mtime_ns
+    del writes[:]
     assert tnative.build() and out.stat().st_mtime_ns == mtime
-    assert _native_dir_state() == before
+    assert writes == [build_dir / ".build.lock"]
 
 
 def test_the_library_key_follows_the_flags(monkeypatch):

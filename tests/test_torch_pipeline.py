@@ -205,8 +205,8 @@ def test_import_leaves_jax_out():
         "from nnstreamer_tpu_torch.serving import ContinuousBatchingEngine\n"
         "from nnstreamer_tpu_torch.serving import FleetLauncher\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'nnstreamer_tpu', "
-        "'tensorflow', 'transformers'))\n"
+        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'msgpack', "
+        "'nnstreamer_tpu', 'tensorflow', 'transformers'))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -272,12 +272,14 @@ def test_sources_name_no_jax():
     # the transformers backend names Flax (backend:flax, Flax parameter
     # trees) and imports none of it: test_import_leaves_jax_out checks
     forbidden = ("import jax", "from jax", "import flax", "from flax",
-                 "ml_dtypes",
+                 "ml_dtypes", "import msgpack", "from msgpack",
                  "import nnstreamer_tpu\n", "import nnstreamer_tpu ",
                  "from nnstreamer_tpu.", "from nnstreamer_tpu import")
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "nnstreamer_tpu_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in ("nnstreamer_tpu_torch", os.path.join("examples", "torch")):
+        for root, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     for path in files:
         with open(path) as f:
             text = f.read()

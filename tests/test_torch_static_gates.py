@@ -131,7 +131,9 @@ NEW_MODULES = ["native", "query.grpc_bridge", "elements.grpc_io",
                "analysis", "analysis.astlint", "analysis.catalog",
                "analysis.cli", "analysis.concurrency",
                "analysis.diagnostics", "analysis.extract",
-               "analysis.verify", "obs.lockgraph"]
+               "analysis.verify", "obs.lockgraph", "utils.flax_msgpack",
+               "utils.checkpoint", "models", "filters.torch_backend",
+               "filters.artifact"]
 
 
 def test_the_new_modules_import_no_jax_grpc_tf_or_transformers():
@@ -142,7 +144,8 @@ def test_the_new_modules_import_no_jax_grpc_tf_or_transformers():
         "import nnstreamer_tpu_torch.elements\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'nnstreamer_tpu', 'grpc',\n"
-        "              'tensorflow', 'transformers', 'ml_dtypes'))\n"
+        "              'tensorflow', 'transformers', 'ml_dtypes',\n"
+        "              'msgpack'))\n"
         "print(json.dumps(bad))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

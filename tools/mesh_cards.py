@@ -7,6 +7,7 @@ one captured graph per card, the tensor-parallel sum across cards).
     python3 tools/mesh_cards.py            # every visible card
     python3 tools/mesh_cards.py --cpu 4    # rehearsal: 4 logical host
                                            # devices, small sizes, gloo
+    python3 tools/mesh_cards.py --only pt2,chain   # these checks alone
 
 Checks, each printed as one JSON line:
 
@@ -18,6 +19,11 @@ Checks, each printed as one JSON line:
   cuDNN may pick other algorithms than for the whole window);
 - ``chain``: two elementwise filters at ``dp-1`` behind a queue: values
   exact, 0 reshard bytes at the hand-off;
+- ``pt2``: a ``.pt2`` from ``--export`` (batch 8, dynamic) whose graph
+  burns in its device (an ``arange`` on the input's device, a uint8 →
+  float32 ``.to``) at ``mesh=dp2`` and ``dp-1``, with and without the HBM
+  accountant (``memory.activate``: each card's copy a residency twin),
+  exact against the unmeshed filter (ROADMAP C.58);
 - ``engine``: the LM of ``chip_smoke.phase_lm_graph`` (fp32, 8 slots,
   K = 8, plain attention) at dp × tp (tp = 2 when the cards are even):
   greedy tokens against the unmeshed engine's, and the paged int8 engine
@@ -190,6 +196,78 @@ def chain() -> None:
     check(moved == 0, f"chain: {moved} reshard bytes")
     emit({"check": "chain", "frames": len(outs), "exact": exact,
           "reshard_bytes": moved, "handoff": pipe.get("fa")._mesh_handoff})
+
+
+PT2_MODEL = """\
+import torch
+from nnstreamer_tpu_torch.tensors.types import TensorsInfo
+IN_INFO = TensorsInfo.from_str("3:{image}:{image}:{batch}", "uint8")
+class Affine(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.linspace(0.5, 2.0, 3))
+    def forward(self, x):
+        ramp = torch.arange(3, dtype=torch.float32, device=x.device)
+        return ((x.to(torch.float32) + ramp) * self.w).mean(dim=(1, 2))
+def get_model():
+    return Affine()
+"""
+
+
+def pt2(cards: int) -> None:
+    import numpy as np
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.artifact import export_model
+    from nnstreamer_tpu_torch.tensors import memory
+
+    tmp = tempfile.mkdtemp(prefix="nns_cards_pt2_")
+    src, path = os.path.join(tmp, "affine.py"), os.path.join(tmp, "a.pt2")
+    with open(src, "w") as f:
+        f.write(PT2_MODEL.format(image=IMAGE, batch=BATCH))
+    export_model(src, path)
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 255, (BATCH, IMAGE, IMAGE, 3), np.uint8)
+              for _ in range(4)]
+
+    def run(mesh, budget):
+        pipe = nt.parse_launch(
+            f"appsrc name=src ! tensor_filter framework=jax model={path} "
+            f"{mesh} ! tensor_sink name=out to-host=true")
+        acct = memory.activate(1 << 30) if budget else None
+        try:
+            pipe.start()
+            try:
+                for fr in frames:
+                    pipe.get("src").push([fr])
+                pipe.get("src").end_of_stream()
+                msg = pipe.wait(timeout=300)
+            finally:
+                pipe.stop()
+            units = None if acct is None else \
+                acct.snapshot()["high_water_bytes"] // (3 * 4)
+        finally:
+            memory.deactivate()
+        check(msg is not None and msg.kind == "eos",
+              f"pt2: {mesh or 'unmeshed'} budget={budget}: {msg}")
+        return [np.asarray(b[0]) for b in pipe.get("out").buffers], units
+
+    plain, _ = run("", False)
+    runs = {}
+    for mesh, devices in (("mesh=dp2", min(2, cards)),
+                          ("mesh=dp-1", cards)):
+        for budget in (False, True):
+            got, units = run(mesh, budget)
+            exact = len(got) == len(plain) == len(frames) and all(
+                np.array_equal(a, b) for a, b in zip(got, plain))
+            check(exact, f"pt2: {mesh} budget={budget} differs from "
+                         "unmeshed")
+            check(not budget or units == devices,
+                  f"pt2: {mesh}: {units} resident copies on {devices} "
+                  "devices")
+            runs[f"{mesh[5:]}{'+budget' if budget else ''}"] = dict(
+                frames=len(got), exact=exact, resident_copies=units)
+    emit({"check": "pt2", "devices": cards, "runs": runs})
 
 
 def engine(cards: int) -> None:
@@ -437,9 +515,18 @@ def main() -> int:
         cards = torch.cuda.device_count()
         emit({"cards": [torch.cuda.get_device_name(i)
                         for i in range(cards)]})
-    for step in (lambda: flagship(cards), chain, lambda: engine(cards),
-                 lambda: ring(cards), lambda: pp_train(cards),
-                 lambda: multihost_check(cards)):
+    steps = {"flagship": lambda: flagship(cards), "chain": chain,
+             "pt2": lambda: pt2(cards), "engine": lambda: engine(cards),
+             "ring": lambda: ring(cards), "pp_train": lambda: pp_train(cards),
+             "multihost": lambda: multihost_check(cards)}
+    if "--only" in sys.argv:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        unknown = sorted(set(only) - set(steps))
+        if unknown:
+            print(f"mesh_cards: no check {unknown}", file=sys.stderr)
+            return 2
+        steps = {k: v for k, v in steps.items() if k in only}
+    for step in steps.values():
         try:
             step()
         except Exception as e:  # noqa: BLE001 — reported, the rest runs
