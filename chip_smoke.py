@@ -90,6 +90,17 @@ port's paths through ``nnstreamer_tpu_torch.parse_launch``:
   live source paced for partial windows (``latency-budget-ms``,
   ``pad-device``) keeps one capture and labels every frame as the unpaced
   run; the batch-1 fused flagship on the same frames is its comparison.
+- The residency plane (``residency``): bench.py's batch-8 string on 240
+  gradient frames, fused and unfused, each with the default setting and
+  with ``NNSTPU_RESIDENT=0``: all four bit-identical, B1 once a window,
+  one capture a fused run; the default runs enter every DeviceBuffer
+  resident and fetch at most one D2H event a frame, the others make
+  none; under ``dispatch.fence:nth=3,kind=raise`` one poisoned batch is
+  counted and the JAX package's ``FlowError`` ends the run, the windows
+  before it equal to the unfaulted run's; each filter opens once; one
+  scrape of ``MetricsServer`` shows ``nns_buffer_resident_ratio``,
+  ``nns_fault_poisoned_batches_total`` and
+  ``nns_tensor_filter_opens_total``.
 - bench.py's string with no cuts (``pipeline_uncut``): lanes 4 and the
   leaky stamp-admission ingress; lanes parity, the frame ledger, fault
   policies (with a pinned list-replay scenario) and the watchdog.
@@ -267,6 +278,17 @@ BATCHED_PROFILED_FRAMES = 96
 BUDGET_FRAMES = 160
 BUDGET_RATE = "200/1"
 BUDGET_MS = 10
+#: the residency phase: frames a run of bench.py's batch-8 string, the
+#: fault that poisons its third fence and the frames of that run (few
+#: enough for the queues to hold them all: a source blocked on a full
+#: queue holds a stopping pipeline up to 10 s, ROADMAP C.59), and the
+#: series one scrape must show
+RESIDENCY_FRAMES = 240
+RESIDENCY_FAULT = "dispatch.fence:nth=3,kind=raise"
+RESIDENCY_FAULT_FRAMES = 64
+RESIDENCY_SERIES = ("nns_buffer_resident_ratio",
+                    "nns_fault_poisoned_batches_total",
+                    "nns_tensor_filter_opens_total")
 #: bench.py's string with no cuts (``pipeline_uncut``): its lane count
 #: (bench.py:136), the supervision phase's fault period and the watchdog's
 #: deadline and the bound on its detection (the run, teardown included)
@@ -2768,6 +2790,182 @@ def phase_pipeline_batched(power: str):
         "gpu": power,
     }
     return result, launch
+
+
+def phase_residency(power: str) -> dict:
+    """The residency plane's off-switch and accounting on bench.py's
+    batch-8 string (240 gradient frames), fused and unfused, each with the
+    default setting and with ``NNSTPU_RESIDENT=0`` (set in this process,
+    restored after): labels, indices and f32 scores bit-identical across
+    the four runs; B1 once a window in each, one capture in each fused
+    run; the default runs enter DeviceBuffers resident at every pad and
+    fetch at most one D2H event a frame (one sink), the runs with the
+    switch off make no DeviceBuffer. Then the fused string under
+    ``dispatch.fence:nth=3,kind=raise`` with ``skip-frame``: one poisoned
+    batch counted, the run ended by the JAX package's ``FlowError`` (it
+    passes every error policy), the windows delivered before it in order
+    and equal to the unfaulted run's. Each filter opened once; one scrape
+    of ``MetricsServer`` shows the three series."""
+    import urllib.request
+
+    import torch
+
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.filters.torch_backend import (
+        unregister_torch_model,
+    )
+    from nnstreamer_tpu_torch.obs import MetricsServer
+    from nnstreamer_tpu_torch.ops._counts import LAUNCHES, reset_launches
+    from nnstreamer_tpu_torch.pipeline import faults
+    from nnstreamer_tpu_torch.pipeline.element import FlowError
+    from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensors import buffer as tbuf
+
+    nt.set_device(None)
+    _, labels = _flagship_model("mnv2_res")
+    windows = RESIDENCY_FRAMES // BATCH
+
+    def run(name, fuse=True, resident=True, fault=None):
+        old = os.environ.get("NNSTPU_RESIDENT")
+        if not resident:
+            os.environ["NNSTPU_RESIDENT"] = "0"
+        kw = {"error_policy": "skip-frame"} if fault else {}
+        desc = batch8_desc(RESIDENCY_FAULT_FRAMES if fault
+                           else RESIDENCY_FRAMES, "model=mnv2_res", labels)
+        pipe = nt.parse_launch(desc, pipeline=Pipeline(name=name, fuse=fuse),
+                               **kw)
+        metas, pts, seen = [], [], []
+        pipe.get("out").connect(lambda b: (
+            metas.append(b.meta), pts.append(b.pts),
+            seen.append(time.monotonic())))
+        x0 = tbuf.transfer_snapshot()
+        skipped0 = _counter_total("nns_fault_skipped_frames_total",
+                                  pipeline=name)
+        reset_launches()
+        error = None
+        try:
+            if fault:
+                faults.activate(fault)
+            t0 = time.monotonic()
+            try:
+                msg = pipe.run(timeout=300)
+            except FlowError as e:
+                check(fault is not None, f"residency {name}: {e}")
+                error, msg = str(e), None
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            faults.deactivate()
+            if old is None:
+                os.environ.pop("NNSTPU_RESIDENT", None)
+            else:
+                os.environ["NNSTPU_RESIDENT"] = old
+        x1 = tbuf.transfer_snapshot()
+        dx = {k: x1[k] - x0[k] for k in x1}
+        frames = labelled_frames(metas)
+        regions = list(pipe.metrics_snapshot().get("regions", {}).values())
+        res, mat = dx["resident_entries"], dx["materialized_entries"]
+        check(fault is not None or (msg is not None and msg.kind == "eos"),
+              f"residency {name}: ended with {msg}")
+        check(pts == sorted(pts), f"residency {name}: windows out of order")
+        return {
+            "frames": frames, "regions": regions, "error": error,
+            "owner": pipe._regions[0].name if pipe._regions else "filter",
+            "b1_launches": LAUNCHES["normalize_chain"],
+            "captures": sum(r["captures"] for r in regions),
+            "wall_s": wall, "fps_with_start_up": len(frames) / wall,
+            "first_window_s": seen[0] - t0 if seen else None,
+            "fps_after_first_window": (
+                len(labelled_frames(metas[1:])) / (seen[-1] - seen[0])
+                if len(seen) > 1 else None),
+            "resident_entries": res, "materialized_entries": mat,
+            "resident_ratio_of_run": res / (res + mat) if res + mat
+            else None,
+            "d2h_events_per_frame": dx["d2h_events"] / max(len(frames), 1),
+            "d2h_batched_events": dx["d2h_batched_events"],
+            "opens": _counter_total("nns_tensor_filter_opens_total",
+                                    pipeline=name),
+            "poisoned": _counter_total("nns_fault_poisoned_batches_total",
+                                       pipeline=name),
+            "skipped": _counter_total("nns_fault_skipped_frames_total",
+                                      pipeline=name) - skipped0,
+        }
+
+    try:
+        runs = {}
+        for fuse in (True, False):
+            for resident in (True, False):
+                tag = (f"{'fused' if fuse else 'unfused'}_"
+                       f"{'default' if resident else 'off'}")
+                runs[tag] = run(f"res_{tag}", fuse, resident)
+        faulted = run("res_poisoned", fault=RESIDENCY_FAULT)
+    finally:
+        unregister_torch_model("mnv2_res")
+    ref = runs["fused_default"]
+    for tag, r in runs.items():
+        check(len(r["frames"]) == RESIDENCY_FRAMES and
+              r["frames"] == ref["frames"],
+              f"residency {tag}: {len(r['frames'])} frames, not "
+              "bit-identical to the fused default run")
+        check(r["b1_launches"] == windows,
+              f"residency {tag}: B1 {r['b1_launches']} for {windows} "
+              "windows")
+        fused = tag.startswith("fused")
+        check((len(r["regions"]) == 1 and r["captures"] == 1 and
+               not r["regions"][0]["unspliced"]) if fused
+              else not r["regions"],
+              f"residency {tag}: regions {r['regions']}")
+        check(r["opens"] == 1, f"residency {tag}: {r['opens']} opens")
+        check(r["poisoned"] == 0, f"residency {tag}: a poisoned batch")
+        if tag.endswith("default"):
+            check(r["resident_entries"] > 0 and
+                  r["d2h_events_per_frame"] <= 1.0,
+                  f"residency {tag}: {r['resident_entries']} resident "
+                  f"entries, {r['d2h_events_per_frame']} D2H events a "
+                  "frame")
+        else:
+            check(r["resident_entries"] + r["materialized_entries"] == 0,
+                  f"residency {tag}: a DeviceBuffer with the switch off")
+    want = (f"{faulted['owner']}: poisoned in-flight batch at fence: "
+            "injected fault at dispatch.fence (occurrence 3)")
+    survived = faulted["frames"]
+    check(faulted["error"] == want,
+          f"residency poisoned: {faulted['error']!r}, not {want!r}")
+    check(faulted["poisoned"] == 1 and faulted["skipped"] == 0,
+          f"residency poisoned: {faulted['poisoned']} batches counted, "
+          f"{faulted['skipped']} frames skipped (the FlowError passes "
+          "every error policy)")
+    check(survived == ref["frames"][:len(survived)] and
+          len(survived) % BATCH == 0,
+          "residency poisoned: the windows before the fault differ from "
+          "the unfaulted run's")
+    srv = MetricsServer(port=0).start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                                    timeout=10) as resp:
+            body = resp.read().decode()
+    finally:
+        srv.stop()
+    scraped = {name: name in body for name in RESIDENCY_SERIES}
+    check(all(scraped.values()), f"residency: scraped {scraped}")
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("frames", "regions")}
+
+    result = {
+        "phase": "residency", "frames": RESIDENCY_FRAMES, "batch": BATCH,
+        "bit_identical_frames": {t: len(r["frames"])
+                                 for t, r in runs.items()},
+        "resident_ratio": tbuf.resident_ratio(),
+        **{t: summary(r) for t, r in runs.items()},
+        "poisoned": {**summary(faulted), "fault": RESIDENCY_FAULT,
+                     "frames_sent": RESIDENCY_FAULT_FRAMES,
+                     "policy": "skip-frame",
+                     "windows_before_fault": len(survived) // BATCH},
+        "scraped": scraped, "gpu": power,
+    }
+    emit(result)
+    return result
 
 
 def profile_pipeline_batched(result, launch) -> None:
@@ -9163,6 +9361,7 @@ def main() -> int:
     lm_mem = phase_lm_memory(power)
     offload = phase_query_offload(power)
     batched, batched_launch = phase_pipeline_batched(power)
+    residency = phase_residency(power)
     uncut = phase_pipeline_uncut(power)
     slo = phase_pipeline_slo(power)
     flight = phase_flight(power)
@@ -9229,6 +9428,11 @@ def main() -> int:
         "launches": pipe["launches"]["normalize_chain"],
         # the batched flagship: once a window of 8 frames
         "launches_batched": batched["launches"]["normalize_chain"],
+        # the residency phase's 240 frames: fused and unfused, with the
+        # default setting and NNSTPU_RESIDENT=0 (once a window each)
+        "launches_residency": {t: residency[t]["b1_launches"] for t in (
+            "fused_default", "fused_off", "unfused_default",
+            "unfused_off")},
         # bench.py's string with no cuts: once a window the region took
         "launches_uncut": uncut["bench_string"]["launches"],
         # the same string under the SLO scheduler, the flight recorder's

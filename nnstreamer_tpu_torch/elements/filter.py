@@ -156,6 +156,7 @@ class TensorFilter(Element):
         self._comb_cache: dict = {}
         self._m_invoke = None  # created lazily: labels need pipeline name
         self._m_qos = None
+        self._m_opens = None
         self._m_reloads = None
         self._shared_key: Optional[str] = None
         self._last_invoke_t = 0.0
@@ -177,6 +178,16 @@ class TensorFilter(Element):
                 pipeline=getattr(self.pipeline, "name", "") or "",
                 element=self.name)
         return self._m_invoke
+
+    def _obs_opens(self):
+        """``nns_tensor_filter_opens_total``: backend opens (a first open
+        builds the model's weights on the device)."""
+        if self._m_opens is None:
+            self._m_opens = get_registry().counter(
+                "nns_tensor_filter_opens_total",
+                "Backend opens (first open compiles on jit backends)",
+                **self._obs_labels())
+        return self._m_opens
 
     def _obs_reloads(self):
         """``nns_tensor_filter_reloads_total``: hot model reloads."""
@@ -260,6 +271,7 @@ class TensorFilter(Element):
             self._shared_key = str(shared_key)
         else:
             self.fw = open_backend()
+        self._obs_opens().inc()
         plan = getattr(self.fw, "_mesh_plan", None)
         if plan is not None and self._m_shard is None:
             # nns_shard_count{filter=...}: how many devices this filter's

@@ -90,6 +90,12 @@ def batch_event(tensors):
     return None
 
 
+def _owner_labels(owner) -> dict:
+    """The dispatching element's metric labels."""
+    return {"pipeline": getattr(owner.pipeline, "name", "") or "",
+            "element": owner.name}
+
+
 class DispatchWindow:
     """Per-element window of outstanding (dispatched, unfenced) batches.
 
@@ -106,6 +112,7 @@ class DispatchWindow:
         self._entries: Deque[Tuple[Any, Optional[list], Optional[int]]] = \
             collections.deque()
         self._m_fence = None
+        self._m_poisoned = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -127,8 +134,7 @@ class DispatchWindow:
             from nnstreamer_tpu_torch.obs import get_registry
 
             reg = get_registry()
-            labels = {"pipeline": getattr(owner.pipeline, "name", "") or "",
-                      "element": owner.name}
+            labels = _owner_labels(owner)
             self._m_fence = reg.histogram(
                 "nns_filter_fence_wait_seconds",
                 "Time blocked fencing the oldest outstanding dispatch "
@@ -179,15 +185,18 @@ class DispatchWindow:
     def _fence_oldest(self) -> None:
         """Fence the oldest outstanding batch. A failing fence (a device
         error surfacing at the wait, or an injected ``dispatch.fence``
-        fault) poisons only that batch: its entry is already popped and
-        its stash still released; the error reaches the dispatching
-        element's chain."""
+        fault) poisons only that batch: its entry is already popped, its
+        stash still released and its timeline spans closed, so the
+        entries behind it fence normally on later calls. The batch is
+        counted in ``nns_fault_poisoned_batches_total`` and the error
+        reaches the dispatching element's chain as a ``FlowError``."""
         self._fence(self._entries.popleft())
 
     def _fence(self, entry) -> None:
         event, stash, frame = entry
         hist = self._obs()
         t0 = time.monotonic()
+        err: Optional[BaseException] = None
         try:
             fi = _faults.ACTIVE
             if fi is not None:
@@ -196,15 +205,40 @@ class DispatchWindow:
                 fi.check("dispatch.fence", seq=frame)
             if event is not None:
                 event.synchronize()
-        finally:
-            t1 = time.monotonic()
-            if hist is not None:
-                hist.observe(t1 - t0)
-            tl = _timeline.ACTIVE
-            if tl is not None and frame is not None:
-                tl.span("fence_wait", frame, t0, t1, track="dispatch")
-                tl.async_end("inflight", frame, t1)
-            self._release(stash)
+        except Exception as e:  # noqa: BLE001 — isolation: the bookkeeping
+            # below runs before the poisoned batch's error surfaces
+            err = e
+        t1 = time.monotonic()
+        if hist is not None:
+            hist.observe(t1 - t0)
+        tl = _timeline.ACTIVE
+        if tl is not None and frame is not None:
+            tl.span("fence_wait", frame, t0, t1, track="dispatch")
+            tl.async_end("inflight", frame, t1)
+        self._release(stash)
+        if err is not None:
+            self._count_poisoned()
+            from nnstreamer_tpu_torch.pipeline.element import FlowError
+
+            if isinstance(err, FlowError):
+                raise err
+            owner = self._owner()
+            name = owner.name if owner is not None else "dispatch"
+            raise FlowError(
+                f"{name}: poisoned in-flight batch at fence: {err}"
+            ) from err
+
+    def _count_poisoned(self) -> None:
+        if self._m_poisoned is None:
+            from nnstreamer_tpu_torch.obs import get_registry
+
+            owner = self._owner()
+            labels = _owner_labels(owner) if owner is not None else {}
+            self._m_poisoned = get_registry().counter(
+                "nns_fault_poisoned_batches_total",
+                "In-flight dispatches whose fence failed (batch "
+                "isolated; entries behind it fence normally)", **labels)
+        self._m_poisoned.inc()
 
     def drain(self, on_error: str = "raise") -> None:
         """Fence everything outstanding (EOS / stop / invalidate). Every

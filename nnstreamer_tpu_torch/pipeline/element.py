@@ -34,7 +34,12 @@ from typing import Any, Dict, List, Optional
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
 from nnstreamer_tpu_torch.pipeline.caps import Caps, CapsList
-from nnstreamer_tpu_torch.tensors.buffer import DeviceBuffer, TensorBuffer
+from nnstreamer_tpu_torch.tensors.buffer import (
+    DeviceBuffer,
+    TensorBuffer,
+    record_residency_entry,
+    residency_enabled,
+)
 from nnstreamer_tpu_torch.utils.stats import InvokeStats
 
 
@@ -413,12 +418,21 @@ class Element:
         """A buffer as this element sees it at pad entry: a resident buffer
         stays resident across elements that declared passthrough or keep
         deferred work lazy; otherwise this entry is the (cached)
-        materialization."""
+        materialization. Every DeviceBuffer entry is tallied resident or
+        materialized (``nns_buffer_resident_ratio``). With residency off
+        (``NNSTPU_RESIDENT=0``) no DeviceBuffer exists, so an element that
+        is not device-capable gets an all-device payload on the host
+        here, as a DeviceBuffer's entry would have handed it over."""
         if isinstance(buf, DeviceBuffer):
-            if not (self.HANDLES_DEFERRED or (
-                    self.DEVICE_PASSTHROUGH and buf.finalize is None)):
+            resident = self.HANDLES_DEFERRED or (
+                self.DEVICE_PASSTHROUGH and buf.finalize is None)
+            record_residency_entry(resident)
+            if not resident:
                 return buf.to_host()
         elif buf.finalize is not None and not self.HANDLES_DEFERRED:
+            return buf.to_host()
+        elif not (self.DEVICE_PASSTHROUGH or self.HANDLES_DEFERRED) and \
+                buf.on_device() and not residency_enabled():
             return buf.to_host()
         return buf
 

@@ -34,6 +34,7 @@ transfer — and the ``transfer.h2d`` / ``transfer.d2h`` fault hooks
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import threading
 import time
@@ -58,13 +59,28 @@ CLOCK_NONE: Optional[int] = None
 #: be cleared at once, ``pipeline/dispatch.py``)
 H2D_EXCLUSIVE_META = "h2d_exclusive"
 
+
+def residency_enabled() -> bool:
+    """Global off-switch for the device-residency layer, read at each
+    call. With ``NNSTPU_RESIDENT=0`` (or ``false``/``no``/``off``) no
+    :class:`DeviceBuffer` is made: a device payload crosses pads as a
+    plain buffer, and an element that is not device-capable gets it on
+    the host at pad entry (``Element._entered``). That run is the
+    byte-equality reference the residency tests compare against."""
+    return os.environ.get("NNSTPU_RESIDENT", "1").strip().lower() not in (
+        "0", "false", "no", "off")
+
+
 # -- transfer accounting ------------------------------------------------------
-# Process-wide tallies of host<->device copies; callers diff two
-# transfer_snapshot()s for per-run numbers. The batched counters count one
-# event per staged multi-frame copy (upload_many / materialize_many), which
-# moves no per-frame event counter. d2h_syncs counts the host's waits for
-# device->host copies: one per grouped fetch, one per tensor of a plain
-# to_host, one per prefetched buffer.
+# Process-wide tallies of host<->device copies and of the pad-entry
+# residency split; callers diff two transfer_snapshot()s for per-run
+# numbers. The batched counters count one event per staged multi-frame
+# copy (upload_many / materialize_many), which moves no per-frame event
+# counter. d2h_syncs counts the host's waits for device->host copies: one
+# per grouped fetch, one per tensor of a plain to_host, one per prefetched
+# buffer. resident_entries / materialized_entries split the DeviceBuffer
+# pad entries (record_residency_entry), read by the
+# nns_buffer_resident_ratio gauge.
 _xfer_lock = threading.Lock()
 _xfer: Dict[str, float] = {
     "h2d_bytes": 0.0, "h2d_events": 0.0,
@@ -72,6 +88,7 @@ _xfer: Dict[str, float] = {
     "h2d_batched_events": 0.0, "h2d_batched_frames": 0.0,
     "d2h_batched_events": 0.0, "d2h_batched_frames": 0.0,
     "d2h_syncs": 0.0,
+    "resident_entries": 0.0, "materialized_entries": 0.0,
 }
 _xfer_metrics: Optional[Dict[str, Any]] = None
 
@@ -101,6 +118,11 @@ def _xfer_obs() -> Dict[str, Any]:
                 "nns_transfer_d2h_syncs_total",
                 "Host waits for device->host copies"),
         }
+        reg.gauge(
+            "nns_buffer_resident_ratio",
+            "Fraction of DeviceBuffer pad entries forwarded without host "
+            "materialization",
+            fn=lambda: resident_ratio() or 0.0)
     return _xfer_metrics
 
 
@@ -122,8 +144,26 @@ def _tally(**counts: float) -> None:
             _xfer[key] += n
 
 
+def record_residency_entry(resident: bool) -> None:
+    """Tally one DeviceBuffer pad entry: ``resident`` means the element
+    forwards it without a host copy (the numerator of
+    ``nns_buffer_resident_ratio``)."""
+    _tally(**{"resident_entries" if resident else
+              "materialized_entries": 1})
+
+
+def resident_ratio() -> Optional[float]:
+    """Resident pad entries over all DeviceBuffer pad entries so far, or
+    None before the first (always None with ``NNSTPU_RESIDENT=0``)."""
+    with _xfer_lock:
+        r = _xfer["resident_entries"]
+        m = _xfer["materialized_entries"]
+    return r / (r + m) if r + m else None
+
+
 def transfer_snapshot() -> Dict[str, float]:
-    """Copy of the cumulative transfer tallies."""
+    """Copy of the cumulative transfer tallies (bytes, event counts and
+    the pad-entry split)."""
     with _xfer_lock:
         return dict(_xfer)
 
@@ -538,9 +578,11 @@ class DeviceBuffer(TensorBuffer):
 
 def as_device_buffer(buf: TensorBuffer, host_view=None) -> TensorBuffer:
     """Wrap an all-device buffer as a :class:`DeviceBuffer` (adopting
-    ``host_view``); returns the input unchanged when the payload is not
-    fully on a device or it is already wrapped."""
-    if isinstance(buf, DeviceBuffer) or not buf.on_device():
+    ``host_view``); returns the input unchanged when residency is off
+    (:func:`residency_enabled`), the payload is not fully on a device or
+    it is already wrapped."""
+    if isinstance(buf, DeviceBuffer) or not buf.on_device() or \
+            not residency_enabled():
         return buf
     return DeviceBuffer(tensors=buf.tensors, pts=buf.pts, dts=buf.dts,
                         duration=buf.duration, meta=buf.meta,

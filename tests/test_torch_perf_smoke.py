@@ -10,10 +10,12 @@ same tiny CPU pipelines (``set_device("cpu")``, the flagship's shape at
 - the metrics endpoint exports the overlap series
   (``nns_filter_inflight``, ``nns_filter_fence_wait_seconds``,
   ``nns_pool_*``, ``nns_queue_drain_size``) and the transfer series
-  (``nns_transfer_h2d_bytes_total``, ``nns_transfer_d2h_bytes_total``);
+  (``nns_transfer_h2d_bytes_total``, ``nns_transfer_d2h_bytes_total``,
+  ``nns_buffer_resident_ratio``);
 - the device-resident tensor plane keeps the smoke pipeline's D2H
   traffic at its floor: at most one materialization per sink-delivered
-  frame (``d2h_per_frame`` ≤ number of sinks);
+  frame (``d2h_per_frame`` ≤ number of sinks), and turning it off
+  (``NNSTPU_RESIDENT=0``) changes no byte;
 - the whole-graph steady state batches transfers: staged multi-frame
   slab uploads (``nns_transfer_batched_h2d_total``), grouped result
   fetches, and ZERO per-frame D2H events on the golden pipeline;
@@ -30,7 +32,7 @@ same tiny CPU pipelines (``set_device("cpu")``, the flagship's shape at
   blocking-bound pipeline (median-of-5 vs ``NNSTPU_FLIGHT=0``).
 
 The two timing gates are marked ``slow``, as in the JAX file; they use
-no device. The three transfer gates count copies between the host and
+no device. The four transfer gates count copies between the host and
 the card and are marked ``gpu``. Both kinds run on the card's machine
 with ``python3 tools/gpu_tests.py -m "slow or gpu"
 tests/test_torch_perf_smoke.py``; this file imports no JAX.
@@ -199,8 +201,30 @@ def test_metrics_endpoint_exports_transfer_series(model):
     for series in ("nns_transfer_h2d_bytes_total",
                    "nns_transfer_d2h_bytes_total",
                    "nns_transfer_batched_h2d_total",
-                   "nns_transfer_batched_d2h_total"):
+                   "nns_transfer_batched_d2h_total",
+                   "nns_buffer_resident_ratio"):
         assert series in body, f"{series} missing from /metrics"
+
+
+@pytest.mark.gpu
+def test_residency_off_is_byte_identical(model, monkeypatch):
+    """The JAX gate's reference run (``tests/test_residency.py``):
+    ``NNSTPU_RESIDENT=0`` gives the same bytes. On the card the default
+    run enters its DeviceBuffers resident at every pad (the region and
+    the drain queue), and the run with the switch off makes none."""
+    monkeypatch.delenv("NNSTPU_RESIDENT", raising=False)
+    before = transfer_snapshot()
+    _pipe, on = _run(inflight=2)
+    mid = transfer_snapshot()
+    monkeypatch.setenv("NNSTPU_RESIDENT", "0")
+    _pipe, off = _run(inflight=2)
+    after = transfer_snapshot()
+    assert len(on) == len(off) == 3
+    assert [a.tobytes() for a in on] == [b.tobytes() for b in off]
+    split = ("resident_entries", "materialized_entries")
+    assert mid[split[0]] > before[split[0]]
+    assert mid[split[1]] == before[split[1]]
+    assert [after[k] for k in split] == [mid[k] for k in split]
 
 
 @pytest.mark.gpu

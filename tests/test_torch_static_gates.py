@@ -10,6 +10,9 @@
   verifier with no error-severity diagnostic.
 - The twelve modules ported last import no JAX, ``nnstreamer_tpu``,
   ``grpc``, ``tensorflow`` or ``transformers``.
+- The port has a counterpart of every JAX module that needs one, and
+  names every ``NNSTPU_*`` variable and ``nns_*`` series that the JAX
+  package names.
 """
 
 import ast
@@ -170,3 +173,38 @@ def test_the_port_has_every_single_card_module():
     named = [str(p.relative_to(PKG)) for p in MODULES
              if "A.24" in p.read_text() or "A.25" in p.read_text()]
     assert named == [], named
+
+
+#: ``NNSTPU_*`` variables and ``nns_*`` series of the JAX package the port
+#: does not name, each with its reason
+NAMES_NOT_PORTED: dict = {}
+
+
+def _names(pkg: pathlib.Path, pattern: str) -> set:
+    """Every match of ``pattern`` in the package's Python sources (as
+    ``grep -rhoE`` over its ``*.py`` files)."""
+    import re
+
+    found = set()
+    for path in pkg.rglob("*.py"):
+        if "_build" in path.parts or "__pycache__" in path.parts:
+            continue
+        found.update(re.findall(pattern, path.read_text()))
+    return found
+
+
+@pytest.mark.parametrize("kind,pattern", [
+    ("variables", r"\bNNSTPU_[A-Z0-9_]+"),
+    ("series", r"\bnns_[a-z0-9_]+"),
+])
+def test_the_port_names_every_variable_and_series(kind, pattern):
+    """Each environment switch and metric series of the JAX package is a
+    contract of the port too: ``NNSTPU_RESIDENT``,
+    ``nns_buffer_resident_ratio``, ``nns_fault_poisoned_batches_total``
+    and ``nns_tensor_filter_opens_total`` were the last missing."""
+    theirs = _names(ROOT / "nnstreamer_tpu", pattern)
+    ours = _names(PKG, pattern)
+    assert len(theirs) > 30, sorted(theirs)  # the scan found the names
+    missing = theirs - ours - set(NAMES_NOT_PORTED)
+    assert not missing, sorted(missing)
+    assert not set(NAMES_NOT_PORTED) - theirs, NAMES_NOT_PORTED
