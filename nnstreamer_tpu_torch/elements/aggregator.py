@@ -113,6 +113,9 @@ class TensorAggregator(Element):
             self._flusher = None
         super().stop()
 
+    def threads(self):
+        return [self._flusher] if self._flusher is not None else []
+
     def note_mesh_quantum(self, quantum: int) -> None:
         """Mesh-wide batch forming (parallel/serve.py): round frames-out
         up to a multiple of the pipeline's dp shard count so every full

@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 
 from nnstreamer_tpu_torch.pipeline.caps import Caps
-from nnstreamer_tpu_torch.pipeline.pipeline import SourceElement
+from nnstreamer_tpu_torch.pipeline.pipeline import SourceElement, poll_get
 from nnstreamer_tpu_torch.registry import ELEMENT, subplugin
 from nnstreamer_tpu_torch.tensors.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensors.types import (
@@ -381,19 +381,14 @@ class AppSrc(SourceElement):
             self.srcpad.set_caps(caps)
 
     def create(self):
-        while not self._stop_evt.is_set():
-            try:
-                item = self._q.get(timeout=0.1)
-            except _queue.Empty:
-                continue
-            if item is self._EOS:
-                return None
-            # announce caps from the first buffer if none were set
-            if self.srcpad.caps is None:
-                self.srcpad.set_caps(
-                    TensorsConfig.from_arrays(item.tensors).to_caps())
-            return item
-        return None
+        item = poll_get(self._q, self._stop_evt, self.name)
+        if item is None or item is self._EOS:
+            return None
+        # announce caps from the first buffer if none were set
+        if self.srcpad.caps is None:
+            self.srcpad.set_caps(
+                TensorsConfig.from_arrays(item.tensors).to_caps())
+        return item
 
 
 class IIOChannel:

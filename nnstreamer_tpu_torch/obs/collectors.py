@@ -5,23 +5,45 @@ are sampled from each element's ``InvokeStats`` (the object behind the
 ``latency``/``throughput`` properties) rather than counted twice on the hot
 path, so the exported numbers agree with the properties by construction.
 The serving engine's cumulative stats and batch occupancy are sampled the
-same way.
+same way. Each thread a pipeline runs reports its CPU time
+(``nns_thread_cpu_seconds_total``), read from the thread's CPU-time clock
+at scrape time: nothing of it runs on the hot path.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 import weakref
+from typing import Dict, List, Optional
 
 from nnstreamer_tpu_torch.obs.registry import MetricsRegistry, get_registry
+
+
+def thread_cpu_seconds(thread) -> Optional[float]:
+    """The CPU seconds ``thread`` has run, from its CPU-time clock; None
+    for a thread that is not running (or without per-thread clocks)."""
+    if thread.ident is None or not thread.is_alive():
+        return None
+    try:
+        return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+    except (AttributeError, OSError):
+        return None
 
 
 def register_pipeline_collector(pipeline, registry: MetricsRegistry = None
                                 ) -> None:
     """Export per-element latency/throughput/invoke gauges for every
-    element of ``pipeline``, refreshed at each scrape. Holds only a
-    weakref: a garbage-collected pipeline unregisters itself."""
+    element of ``pipeline``, and each of its threads' CPU seconds,
+    refreshed at each scrape. Holds only a weakref: a garbage-collected
+    pipeline unregisters itself."""
     reg = registry or get_registry()
     ref = weakref.ref(pipeline)
+    #: thread name → [native id, CPU seconds of its earlier threads, last
+    #: reading]: a restart's new thread of the same name counts on from
+    #: where the old one was last read
+    cpu_seen: Dict[str, List] = {}
+    cpu_lock = threading.Lock()  # two scrapes at once must not add twice
 
     def collect():
         pipe = ref()
@@ -40,6 +62,20 @@ def register_pipeline_collector(pipeline, registry: MetricsRegistry = None
             reg.counter("nns_element_invokes_total",
                         "Cumulative chain invocations",
                         **labels).set_total(stats.total_invokes)
+        for t in pipe.threads():
+            cpu = thread_cpu_seconds(t)
+            if cpu is None:
+                continue
+            with cpu_lock:
+                seen = cpu_seen.setdefault(t.name, [t.native_id, 0.0, 0.0])
+                if seen[0] != t.native_id or cpu < seen[2]:
+                    seen[0], seen[1] = t.native_id, seen[1] + seen[2]
+                seen[2] = cpu
+                total = seen[1] + cpu
+            reg.counter("nns_thread_cpu_seconds_total",
+                        "CPU seconds of each thread the pipeline runs "
+                        "(sources, queue workers, lane workers)",
+                        pipeline=pipe.name, thread=t.name).set_total(total)
         return True
 
     reg.register_collector(collect)

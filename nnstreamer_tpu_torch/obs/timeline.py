@@ -90,13 +90,43 @@ warm-run spread to its dominant stage. :func:`profiler_correlation`
 (the JAX module's ``jax_correlation``) runs ``torch.profiler`` over the
 same window, so the kernels on the card line up with the frame ledger in
 one Perfetto session.
+
+One clock
+---------
+Spans stay on ``time.monotonic()``. ``torch.profiler``'s raw events are
+on the epoch clock (``time.time_ns()`` as the profiler converts its own
+counter). A timeline reads the offset between the two when it is made
+and at every export, each time as the tightest of :data:`CLOCK_PAIRS`
+back-to-back pairs; :meth:`Timeline.profiler_ns` maps a ledger reading
+onto the profiler's clock, :meth:`Timeline.profiler_records` every
+record, and ``to_chrome(clock="profiler")`` writes the export on it, so
+a ledger span can be placed against a gap on the card.
+
+Thread spans
+------------
+``activate(threads=True)`` (default False) also records what each
+pipeline thread does between frames, as kinds outside :data:`STAGES`
+with ``seq=None`` (:data:`THREAD_KINDS`), which no stage report, flight
+quantile or frame flow reads: ``wait_input`` (a thread blocked for its
+next item: a queue worker's ``get``, ``appsrc``'s ``create``),
+``wait_output`` (a producer blocked in a full queue's ``put``), ``gc``
+(one collection, on the thread that ran it, with its ``generation``)
+and ``chain`` (an element's ``_chain_entry`` / ``_chain_list_entry``,
+with its ``element`` name, and a queue worker's pass over what it
+drained). Their sites read :data:`THREADS`, one module attribute, which
+is None unless such a timeline is active; the always-on flight recorder
+never sets it. ``Pipeline.start()`` installs one process-wide
+``gc.callbacks`` hook (:func:`gc_hook_acquire`) that always feeds
+``nns_gc_pause_seconds{generation}`` and records the ``gc`` spans.
 """
 
 from __future__ import annotations
 
+import gc as _gc
 import itertools
 import json
 import os
+import re
 import threading
 import time
 import weakref
@@ -138,12 +168,23 @@ DIST_STAGES: Tuple[str, ...] = ("hop_send", "remote_queue",
 
 STAGES: Tuple[str, ...] = LOCAL_STAGES + DIST_STAGES
 
+#: what a pipeline thread does between frames, recorded with ``seq=None``
+#: by a timeline activated with ``threads=True`` (module docstring)
+THREAD_KINDS: Tuple[str, ...] = ("wait_input", "wait_output", "gc", "chain")
+
+#: back-to-back (monotonic, epoch) readings a clock offset is taken from
+CLOCK_PAIRS = 5
+
 _ENV = "NNSTPU_TRACE"
 
 #: the process-wide active timeline; ``None`` means tracing is OFF and
 #: every instrumentation site reduces to one attribute read + is-None
 #: test. Hot paths read this directly (``_timeline.ACTIVE``).
 ACTIVE: Optional["Timeline"] = None
+
+#: ``ACTIVE`` when it records thread spans, else None: a thread-span site
+#: is this one attribute read with thread spans off
+THREADS: Optional["Timeline"] = None
 
 
 def trace_enabled() -> bool:
@@ -167,23 +208,26 @@ def active() -> Optional["Timeline"]:
     return ACTIVE
 
 
-def activate(capacity: int = 1 << 16) -> "Timeline":
-    """Install a fresh process-wide timeline and return it."""
-    global ACTIVE
+def activate(capacity: int = 1 << 16, threads: bool = False
+             ) -> "Timeline":
+    """Install a fresh process-wide timeline and return it; ``threads``
+    also records the thread spans (module docstring)."""
+    global ACTIVE, THREADS
     tl = Timeline(capacity)
     ACTIVE = tl
+    THREADS = tl if threads else None
     return tl
 
 
 def deactivate() -> None:
-    global ACTIVE
-    ACTIVE = None
+    global ACTIVE, THREADS
+    ACTIVE = THREADS = None
 
 
 @contextmanager
-def tracing(capacity: int = 1 << 16):
+def tracing(capacity: int = 1 << 16, threads: bool = False):
     """Scoped activation: ``with tracing() as tl: pipe.run(...)``."""
-    tl = activate(capacity)
+    tl = activate(capacity, threads=threads)
     try:
         yield tl
     finally:
@@ -218,15 +262,113 @@ def maybe_export_env() -> None:
     deactivate()
 
 
+class _GcHook:
+    """The process's one ``gc.callbacks`` hook while a pipeline runs
+    (:func:`gc_hook_acquire`): each collection is a ``gc`` span of the
+    thread that ran it (with thread spans on) and a pause that
+    ``nns_gc_pause_seconds{generation}`` takes at its next scrape.
+
+    The hook takes no lock: a collection starts at any allocation, also
+    on a thread that holds a lock the hook would wait for (a histogram's
+    own, while a scrape copies its buckets), and then would never end.
+    So it only appends to deques, and a registry collector folds the
+    pauses into the histograms at each scrape (and the last pipeline's
+    stop, at :func:`gc_hook_release`). Collections never overlap (the
+    collecting thread holds the interpreter lock throughout), so one
+    start reading serves."""
+
+    def __init__(self):
+        self.users = 0
+        self._t0: Optional[float] = None
+        self._hist: Dict[int, Any] = {}
+        #: (generation, seconds) of each collection not yet observed
+        self._pending: deque = deque(maxlen=1 << 16)
+        self._registry = None
+
+    def install(self) -> None:
+        from nnstreamer_tpu_torch.obs.registry import get_registry
+
+        reg = self._registry = get_registry()
+        for gen in range(3):
+            self._hist[gen] = reg.histogram(
+                "nns_gc_pause_seconds",
+                "Garbage-collection pauses of the process (every thread "
+                "waits for the interpreter lock meanwhile)",
+                generation=str(gen))
+        reg.register_collector(self.fold)
+        _gc.callbacks.append(self)
+
+    def uninstall(self) -> None:
+        try:
+            _gc.callbacks.remove(self)
+        except ValueError:
+            pass  # someone else took it out of the list
+        self.fold()
+        if self._registry is not None:
+            self._registry.unregister_collector(self.fold)
+            self._registry = None
+
+    def fold(self) -> None:
+        """Observe the pending pauses (never inside a collection)."""
+        while True:
+            try:
+                gen, seconds = self._pending.popleft()
+            except IndexError:
+                return
+            h = self._hist.get(gen)
+            if h is not None:
+                h.observe(seconds)
+
+    def __call__(self, phase: str, info: Dict[str, Any]) -> None:
+        if phase == "start":
+            self._t0 = time.monotonic()
+            return
+        t0, self._t0 = self._t0, None
+        if t0 is None:
+            return
+        t1 = time.monotonic()
+        gen = info.get("generation", 0)
+        self._pending.append((gen, t1 - t0))
+        th = THREADS
+        if th is not None:
+            th._loose_span("gc", t0, t1, generation=gen)
+
+
+_GC_HOOK = _GcHook()
+_GC_HOOK_LOCK = threading.Lock()
+
+
+def gc_hook_acquire() -> None:
+    """``Pipeline.start()``: install the process's GC hook (reference-
+    counted: the first running pipeline installs it)."""
+    with _GC_HOOK_LOCK:
+        if _GC_HOOK.users == 0:
+            _GC_HOOK.install()
+        _GC_HOOK.users += 1
+
+
+def gc_hook_release() -> None:
+    """``Pipeline.stop()``: the last running pipeline removes the hook
+    and observes what it still holds."""
+    with _GC_HOOK_LOCK:
+        if _GC_HOOK.users == 0:
+            return
+        _GC_HOOK.users -= 1
+        if _GC_HOOK.users == 0:
+            _GC_HOOK.uninstall()
+
+
 @contextmanager
 def profiler_correlation(logdir: str):
     """Run ``torch.profiler`` (CPU and, with a card, CUDA activities) over
     the same window as the active timeline, and write its Chrome trace to
-    ``<logdir>/profiler.json``, beside where the caller exports the ledger:
-    the kernels on the card and the frame ledger then share a wall-clock
-    span and load side by side in Perfetto. Yields the profiler; its
-    ``trace_path`` attribute names the file. A profiler that will not
-    start raises: on the card this never degrades to a silent no-op."""
+    ``<logdir>/profiler.json`` and, with a timeline active, the ledger's on
+    the profiler's clock to ``<logdir>/ledger.json`` (``ledger_path``; None
+    without one): the kernels on the card and the frame ledger then share
+    one clock, and the two files' ``traceEvents`` concatenated load as one
+    Perfetto session. Yields the profiler; its ``trace_path`` attribute
+    names its file. A profiler that will not start raises: on the card
+    this never degrades to a silent no-op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -237,6 +379,7 @@ def profiler_correlation(logdir: str):
     prof = profile(activities=activities)
     prof.__enter__()
     prof.trace_path = os.path.join(logdir, "profiler.json")
+    prof.ledger_path = None
     try:
         yield prof
     finally:
@@ -244,6 +387,20 @@ def profiler_correlation(logdir: str):
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(prof.trace_path)
+        tl = ACTIVE
+        if tl is not None:
+            prof.ledger_path = os.path.join(logdir, "ledger.json")
+            tl.export_chrome(prof.ledger_path, clock="profiler",
+                             base_ns=trace_base_ns(prof.trace_path))
+
+
+def trace_base_ns(path: str) -> int:
+    """The ``baseTimeNanoseconds`` a ``torch.profiler`` Chrome trace counts
+    its ``ts`` from (written ahead of its events; 0 where it has none)."""
+    with open(path, "rb") as f:
+        head = f.read(1 << 16)
+    m = re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', head)
+    return int(m.group(1)) if m else 0
 
 
 class _RingAnchor:
@@ -281,6 +438,21 @@ class Timeline:
         self._retired: deque = deque(maxlen=self.capacity)
         #: dispatch-window inflight slots: ("b"/"e", name, id, t, track)
         self._async: deque = deque(maxlen=4 * self.capacity)
+        #: (ident, native id, kind, t0, t1, args) of threads that may have
+        #: no ring of their own (``gc`` spans, recorded inside a
+        #: collection, where making a ring or naming a thread Python did
+        #: not start could wait for a lock the collecting thread holds);
+        #: named at ``_snapshot``
+        self._loose: deque = deque(maxlen=self.capacity)
+        #: ``threading.get_ident()`` → name of each thread with a ring
+        self._ident_names: Dict[int, str] = {}
+        #: recording thread's name → ``threading.get_native_id()``, the
+        #: id the profiler's host events carry
+        self.native_ids: Dict[str, int] = {}
+        #: (monotonic ns, profiler clock − monotonic in ns): the first
+        #: pairing and the latest (``_sync_clock``)
+        self._clock: List[Tuple[int, int]] = []
+        self._sync_clock()
 
     # -- recording (hot path) ------------------------------------------------
     def next_seq(self) -> int:
@@ -291,6 +463,8 @@ class Timeline:
         if r is None:
             r = deque(maxlen=self.capacity)
             entry = (threading.current_thread().name, r)
+            self.native_ids[entry[0]] = threading.get_native_id()
+            self._ident_names[threading.get_ident()] = entry[0]
             with self._rings_lock:
                 self._rings.append(entry)
             # Unregister at thread death: the anchor lives only in this
@@ -322,6 +496,24 @@ class Timeline:
         """Record a duration span [t0, t1) attributed to frame ``seq``."""
         self._ring().append((kind, seq, t0, t1, track, args or None))
 
+    def _loose_span(self, kind: str, t0: float, t1: float, **args) -> None:
+        """A thread span of the calling thread, kept outside its ring;
+        takes no lock."""
+        self._loose.append((threading.get_ident(), threading.get_native_id(),
+                            kind, t0, t1, args or None))
+
+    def _loose_records(self) -> List[tuple]:
+        """``_loose`` as records, each named by its thread: the name of
+        its ring, else of the live thread, else ``thread-<native id>``."""
+        names = {t.ident: t.name for t in threading.enumerate()}
+        names.update(self._ident_names)
+        out = []
+        for ident, native, kind, t0, t1, args in list(self._loose):
+            name = names.get(ident) or f"thread-{native}"
+            self.native_ids.setdefault(name, native)
+            out.append((name, kind, None, t0, t1, None, args))
+        return out
+
     def mark(self, kind: str, seq: Optional[int],
              t: Optional[float] = None, track: Optional[str] = None,
              **args) -> None:
@@ -351,6 +543,7 @@ class Timeline:
         for _, r in rings:
             r.clear()
         self._async.clear()
+        self._loose.clear()
         self.epoch = time.monotonic()
 
     # -- aggregation ---------------------------------------------------------
@@ -361,6 +554,7 @@ class Timeline:
             rings = list(self._rings)
             retired = list(self._retired)
         out: List[tuple] = list(retired)
+        out.extend(self._loose_records())
         for tname, ring in rings:
             for rec in list(ring):
                 out.append((tname,) + rec)
@@ -455,14 +649,57 @@ class Timeline:
             if dominant and e2e_mad > 0 else 0.0,
         }
 
+    # -- one clock with the profiler ------------------------------------------
+    def _sync_clock(self) -> None:
+        """Pair the monotonic clock with the profiler's, as the tightest
+        of :data:`CLOCK_PAIRS` back-to-back readings, and keep it beside
+        the first pairing."""
+        best = None
+        for _ in range(CLOCK_PAIRS):
+            m0 = time.monotonic_ns()
+            w = time.time_ns()
+            m1 = time.monotonic_ns()
+            if best is None or m1 - m0 < best[0]:
+                best = (m1 - m0, (m0 + m1) // 2, w)
+        _, m, w = best
+        self._clock[1:] = [(m, w - m)]
+
+    def profiler_ns(self, t: float) -> int:
+        """Ledger reading ``t`` (``time.monotonic()`` seconds) on the
+        profiler's clock, in epoch ns: the offset interpolated between
+        the first pairing and the latest."""
+        m = int(round(t * 1e9))
+        (m0, o0), (m1, o1) = self._clock[0], self._clock[-1]
+        off = o0
+        if m1 > m0:
+            off += int((o1 - o0) * min(max((m - m0) / (m1 - m0), 0.0), 1.0))
+        return m + off
+
+    def profiler_records(self) -> List[tuple]:
+        """Every record as :meth:`_snapshot` gives it, with its times on
+        the profiler's clock (epoch ns)."""
+        self._sync_clock()
+        return [(thread, kind, seq, self.profiler_ns(t0),
+                 None if t1 is None else self.profiler_ns(t1), track, args)
+                for thread, kind, seq, t0, t1, track, args
+                in self._snapshot()]
+
     # -- export --------------------------------------------------------------
     def _us(self, t: float) -> float:
         return round((t - self.epoch) * 1e6, 3)
 
-    def to_chrome(self) -> Dict[str, Any]:
+    def to_chrome(self, clock: str = "ledger", base_ns: int = 0
+                  ) -> Dict[str, Any]:
         """Chrome trace-event JSON (Perfetto-loadable): named thread
         tracks, ``X`` slices with frame-seq args, flow events following
         each frame across tracks, async inflight-slot spans.
+
+        ``clock="ledger"`` (the default, the JAX module's export) counts
+        µs from the timeline's epoch; ``clock="profiler"`` counts µs on
+        the profiler's clock from ``base_ns`` (a profiler trace's
+        ``baseTimeNanoseconds``, :func:`trace_base_ns`), so the export and
+        that trace share one time axis, and gives each thread's track its
+        ``native_tid`` too.
 
         Spans carrying an ``endpoint`` arg (the spliced remote-hop
         stages from obs/distributed) render under their own *process*
@@ -470,6 +707,15 @@ class Timeline:
         gets the next pid — and the per-frame flow chain crosses those
         process boundaries, so a distributed timeline loads as one
         flame graph instead of colliding tids."""
+        if clock not in ("ledger", "profiler"):
+            raise ValueError(f"clock must be 'ledger' or 'profiler', "
+                             f"not {clock!r}")
+        self._sync_clock()
+        if clock == "profiler":
+            def us(t: float) -> float:
+                return round((self.profiler_ns(t) - base_ns) / 1e3, 3)
+        else:
+            us = self._us
         recs = self._snapshot()
         pids: Dict[str, int] = {"": 1}
         tids: Dict[Tuple[int, str], int] = {}
@@ -501,11 +747,11 @@ class Timeline:
             tid = _tid(pid, track)
             if t1 is None:
                 events.append({"name": kind, "cat": "timeline",
-                               "ph": "i", "s": "t", "ts": self._us(t0),
+                               "ph": "i", "s": "t", "ts": us(t0),
                                "pid": pid, "tid": tid, "args": a})
             else:
                 events.append({"name": kind, "cat": "timeline",
-                               "ph": "X", "ts": self._us(t0),
+                               "ph": "X", "ts": us(t0),
                                "dur": max(round((t1 - t0) * 1e6, 3), 0.0),
                                "pid": pid, "tid": tid, "args": a})
                 if seq is not None:
@@ -520,14 +766,14 @@ class Timeline:
             for i, (t0, pid, tid) in enumerate(hops):
                 ph = "s" if i == 0 else ("f" if i == len(hops) - 1 else "t")
                 ev = {"name": "frame", "cat": "frame", "ph": ph,
-                      "id": seq, "ts": self._us(t0), "pid": pid,
+                      "id": seq, "ts": us(t0), "pid": pid,
                       "tid": tid}
                 if ph == "f":
                     ev["bp"] = "e"
                 events.append(ev)
         for ph, name, aid, t, track in list(self._async):
             events.append({"name": name, "cat": "inflight", "ph": ph,
-                           "id": aid, "ts": self._us(t), "pid": 1,
+                           "id": aid, "ts": us(t), "pid": 1,
                            "tid": _tid(1, track)})
         meta: List[dict] = []
         for endpoint, pid in sorted(pids.items(), key=lambda kv: kv[1]):
@@ -536,10 +782,17 @@ class Timeline:
                                   else f"endpoint {endpoint}"}})
         for (pid, track), tid in sorted(tids.items(),
                                         key=lambda kv: (kv[0][0], kv[1])):
+            named: Dict[str, Any] = {"name": track}
+            if clock == "profiler" and track in self.native_ids:
+                named["native_tid"] = self.native_ids[track]
             meta.append({"name": "thread_name", "ph": "M", "pid": pid,
-                         "tid": tid, "args": {"name": track}})
-        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+                         "tid": tid, "args": named})
+        doc = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        if clock == "profiler":
+            doc["baseTimeNanoseconds"] = base_ns
+        return doc
 
-    def export_chrome(self, path: str) -> None:
+    def export_chrome(self, path: str, clock: str = "ledger",
+                      base_ns: int = 0) -> None:
         with open(path, "w") as f:
-            json.dump(self.to_chrome(), f)
+            json.dump(self.to_chrome(clock, base_ns), f)

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.obs import get_registry
+from nnstreamer_tpu_torch.obs import timeline as _timeline
 from nnstreamer_tpu_torch.pipeline.caps import Caps, CapsList
 from nnstreamer_tpu_torch.tensors.buffer import (
     DeviceBuffer,
@@ -460,6 +461,9 @@ class Element:
             for _ in range(max(len(bufs), 1)):
                 self.stats.record(per, now)
                 hist.observe(per)
+            th = _timeline.THREADS
+            if th is not None:
+                th.span("chain", None, t0, now, element=self.name)
         return FlowReturn.OK if ret is None else ret
 
     def _chain_entry(self, pad: Pad, buf: TensorBuffer) -> FlowReturn:
@@ -478,6 +482,9 @@ class Element:
             now = _time.monotonic()
             self.stats.record(now - t0, now)
             self._obs_chain_hist().observe(now - t0)
+            th = _timeline.THREADS
+            if th is not None:
+                th.span("chain", None, t0, now, element=self.name)
         return FlowReturn.OK if ret is None else ret
 
     def _halt_policy(self) -> bool:
@@ -601,6 +608,12 @@ class Element:
 
     def stop(self) -> None:
         self._started = False
+
+    def threads(self) -> List[threading.Thread]:
+        """The threads this element runs of its own (a queue's worker, a
+        lane executor's workers); ``nns_thread_cpu_seconds_total`` reads
+        their CPU time."""
+        return []
 
     def post_error(self, exc: Exception) -> None:
         if self.pipeline is not None:

@@ -338,6 +338,10 @@ class IngestLanes(Element):
                 c.stop()
         super().stop()
 
+    def threads(self):
+        return self._workers + \
+            ([self._drainer] if self._drainer is not None else [])
+
     def _count_leaked(self, what: str, thread: threading.Thread) -> None:
         """A join timed out: the thread outlives the executor. Silent
         before — now every leak is logged with its identity and counted

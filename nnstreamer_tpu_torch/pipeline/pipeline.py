@@ -89,6 +89,24 @@ from nnstreamer_tpu_torch.tensors.pool import (
 log = get_logger("pipeline")
 
 
+def poll_get(q: _queue.Queue, stop_evt: threading.Event, who: str):
+    """``q``'s next item, polling every 0.1 s until ``stop_evt`` is set
+    (then None). With thread spans on (``obs/timeline.py``) the whole
+    wait, however many polls it took, is one ``wait_input`` span of the
+    calling thread, with ``who`` as its element."""
+    th = _timeline.THREADS
+    t0 = time.monotonic() if th is not None else 0.0
+    while not stop_evt.is_set():
+        try:
+            item = q.get(timeout=0.1)
+        except _queue.Empty:
+            continue
+        if th is not None:
+            th.span("wait_input", None, t0, time.monotonic(), element=who)
+        return item
+    return None
+
+
 class State(enum.Enum):
     NULL = "null"
     READY = "ready"
@@ -365,6 +383,9 @@ class Queue(Element):
             self._worker = None
         super().stop()
 
+    def threads(self):
+        return [self._worker] if self._worker is not None else []
+
     def accepts_now(self) -> bool:
         """True when a push would be absorbed without blocking or dropping.
         A latency-budget aggregator upstream polls this before flushing a
@@ -491,16 +512,27 @@ class Queue(Element):
                     return FlowReturn.OK
                 except _queue.Full:
                     self._drop_oldest()
-        t0 = None
+        if self._stop_evt.is_set():
+            return FlowReturn.EOS
+        try:
+            self._q.put_nowait(buf)
+            return FlowReturn.OK
+        except _queue.Full:
+            pass
+        # blocked from here: the wait counts whole, from before the first
+        # poll (a put that never blocks reads no clock)
+        t0 = time.monotonic()
         while not self._stop_evt.is_set():
             try:
                 self._q.put(buf, timeout=0.1)
-                if t0 is not None:
-                    self._m_blocked.inc(time.monotonic() - t0)
-                return FlowReturn.OK
             except _queue.Full:
-                if t0 is None:
-                    t0 = time.monotonic()
+                continue
+            t1 = time.monotonic()
+            self._m_blocked.inc(t1 - t0)
+            th = _timeline.THREADS
+            if th is not None:
+                th.span("wait_output", None, t0, t1, element=self.name)
+            return FlowReturn.OK
         return FlowReturn.EOS
 
     def sink_event(self, pad, event):
@@ -640,49 +672,64 @@ class Queue(Element):
     def _drain(self):
         drain_max = max(1, int(self.get_property("drain_batch")))
         while not self._stop_evt.is_set():
-            try:
-                item = self._q.get(timeout=0.1)
-            except _queue.Empty:
-                continue
-            batch = [item]
-            if drain_max > 1 and not isinstance(item, Event) and \
-                    item is not self._EOS:
-                # gather whatever is ALREADY queued (never wait); events
-                # end a gathering and stay serialized with the data
-                while len(batch) < drain_max:
-                    try:
-                        nxt = self._q.get_nowait()
-                    except _queue.Empty:
-                        break
-                    batch.append(nxt)
-                    if nxt is self._EOS or isinstance(nxt, Event):
-                        break
-            ndata = sum(1 for it in batch
-                        if it is not self._EOS and not isinstance(it, Event))
-            self._undelivered += ndata
-            if ndata:
-                self._m_drain.observe(ndata)
-            run: list = []
-            try:
-                for it in batch:
-                    if it is self._EOS or isinstance(it, Event):
-                        # events delimit runs: the data ahead goes first
-                        self._flush_run(run)
-                        run = []
-                        if it is self._EOS:
-                            self.srcpad.push_event(EosEvent())
-                            self._eos_done.set()
-                            return
-                        self.srcpad.push_event(it)
-                    else:
-                        run.append(it)
-                self._flush_run(run)
-            except Exception as e:  # noqa: BLE001 — downstream failures
-                # must reach the bus, not silently kill this worker thread
-                self.post_error(e if isinstance(e, FlowError)
-                                else FlowError(f"{self.name}: {e}"))
-                self._eos_done.set()
+            item = poll_get(self._q, self._stop_evt, self.name)
+            if item is None:
                 return
+            # with thread spans on, the worker's pass over what it drained
+            # (uploads, a fetch, the hand-offs) is a chain span of its own
+            th = _timeline.THREADS
+            t_pass = time.monotonic() if th is not None else 0.0
+            go_on = self._drain_pass(item, drain_max)
+            if th is not None:
+                th.span("chain", None, t_pass, time.monotonic(),
+                        element=self.name)
+            if not go_on:
+                return
+
+    def _drain_pass(self, item, drain_max: int) -> bool:
+        """Gather what is queued behind ``item`` and hand it on; False
+        once the worker is done (EOS passed on, or a downstream error
+        posted)."""
+        batch = [item]
+        if drain_max > 1 and not isinstance(item, Event) and \
+                item is not self._EOS:
+            # gather whatever is ALREADY queued (never wait); events
+            # end a gathering and stay serialized with the data
+            while len(batch) < drain_max:
+                try:
+                    nxt = self._q.get_nowait()
+                except _queue.Empty:
+                    break
+                batch.append(nxt)
+                if nxt is self._EOS or isinstance(nxt, Event):
+                    break
+        ndata = sum(1 for it in batch
+                    if it is not self._EOS and not isinstance(it, Event))
+        self._undelivered += ndata
+        if ndata:
+            self._m_drain.observe(ndata)
+        run: list = []
+        try:
+            for it in batch:
+                if it is self._EOS or isinstance(it, Event):
+                    # events delimit runs: the data ahead goes first
+                    self._flush_run(run)
+                    run = []
+                    if it is self._EOS:
+                        self.srcpad.push_event(EosEvent())
+                        self._eos_done.set()
+                        return False
+                    self.srcpad.push_event(it)
+                else:
+                    run.append(it)
+            self._flush_run(run)
+        except Exception as e:  # noqa: BLE001 — downstream failures
+            # must reach the bus, not silently kill this worker thread
+            self.post_error(e if isinstance(e, FlowError)
+                            else FlowError(f"{self.name}: {e}"))
+            self._eos_done.set()
+            return False
+        return True
 
     # -- SLO scheduler mode (serving/scheduler.py) ---------------------------
     def _chain_scheduled(self, buf) -> FlowReturn:
@@ -858,6 +905,9 @@ class Pipeline:
         #: Unset, the continuity layer never runs
         self.checkpoint_dir: Optional[str] = None
         self._continuity_restored = False
+        #: holds a reference on the process's GC hook (obs/timeline.py)
+        #: while PLAYING
+        self._gc_hooked = False
         # export per-element latency/throughput gauges at scrape time
         # (weakref-bound: a collected pipeline unregisters itself)
         register_pipeline_collector(self)
@@ -1080,6 +1130,10 @@ class Pipeline:
                 _flight.retire(fr)
             raise
         self.state = State.PLAYING
+        # GC pauses into nns_gc_pause_seconds (and gc spans when thread
+        # spans are on), one hook a process
+        _timeline.gc_hook_acquire()
+        self._gc_hooked = True
         # GST_DEBUG_DUMP_DOT_DIR's counterpart (pipeline/dot.py), after
         # fusion so the dump shows the regions that will run
         from nnstreamer_tpu_torch.pipeline.dot import maybe_dump_dot
@@ -1102,6 +1156,14 @@ class Pipeline:
             self._watchdog = PipelineWatchdog(self, wd_s)
             self._watchdog.start()
         return self
+
+    def threads(self) -> List[threading.Thread]:
+        """Every thread this pipeline runs: one a source, and each
+        element's and lane executor's own (``Element.threads``)."""
+        out = list(self._threads)
+        for el in self.elements + (self._lane_execs or []):
+            out.extend(el.threads())
+        return out
 
     def _effective_watchdog_s(self) -> float:
         if self.watchdog_s > 0:
@@ -1146,6 +1208,9 @@ class Pipeline:
         # lane arenas)
         release_all_pools()
         self.state = State.NULL
+        if self._gc_hooked:
+            _timeline.gc_hook_release()
+            self._gc_hooked = False
         # every element is stopped and every window drained: a consistent
         # checkpoint when armed (one env read otherwise)
         from nnstreamer_tpu_torch.pipeline import continuity as _continuity

@@ -46,9 +46,9 @@ reference's ``tensor_allocator`` and GStreamer's ``GstBufferPool`` do:
   and keeps a dropped slab's memory until they are done.
 
 Instrumented with ``nns_pool_hits_total`` / ``nns_pool_misses_total`` /
-``nns_pool_grows_total`` counters and ``nns_pool_outstanding`` /
-``nns_pool_bytes_held`` gauges. Disable with ``NNSTPU_POOL=0`` (acquire
-then returns plain ``np.empty``).
+``nns_pool_grows_total`` / ``nns_pool_copy_waits_total`` counters and
+``nns_pool_outstanding`` / ``nns_pool_bytes_held`` gauges. Disable with
+``NNSTPU_POOL=0`` (acquire then returns plain ``np.empty``).
 
 **Window slabs.** ``tensors/buffer.py`` ``upload_many`` stages one
 drained run's frames in ONE contiguous slab: ``acquire_window`` carves
@@ -237,6 +237,10 @@ class BufferPool:
                     "nns_pool_grows_total",
                     "Fresh slab allocations (pool footprint growth)",
                     **labels),
+                "copy_waits": reg.counter(
+                    "nns_pool_copy_waits_total",
+                    "Free slabs passed over because a copy still read "
+                    "them", **labels),
             }
             reg.gauge(
                 "nns_pool_outstanding",
@@ -272,6 +276,7 @@ class BufferPool:
             if ev is not None:
                 if not ev.query():
                     self.copy_waits += 1
+                    self._obs()["copy_waits"].inc()
                     continue
                 del self._copy_events[id(free[i])]
             return free.pop(i)
